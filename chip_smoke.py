@@ -3,23 +3,35 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py [--phases kernels,reference,engine]
+
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
-     sm_90a) and load them;
+     sm_90a, one process per source, all at once) and load them;
   2. kernels: each kernel against its plain PyTorch version at the shapes
-     the main path gives it (talker: B=1, H=16, Hkv=8, Dh=128, L=28,
-     C=1024, prefill S=32 and 128, decode at cursors past prompt_cap;
-     predictor: Dh=64, C=17), max error against the stated tolerance, and
-     both timed with CUDA events (layers rotated, so the 117 MB talker
-     cache does not sit in L2);
+     the main path gives it, max error against the stated tolerance, and
+     both timed with CUDA events:
+     - attention (talker: B=1, H=16, Hkv=8, Dh=128, L=28, C=1024, prefill
+       S=32 and 128, decode at cursors past prompt_cap; predictor: Dh=64,
+       C=17; layers rotated, so the 117 MB talker cache does not sit in L2);
+     - talker_step_fused (w4a8, full width, B=1, C=1024, prompt_cap 32 and
+       128, the decode cursors above), as one layer and as the whole
+       28-layer step;
+     - predict_frame_fused (int8, full width, B=1): codes and window logits;
   3. reference: a two-layer model at full width, same weights on the card
-     and on the CPU (plain attention): prefill logits and the codec's
-     waveform agree within the stated tolerance;
+     and on the CPU (exact path): prefill logits and the codec's waveform
+     agree within the stated tolerance;
   4. engine: a full-width TtsEngine(device="cuda") (28-layer talker,
      6-layer predictor, 8-layer codec, bf16, random weights) serves
      preset-voice requests at prompt buckets 32 and 128, greedy and
-     sampled, max_steps 32; the kernels' launch counters, reset just
-     before, must all be > 0 after.
+     sampled, max_steps 32, on each decode path: the fused path (the
+     default on the card: talker-step and predictor-frame kernels) and the
+     exact path (fused=False: the attention kernels).  For each path the
+     launch counters are reset just before its requests and read just
+     after; every kernel of the path must have launched.  Greedy runs
+     with one seed must give equal codes.  One more greedy request per
+     path runs under torch.profiler for launches per frame and the
+     device-busy share.
 It prints one JSON line with the kernels' numbers, then the card's name and
 power limit, then the result line.
 """
@@ -52,6 +64,27 @@ PREFILL_TOL = 2e-2   # bf16 K/V and bf16 p in P.V against f32 attention
 # plus f32 summation order.
 DECODE_RTOL, DECODE_ATOL = 2.0 ** -8, 1e-5
 REF_REL_TOL = 5e-2   # bf16 model on two devices: relative to max |ref|
+# talker_step_fused against talker_step_plain, both w4a8 on the same int4
+# weights with the same exact integer group dots and the same f32 group
+# order, so most steps agree bit for bit.  What differs: the order of the
+# RMSNorm sums and of the softmax (online, in tiles, against torch's one
+# pass), and 1/sqrt against rsqrt.  One f32 ulp there can flip the bf16
+# rounding of an activation and then its int8 quantization by one step
+# (1/127 of the row's max) in the next matmul, and later layers carry the
+# flip on.  Held as max |kernel - plain| over max |plain|: one layer 1e-2,
+# the whole 28-layer step 1e-1 (first chip run: 0 in 7 of 8 cases, 4.5e-2
+# at cursor 1023); the k/v rows the step writes, likewise; every other
+# cache slot bit for bit.
+STEP_TOL_LAYER, STEP_TOL_STEP = 1e-2, 1e-1
+# predict_frame_fused against predict_frame_plain: the f32 sums of the
+# bf16 x int8 dots run in another order (cuBLAS against the kernel's
+# lanes), which flips the bf16 rounding of single activations; over 16
+# tokens x 6 layers the window logits drift by a few hundredths (first chip
+# run: 4.5e-2).  Held as max |kernel - plain| over max |plain logits| <=
+# 5e-2 while the codes agree; a greedy code may flip only where the plain
+# version's top-2 gap is below PRED_GAP, after which the frame follows
+# another code and the comparison stops.
+PRED_LOGIT_TOL, PRED_GAP = 5e-2, 1e-1
 
 
 def cuda_ms(fn, iters: int = 28) -> float:
@@ -177,6 +210,150 @@ def check_kernels(dev, failures):
     return out
 
 
+def check_talker_step(dev, failures):
+    """talker_step_fused against talker_step_plain at full width."""
+    import dataclasses
+
+    import torch
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.kernels.talker_step import (
+        prep_layer_weights, talker_step_fused, talker_step_plain)
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    from qwen3_tts_tpu_torch.models.transformer import init_decoder_params
+
+    cfg = EngineConfig().talker
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        w = prep_layer_weights(cfg, init_decoder_params(cfg, g))
+    shape = (cfg.n_layers, 1, cfg.n_kv_heads, 1024, cfg.head_dim)
+    kv = [(torch.randn(shape, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(2)]
+    x = (torch.randn(1, cfg.d_model, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16)
+
+    def i32(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    def rope(pos):
+        cos, sin = talker_lib._rope_tables(
+            cfg, talker_lib._pos4(torch.tensor([[pos]], device=dev)))
+        return cos[:, 0].contiguous(), sin[:, 0].contiguous()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+
+    errs = {}
+    for prompt_cap, length, cursor in ((32, 31, 32), (32, 31, 47),
+                                       (128, 117, 159), (128, 90, 1023)):
+        cos, sin = rope(cursor)
+        for depth, tol in ((1, STEP_TOL_LAYER), (cfg.n_layers, STEP_TOL_STEP)):
+            cd = dataclasses.replace(cfg, n_layers=depth)
+            wd = {k: v[:depth] for k, v in w.items()}
+            caches = [[t[:depth].clone() for t in kv] for _ in range(2)]
+            args = (cos, sin)
+            got = talker_step_fused(cd, wd, x, *args, *caches[0], i32(length),
+                                    i32(cursor), prompt_cap)
+            torch.cuda.synchronize()
+            want = talker_step_plain(cd, wd, x, *args, *caches[1],
+                                     i32(length), i32(cursor), prompt_cap)
+            e_h = rel(got, want)
+            errs[(depth, cursor)] = (got.float() - want.float()).abs().max(
+            ).item()
+            e_kv = max(rel(a[:, :, :, cursor], b[:, :, :, cursor])
+                       for a, b in zip(*caches))
+            keep = torch.arange(1024, device=dev) != cursor
+            same = all(torch.equal(a[:, :, :, keep], t[:depth][:, :, :, keep])
+                       for a, t in zip(caches[0], kv))
+            print(f"[kernel] talker_step_fused L={depth} C=1024 prompt_cap="
+                  f"{prompt_cap} length={length} cursor={cursor}: hidden "
+                  f"rel_err={e_h:.3e} written k/v rel_err={e_kv:.3e} "
+                  f"tol={tol} other slots untouched={same} "
+                  f"max|hidden|={want.float().abs().max().item():.3f}")
+            if not (e_h <= tol and e_kv <= tol and same
+                    and bool(torch.isfinite(got.float()).all())):
+                failures.append(f"talker_step_fused disagrees with plain at "
+                                f"L={depth} cursor={cursor}")
+    cos, sin = rope(48)
+    lens, wi = i32(31), i32(48)        # bucket 32, 16 frames into a request
+    ms = plain = 0.0
+    for order in ("plain", "kernel", "kernel", "plain"):
+        fn = talker_step_fused if order == "kernel" else talker_step_plain
+        t = cuda_ms(lambda i: fn(cfg, w, x, cos, sin, *kv, lens, wi, 32),
+                    iters=10)
+        if order == "kernel":
+            ms += t / 2
+        else:
+            plain += t / 2
+    print(f"[kernel] talker_step_fused 28 layers C=1024 cursor=48: "
+          f"{ms:.4f} ms, plain {plain:.4f} ms")
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain)
+
+
+def check_predictor_frame(dev, failures):
+    """predict_frame_fused against predict_frame_plain at full width."""
+    import torch
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused, predict_frame_plain, prep_predictor_weights)
+    from qwen3_tts_tpu_torch.models.predictor import init_predictor_params
+
+    cfg = EngineConfig().predictor
+    g = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        w = prep_predictor_weights(cfg, init_predictor_params(cfg, g))
+    tables = (torch.randn(16, 2048, cfg.d_model, generator=g, device=dev)
+              * 0.3).to(torch.bfloat16)
+    worst, worst_rel, equal = 0.0, 0.0, 0
+    for seed in range(3):
+        h = torch.randn(1, cfg.d_model, generator=g, device=dev)
+        c0 = torch.tensor([(seed * 977 + 5) % 2048], dtype=torch.int32,
+                          device=dev)
+        tk, tp = [], []
+        got = predict_frame_fused(cfg, w, h, c0, tables, taps=tk)
+        torch.cuda.synchronize()
+        want = predict_frame_plain(cfg, w, h, c0, tables, taps=tp)
+        got, want = got.cpu(), want.cpu()
+        ok = bool(got[0, 0] == want[0, 0])
+        flip = None
+        for t in range(1, 16):
+            err = (tk[t - 1] - tp[t - 1]).abs().max().item()
+            err_rel = err / tp[t - 1].abs().max().item()
+            worst, worst_rel = max(worst, err), max(worst_rel, err_rel)
+            ok = ok and err_rel <= PRED_LOGIT_TOL
+            if got[0, t] != want[0, t]:
+                top2 = tp[t - 1][0].topk(2).values
+                flip = (t, (top2[0] - top2[1]).item())
+                ok = ok and flip[1] <= PRED_GAP
+                break
+            equal += 1
+        print(f"[kernel] predict_frame_fused L={cfg.n_layers} D={cfg.d_model}"
+              f" seed {seed}: codes equal through token "
+              f"{flip[0] - 1 if flip else 15} (flip at token, plain top-2 gap:"
+              f" {flip}), window logits so far: max_abs_err {worst:.3e}, "
+              f"over max|plain| {worst_rel:.3e} (tol {PRED_LOGIT_TOL}), "
+              f"gap tol={PRED_GAP}")
+        if not ok:
+            failures.append(f"predict_frame_fused disagrees with plain "
+                            f"(seed {seed})")
+    if equal < 30:
+        failures.append(f"predict_frame_fused: only {equal} of 45 codes "
+                        "compared equal")
+    h = torch.randn(1, cfg.d_model, generator=g, device=dev)
+    c0 = torch.tensor([7], dtype=torch.int32, device=dev)
+    ms = plain = 0.0
+    for order in ("plain", "kernel", "kernel", "plain"):
+        fn = predict_frame_fused if order == "kernel" else predict_frame_plain
+        t = cuda_ms(lambda i: fn(cfg, w, h, c0, tables), iters=10)
+        if order == "kernel":
+            ms += t / 2
+        else:
+            plain += t / 2
+    print(f"[kernel] predict_frame_fused one frame (16 tokens x 6 layers): "
+          f"{ms:.4f} ms, plain {plain:.4f} ms")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+
+
 def check_reference(dev, failures):
     """Two-layer, full-width model: the card against the CPU's plain path
     on the same weights."""
@@ -242,8 +419,51 @@ def check_reference(dev, failures):
             failures.append("card codec waveform disagrees with the CPU")
 
 
+KERNELS = {   # name: (source, the TPU kernel it replaces)
+    "flash_gqa_prefill_stacked": (
+        "qwen3_tts_tpu_torch/csrc/flash_prefill.cu",
+        "qwen3_tts_tpu/kernels/flash_prefill.py:137"),
+    "flash_gqa_decode_stacked": (
+        "qwen3_tts_tpu_torch/csrc/flash_decode.cu",
+        "qwen3_tts_tpu/kernels/flash_decode.py:171"),
+    "talker_step_fused": (
+        "qwen3_tts_tpu_torch/csrc/talker_step.cu",
+        "qwen3_tts_tpu/kernels/talker_step.py:953"),
+    "predict_frame_fused": (
+        "qwen3_tts_tpu_torch/csrc/predictor_frame.cu",
+        "qwen3_tts_tpu/kernels/predictor_frame.py:460"),
+}
+# the kernels each decode path must launch
+PATH_KERNELS = {
+    "fused": ("flash_gqa_prefill_stacked", "talker_step_fused",
+              "predict_frame_fused"),
+    "exact": ("flash_gqa_prefill_stacked", "flash_gqa_decode_stacked"),
+}
+
+
+def profile_request(engine, voice):
+    """One greedy request under torch.profiler: (frames, wall ms, device
+    launches, device kernel ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from qwen3_tts_tpu_torch import SamplerConfig
+
+    engine.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.generate_with_voice(REQUESTS[0][1], voice)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1000.0
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    return (engine.last_metrics.frames, wall, sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1000.0)
+
+
 def drive_engine(dev, failures):
-    """The main path at full width; returns the kernels' launch counts."""
+    """The main path at full width on both decode paths; returns
+    {path: {kernel: launches}}."""
     import numpy as np
     import torch
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
@@ -251,60 +471,91 @@ def drive_engine(dev, failures):
         flash_gqa_decode_stacked)
     from qwen3_tts_tpu_torch.kernels.flash_prefill import (
         flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import talker_step_fused
 
+    fns = {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, flash_gqa_decode_stacked,
+        talker_step_fused, predict_frame_fused)}
     t0 = time.perf_counter()
-    engine = TtsEngine(device=dev, speakers_dir="speakers")
+    fused = TtsEngine(device=dev, speakers_dir="speakers")
     torch.cuda.synchronize()
     print(f"[engine] full-width TtsEngine on {dev}: init "
-          f"{time.perf_counter() - t0:.2f} s, talker "
-          f"{engine.config.talker.n_layers} layers d "
-          f"{engine.config.talker.d_model}, dtype {engine.config.talker.dtype}")
-    engine.set_max_steps(MAX_STEPS)
-    voice = engine.get_speaker("vivian")
-    spf = engine.config.codec_decoder.samples_per_frame
-    codes_by_label = {}
-
-    flash_gqa_prefill_stacked.launches = 0
-    flash_gqa_decode_stacked.launches = 0
-    for label, text, instruct, sampler, seed in REQUESTS:
-        engine.set_sampler_config(SamplerConfig(seed=seed, **sampler))
-        t0 = time.perf_counter()
-        audio = engine.generate_with_voice(text, voice, instruct)
-        wall_ms = (time.perf_counter() - t0) * 1000.0
-        m = engine.last_metrics
-        plan = engine._build_voice_prompt(text, voice, instruct)
-        bucket = engine._bucket(plan.length)
-        x = audio.samples
-        frames = m.frames
-        ok = (frames > 0 and len(x) == frames * spf
-              and bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 1e-4)
-        decode_ms = m.total_ms - m.prefill_ms
-        print(f"[engine] {label}: prompt_rows={plan.length} bucket={bucket} "
-              f"frames={frames} samples={len(x)} (= frames x {spf}: "
-              f"{len(x) == frames * spf}) finite={bool(np.isfinite(x).all())} "
-              f"peak={float(np.abs(x).max()) if len(x) else 0.0:.4f} "
-              f"eos={m.eos} prefill_ms={m.prefill_ms:.2f} "
-              f"total_ms={m.total_ms:.2f} wall_ms={wall_ms:.2f} "
-              f"ms/frame={m.total_ms / max(frames, 1):.2f} "
-              f"decode ms/frame={decode_ms / max(frames, 1):.2f}")
-        if not ok:
-            failures.append(f"request {label} gave bad audio")
-        codes_by_label[label] = engine.last_codes
-    launches = {"flash_gqa_prefill_stacked": flash_gqa_prefill_stacked.launches,
-                "flash_gqa_decode_stacked": flash_gqa_decode_stacked.launches}
-    same = np.array_equal(codes_by_label["greedy-b32"],
-                          codes_by_label["greedy-b32-again"])
-    print(f"[engine] two greedy runs, same seed: codes equal={same}")
-    if not same:
-        failures.append("greedy runs with one seed gave different codes")
-    print(f"[engine] launch counts over the requests: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            failures.append(f"main path never launched {name}")
-    return launches
+          f"{time.perf_counter() - t0:.2f} s (weights packed for the "
+          f"kernels), talker {fused.config.talker.n_layers} layers d "
+          f"{fused.config.talker.d_model}, dtype {fused.config.talker.dtype},"
+          f" fused={fused.fused}")
+    if not fused.fused:
+        failures.append("TtsEngine(device='cuda') did not resolve to the "
+                        "fused path")
+    exact = TtsEngine(device=dev, speakers_dir="speakers", fused=False,
+                      weights=dict(assets=fused.assets,
+                                   talker=fused.talker_params,
+                                   predictor=fused.predictor_params,
+                                   codec_decoder=fused.codec_decoder_params))
+    spf = fused.config.codec_decoder.samples_per_frame
+    counts = {}
+    for path, engine in (("fused", fused), ("exact", exact)):
+        engine.set_max_steps(MAX_STEPS)
+        voice = engine.get_speaker("vivian")
+        codes_by_label = {}
+        for fn in fns.values():
+            fn.launches = 0
+        for label, text, instruct, sampler, seed in REQUESTS:
+            engine.set_sampler_config(SamplerConfig(seed=seed, **sampler))
+            t0 = time.perf_counter()
+            audio = engine.generate_with_voice(text, voice, instruct)
+            wall_ms = (time.perf_counter() - t0) * 1000.0
+            m = engine.last_metrics
+            plan = engine._build_voice_prompt(text, voice, instruct)
+            x = audio.samples
+            frames = m.frames
+            ok = (frames > 0 and len(x) == frames * spf
+                  and bool(np.isfinite(x).all())
+                  and float(np.abs(x).max()) > 1e-4)
+            decode_ms = m.total_ms - m.prefill_ms
+            print(f"[engine] {path} {label}: prompt_rows={plan.length} "
+                  f"bucket={engine._bucket(plan.length)} frames={frames} "
+                  f"samples={len(x)} (= frames x {spf}: "
+                  f"{len(x) == frames * spf}) "
+                  f"finite={bool(np.isfinite(x).all())} "
+                  f"peak={float(np.abs(x).max()) if len(x) else 0.0:.4f} "
+                  f"eos={m.eos} prefill_ms={m.prefill_ms:.2f} "
+                  f"total_ms={m.total_ms:.2f} wall_ms={wall_ms:.2f} "
+                  f"ms/frame={m.total_ms / max(frames, 1):.2f} "
+                  f"decode ms/frame={decode_ms / max(frames, 1):.2f}")
+            if not ok:
+                failures.append(f"{path} request {label} gave bad audio")
+            codes_by_label[label] = engine.last_codes
+        counts[path] = {name: fn.launches for name, fn in fns.items()}
+        print(f"[engine] {path} path launch counts over its requests: "
+              f"{counts[path]}")
+        for name in PATH_KERNELS[path]:
+            if counts[path][name] <= 0:
+                failures.append(f"{path} path never launched {name}")
+        same = np.array_equal(codes_by_label["greedy-b32"],
+                              codes_by_label["greedy-b32-again"])
+        print(f"[engine] {path}: two greedy runs, same seed: codes "
+              f"equal={same}")
+        if not same:
+            failures.append(f"{path}: greedy runs with one seed gave "
+                            "different codes")
+        frames, wall, launches, dev_ms = profile_request(engine, voice)
+        print(f"[engine] {path} profiled greedy request: frames={frames} "
+              f"launches/frame={launches / max(frames, 1):.1f} "
+              f"device kernel ms/frame={dev_ms / max(frames, 1):.3f} "
+              f"wall ms/frame (profiled)={wall / max(frames, 1):.2f} "
+              f"device busy (profiled)={dev_ms / wall:.3f}")
+    return counts
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default="kernels,reference,engine",
+                    help="comma-separated subset (all by default)")
+    phases_wanted = ap.parse_args().phases.split(",")
     import torch
     if not torch.cuda.is_available():
         print("error: no CUDA device; the port's kernels need an NVIDIA GPU",
@@ -323,14 +574,25 @@ def main() -> int:
     cached = (build.BUILD_ROOT / build.source_hash()).exists()
     t0 = time.perf_counter()
     build.LIBRARY.get()
-    print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}: {build.LIBRARY.path} "
-          f"in {time.perf_counter() - t0:.2f} s"
+    print(f"[build] nvcc {' '.join(build.NVCC_FLAGS)}, one process per "
+          f"source: {build.LIBRARY.path} in {time.perf_counter() - t0:.2f} s"
           f"{' (library of these sources already built)' if cached else ''}")
+    for line in build.LIBRARY.ptxas.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build] {line.strip()}")
 
-    phases = (("kernels", check_kernels), ("reference", check_reference),
+    def kernels(dev, failures):
+        out = check_kernels(dev, failures)
+        out["talker_step_fused"] = check_talker_step(dev, failures)
+        out["predict_frame_fused"] = check_predictor_frame(dev, failures)
+        return out
+
+    phases = (("kernels", kernels), ("reference", check_reference),
               ("engine", drive_engine))
     results = {}
     for name, fn in phases:
+        if name not in phases_wanted:
+            continue
         try:
             results[name] = fn(dev, failures)
         except Exception as e:      # report every phase, then fail
@@ -340,17 +602,15 @@ def main() -> int:
     torch.cuda.synchronize()
 
     kernels = []
-    sources = {"flash_gqa_prefill_stacked": (
-                   "qwen3_tts_tpu_torch/csrc/flash_prefill.cu",
-                   "qwen3_tts_tpu/kernels/flash_prefill.py:137"),
-               "flash_gqa_decode_stacked": (
-                   "qwen3_tts_tpu_torch/csrc/flash_decode.cu",
-                   "qwen3_tts_tpu/kernels/flash_decode.py:171")}
-    for name, (src, replaces) in sources.items():
+    counts = results.get("engine") or {}
+    for name, (src, replaces) in KERNELS.items():
         k = (results.get("kernels") or {}).get(name, {})
+        by_path = {p: c.get(name, 0) for p, c in counts.items()}
+        path = next((p for p in PATH_KERNELS if name in PATH_KERNELS[p]), "")
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": (results.get("engine") or {}).get(name, 0),
+                        "launches": by_path.get(path, 0),
+                        "launches_by_path": by_path,
                         "max_abs_err": k.get("max_abs_err"),
                         "ms": k.get("ms"), "plain_ms": k.get("plain_ms")})
     print(json.dumps({"kernels": kernels}))

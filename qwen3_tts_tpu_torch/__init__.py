@@ -1,6 +1,8 @@
 """qwen3_tts_tpu_torch: the preset-voice synthesis path of qwen3_tts_tpu,
-ported to PyTorch, with hand-written CUDA kernels for attention on NVIDIA
-Hopper (H100).  It imports torch and never jax or qwen3_tts_tpu.
+ported to PyTorch, with hand-written CUDA kernels on NVIDIA Hopper (H100):
+prefill and decode attention, the w4a8 talker decode step and the int8
+predictor frame (TtsEngine's default decode path on the card; fused=False
+is the exact path).  It imports torch and never jax or qwen3_tts_tpu.
 
     from qwen3_tts_tpu_torch import TtsEngine
     engine = TtsEngine(device="cuda")

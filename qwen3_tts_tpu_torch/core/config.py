@@ -4,10 +4,12 @@ whose __init__ imports jax.  Keep the two in step.
 The port does not read these fields: the TPU routing switches
 TalkerConfig/PredictorConfig.flash_decode and layer_scan_unroll, and
 RuntimeConfig.mesh_shape, mesh_axes and donate_cache (on a CUDA tensor the
-port always runs its own attention kernels, on one device); and
-RuntimeConfig.first_chunk_frames, batch_size and EngineConfig.int8_weights,
-which belong to paths not yet ported (streaming, batched serving, int8
-weights).  TtsEngine refuses a config that sets any of them away from its
+port always runs its own attention kernels, on one device);
+RuntimeConfig.first_chunk_frames and batch_size, which belong to paths not
+yet ported (streaming, batched serving); and EngineConfig.int8_weights:
+the port takes bf16 weights only, and its fused decode kernels quantize
+them themselves (talker w4a8, predictor int8; TtsEngine's `fused`
+argument selects that path, not this field).  TtsEngine refuses a config that sets any of them away from its
 default (engine.IGNORED_FIELDS), so that setting one is never a silent no-op.
 
 Configuration dataclasses for the TPU-native Qwen3-TTS framework.

@@ -21,15 +21,15 @@
 // are coalesced across the block.  Softmax is online in f32; masked slots
 // get p = 0 exactly.  Only B * Hkv blocks run (8 at b = 1), which leaves
 // most SMs idle: splitting the prefix across blocks (flash-decoding) is
-// later work.
+// later work.  The tile loop is qtts::attend_tiles (common.cuh), shared
+// with the talker-step and predictor-frame kernels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int MAX_G = 8;
-constexpr float NEG = -1e30f;
+using qtts::MAX_G;
+using qtts::NEG;
 
 template <int DH>
 __global__ void __launch_bounds__(DH)
@@ -41,17 +41,14 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ write_idx,
                     int layer, int B, int H, int Hkv, int C, int prompt_cap,
                     float scale) {
-  constexpr int NW = DH / 32;
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
   const int G = H / Hkv;
 
   __shared__ float q_s[MAX_G][DH];
   __shared__ float p_s[MAX_G][DH];
-  __shared__ float red_s[MAX_G][NW];
+  __shared__ float red_s[MAX_G][DH / 32];
 
   const int length = lengths[b];
   const int cursor = write_idx[b];
@@ -74,76 +71,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     l[g] = 0.f;
     acc[g] = 0.f;
   }
-
-  for (int t0 = 0; t0 < end; t0 += DH) {
-    // ---- scores: thread t takes slot c = t0 + t
-    const int c = t0 + t;
-    const bool live = c < end;
-    const bool valid =
-        live && (c < length || c >= prompt_cap || c == cursor);
-    float s[MAX_G];
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) s[g] = 0.f;
-    if (live) {
-      const uint4* krow = reinterpret_cast<const uint4*>(kp + (size_t)c * DH);
-#pragma unroll
-      for (int i = 0; i < DH / 8; ++i) {
-        const uint4 u = krow[i];
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h2[j]);
-          const int d = i * 8 + 2 * j;
-#pragma unroll
-          for (int g = 0; g < MAX_G; ++g)
-            if (g < G) s[g] += q_s[g][d] * f.x + q_s[g][d + 1] * f.y;
-        }
-      }
-    }
-    // ---- tile max per head: warp shuffle, then across warps
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < G) {
-        float x = valid ? s[g] : NEG;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-        if (lane == 0) red_s[g][warp] = x;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g < G) {
-        float tmax = red_s[g][0];
-#pragma unroll
-        for (int w = 1; w < NW; ++w) tmax = fmaxf(tmax, red_s[g][w]);
-        const float m_new = fmaxf(m[g], tmax);
-        const float alpha = expf(m[g] - m_new);
-        p_s[g][t] = valid ? expf(s[g] - m_new) : 0.f;
-        m[g] = m_new;
-        l[g] *= alpha;
-        acc[g] *= alpha;
-      }
-    }
-    __syncthreads();
-    // ---- P.V: thread t owns output column t
-    const int n = min(DH, end - t0);
-    const __nv_bfloat16* vt = vp + (size_t)t0 * DH + t;
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const float vv = __bfloat162float(vt[(size_t)j * DH]);
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < G) {
-          const float p = p_s[g][j];
-          acc[g] += p * vv;
-          l[g] += p;
-        }
-      }
-    }
-    __syncthreads();  // p_s and red_s are rewritten by the next tile
-  }
+  qtts::attend_tiles<DH>(q_s, G, kp, vp, end, length, cursor, prompt_cap,
+                         1.0f, p_s, red_s, m, l, acc);
 
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g)

@@ -1,0 +1,361 @@
+// One talker decode step over all layers, w4a8, for Hopper.
+//
+// Replaces: qwen3_tts_tpu/kernels/talker_step.py talker_step_fused (the
+// Pallas TPU kernel) in its default weight mode "w4a8", decode batch
+// B <= 4, one cursor per lane.  Contract: x [B, D] bf16 in; out [B, D]
+// bf16 = the hidden state BEFORE the final norm; the k/v row of every
+// layer written IN PLACE into k/v caches [L, B, Hkv, C, Dh] bf16 at slot
+// write_idx[b].  Numerics follow the Pallas kernel op for op (see
+// kernels/talker_step.py): per-row int8 activations, exact integer dots per
+// 128-row group, groups summed in f32 in the JAX order with the bf16 scales.
+//
+// Weights (ops/quant.py pack_int4): per matrix uint8 [L, N, K/2], output
+// column n's K values contiguous, each 4-byte word holding K rows 8m..8m+3
+// in its low nibbles and 8m+4..8m+7 in its high nibbles; scales bf16
+// [L, N, K/128].
+//
+// What bounds it on the card: bytes.  A step reads 0.70 GB of int4 weights
+// and 22 MB of scales at full width (28 layers, d 2048, d_ff 6144), about
+// 0.22 ms at 3.35 TB/s, against ~1.4 Gop of int8 dot work, far below the
+// card's rates; attention adds the live KV prefix.
+//
+// What the design does about it: weights are read once, as 16-byte vectors
+// along each output column, with the int4 nibbles unpacked in registers
+// (__vsub4 sign extension) into __dp4a dot products against int8
+// activations in shared memory; no weight is dequantized to memory.  Per
+// layer there are five launches on the caller's stream:
+//   qkv     w4a8 GEMV whose prologue recomputes RMSNorm(x) and the int8
+//           quantization of the row in every block (2048 values: cheaper
+//           than a launch) -> qkv [B, Nqkv] bf16;
+//   attn    one block per (kv head, lane), serving its G query heads from
+//           one K/V read: q/k RMSNorm, rope, the in-place k/v write, the
+//           live-prefix loop of flash_decode.cu (common.cuh attend_tiles)
+//           and the current token as one more column from registers;
+//   wo      w4a8 GEMV + residual add into out;
+//   gate_up w4a8 GEMV with RMSNorm prologue, a warp owning columns j and
+//           j + d_ff, SwiGLU epilogue -> ff [B, d_ff] bf16;
+//   down    w4a8 GEMV + residual add into out.
+// A warp owns one output column (or pair); its lanes cover 8 groups per
+// 512-byte sweep, four lanes per group, and the group dots (exact int32)
+// are summed in f32 by one lane per batch row in the JAX order.  This is
+// simple first: the serial group sum, the 2048-row prologue repeated by
+// every block, and 140 launches per step are what a faster version
+// removes (a persistent kernel with TMA weight streaming).
+
+#include "common.cuh"
+
+namespace {
+
+using qtts::bf16r;
+using qtts::bf2f;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int GROUP = 128;             // int4 group along K
+constexpr float INV127 = (float)(1.0 / 127.0);
+
+enum { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
+
+// The block's prologue: rows in [NB, K] bf16 (RMS-normed with weights
+// norm_w when RMS) quantized to int8 xq [NB, K] with per-row scale sx_s:
+// sx = max(amax, 1e-8) * f32(1/127), xq = round_half_even(h / sx).
+template <int NB, bool RMS>
+__device__ __forceinline__ void quantize_rows(
+    const __nv_bfloat16* __restrict__ in, const float* __restrict__ norm_w,
+    int K, float eps, int8_t* xq, float* sx_s, float* red) {
+  const int tid = threadIdx.x;
+  for (int b = 0; b < NB; ++b) {
+    const __nv_bfloat16* xr = in + (size_t)b * K;
+    float inv = 1.f;
+    if (RMS) {
+      float ss = 0.f;
+      for (int k = tid; k < K; k += THREADS) {
+        const float v = bf2f(xr[k]);
+        ss += v * v;
+      }
+      ss = qtts::block_sum<THREADS>(ss, red);
+      inv = 1.0f / sqrtf(ss / (float)K + eps);
+    }
+    float am = 0.f;
+    for (int k = tid; k < K; k += THREADS) {
+      const float v = bf2f(xr[k]);
+      const float h = RMS ? bf16r(__fmul_rn(__fmul_rn(v, inv), norm_w[k])) : v;
+      am = fmaxf(am, fabsf(h));
+    }
+    am = qtts::block_max<THREADS>(am, red);
+    const float sx = __fmul_rn(fmaxf(am, 1e-8f), INV127);
+    if (tid == 0) sx_s[b] = sx;
+    for (int k = tid; k < K; k += THREADS) {
+      const float v = bf2f(xr[k]);
+      const float h = RMS ? bf16r(__fmul_rn(__fmul_rn(v, inv), norm_w[k])) : v;
+      xq[(size_t)b * K + k] = (int8_t)rintf(__fdiv_rn(h, sx));
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int sext4(uint32_t nibbles) {
+  // four 4-bit two's complement values, one per byte -> four int8
+  return (int)__vsub4(nibbles ^ 0x08080808u, 0x08080808u);
+}
+
+// dst[b, n] for n < N: the w4a8 product of the (normed) input rows with
+// output columns n (and n + N for the SwiGLU pair), then the epilogue.
+template <int NB, bool RMS, int EPI>
+__global__ void __launch_bounds__(THREADS)
+w4a8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
+                 const float* __restrict__ norm_w, float eps, int K,
+                 const uint8_t* __restrict__ wq,
+                 const __nv_bfloat16* __restrict__ ws, int N,
+                 __nv_bfloat16* __restrict__ dst) {
+  constexpr int R = EPI == EPI_SWIGLU ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* xq = reinterpret_cast<int8_t*>(smem);             // [NB, K]
+  int* gd = reinterpret_cast<int*>(smem + (size_t)NB * K);  // [W, R, ng, NB]
+  __shared__ float red[WARPS];
+  __shared__ float sx_s[NB];
+
+  quantize_rows<NB, RMS>(in, norm_w, K, eps, xq, sx_s, red);
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + warp;
+  if (row >= N) return;  // warp-uniform; no block barrier follows
+  const int ng = K / GROUP;
+  int* gw = gd + (size_t)warp * R * ng * NB;
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint8_t* wrow = wq + (size_t)(row + r * N) * (K / 2);
+    for (int g0 = 0; g0 < ng; g0 += 8) {
+      const int g = g0 + (lane >> 2);
+      int dot[NB];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) dot[b] = 0;
+      if (g < ng) {
+        const int quarter = lane & 3;                 // 32 of the 128 rows
+        const uint4 wv =
+            *reinterpret_cast<const uint4*>(wrow + g * 64 + quarter * 16);
+        const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
+        const int k0 = g * GROUP + quarter * 32;
+#pragma unroll
+        for (int b = 0; b < NB; ++b) {
+          const int4* xv = reinterpret_cast<const int4*>(xq + (size_t)b * K + k0);
+          const int4 x0 = xv[0], x1 = xv[1];
+          const int xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            dot[b] = __dp4a(sext4(ww[i] & 0x0F0F0F0Fu), xs[2 * i], dot[b]);
+            dot[b] = __dp4a(sext4((ww[i] >> 4) & 0x0F0F0F0Fu), xs[2 * i + 1],
+                            dot[b]);
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        dot[b] += __shfl_xor_sync(0xffffffffu, dot[b], 1);
+        dot[b] += __shfl_xor_sync(0xffffffffu, dot[b], 2);
+      }
+      if ((lane & 3) == 0 && g < ng) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) gw[((size_t)r * ng + g) * NB + b] = dot[b];
+      }
+    }
+  }
+  __syncwarp();
+  if (lane >= NB) return;
+  const int b = lane;
+  const int nb = ng / 2;
+  float y[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const __nv_bfloat16* sr = ws + (size_t)(row + r * N) * ng;
+    const int* dr = gw + (size_t)r * ng * NB + b;
+    float acc = 0.f;
+    for (int i = 0; i < nb; ++i) {          // JAX order: i, then nb + i
+      acc = __fadd_rn(acc, __fmul_rn((float)dr[i * NB], bf2f(sr[i])));
+      acc = __fadd_rn(acc, __fmul_rn((float)dr[(nb + i) * NB], bf2f(sr[nb + i])));
+    }
+    y[r] = bf16r(__fmul_rn(acc, sx_s[b]));
+  }
+  __nv_bfloat16* o = dst + (size_t)b * N + row;
+  if (EPI == EPI_STORE) {
+    *o = __float2bfloat16_rn(y[0]);
+  } else if (EPI == EPI_RESID) {
+    *o = __float2bfloat16_rn(__fadd_rn(bf2f(*o), y[0]));
+  } else {
+    const float gate = y[0];
+    const float act = bf16r(__fdiv_rn(gate, 1.0f + expf(-gate)));
+    *o = __float2bfloat16_rn(__fmul_rn(act, y[R - 1]));
+  }
+}
+
+// Attention of one (kv head, lane) for the current token; see the header.
+template <int DH>
+__global__ void __launch_bounds__(DH)
+step_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
+                 __nv_bfloat16* __restrict__ ctx, __nv_bfloat16* kc,
+                 __nv_bfloat16* vc, const float* __restrict__ cos,
+                 const float* __restrict__ sin, const float* __restrict__ qn,
+                 const float* __restrict__ kn, const int* __restrict__ lengths,
+                 const int* __restrict__ write_idx, int layer, int B, int H,
+                 int Hkv, int C, int prompt_cap, float eps, float scale) {
+  using qtts::MAX_G;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t = threadIdx.x;
+  const int G = H / Hkv;
+
+  __shared__ float q_s[MAX_G][DH];
+  __shared__ float x_s[MAX_G + 1][DH];
+  __shared__ float p_s[MAX_G][DH];
+  __shared__ float red_s[MAX_G][DH / 32];
+  __shared__ float red[DH / 32];
+
+  float kv, vv;
+  qtts::norm_rope_heads<DH>(qkv + (size_t)b * (H + 2 * Hkv) * DH, H, Hkv,
+                            kvh, G, qn, kn, cos + (size_t)b * DH,
+                            sin + (size_t)b * DH, eps, q_s, x_s, red, &kv,
+                            &vv);
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g)
+    if (g < G) q_s[g][t] = __fmul_rn(q_s[g][t], scale);
+
+  const int length = lengths[b];
+  const int cursor = write_idx[b];
+  const size_t head = ((size_t)layer * B + b) * Hkv + kvh;
+  __nv_bfloat16* kp = kc + head * (size_t)C * DH;
+  __nv_bfloat16* vp = vc + head * (size_t)C * DH;
+  if (cursor >= 0 && cursor < C) {
+    kp[(size_t)cursor * DH + t] = __float2bfloat16_rn(kv);
+    vp[(size_t)cursor * DH + t] = __float2bfloat16_rn(vv);
+  }
+  __syncthreads();
+
+  float m[MAX_G], l[MAX_G], acc[MAX_G];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    m[g] = qtts::NEG;
+    l[g] = 0.f;
+    acc[g] = 0.f;
+  }
+  // the live prefix [0, cursor): prompt slots < length, generated slots
+  // >= prompt_cap
+  qtts::attend_tiles<DH>(q_s, G, kp, vp, max(0, min(cursor, C)), length,
+                         cursor, prompt_cap, 1.0f, p_s, red_s, m, l, acc);
+  // the current token: one more column, always visible
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    if (g < G) {
+      const float sc = qtts::block_sum<DH>(q_s[g][t] * kv, red);
+      const float m_f = fmaxf(m[g], sc);
+      const float alpha = expf(m[g] - m_f);
+      const float p = expf(sc - m_f);
+      acc[g] = acc[g] * alpha + p * vv;
+      l[g] = l[g] * alpha + p;
+      ctx[((size_t)b * H + kvh * G + g) * DH + t] =
+          __float2bfloat16_rn(acc[g] / fmaxf(l[g], 1e-30f));
+    }
+  }
+}
+
+template <int NB, bool RMS, int EPI>
+cudaError_t gemv(const __nv_bfloat16* in, const float* norm_w, float eps,
+                 int K, const uint8_t* wq, const __nv_bfloat16* ws, int N,
+                 __nv_bfloat16* dst, cudaStream_t st) {
+  constexpr int R = EPI == EPI_SWIGLU ? 2 : 1;
+  const size_t smem =
+      (size_t)NB * K + (size_t)WARPS * R * (K / GROUP) * NB * sizeof(int);
+  auto kernel = w4a8_gemv_kernel<NB, RMS, EPI>;
+  cudaError_t e = qtts::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<(N + WARPS - 1) / WARPS, THREADS, smem, st>>>(in, norm_w, eps, K,
+                                                         wq, ws, N, dst);
+  return cudaGetLastError();
+}
+
+template <int NB>
+cudaError_t run_step(const __nv_bfloat16* x, __nv_bfloat16* out,
+                     const float* cos, const float* sin, const float* ln1,
+                     const float* ln2, const float* qn, const float* kn,
+                     const uint8_t* wqkv_q, const __nv_bfloat16* wqkv_s,
+                     const uint8_t* wo_q, const __nv_bfloat16* wo_s,
+                     const uint8_t* gu_q, const __nv_bfloat16* gu_s,
+                     const uint8_t* dn_q, const __nv_bfloat16* dn_s,
+                     __nv_bfloat16* kc, __nv_bfloat16* vc,
+                     const int* lengths, const int* write_idx,
+                     __nv_bfloat16* qkv, __nv_bfloat16* ctx,
+                     __nv_bfloat16* ff, int L, int D, int H, int Hkv, int DH,
+                     int F, int C, int prompt_cap, float eps, float scale,
+                     cudaStream_t st) {
+  const int dq = H * DH;
+  const int nqkv = (H + 2 * Hkv) * DH;
+  cudaError_t e = cudaMemcpyAsync(out, x, (size_t)NB * D * sizeof(*x),
+                                  cudaMemcpyDeviceToDevice, st);
+  for (int l = 0; l < L && e == cudaSuccess; ++l) {
+    e = gemv<NB, true, EPI_STORE>(out, ln1 + (size_t)l * D, eps, D,
+                                  wqkv_q + (size_t)l * nqkv * (D / 2),
+                                  wqkv_s + (size_t)l * nqkv * (D / GROUP),
+                                  nqkv, qkv, st);
+    if (e != cudaSuccess) break;
+    step_attn_kernel<128><<<dim3(Hkv, NB), 128, 0, st>>>(
+        qkv, ctx, kc, vc, cos, sin, qn + (size_t)l * DH, kn + (size_t)l * DH,
+        lengths, write_idx, l, NB, H, Hkv, C, prompt_cap, eps, scale);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) break;
+    e = gemv<NB, false, EPI_RESID>(ctx, nullptr, eps, dq,
+                                   wo_q + (size_t)l * D * (dq / 2),
+                                   wo_s + (size_t)l * D * (dq / GROUP), D,
+                                   out, st);
+    if (e != cudaSuccess) break;
+    e = gemv<NB, true, EPI_SWIGLU>(out, ln2 + (size_t)l * D, eps, D,
+                                   gu_q + (size_t)l * 2 * F * (D / 2),
+                                   gu_s + (size_t)l * 2 * F * (D / GROUP), F,
+                                   ff, st);
+    if (e != cudaSuccess) break;
+    e = gemv<NB, false, EPI_RESID>(ff, nullptr, eps, F,
+                                   dn_q + (size_t)l * D * (F / 2),
+                                   dn_s + (size_t)l * D * (F / GROUP), D, out,
+                                   st);
+  }
+  return e;
+}
+
+}  // namespace
+
+extern "C" int qtts_talker_step(
+    const void* x, void* out, const float* cos, const float* sin,
+    const float* ln1, const float* ln2, const float* qn, const float* kn,
+    const void* wqkv_q, const void* wqkv_s, const void* wo_q,
+    const void* wo_s, const void* gu_q, const void* gu_s, const void* dn_q,
+    const void* dn_s, void* k_cache, void* v_cache, const int* lengths,
+    const int* write_idx, void* qkv_buf, void* ctx_buf, void* ff_buf, int L,
+    int B, int D, int H, int Hkv, int DH, int F, int C, int prompt_cap,
+    float eps, float scale, void* stream) {
+  const int g2 = 2 * GROUP;
+  if (B < 1 || B > 4 || DH != 128 || Hkv <= 0 || H % Hkv != 0 ||
+      H / Hkv > qtts::MAX_G || D % g2 != 0 || (H * DH) % g2 != 0 ||
+      F % g2 != 0 || C <= 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  auto bp = [](const void* p) { return static_cast<const bf*>(p); };
+  auto up = [](const void* p) { return static_cast<const uint8_t*>(p); };
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define QTTS_STEP(NB)                                                        \
+  run_step<NB>(bp(x), static_cast<bf*>(out), cos, sin, ln1, ln2, qn, kn,      \
+               up(wqkv_q), bp(wqkv_s), up(wo_q), bp(wo_s), up(gu_q),          \
+               bp(gu_s), up(dn_q), bp(dn_s), static_cast<bf*>(k_cache),       \
+               static_cast<bf*>(v_cache), lengths, write_idx,                 \
+               static_cast<bf*>(qkv_buf), static_cast<bf*>(ctx_buf),          \
+               static_cast<bf*>(ff_buf), L, D, H, Hkv, DH, F, C, prompt_cap,  \
+               eps, scale, st)
+  cudaError_t e;
+  switch (B) {
+    case 1: e = QTTS_STEP(1); break;
+    case 2: e = QTTS_STEP(2); break;
+    case 3: e = QTTS_STEP(3); break;
+    default: e = QTTS_STEP(4); break;
+  }
+#undef QTTS_STEP
+  return (int)e;
+}

@@ -9,10 +9,23 @@ A request is one prompt plan, assembled and prefilled on the device, then
 the bulk loop (runtime/generate._gen_bulk) over 4-frame chunks, each
 decoded to audio by the native codec, with an early exit at EOS.
 
+Decode path: `TtsEngine(fused=None)` (the default) resolves once, at
+construction, as the JAX package resolves its own defaults: the fused
+path on a CUDA device, the exact path on the CPU.  The fused path is the
+JAX package's per-kernel schedule (QTTS_FUSED_CHUNK=0 with the talker and
+predictor kernels at their defaults): one w4a8 talker-step kernel per
+frame and one int8 predictor-frame kernel per frame, on weights the
+kernels quantize once from the bf16 ones.  fused=False is the exact path
+(the JAX package's QTTS_FUSED_*=0): plain weights, op by op.  fused=True
+forces the kernels (their plain versions on CPU tensors) and raises
+ValueError, naming the failed gate, for a config they do not take.
+
 No weight files are read yet: without `weights`, every model runs on
 deterministic random weights (development mode) at the configured widths,
-and the engine says so loudly.  Streaming, voice cloning from audio, the
-ONNX codec and the prompt-prefix KV cache are not ported yet and raise
+and the engine says so loudly.  The engine does not take pre-quantized
+weights (EngineConfig.int8_weights, q8_0 sources): the kernels quantize
+bf16 weights themselves.  Streaming, voice cloning from audio, the ONNX
+codec and the prompt-prefix KV cache are not ported yet and raise
 NotImplementedError.
 """
 
@@ -35,7 +48,7 @@ from .models import talker as talker_lib
 from .models.codec import decoder as codec_decoder
 from .models.transformer import dtype_of
 from .prompt import PromptBuilder, PromptPlan
-from .runtime.generate import Generator, SamplerParams
+from .runtime.generate import Generator, SamplerParams, fused_unsupported
 from .utils.logging import get_logger, log_event
 from .utils.metrics import GenerationMetrics, Stopwatch
 from .utils.tokenizer import Tokenizer
@@ -83,11 +96,14 @@ class TtsEngine:
 
     def __init__(self, model_dir="models", config: Optional[EngineConfig] = None,
                  init_seed: int = 0, speakers_dir=None, device="cuda",
-                 weights: Optional[Dict] = None):
+                 weights: Optional[Dict] = None,
+                 fused: Optional[bool] = None):
         """weights: optional {"assets": Assets, "talker", "predictor",
         "codec_decoder": param dicts} already on `device` (io/from_jax
         builds them from the JAX package's arrays); None draws random
-        development weights from `init_seed`."""
+        development weights from `init_seed`.  fused: the decode path
+        (module docstring); None = fused on a CUDA device, exact on the
+        CPU."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             set_cuda_precision()
@@ -104,6 +120,14 @@ class TtsEngine:
         self.last_metrics: Optional[GenerationMetrics] = None
         self.last_codes: Optional[np.ndarray] = None
 
+        self.fused = (self.device.type == "cuda") if fused is None \
+            else bool(fused)
+        why = fused_unsupported(self.config) if self.fused else None
+        if why:
+            raise ValueError(f"fused decode path: {why}")
+        log_event("decode_path", fused=self.fused, requested=fused,
+                  device=str(self.device))
+
         if weights is None:
             weights = self._random_weights(init_seed)
             self._warn_dev_mode()
@@ -114,7 +138,8 @@ class TtsEngine:
         self.tokenizer = Tokenizer.load(self.model_dir)
         self.generator = Generator(self.config, self.talker_params,
                                    self.predictor_params, self.assets.pack(),
-                                   codec_params=self.codec_decoder_params)
+                                   codec_params=self.codec_decoder_params,
+                                   fused=self.fused)
 
         for cand in ([Path(speakers_dir)] if speakers_dir else
                      [self.model_dir / "preset_speakers", Path("speakers")]):

@@ -14,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..ops.quant import pack_int4
 from .assets import Assets
 
 
@@ -53,3 +54,29 @@ def engine_weights(assets: Dict[str, Any], talker, predictor, codec_decoder,
             "talker": tree_to_torch(talker, device),
             "predictor": tree_to_torch(predictor, device),
             "codec_decoder": tree_to_torch(codec_decoder, device)}
+
+
+def talker_w4a8_from_jax(layer_w: Dict[str, Any], device="cpu"
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's kernels/talker_step weights from the JAX package's
+    `prep_layer_weights(cfg, params, "w4a8")` arrays: the half-split int4
+    bytes ([L, K/2, N], byte row r = K-row r in the low nibble, K-row
+    r + K/2 in the high one) are unpacked and packed again in the port's
+    layout (ops.quant.pack_int4), the bf16 scales [L, K/128, N] are
+    transposed to [L, N, K/128], the tiled per-head norms are cut to one
+    head and the segment matrices dropped."""
+    dh = np.asarray(layer_w["seg_q"]).shape[0] // np.asarray(
+        layer_w["seg_q"]).shape[1]
+    out = {"ln1": to_tensor(layer_w["ln1"], device).float(),
+           "ln2": to_tensor(layer_w["ln2"], device).float(),
+           "qn": to_tensor(np.asarray(layer_w["qn"])[:, :dh], device).float(),
+           "kn": to_tensor(np.asarray(layer_w["kn"])[:, :dh], device).float()}
+    for name in ("wqkv", "wo", "gu", "dn"):
+        u = np.asarray(layer_w[name + "_q"]).astype(np.uint8).astype(np.int16)
+        lo, hi = u & 0xF, (u >> 4) & 0xF
+        q = np.concatenate([lo, hi], axis=-2)          # [L, K, N], K order
+        q = np.where(q >= 8, q - 16, q).astype(np.int8)
+        out[name + "_q"] = pack_int4(torch.from_numpy(q)).to(device)
+        out[name + "_s"] = to_tensor(layer_w[name + "_s"], device).transpose(
+            -1, -2).contiguous().to(torch.bfloat16)
+    return out

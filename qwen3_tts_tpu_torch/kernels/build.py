@@ -1,12 +1,14 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file exposes a plain C function; they are compiled with
-`nvcc` for `sm_90a` (Hopper) into ONE shared library, which is loaded with
+Every `csrc/*.cu` file exposes plain C functions; each is compiled with
+`nvcc` for `sm_90a` (Hopper) into an object, all at once in parallel, and
+the objects are linked into ONE shared library, which is loaded with
 `ctypes`.  The library is built at first use, from the sources in the
 package, into `qwen3_tts_tpu_torch/build/<hash>/` (git-ignored); the hash
-covers the sources and the compiler flags, so editing a kernel rebuilds
-it.  Nothing here runs at import time, and nothing here is reached for CPU
-tensors.
+covers the sources, the shared header and the compiler flags, so editing a
+kernel rebuilds it.  `LIBRARY.ptxas` keeps ptxas's report (registers,
+shared memory, spills per kernel).  Nothing here runs at import time, and
+nothing here is reached for CPU tensors.
 """
 
 from __future__ import annotations
@@ -25,9 +27,11 @@ from typing import Optional
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "build"
-SOURCES = ("flash_decode.cu", "flash_prefill.cu")
+SOURCES = ("flash_decode.cu", "flash_prefill.cu", "talker_step.cu",
+           "predictor_frame.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +45,10 @@ SIGNATURES = {
     "qtts_flash_prefill": [_P, _P, _P, _P, _P, _P,         # q k v out len start
                            _I, _I, _I, _I, _I, _I, _I,     # layer B S H Hkv C dh
                            _I, _I, _F, _P],                # pc window scale st
+    "qtts_talker_step": [_P] * 23                          # see talker_step.cu
+                        + [_I] * 9 + [_F, _F, _P],         # L..pc eps scale st
+    "qtts_predictor_frame": [_P] * 27                      # predictor_frame.cu
+                            + [_I] * 9 + [_F, _F, _P],     # L..V eps scale st
 }
 
 
@@ -56,12 +64,15 @@ class _Library:
         self._lib: Optional[ctypes.CDLL] = None
         self.build_seconds: Optional[float] = None
         self.path: Optional[Path] = None
+        self.ptxas: str = ""
 
     def get(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
                 t0 = time.perf_counter()
                 self.path = build()
+                log = self.path.parent / "ptxas.txt"
+                self.ptxas = log.read_text() if log.exists() else ""
                 lib = ctypes.CDLL(str(self.path))
                 for name, argtypes in SIGNATURES.items():
                     fn = getattr(lib, name)
@@ -77,7 +88,7 @@ LIBRARY = _Library()
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -95,22 +106,39 @@ def nvcc_path() -> str:
 
 def build() -> Path:
     """Compile the kernels unless a library for the current sources
-    exists; return its path."""
+    exists; return its path.  One nvcc per source, all started together,
+    then one link."""
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / "libqtts_kernels.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr}{proc.stdout}")
-    os.replace(tmp, lib_path)   # atomic: a reader never sees half a file
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        nvcc = nvcc_path()
+        objs = [tmp / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [(s, p.returncode, log) for s, p, log
+                  in zip(SOURCES, procs, logs) if p.returncode != 0]
+        if failed:
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(
+                f"{s} ({rc}):\n{log}" for s, rc, log in failed))
+        so = tmp / lib_path.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(so),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"link failed ({proc.returncode}):\n{proc.stderr}"
+                f"{proc.stdout}")
+        (out_dir / "ptxas.txt").write_text("".join(logs))
+        os.replace(so, lib_path)   # atomic: a reader never sees half a file
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib_path
 
 

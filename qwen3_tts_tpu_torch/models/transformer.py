@@ -8,7 +8,11 @@ tables supplied by the caller, SwiGLU MLP.  The KV cache is a stacked
 [L, B, Hkv, C, Dh] pair with a static capacity C, UPDATED IN PLACE; prompt
 padding is handled by the attention masks.  Attention runs through the
 port's kernels (kernels/flash_prefill, kernels/flash_decode): the CUDA
-kernels for tensors on the card, their plain versions on the CPU.
+kernels for tensors on the card, their plain versions on the CPU.  When
+`params` carries the talker's packed w4a8 weights under "fused_w4a8"
+(runtime/generate.Generator adds them for `TtsEngine(fused=True)`), a
+decode step (S == 1) is one call of kernels/talker_step.talker_step_fused
+instead, followed by the final norm.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_decode import flash_gqa_decode_stacked
 from ..kernels.flash_prefill import flash_gqa_prefill_stacked
+from ..kernels.talker_step import talker_step_fused
 from ..ops.attention import update_cache
 from ..ops.norms import rms_norm
 from ..ops.quant import matmul
@@ -106,6 +111,14 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
     same cache with write_idx advanced by S).
     """
     b, s, _ = x.shape
+    if s == 1 and "fused_w4a8" in params:
+        hidden1 = talker_step_fused(
+            cfg, params["fused_w4a8"], x[:, 0], cos[:, 0], sin[:, 0],
+            cache.k, cache.v, cache.lengths, cache.write_idx, prompt_cap)
+        hidden = rms_norm(hidden1[:, None, :], params["final_norm"],
+                          cfg.rms_eps)
+        cache.write_idx = cache.write_idx + 1
+        return hidden, cache
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     layers = params["layers"]
     start = cache.write_idx

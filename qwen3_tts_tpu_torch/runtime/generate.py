@@ -9,6 +9,14 @@ chunks with the codec decode of each chunk and stops at the first chunk
 boundary where every lane is done (EOS or its frame budget).  That check
 reads `done` from the device once per chunk: the one host sync of the
 loop.  The talker KV cache and the codec ring are updated in place.
+
+Two decode paths share this loop.  The exact path multiplies the plain
+weights op by op.  The fused path (`Generator(fused=True)`;
+`TtsEngine` takes it by default on a CUDA device) is the JAX package's per-kernel schedule: each talker step
+is one kernels/talker_step call (w4a8) and each predictor frame one
+kernels/predictor_frame call (int8); the Generator quantizes and packs
+both models' weights once, at construction, under talker_params
+["fused_w4a8"] and predictor_params["fused_int8"].
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ import torch
 
 from ..core import protocol as P
 from ..core.config import EngineConfig
+from ..kernels import predictor_frame as predictor_kernel
+from ..kernels import talker_step as talker_kernel
 from ..models import predictor as predictor_lib
 from ..models import talker as talker_lib
 from ..models.codec import decoder as codec_decoder
@@ -85,6 +95,18 @@ def _frame_emb_sum(codec_tables: torch.Tensor,
     return flat[idx].float().sum(dim=1)
 
 
+def _predict_frame_dispatch(cfg: EngineConfig, predictor_params, h1024,
+                            code0, tables_1024) -> torch.Tensor:
+    """The predictor kernel where the Generator packed its weights, else
+    the exact path."""
+    packed = predictor_params.get("fused_int8")
+    if packed is not None:
+        return predictor_kernel.predict_frame_fused(
+            cfg.predictor, packed, h1024, code0, tables_1024)
+    return predictor_lib.predict_frame(cfg.predictor, predictor_params,
+                                       h1024, code0, tables_1024)
+
+
 def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
                assets_pack: Dict[str, Any], state: GenState,
                sampler: SamplerParams, n_frames: int, prompt_cap: int,
@@ -106,8 +128,8 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
                               sampler.top_p)
         done = state.done | (code0 == P.EOS)
         h1024 = state.hidden.float() @ proj_w.t() + proj_b
-        codes = predictor_lib.predict_frame(cfg.predictor, predictor_params,
-                                            h1024, code0, tables_1024)
+        codes = _predict_frame_dispatch(cfg, predictor_params, h1024, code0,
+                                        tables_1024)
         feedback = _frame_emb_sum(assets_pack["codec_tables"], codes) \
             + tts_pad
         logits, hidden, cache = talker_lib.talker_decode_step(
@@ -174,16 +196,37 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
             saw_eos)
 
 
+def fused_unsupported(cfg: EngineConfig, batch: int = 1):
+    """The first gate of the fused decode kernels that `cfg` fails at
+    `batch`, or None."""
+    return (talker_kernel.unsupported(cfg.talker, batch)
+            or predictor_kernel.unsupported(cfg.predictor, batch))
+
+
 class Generator:
-    """Holds the weights of one engine and runs the generation steps."""
+    """Holds the weights of one engine and runs the generation steps.
+
+    fused=True packs the talker's w4a8 and the predictor's int8 kernel
+    weights once, here, and decodes through the two kernels (whose
+    wrappers raise ValueError for inputs they do not take; TtsEngine
+    checks `fused_unsupported` before it builds anything)."""
 
     def __init__(self, cfg: EngineConfig, talker_params, predictor_params,
-                 assets_pack, codec_params=None):
+                 assets_pack, codec_params=None, fused: bool = False):
         self.cfg = cfg
         self.talker_params = talker_params
         self.predictor_params = predictor_params
         self.assets_pack = assets_pack
         self.codec_params = codec_params
+        if fused:
+            with torch.no_grad():
+                self.talker_params = dict(
+                    talker_params, fused_w4a8=talker_kernel.prep_layer_weights(
+                        cfg.talker, talker_params))
+                self.predictor_params = dict(
+                    predictor_params,
+                    fused_int8=predictor_kernel.prep_predictor_weights(
+                        cfg.predictor, predictor_params))
 
     def start(self, embeds: torch.Tensor, lengths: torch.Tensor,
               generator: torch.Generator) -> GenState:
