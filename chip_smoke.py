@@ -10,30 +10,41 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      sm_90a, one process per source, all at once) and load them;
   2. kernels: each kernel against its plain PyTorch version at the shapes
      the main path gives it, max error against the stated tolerance, and
-     both timed with CUDA events:
+     both timed with CUDA events (order plain, kernel, kernel, plain):
      - attention (talker: B=1, H=16, Hkv=8, Dh=128, L=28, C=1024, prefill
        S=32 and 128, decode at cursors past prompt_cap; predictor: Dh=64,
-       C=17; layers rotated, so the 117 MB talker cache does not sit in L2);
+       C=17; layers rotated, so the 117 MB talker cache does not sit in L2),
+       each also beside one torch scaled_dot_product_attention call on the
+       same inputs (library_ms; the port never calls it);
      - talker_step_fused (w4a8, full width, B=1, C=1024, prompt_cap 32 and
        128, the decode cursors above), as one layer and as the whole
        28-layer step;
      - predict_frame_fused (int8, full width, B=1): codes and window logits;
-  3. reference: a two-layer model at full width, same weights on the card
+  3. chunk: gen_chunk_fused (one cooperative launch per chunk; full width,
+     B=1, F=4, C=1024) against gen_chunk_plain on copies of one cache at
+     (prompt_cap, length, start) = (32, 31, 32), (128, 117, 159) and
+     (128, 90, 1020), greedy; one sampled chunk; the in-kernel sampler alone
+     against ops.sampling.sample_threshold;
+  4. reference: a two-layer model at full width, same weights on the card
      and on the CPU (exact path): prefill logits and the codec's waveform
      agree within the stated tolerance;
-  4. engine: a full-width TtsEngine(device="cuda") (28-layer talker,
+  5. engine: a full-width TtsEngine(device="cuda") (28-layer talker,
      6-layer predictor, 8-layer codec, bf16, random weights) serves
      preset-voice requests at prompt buckets 32 and 128, greedy and
-     sampled, max_steps 32, on each decode path: the fused path (the
-     default on the card: talker-step and predictor-frame kernels) and the
-     exact path (fused=False: the attention kernels).  For each path the
-     launch counters are reset just before its requests and read just
-     after; every kernel of the path must have launched.  Greedy runs
-     with one seed must give equal codes.  One more greedy request per
+     sampled, max_steps 32, on each decode path: the chunk path (the
+     default on the card: one chunk-kernel launch per 4 frames), the
+     per-kernel path (chunk=False: talker-step and predictor-frame
+     kernels) and the exact path (fused=False: the attention kernels).
+     For each path the launch counters are reset just before its requests
+     and read just after; every kernel of the path must have launched, and
+     on the chunk path the per-kernel path's two kernels must not.  Greedy
+     runs with one seed must give equal codes.  One more greedy request per
      path runs under torch.profiler for launches per frame and the
      device-busy share.
-It prints one JSON line with the kernels' numbers, then the card's name and
-power limit, then the result line.
+It prints one JSON line with the kernels' numbers (each with bound_ms: the
+larger of the bytes it must move over 3.35 TB/s and its operations over
+the card's peak for their type, from this run's shapes), then the card's
+name and power limit, then the result line.
 """
 
 from __future__ import annotations
@@ -85,11 +96,58 @@ STEP_TOL_LAYER, STEP_TOL_STEP = 1e-2, 1e-1
 # version's top-2 gap is below PRED_GAP, after which the frame follows
 # another code and the comparison stops.
 PRED_LOGIT_TOL, PRED_GAP = 5e-2, 1e-1
+# gen_chunk_fused against gen_chunk_plain: the talker step's and the
+# predictor's w4a8 numerics (exact integer group dots in the plain
+# version's order), so the same drift classes as the talker step: RMSNorm,
+# projection, feedback and softmax sums in another order (the prefix in
+# 128-slot tiles against the plain version's 512) flip single bf16
+# roundings, which the next int8 quantization and later layers carry on.
+# Carried from frame to frame, that drift grows (one H100: frame 1's
+# window logits 5-10 % of max apart when it starts from the plain
+# version's own frame 0), so every frame f of a 4-frame launch is held
+# against the plain version run from the kernel's own state after frame
+# f - 1 (the outputs and cache of the f-frame launch: the launch is
+# deterministic, and the f + 1-frame launch repeats the f-frame one bit for
+# bit, which is checked), with the kernel's codes forced on it
+# (gen_chunk_plain's force_codes) so that a near tie does not end the
+# comparison.  Per frame: code_0 exactly (the same logits on both sides);
+# a later code may differ from the plain pick only where the plain top-2
+# gap is <= CHUNK_GAP and the measured difference of those logits explains
+# it (gap <= 2 max |kernel - plain|); layer 0's written k/v row (the
+# feedback, norms, rope and slot: no attention drift yet) within
+# STEP_TOL_LAYER; the 15 window logits, the carried logits and hidden
+# state and the written k/v rows within max(CHUNK_TOL, 2 s) of max
+# |plain|, where s is how far the plain version moves from itself with
+# the prefix in the kernel's 128-slot tiles instead of 512 (an equally
+# valid order; it depends on the plain version alone).  Over a long
+# prefix one frame is that sensitive: at start 1020, frame 3, the plain
+# version moved 1.05e-1 from itself and the kernel 1.66e-1, while 11 other
+# frames stayed within 6.3e-2 (one H100).  Every other cache slot bit for
+# bit; every output finite.
+CHUNK_TOL, CHUNK_GAP = 1e-1, 1e-1
+# the in-kernel sampler against sample_threshold on the same uniforms: f32
+# sums in another order move a threshold across a logit now and then
+SAMPLER_MIN_EQUAL = 0.99
+# one H100 SXM (NVIDIA's data sheet): bytes/s of
+# HBM, dense ops/s by input type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
-def cuda_ms(fn, iters: int = 28) -> float:
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms, what bounds it): the larger of the bytes over the HBM
+    rate and the operations over the peak rate for their input type."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cuda_ms(fn, iters: int = 28, warmup: int = 3) -> float:
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn(0)
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -110,6 +168,8 @@ def check_kernels(dev, failures):
         decode_attention_plain, flash_gqa_decode_stacked)
     from qwen3_tts_tpu_torch.kernels.flash_prefill import (
         flash_gqa_prefill_stacked, prefill_attention_plain)
+    from qwen3_tts_tpu_torch.ops.attention import history_mask
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -157,10 +217,20 @@ def check_kernels(dev, failures):
         else:
             plain += cuda_ms(lambda i: prefill_attention_plain(
                 q128, *talker_kv, lens, st, i % 28, 128, 128)) / 2
+    mask = history_mask(lens, 128, st, 128, 128)
+    qt = q128.transpose(1, 2)
+    kl, vl = (t[5, :, :, :128] for t in talker_kv)
+    lib = cuda_ms(lambda i: sdpa(qt, kl, vl, attn_mask=mask[:, None],
+                                 enable_gqa=True))
+    pairs = int(mask.sum())
+    b_ms, b_by = bound(nbytes((q128, kl, vl)) + q128.numel() * 2,
+                       4 * pairs * 16 * 128, "bf16")
     print(f"[kernel] flash_gqa_prefill_stacked S=128 per layer: "
-          f"{ms:.4f} ms, plain {plain:.4f} ms")
-    out["flash_gqa_prefill_stacked"] = dict(max_abs_err=max(errs), ms=ms,
-                                            plain_ms=plain)
+          f"{ms:.4f} ms, plain {plain:.4f} ms, torch sdpa {lib:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    out["flash_gqa_prefill_stacked"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib)
 
     errs = []
     tol = f"{DECODE_ATOL} + 2^-8*|plain f32|"
@@ -203,10 +273,20 @@ def check_kernels(dev, failures):
         else:
             plain += cuda_ms(lambda i: decode_attention_plain(
                 q, *talker_kv, lens, wi, i % 28, 32)) / 2
+    mask = history_mask(lens, 32, wi, 1, 1024)
+    qt = q[:, :, None]
+    lib = cuda_ms(lambda i: sdpa(qt, talker_kv[0][i % 28],
+                                 talker_kv[1][i % 28],
+                                 attn_mask=mask[:, None], enable_gqa=True))
+    slots = int(mask.sum())             # the visible slots are read
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * slots * 8 * 128 * 2,
+                       4 * slots * 16 * 128, "bf16")
     print(f"[kernel] flash_gqa_decode_stacked C=1024 cursor=48 per layer: "
-          f"{ms:.4f} ms, plain {plain:.4f} ms")
-    out["flash_gqa_decode_stacked"] = dict(max_abs_err=max(errs), ms=ms,
-                                           plain_ms=plain)
+          f"{ms:.4f} ms, plain {plain:.4f} ms, torch sdpa {lib:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    out["flash_gqa_decode_stacked"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib)
     return out
 
 
@@ -285,9 +365,18 @@ def check_talker_step(dev, failures):
             ms += t / 2
         else:
             plain += t / 2
+    # weights, x in and out, rope rows, the 48 visible k/v slots of each
+    # layer and the written row; 2 int8 ops per int4 weight
+    n_w = sum(w[k].numel() * 2 for k in ("wqkv_q", "wo_q", "gu_q", "dn_q"))
+    b_ms, b_by = bound(nbytes(w.values()) + 2 * x.numel() * 2
+                       + nbytes((cos, sin))
+                       + cfg.n_layers * 2 * 49 * 8 * 128 * 2,
+                       2 * n_w, "int8")
     print(f"[kernel] talker_step_fused 28 layers C=1024 cursor=48: "
-          f"{ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain)
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), no single PyTorch call")
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
 def check_predictor_frame(dev, failures):
@@ -349,9 +438,245 @@ def check_predictor_frame(dev, failures):
             ms += t / 2
         else:
             plain += t / 2
+    # weights and lm-head read once, 15 table rows, h in, codes out; 16
+    # tokens of bf16 x int8 products over the layers, 15 head windows
+    n_w = sum(w[k].numel() for k in ("wqkv_q", "wo_q", "gu_q", "dn_q"))
+    b_ms, b_by = bound(nbytes(w.values()) + 15 * cfg.d_model * 2
+                       + h.numel() * 4 + 16 * 4,
+                       2 * (16 * n_w + 15 * 2048 * cfg.d_model), "bf16")
     print(f"[kernel] predict_frame_fused one frame (16 tokens x 6 layers): "
-          f"{ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain)
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), no single PyTorch call")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_chunk(dev, failures):
+    """gen_chunk_fused against gen_chunk_plain at full width (B = 1, F = 4,
+    C = 1024), and the in-kernel sampler alone against its plain version."""
+    import torch
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.io.assets import Assets
+    from qwen3_tts_tpu_torch.kernels import chunk_step as cs
+    from qwen3_tts_tpu_torch.kernels.talker_step import prep_layer_weights
+    from qwen3_tts_tpu_torch.models import predictor as predictor_lib
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    from qwen3_tts_tpu_torch.ops.sampling import sample_threshold
+
+    cfg = EngineConfig()
+    tcfg, pcfg = cfg.talker, cfg.predictor
+    n_frames, cap = 4, 1024
+    g = torch.Generator(device=dev).manual_seed(3)
+    with torch.no_grad():
+        tp = talker_lib.init_talker_params(tcfg, g)
+        pp = predictor_lib.init_predictor_params(pcfg, g)
+        pack = Assets.random_init(g, dtype=torch.bfloat16).pack()
+        tw = prep_layer_weights(tcfg, tp)
+        pw = cs.prep_predictor_w4(pcfg, pp)
+        ex = cs.prep_chunk_extras(tcfg, pcfg, tp, pp, pack)
+    del tp, pp
+    shape = (tcfg.n_layers, 1, tcfg.n_kv_heads, cap, tcfg.head_dim)
+    kv = [(torch.randn(shape, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(2)]
+    logits0 = torch.randn(1, cs.V_CODEC, generator=g, device=dev) * 2.0
+    hidden0 = torch.randn(1, tcfg.d_model, generator=g, device=dev)
+    greedy = (0.0, 40, 0.9)
+    sampled = (SAMPLED["temperature"], SAMPLED["top_k"], SAMPLED["top_p"])
+
+    def i32(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    def inputs(n, start):
+        p = start + torch.arange(n, device=dev)[:, None]
+        cos, sin = talker_lib._rope_tables(tcfg, talker_lib._pos4(p))
+        return cos.float().contiguous(), sin.float().contiguous()
+
+    def run(fn, n, prompt_cap, length, start, u, sampler, state=None, **kw):
+        lg, hd, k, v = (logits0, hidden0, *kv) if state is None else state
+        k, v = k.clone(), v.clone()
+        out = fn(tcfg, pcfg, tw, pw, ex, lg, hd, k, v, i32(length),
+                 i32(start), *inputs(n, start), u, sampler, prompt_cap, **kw)
+        torch.cuda.synchronize()
+        return (*out, k, v)
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+
+    def errs_of(a, b, ta, tb, row):
+        """rel err of a against b: window logits, logits, hidden, the
+        written k/v rows of every layer."""
+        return (max(rel(x, y) for x, y in zip(ta, tb)),
+                rel(a[1], b[1]), rel(a[2], b[2]),
+                max(rel(x[:, :, :, row], y[:, :, :, row])
+                    for x, y in zip(a[3:], b[3:])))
+
+    def all_but(rows):
+        keep = torch.ones(cap, dtype=torch.bool, device=dev)
+        keep[rows] = False
+        return keep
+
+    zeros = torch.zeros(n_frames, 1, device=dev)
+    worst_abs = 0.0
+    for prompt_cap, length, start in ((32, 31, 32), (128, 117, 159),
+                                      (128, 90, 1020)):
+        # the kernel from the carried state over 1 .. F frames, one launch
+        # each; the F-frame launch gives the window logits
+        tk = []
+        runs = [run(cs.gen_chunk_fused, n, prompt_cap, length, start,
+                    zeros[:n], greedy, taps=tk if n == n_frames else None)
+                for n in range(1, n_frames + 1)]
+        codes = runs[-1][0]
+        # each launch repeats the shorter one: its codes, and every cache
+        # row but the one its last frame wrote
+        repeat = all(
+            torch.equal(runs[f][0][:, :f], runs[f - 1][0])
+            and all(torch.equal(a[:, :, :, all_but(start + f)],
+                                b[:, :, :, all_but(start + f)])
+                    for a, b in zip(runs[f][3:], runs[f - 1][3:]))
+            for f in range(1, n_frames))
+        keep = all_but(slice(start, start + n_frames))
+        same = all(torch.equal(a[:, :, :, keep], t_[:, :, :, keep])
+                   for a, t_ in zip(runs[-1][3:], kv))
+        finite = all(bool(torch.isfinite(x).all())
+                     for r in runs for x in r[1:3])
+        ok = repeat and same and finite
+        errs, flips = [], []
+        for f in range(n_frames):
+            # frame f of the plain version from the kernel's state after
+            # frame f - 1, on the kernel's codes; again with 128-slot tiles
+            state = None if f == 0 else runs[f - 1][1:]
+            tp_, t128 = [], []
+            want = run(cs.gen_chunk_plain, 1, prompt_cap, length, start + f,
+                       zeros[:1], greedy, state=state, taps=tp_,
+                       force_codes=codes[:, f:f + 1])
+            alt = run(cs.gen_chunk_plain, 1, prompt_cap, length, start + f,
+                      zeros[:1], greedy, state=state, taps=t128,
+                      force_codes=codes[:, f:f + 1], prefix_tile=128)
+            got, kt = runs[f], tk[f * 15:(f + 1) * 15]
+            picks, mine = want[0][0, 0].cpu(), codes[0, f].cpu()
+            for t in range(16):
+                if picks[t] == mine[t]:
+                    continue
+                if t == 0:               # sampled from the same logits
+                    flips.append((f, 0))
+                    ok = False
+                    continue
+                top2 = tp_[t - 1][0].topk(2).values
+                gap = (top2[0] - top2[1]).item()
+                seen = (kt[t - 1][0] - tp_[t - 1][0]).abs().max().item()
+                flips.append((f, t, round(gap, 5), round(seen, 5)))
+                ok = ok and gap <= CHUNK_GAP and gap <= 2 * seen
+            row = slice(start + f, start + f + 1)
+            e = errs_of(got, want, kt, tp_, row)
+            sens = max(errs_of(alt, want, t128, tp_, row))
+            tol = max(CHUNK_TOL, 2 * sens)
+            e0 = max(rel(x[0, :, :, row], y[0, :, :, row])
+                     for x, y in zip(got[3:], want[3:]))
+            errs.append((*e, e0, sens))
+            ok = ok and max(e) <= tol and e0 <= STEP_TOL_LAYER
+            worst_abs = max(worst_abs, *((a - b).abs().max().item()
+                                         for a, b in zip(got[1:3],
+                                                         want[1:3])))
+        n_eq = 16 * n_frames - len(flips)
+        print(f"[kernel] gen_chunk_fused F={n_frames} C={cap} prompt_cap="
+              f"{prompt_cap} length={length} start={start} grid="
+              f"{cs.gen_chunk_fused.grid}, each frame against plain from "
+              f"the kernel's state: codes equal to the plain picks "
+              f"{n_eq}/{16 * n_frames} (flips (frame, token, plain top-2 "
+              f"gap, max |kernel - plain| of those logits): {flips}, gap "
+              f"tol {CHUNK_GAP}); rel err by frame (window logits, logits, "
+              f"hidden, written k/v; layer 0's k/v row; the plain "
+              f"version's own 128- vs 512-slot-tile difference s): "
+              f"{[tuple(f'{x:.2e}' for x in e) for e in errs]} (tol "
+              f"max({CHUNK_TOL}, 2 s); layer 0 {STEP_TOL_LAYER}); launches "
+              f"repeat={repeat} other slots "
+              f"untouched={same} finite={finite}")
+        if not ok:
+            failures.append(f"gen_chunk_fused disagrees with plain at "
+                            f"start={start}")
+
+    u = torch.tensor([[0.3], [0.7], [0.1], [0.9]], device=dev)
+    codes = run(cs.gen_chunk_fused, n_frames, 32, 31, 32, u, sampled)[0]
+    in_range = bool((codes >= 0).all() and (codes[..., 0] < cs.V_CODEC).all()
+                    and (codes[..., 1:] < cs.WINDOW).all())
+    n = 4000
+    rows = logits0.expand(n, -1).contiguous()
+    us = torch.rand(n, generator=g, device=dev)
+    k_s = cs.sample_fused(rows, us, *sampled).cpu()
+    p_s = sample_threshold(rows.cpu(), us.cpu(), *sampled)
+    share = (k_s == p_s).float().mean().item()
+    lg64 = torch.randn(64, cs.V_CODEC, generator=g, device=dev)
+    zeros64 = torch.zeros(64, device=dev)
+    greedy_same = torch.equal(cs.sample_fused(lg64, zeros64, *greedy).cpu(),
+                              sample_threshold(lg64.cpu(), zeros64.cpu(),
+                                               *greedy))
+    print(f"[kernel] gen_chunk_fused sampled (t={sampled[0]}, top_k="
+          f"{sampled[1]}, top_p={sampled[2]}, fixed u): codes in range="
+          f"{in_range} {codes[0, :, 0].tolist()}; sampler alone vs "
+          f"sample_threshold: greedy equal={greedy_same}, sampled equal on "
+          f"{share:.4f} of {n} draws (min {SAMPLER_MIN_EQUAL})")
+    if not (in_range and greedy_same and share >= SAMPLER_MIN_EQUAL):
+        failures.append("chunk sampler disagrees with sample_threshold")
+
+    # timing at the first case's cursor
+    k, v = kv[0].clone(), kv[1].clone()
+    cos, sin = inputs(n_frames, 32)
+    args = (logits0, hidden0, k, v, i32(31), i32(32), cos, sin, zeros,
+            greedy, 32)
+    scratch = cs.chunk_scratch(tcfg, pcfg, dev)     # kept, as the engine does
+    times = {"plain": 0.0, "kernel": 0.0}
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "plain":
+            t = cuda_ms(lambda i: cs.gen_chunk_plain(tcfg, pcfg, tw, pw, ex,
+                                                     *args), 1, 1)
+        else:
+            t = cuda_ms(lambda i: cs.gen_chunk_fused(
+                tcfg, pcfg, tw, pw, ex, *args, scratch=scratch), 10, 2)
+        times[order] += t / 2
+    ms, plain = times["kernel"], times["plain"]
+    # where the kernel's time goes: block 0's clock at each barrier, the
+    # phases' cycles scaled to the timed ms per chunk
+    labels = cs.phase_labels(tcfg, pcfg, n_frames)
+    clocks = torch.zeros(len(labels) + 1, dtype=torch.int64, device=dev)
+    cs.gen_chunk_fused(tcfg, pcfg, tw, pw, ex, *args, clocks=clocks,
+                       scratch=scratch)
+    if not bool((clocks.diff() > 0).all()):
+        failures.append("gen_chunk_fused: a phase clock did not advance")
+    cyc = clocks.diff().double().cpu()
+    per_cycle = ms / cyc.sum().item()
+    by_label = {}
+    for lab, c in zip(labels, cyc.tolist()):
+        n_, t_ = by_label.get(lab, (0, 0.0))
+        by_label[lab] = (n_ + 1, t_ + c * per_cycle)
+    print(f"[kernel] gen_chunk_fused phases (block 0's clock at each of "
+          f"{len(labels)} barriers per chunk): " + "; ".join(
+              f"{lab} {n_ // n_frames}/frame {t_ / n_frames:.3f} ms/frame "
+              f"({t_ / n_ * 1e3:.1f} us each)"
+              for lab, (n_, t_) in by_label.items()))
+    # bytes: every weight once, the 16 + 15 table rows of each frame, the
+    # visible prefix (31 prompt slots) and the chunk's rows of every layer,
+    # inputs and outputs; ops: 2 per int4 weight for each frame (the
+    # predictor's 16 times), int8 heads and the f32 projection
+    w4 = sum(t.numel() * 2 for k_, t in tw.items() if k_.endswith("_q"))
+    p4 = sum(t.numel() * 2 for k_, t in pw.items() if k_.endswith("_q"))
+    static = [t for k_, t in ex.items() if k_ not in ("ctab_fb", "ctab_pred")]
+    kv_bytes = tcfg.n_layers * 2 * (31 + n_frames) * 8 * 128 * 2
+    rows_bytes = n_frames * (16 * tcfg.d_model + 15 * pcfg.d_model) * 2
+    io = (nbytes((logits0, hidden0, cos, sin, zeros))
+          + n_frames * 16 * 4 + logits0.numel() * 4 + hidden0.numel() * 4)
+    ops = 2 * n_frames * (w4 + 16 * p4 + 15 * cs.WINDOW * pcfg.d_model
+                          + cs.V_CODEC * tcfg.d_model)
+    b_ms, b_by = bound(nbytes(tw.values()) + nbytes(pw.values())
+                       + nbytes(static) + kv_bytes + rows_bytes + io,
+                       ops, "int8")
+    print(f"[kernel] gen_chunk_fused F={n_frames} C={cap} start=32: "
+          f"{ms:.4f} ms per chunk ({ms / n_frames:.4f} ms per frame) on grid "
+          f"{cs.gen_chunk_fused.grid} (blocks, per SM); plain "
+          f"{plain:.1f} ms per chunk; bound {b_ms:.4f} ms per chunk "
+          f"({b_by}: each input read once); no single PyTorch call")
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def check_reference(dev, failures):
@@ -432,13 +757,19 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "predict_frame_fused": (
         "qwen3_tts_tpu_torch/csrc/predictor_frame.cu",
         "qwen3_tts_tpu/kernels/predictor_frame.py:460"),
+    "gen_chunk_fused": (
+        "qwen3_tts_tpu_torch/csrc/chunk_step.cu",
+        "qwen3_tts_tpu/kernels/chunk_step.py:1226"),
 }
-# the kernels each decode path must launch
+# the kernels each decode path must launch (the first path that names a
+# kernel gives its `launches`), and those it must not
 PATH_KERNELS = {
-    "fused": ("flash_gqa_prefill_stacked", "talker_step_fused",
-              "predict_frame_fused"),
+    "chunk": ("flash_gqa_prefill_stacked", "gen_chunk_fused"),
+    "step": ("flash_gqa_prefill_stacked", "talker_step_fused",
+             "predict_frame_fused"),
     "exact": ("flash_gqa_prefill_stacked", "flash_gqa_decode_stacked"),
 }
+PATH_FORBIDDEN = {"chunk": ("talker_step_fused", "predict_frame_fused")}
 
 
 def profile_request(engine, voice):
@@ -462,11 +793,12 @@ def profile_request(engine, voice):
 
 
 def drive_engine(dev, failures):
-    """The main path at full width on both decode paths; returns
+    """The main path at full width on the three decode paths; returns
     {path: {kernel: launches}}."""
     import numpy as np
     import torch
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
     from qwen3_tts_tpu_torch.kernels.flash_decode import (
         flash_gqa_decode_stacked)
     from qwen3_tts_tpu_torch.kernels.flash_prefill import (
@@ -477,26 +809,30 @@ def drive_engine(dev, failures):
 
     fns = {f.__name__: f for f in (
         flash_gqa_prefill_stacked, flash_gqa_decode_stacked,
-        talker_step_fused, predict_frame_fused)}
+        talker_step_fused, predict_frame_fused, gen_chunk_fused)}
     t0 = time.perf_counter()
-    fused = TtsEngine(device=dev, speakers_dir="speakers")
+    default = TtsEngine(device=dev, speakers_dir="speakers")
     torch.cuda.synchronize()
     print(f"[engine] full-width TtsEngine on {dev}: init "
           f"{time.perf_counter() - t0:.2f} s (weights packed for the "
-          f"kernels), talker {fused.config.talker.n_layers} layers d "
-          f"{fused.config.talker.d_model}, dtype {fused.config.talker.dtype},"
-          f" fused={fused.fused}")
-    if not fused.fused:
+          f"kernels), talker {default.config.talker.n_layers} layers d "
+          f"{default.config.talker.d_model}, dtype "
+          f"{default.config.talker.dtype}, fused={default.fused} "
+          f"chunk={default.chunk}")
+    if not (default.fused and default.chunk):
         failures.append("TtsEngine(device='cuda') did not resolve to the "
-                        "fused path")
+                        "chunk path")
+    weights = dict(assets=default.assets, talker=default.talker_params,
+                   predictor=default.predictor_params,
+                   codec_decoder=default.codec_decoder_params)
+    step = TtsEngine(device=dev, speakers_dir="speakers", fused=True,
+                     chunk=False, weights=weights)
     exact = TtsEngine(device=dev, speakers_dir="speakers", fused=False,
-                      weights=dict(assets=fused.assets,
-                                   talker=fused.talker_params,
-                                   predictor=fused.predictor_params,
-                                   codec_decoder=fused.codec_decoder_params))
-    spf = fused.config.codec_decoder.samples_per_frame
+                      weights=weights)
+    spf = default.config.codec_decoder.samples_per_frame
     counts = {}
-    for path, engine in (("fused", fused), ("exact", exact)):
+    for path, engine in (("chunk", default), ("step", step),
+                         ("exact", exact)):
         engine.set_max_steps(MAX_STEPS)
         voice = engine.get_speaker("vivian")
         codes_by_label = {}
@@ -534,6 +870,9 @@ def drive_engine(dev, failures):
         for name in PATH_KERNELS[path]:
             if counts[path][name] <= 0:
                 failures.append(f"{path} path never launched {name}")
+        for name in PATH_FORBIDDEN.get(path, ()):
+            if counts[path][name] != 0:
+                failures.append(f"{path} path launched {name}")
         same = np.array_equal(codes_by_label["greedy-b32"],
                               codes_by_label["greedy-b32-again"])
         print(f"[engine] {path}: two greedy runs, same seed: codes "
@@ -553,7 +892,7 @@ def drive_engine(dev, failures):
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="kernels,reference,engine",
+    ap.add_argument("--phases", default="kernels,chunk,reference,engine",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
     import torch
@@ -587,8 +926,8 @@ def main() -> int:
         out["predict_frame_fused"] = check_predictor_frame(dev, failures)
         return out
 
-    phases = (("kernels", kernels), ("reference", check_reference),
-              ("engine", drive_engine))
+    phases = (("kernels", kernels), ("chunk", check_chunk),
+              ("reference", check_reference), ("engine", drive_engine))
     results = {}
     for name, fn in phases:
         if name not in phases_wanted:
@@ -603,8 +942,11 @@ def main() -> int:
 
     kernels = []
     counts = results.get("engine") or {}
+    measured = dict(results.get("kernels") or {})
+    if results.get("chunk"):
+        measured["gen_chunk_fused"] = results["chunk"]
     for name, (src, replaces) in KERNELS.items():
-        k = (results.get("kernels") or {}).get(name, {})
+        k = measured.get(name, {})
         by_path = {p: c.get(name, 0) for p, c in counts.items()}
         path = next((p for p in PATH_KERNELS if name in PATH_KERNELS[p]), "")
         kernels.append({"name": name, "route": "cuda", "source": src,
@@ -612,7 +954,10 @@ def main() -> int:
                         "launches": by_path.get(path, 0),
                         "launches_by_path": by_path,
                         "max_abs_err": k.get("max_abs_err"),
-                        "ms": k.get("ms"), "plain_ms": k.get("plain_ms")})
+                        "ms": k.get("ms"), "plain_ms": k.get("plain_ms"),
+                        "bound_ms": k.get("bound_ms"),
+                        "bound_by": k.get("bound_by"),
+                        "library_ms": k.get("library_ms")})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,0 +1,851 @@
+// Whole decode frames of one chunk in ONE cooperative launch, for Hopper.
+//
+// Replaces: qwen3_tts_tpu/kernels/chunk_step.py gen_chunk_fused (the Pallas
+// TPU kernel) at batch 1, with its in-kernel sampler `_sample_inkernel`.
+// Contract (kernels/chunk_step.py): F <= 8 frames; each frame samples
+// code_0 from the carried codec logits (greedy, or the threshold sampler
+// with the caller's uniform u[f]), projects the f32 hidden 2048 -> 1024,
+// runs the predictor's 16 tokens (w4a8 weights, f32 group scales, 16-slot
+// KV, window argmax, next input ctab_pred[t][code_t]), sums the feedback
+// (16 codec-table rows + tts_pad), runs the 28-layer w4a8 talker step
+// writing the frame's k/v row IN PLACE at slot write_idx + f, and applies
+// the final norm (kept as the f32 hidden) and the int8 codec head over rows
+// [0, 2160) for the next frame's logits.  It rounds to bf16 where the
+// Pallas kernel and kernels/chunk_step.gen_chunk_plain do, but its f32
+// sums run in its lanes' order, and the cache prefix goes in 128-slot
+// tiles (the plain version and the JAX kernel: 512), so the online softmax
+// rescales at other points; chip_smoke.py holds the result to that drift.
+//
+// Design.  The TPU kernel runs frames and layer groups as a sequential grid
+// on one core; Hopper runs blocks in parallel and carries nothing between
+// launches.  So this is a persistent kernel: as many 256-thread blocks as
+// can be resident at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor x
+// SMs), launched with cudaLaunchCooperativeKernel, which refuses (and the
+// wrapper raises) rather than run a grid that could deadlock.  The frame is
+// a fixed sequence of phases separated by a grid-wide barrier (a counter in
+// device memory: each block adds one and waits for the phase's total; the
+// last block to leave the launch sets it back to 0).
+// Each phase splits its work over the blocks with a grid-stride loop and
+// runs the device code of talker_step.cu and predictor_frame.cu (shared in
+// w4a8.cuh and common.cuh) with the block's index in that loop in place of
+// blockIdx:
+//   sample + project  block 0 samples code_0 (same arithmetic as
+//                     ops.sampling.sample_threshold); every block projects
+//                     rows of h1024 = hidden . proj_w^T + proj_b (f32);
+//   predictor         per token t and layer: qkv GEMV (RMSNorm + int8
+//                     prologue recomputed by every block), attention (one
+//                     group of 64 threads per kv head, named barriers),
+//                     wo + residual, gate_up + SwiGLU, down + residual;
+//                     after token t >= 1 the final norm and the 2048-row
+//                     int8 window GEMV, each block writing its rows' best
+//                     (value, lowest index) to scratch; the next phase
+//                     reduces those in every block (no extra barrier) and
+//                     gathers the next input row from ctab_pred;
+//   feedback          code_15 as above, then x = bf16(sum of 16 rows + pad);
+//   talker            per layer: qkv, attention (one group of 128 threads
+//                     per kv head: q/k norm + rope, the in-place k/v write,
+//                     the cache prefix [0, start) in 128-slot tiles, then
+//                     the chunk's own slots start .. start + f as one more
+//                     merge: the JAX order), wo, gate_up, down;
+//   codec head        final norm -> hidden (f32), int8 head -> logits.
+// Data that other blocks wrote during the launch is read with ld.global.cg
+// (L2; L1 is not coherent across SMs); weights with ordinary loads.
+//
+// Barriers per frame: 1 + 16 x 6 x 5 + 15 + 1 + 28 x 5 + 1 = 638 at full
+// width.  Measured on an H100 (chip_smoke.py reads block 0's clock at
+// each barrier through `clocks`): 5.3 ms per frame, the lightest phases
+// (the predictor's wo) ~4 us each, so barrier + prologue cost about
+// 2.5 ms of a frame; the attention phases, which keep only 2-4 blocks
+// busy, take 11 us (predictor) and 27 us (talker) each, 1.8 ms.  That is
+// the price of right-and-simple here.
+//
+// What bounds it on the card: bytes.  Per frame at full width, the
+// talker's 0.70 GB of int4 weights and 22 MB of bf16 scales (0.216 ms at
+// 3.35 TB/s), the predictor's 37.7 MB of int4 and 2.4 MB of f32 scales,
+// read once if the 50 MB L2 keeps them over the 16 tokens (0.012 ms) or
+// 16 times if not (0.19 ms), and 31 MB of lm-head windows (0.009 ms):
+// 0.24-0.42 ms per frame, plus barrier latency.  Later work, not here:
+// wgmma / TMA weight streaming, an L2 access-policy window that pins the
+// predictor, split-K attention over more blocks, fewer barriers (fusing
+// phases whose data a block can recompute), and the batched forms.
+
+#include <climits>
+
+#include "w4a8.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using qtts::bf16r;
+using qtts::bf2f;
+using qtts::ld_bf;
+using qtts::MAX_G;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int N_TOKENS = 16;
+constexpr int WINDOW = 2048;       // predictor lm-head rows per codebook
+constexpr int MAX_FRAMES = 8;
+constexpr int MAX_K = 8192;        // widest GEMV input (int8 row in smem)
+constexpr int MAX_D = 4096;        // widest row a block stages
+constexpr int MAX_V = 4096;        // sampler columns
+constexpr int TDH = 128;           // talker head_dim
+constexpr int PDH = 64;            // predictor head_dim
+constexpr int N_PTRS = 64, N_INTS = 20, N_FLTS = 7;
+constexpr long long BARRIER_TIMEOUT = 1LL << 34;   // SM cycles, ~8 s
+
+enum { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
+
+struct Args {
+  // inputs
+  const float *logits, *hidden, *cos, *sin, *u;
+  const int *lengths, *write_idx;
+  // talker (talker_step.prep_layer_weights)
+  const float *t_ln1, *t_ln2, *t_qn, *t_kn;
+  const uint8_t* t_wqkv_q; const bf16* t_wqkv_s;
+  const uint8_t* t_wo_q;   const bf16* t_wo_s;
+  const uint8_t* t_gu_q;   const bf16* t_gu_s;
+  const uint8_t* t_dn_q;   const bf16* t_dn_s;
+  bf16 *cache_k, *cache_v;
+  // extras (chunk_step.prep_chunk_extras)
+  const float* tfn; const int8_t* chead_q; const float* chead_s;
+  const float *proj_w, *proj_b, *tts_pad;
+  const void* ctab_fb; const bf16* ctab_pred;
+  const float* pfn; const int8_t* phead_q; const float* phead_s;
+  const float *pcos, *psin;
+  // predictor (chunk_step.prep_predictor_w4)
+  const float *p_ln1, *p_ln2, *p_qn, *p_kn;
+  const uint8_t* p_wqkv_q; const float* p_wqkv_s;
+  const uint8_t* p_wo_q;   const float* p_wo_s;
+  const uint8_t* p_gu_q;   const float* p_gu_s;
+  const uint8_t* p_dn_q;   const float* p_dn_s;
+  // outputs
+  int* codes; float *logits_out, *hidden_out, *taps;
+  // scratch
+  bf16 *x, *qkv, *ctx, *ff, *px, *pqkv, *pctx, *pff, *pk, *pv;
+  float* best_v; int* best_i;
+  unsigned* barrier;               // [arrivals, check-outs], 0 at launch
+  long long* trace;                // optional: phase clocks of block 0
+  // sizes
+  int F, L, D, H, Hkv, t_dh, FF, C, prompt_cap, LP, DP, PH, PHkv, p_dh, PFF,
+      R_fb, R_pd, V, fb_bf16, max_blocks_per_sm;
+  float t_eps, p_eps, temperature, top_k, top_p, t_scale, p_scale;
+};
+
+struct GemvSmem {
+  int8_t xq[MAX_K];
+  int gd[WARPS * 2 * (MAX_K / qtts::W4_GROUP)];
+  uint16_t xs_raw[MAX_K];          // the (normed) input row, bf16 bits
+  float sx[1];
+};
+struct RowSmem {
+  float h[MAX_D];
+  __align__(16) uint16_t xb_raw[MAX_D];   // bf16 bits (see xb())
+  float bv[WARPS];
+  int bi[WARPS];
+};
+union Smem {
+  GemvSmem g;
+  RowSmem r;
+  qtts::AttnScratch<TDH> ta[THREADS / TDH];
+  qtts::AttnScratch<PDH> pa[THREADS / PDH];
+};
+
+__device__ __forceinline__ bf16* xb(Smem& sm) {
+  return reinterpret_cast<bf16*>(sm.r.xb_raw);
+}
+
+// ------------------------------------------------------------- the barrier
+// bar[0] is a monotonic arrival counter: barrier n of the launch completes
+// when it reaches n * gridDim.x.  Arrival with release and polling with
+// acquire semantics at GPU scope, as cooperative_groups' grid sync does;
+// the block barriers around them order the other threads' accesses.  A
+// block that waits for ~8 s traps (the launch then fails with an error)
+// instead of hanging the card.  With `trace`, block 0 stores its SM clock
+// as it leaves barrier n into trace[n] (trace[0]: at the kernel's start).
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target,
+                                          long long* trace) {
+  target += gridDim.x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned v;
+    asm volatile("atom.add.release.gpu.u32 %0,[%1],%2;"
+                 : "=r"(v) : "l"(bar), "r"(1u) : "memory");
+    const long long t0 = clock64();
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0,[%1];"
+                   : "=r"(v) : "l"(bar) : "memory");
+      if (clock64() - t0 > BARRIER_TIMEOUT) __trap();
+    } while (v < target);
+    if (trace != nullptr && blockIdx.x == 0)
+      trace[target / gridDim.x] = clock64();
+  }
+  __syncthreads();
+}
+
+// After the last barrier each block checks out on bar[1]; the last one to
+// do so sets both words back to 0 for the next launch.  By then every
+// block has left its last poll of bar[0], so nothing reads it any more.
+__device__ __forceinline__ void grid_exit(unsigned* bar) {
+  if (threadIdx.x == 0) {
+    unsigned old;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0,[%1],%2;"
+                 : "=r"(old) : "l"(bar + 1), "r"(1u) : "memory");
+    if (old == gridDim.x - 1) {
+      bar[0] = 0u;
+      bar[1] = 0u;
+    }
+  }
+}
+
+// ------------------------------------------------------------- reductions
+__device__ __forceinline__ int block_min_int(int v, int* ired) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) ired[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int s = ired[0];
+#pragma unroll
+  for (int w = 1; w < WARPS; ++w) s = min(s, ired[w]);
+  return s;
+}
+
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// ---------------------------------------------------------------- sampler
+// One block: code from logits lg [V] (V <= MAX_V) and uniform u, the same
+// arithmetic as ops.sampling.sample_threshold (f32 bisections: 24 for the
+// top-k threshold, 24 for the nucleus threshold, 12 on the column index
+// for the inverse CDF).  Every thread returns the code.
+template <bool CG>
+__device__ int sample_block(const float* lg, int V, float u, float temp,
+                            float top_k, float top_p, float* red,
+                            int* ired) {
+  constexpr int PER = MAX_V / THREADS;
+  const int tid = threadIdx.x;
+  float v[PER];
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = tid + i * THREADS;
+    v[i] = k < V ? (CG ? __ldcg(lg + k) : lg[k]) : -INFINITY;
+    m = fmaxf(m, v[i]);
+  }
+  m = qtts::block_max<THREADS>(m, red);
+  if (temp <= 0.f) {
+    int best = V;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int k = tid + i * THREADS;
+      if (k < V && v[i] >= m) best = min(best, k);
+    }
+    return block_min_int(best, ired);
+  }
+  float lo = -1e5f, hi = m;
+  for (int it = 0; it < 24; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    float cnt = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) cnt += v[i] >= mid ? 1.f : 0.f;
+    const bool ge = qtts::block_sum<THREADS>(cnt, red) >= top_k;
+    lo = ge ? mid : lo;
+    hi = ge ? hi : mid;
+  }
+  const float temp_c = fmaxf(temp, 1e-6f);
+  float p[PER];
+  bool keep[PER];
+  float z = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int k = tid + i * THREADS;
+    keep[i] = k < V && (v[i] >= lo || top_k <= 0.f);
+    p[i] = keep[i] ? expf(__fdiv_rn(v[i] - m, temp_c)) : 0.f;
+    z += p[i];
+  }
+  z = qtts::block_sum<THREADS>(z, red);
+  float pmax = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    p[i] = __fdiv_rn(p[i], z);
+    pmax = fmaxf(pmax, p[i]);
+  }
+  float plo = 0.f, phi = qtts::block_max<THREADS>(pmax, red);
+  for (int it = 0; it < 24; ++it) {
+    const float q = 0.5f * (plo + phi);
+    float mass = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) mass += p[i] > q ? p[i] : 0.f;
+    const bool ge = qtts::block_sum<THREADS>(mass, red) >= top_p;
+    plo = ge ? q : plo;
+    phi = ge ? phi : q;
+  }
+  float tot = 0.f;
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    p[i] = keep[i] && p[i] > plo ? p[i] : 0.f;
+    tot += p[i];
+  }
+  const float target = u * qtts::block_sum<THREADS>(tot, red);
+  int ilo = 0, ihi = V - 1;
+  for (int it = 0; it < 12; ++it) {                 // 2^12 >= MAX_V
+    const int imid = (ilo + ihi) / 2;
+    float pref = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      pref += tid + i * THREADS <= imid ? p[i] : 0.f;
+    const bool gt = qtts::block_sum<THREADS>(pref, red) > target;
+    ihi = gt ? imid : ihi;
+    ilo = gt ? ilo : imid + 1;
+  }
+  return ihi;
+}
+
+// ------------------------------------------------------------ row helpers
+// 1 / sqrt(mean(x^2) + eps) over a bf16 row written during the launch.
+__device__ __forceinline__ float rms_inv(const bf16* x, int K, float eps,
+                                         float* red) {
+  float ss = 0.f;
+  for (int k = threadIdx.x; k < K; k += THREADS) {
+    const float v = ld_bf<true>(x + k);
+    ss += v * v;
+  }
+  ss = qtts::block_sum<THREADS>(ss, red);
+  return 1.0f / sqrtf(ss / (float)K + eps);
+}
+
+// A full warp's dot of int8 row w [K] with bf16 xs [K] (shared), in f32;
+// every lane gets the sum.  K % 16 == 0.
+__device__ __forceinline__ float i8_row_dot(const int8_t* __restrict__ w,
+                                            const bf16* xs, int K) {
+  const int lane = threadIdx.x & 31;
+  float acc = 0.f;
+  for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+    const uint4 wv = *reinterpret_cast<const uint4*>(w + k0);
+    const int8_t* w8 = reinterpret_cast<const int8_t*>(&wv);
+    const uint4* xv = reinterpret_cast<const uint4*>(xs + k0);
+    const uint4 xa = xv[0], xb = xv[1];
+    const __nv_bfloat162* h0 = reinterpret_cast<const __nv_bfloat162*>(&xa);
+    const __nv_bfloat162* h1 = reinterpret_cast<const __nv_bfloat162*>(&xb);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f0 = __bfloat1622float2(h0[j]);
+      const float2 f1 = __bfloat1622float2(h1[j]);
+      acc = fmaf(f0.x, (float)w8[2 * j], acc);
+      acc = fmaf(f0.y, (float)w8[2 * j + 1], acc);
+      acc = fmaf(f1.x, (float)w8[8 + 2 * j], acc);
+      acc = fmaf(f1.y, (float)w8[8 + 2 * j + 1], acc);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
+// (value, lowest index) over the blocks' scratch entries; every thread
+// gets the index.
+__device__ int grid_argmax(const Args& a, float* red, int* ired) {
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += THREADS) {
+    const float v = __ldcg(a.best_v + i);
+    const int k = __ldcg(a.best_i + i);
+    if (better(v, k, bv, bi)) {
+      bv = v;
+      bi = k;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (better(ov, oi, bv, bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    red[threadIdx.x >> 5] = bv;
+    ired[threadIdx.x >> 5] = bi;
+  }
+  __syncthreads();
+  float v = red[0];
+  int k = ired[0];
+  for (int w = 1; w < WARPS; ++w)
+    if (better(red[w], ired[w], v, k)) {
+      v = red[w];
+      k = ired[w];
+    }
+  return k;
+}
+
+// ------------------------------------------------------------------ phases
+// dst[n] for n < N (grid-stride over output columns, one warp each): the
+// w4a8 product of the (normed) input row with column n (and n + N for the
+// SwiGLU pair), then the epilogue; the talker_step.cu GEMV body.
+template <int R, bool RMS, int EPI, typename S>
+__device__ void gemv(const bf16* in, const float* norm_w, float eps, int K,
+                     const uint8_t* wq, const S* ws, int N, bf16* dst,
+                     Smem& sm, float* red) {
+  qtts::quantize_rows<1, RMS, THREADS, true>(
+      in, norm_w, K, eps, reinterpret_cast<bf16*>(sm.g.xs_raw), sm.g.xq,
+      sm.g.sx, red);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* gw = sm.g.gd + warp * R * (K / qtts::W4_GROUP);
+  for (int row = blockIdx.x * WARPS + warp; row < N;
+       row += gridDim.x * WARPS) {
+    float y[R];
+    qtts::w4a8_warp_row<1, R>(sm.g.xq, sm.g.sx, K, wq, ws, N, row, gw, y);
+    if (lane == 0) {
+      bf16* o = dst + row;
+      if (EPI == EPI_STORE) {
+        *o = __float2bfloat16_rn(y[0]);
+      } else if (EPI == EPI_RESID) {
+        *o = __float2bfloat16_rn(__fadd_rn(ld_bf<true>(o), y[0]));
+      } else {
+        const float gate = y[0];
+        const float act = bf16r(__fdiv_rn(gate, 1.0f + expf(-gate)));
+        *o = __float2bfloat16_rn(__fmul_rn(act, y[R - 1]));
+      }
+    }
+    __syncwarp();                  // gw is rewritten by the next column
+  }
+}
+
+// Block 0: code_0 of frame f.  Every block: px = bf16(hid . proj_w^T + b).
+__device__ void sample_project(const Args& a, int f, Smem& sm, float* red,
+                               int* ired) {
+  const float* lg = f == 0 ? a.logits : a.logits_out;
+  const float* hid = f == 0 ? a.hidden : a.hidden_out;
+  if (blockIdx.x == 0) {
+    const int c0 = sample_block<true>(lg, a.V, a.u[f], a.temperature,
+                                      a.top_k, a.top_p, red, ired);
+    if (threadIdx.x == 0) a.codes[f * N_TOKENS] = c0;
+  }
+  for (int k = threadIdx.x; k < a.D; k += THREADS) sm.r.h[k] = __ldcg(hid + k);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int row = blockIdx.x * WARPS + warp; row < a.DP;
+       row += gridDim.x * WARPS) {
+    const float* w = a.proj_w + (size_t)row * a.D;
+    float acc = 0.f;
+    for (int k = lane * 4; k < a.D; k += 32 * 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(w + k);
+      acc = fmaf(sm.r.h[k], wv.x, acc);
+      acc = fmaf(sm.r.h[k + 1], wv.y, acc);
+      acc = fmaf(sm.r.h[k + 2], wv.z, acc);
+      acc = fmaf(sm.r.h[k + 3], wv.w, acc);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0)
+      a.px[row] = __float2bfloat16_rn(__fadd_rn(acc, a.proj_b[row]));
+  }
+}
+
+// Predictor attention of token `tok`, layer l: one group of PDH threads per
+// kv head; the context goes out in the c-major head order of wo's rows
+// (position c * PHkv + j for head j * G + c).
+__device__ void pred_attn(const Args& a, int tok, int l, Smem& sm) {
+  constexpr int GPB = THREADS / PDH;
+  const int grp = threadIdx.x / PDH;
+  const int t = threadIdx.x % PDH;
+  const int G = a.PH / a.PHkv;
+  for (int kvh = blockIdx.x * GPB + grp; kvh < a.PHkv;
+       kvh += gridDim.x * GPB) {
+    const size_t head = ((size_t)l * a.PHkv + kvh) * N_TOKENS * PDH;
+    float c[MAX_G];
+    qtts::token_attend_g<PDH, true>(
+        a.pqkv, a.PH, a.PHkv, kvh, G, a.p_qn + (size_t)l * PDH,
+        a.p_kn + (size_t)l * PDH, a.pcos + (size_t)tok * PDH,
+        a.psin + (size_t)tok * PDH, a.p_eps, a.pk + head, a.pv + head, tok,
+        a.p_scale, sm.pa[grp], c, t, 1 + grp);
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G)
+        a.pctx[((size_t)g * a.PHkv + kvh) * PDH + t] = __float2bfloat16_rn(c[g]);
+  }
+}
+
+// Window tok - 1 of the predictor's lm-head: logits into taps, each
+// block's best (value, lowest row) into the scratch.
+__device__ void pred_head(const Args& a, int f, int tok, Smem& sm,
+                          float* red) {
+  const float inv = rms_inv(a.px, a.DP, a.p_eps, red);
+  for (int k = threadIdx.x; k < a.DP; k += THREADS)
+    xb(sm)[k] = __float2bfloat16_rn(
+        __fmul_rn(__fmul_rn(ld_bf<true>(a.px + k), inv), a.pfn[k]));
+  __syncthreads();
+  const int win = tok - 1;
+  const int8_t* W = a.phead_q + (size_t)win * WINDOW * a.DP;
+  const float* S = a.phead_s + (size_t)win * WINDOW;
+  float* out = a.taps == nullptr
+                   ? nullptr
+                   : a.taps + ((size_t)f * (N_TOKENS - 1) + win) * WINDOW;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int row = blockIdx.x * WARPS + warp; row < WINDOW;
+       row += gridDim.x * WARPS) {
+    const float lg = __fmul_rn(i8_row_dot(W + (size_t)row * a.DP, xb(sm),
+                                          a.DP), S[row]);
+    if (lane == 0 && out != nullptr) out[row] = lg;
+    if (lg > bv) {                  // rows rise: the first max is kept
+      bv = lg;
+      bi = row;
+    }
+  }
+  if (lane == 0) {
+    sm.r.bv[warp] = bv;
+    sm.r.bi[warp] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < WARPS; ++w)
+      if (better(sm.r.bv[w], sm.r.bi[w], bv, bi)) {
+        bv = sm.r.bv[w];
+        bi = sm.r.bi[w];
+      }
+    a.best_v[blockIdx.x] = bv;
+    a.best_i[blockIdx.x] = bi;
+  }
+}
+
+// x = bf16(sum_q ctab_fb[q][code_q] (f32, q in order) + tts_pad).
+__device__ void feedback(const Args& a, int f, int code15) {
+  int code[N_TOKENS];
+#pragma unroll
+  for (int q = 0; q < N_TOKENS; ++q) {
+    const int c = q < N_TOKENS - 1 ? __ldcg(a.codes + f * N_TOKENS + q)
+                                   : code15;
+    code[q] = min(max(c, 0), a.R_fb - 1);
+  }
+  for (int k = blockIdx.x * THREADS + threadIdx.x; k < a.D;
+       k += gridDim.x * THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < N_TOKENS; ++q) {
+      const size_t i = ((size_t)q * a.R_fb + code[q]) * a.D + k;
+      s = __fadd_rn(s, a.fb_bf16 ? bf2f(static_cast<const bf16*>(a.ctab_fb)[i])
+                                 : static_cast<const float*>(a.ctab_fb)[i]);
+    }
+    a.x[k] = __float2bfloat16_rn(__fadd_rn(s, a.tts_pad[k]));
+  }
+}
+
+// Talker attention of frame f, layer l: one group of TDH threads per kv
+// head (talker_step.cu step_attn_kernel, with the chunk's own slots).
+__device__ void talker_attn(const Args& a, int f, int l, int start,
+                            int length, Smem& sm) {
+  constexpr int GPB = THREADS / TDH;
+  const int grp = threadIdx.x / TDH;
+  const int t = threadIdx.x % TDH;
+  const int bar = 1 + grp;
+  const int G = a.H / a.Hkv;
+  for (int kvh = blockIdx.x * GPB + grp; kvh < a.Hkv;
+       kvh += gridDim.x * GPB) {
+    qtts::AttnScratch<TDH>& s = sm.ta[grp];
+    float kv, vv;
+    qtts::norm_rope_heads_g<TDH, true>(
+        a.qkv, a.H, a.Hkv, kvh, G, a.t_qn + (size_t)l * TDH,
+        a.t_kn + (size_t)l * TDH, a.cos + (size_t)f * TDH,
+        a.sin + (size_t)f * TDH, a.t_eps, s.q, s.x, s.red, &kv, &vv, t, bar);
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G) s.q[g][t] = __fmul_rn(s.q[g][t], a.t_scale);
+    const size_t head = (size_t)l * a.Hkv + kvh;
+    bf16* kp = a.cache_k + head * a.C * TDH;
+    bf16* vp = a.cache_v + head * a.C * TDH;
+    const int slot = start + f;
+    if (slot < a.C) {
+      kp[(size_t)slot * TDH + t] = __float2bfloat16_rn(kv);
+      vp[(size_t)slot * TDH + t] = __float2bfloat16_rn(vv);
+    }
+    qtts::group_sync<TDH>(bar);
+    float m[MAX_G], l_[MAX_G], acc[MAX_G];
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      m[g] = qtts::NEG;
+      l_[g] = 0.f;
+      acc[g] = 0.f;
+    }
+    // the cache prefix [0, start): prompt slots < length, generated slots
+    // >= prompt_cap (no cursor column: -1)
+    qtts::attend_tiles_g<TDH, true>(s.q, G, kp, vp, min(start, a.C), length,
+                                    -1, a.prompt_cap, 1.0f, s.p, s.red_s, m,
+                                    l_, acc, t, bar);
+    // the chunk's frames 0..f at slots start..start+f, one merge
+    const int n_loc = min(f + 1, a.C - start);
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g >= G) continue;
+      float sc[MAX_FRAMES];
+      float mx = m[g];
+#pragma unroll
+      for (int j = 0; j < MAX_FRAMES; ++j) {
+        if (j < n_loc) {
+          sc[j] = qtts::group_sum<TDH>(
+              s.q[g][t] * ld_bf<true>(kp + (size_t)(start + j) * TDH + t),
+              s.red, t, bar);
+          mx = fmaxf(mx, sc[j]);
+        }
+      }
+      const float alpha = expf(m[g] - mx);
+      float ac = acc[g] * alpha, ls = l_[g] * alpha;
+#pragma unroll
+      for (int j = 0; j < MAX_FRAMES; ++j) {
+        if (j < n_loc) {
+          const float p = expf(sc[j] - mx);
+          ac += p * ld_bf<true>(vp + (size_t)(start + j) * TDH + t);
+          ls += p;
+        }
+      }
+      a.ctx[((size_t)kvh * G + g) * TDH + t] =
+          __float2bfloat16_rn(ac / fmaxf(ls, 1e-30f));
+    }
+  }
+}
+
+// hidden = RMSNorm(x, tfn) in f32 (block 0 writes it out); logits[n] =
+// (bf16(hidden) . chead_q[n]) * chead_s[n] for n < V.
+__device__ void codec_head(const Args& a, Smem& sm, float* red) {
+  const float inv = rms_inv(a.x, a.D, a.t_eps, red);
+  for (int k = threadIdx.x; k < a.D; k += THREADS) {
+    const float h = __fmul_rn(__fmul_rn(ld_bf<true>(a.x + k), inv), a.tfn[k]);
+    xb(sm)[k] = __float2bfloat16_rn(h);
+    if (blockIdx.x == 0) a.hidden_out[k] = h;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int row = blockIdx.x * WARPS + warp; row < a.V;
+       row += gridDim.x * WARPS) {
+    const float acc = i8_row_dot(a.chead_q + (size_t)row * a.D, xb(sm), a.D);
+    if (lane == 0) a.logits_out[row] = __fmul_rn(acc, a.chead_s[row]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2) chunk_kernel(const Args a) {
+  __shared__ __align__(16) Smem sm;
+  __shared__ float red[WARPS];
+  __shared__ int ired[WARPS];
+  unsigned target = 0;             // bar[0] at the next barrier
+  if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    a.trace[0] = clock64();
+  const int start = a.write_idx[0];
+  const int length = a.lengths[0];
+  const int GRP = qtts::W4_GROUP;
+  // predictor and talker matrix sizes
+  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH, pdq = a.PH * PDH;
+  const int nqkv = (a.H + 2 * a.Hkv) * TDH, dq = a.H * TDH;
+  const int DP = a.DP, D = a.D;
+
+  for (int f = 0; f < a.F; ++f) {
+    sample_project(a, f, sm, red, ired);
+    grid_sync(a.barrier, target, a.trace);
+
+    // ---- predictor: 16 tokens x LP layers
+    for (int tok = 0; tok < N_TOKENS; ++tok) {
+      for (int l = 0; l < a.LP; ++l) {
+        const bf16* in = a.px;
+        if (l == 0 && tok >= 1) {
+          // the input of token tok: ctab_pred[tok - 1][code_{tok - 1}]
+          const int prev = tok - 1;
+          int code = prev == 0 ? __ldcg(a.codes + f * N_TOKENS)
+                               : grid_argmax(a, red, ired);
+          if (prev >= 1 && blockIdx.x == 0 && threadIdx.x == 0)
+            a.codes[f * N_TOKENS + prev] = code;
+          code = min(max(code, 0), a.R_pd - 1);
+          in = a.ctab_pred + ((size_t)prev * a.R_pd + code) * DP;
+          if (blockIdx.x == 0)
+            for (int k = threadIdx.x; k < DP; k += THREADS) a.px[k] = in[k];
+        }
+        gemv<1, true, EPI_STORE, float>(
+            in, a.p_ln1 + (size_t)l * DP, a.p_eps, DP,
+            a.p_wqkv_q + (size_t)l * pnqkv * (DP / 2),
+            a.p_wqkv_s + (size_t)l * pnqkv * (DP / GRP), pnqkv, a.pqkv, sm,
+            red);
+        grid_sync(a.barrier, target, a.trace);
+        pred_attn(a, tok, l, sm);
+        grid_sync(a.barrier, target, a.trace);
+        gemv<1, false, EPI_RESID, float>(
+            a.pctx, nullptr, a.p_eps, pdq,
+            a.p_wo_q + (size_t)l * DP * (pdq / 2),
+            a.p_wo_s + (size_t)l * DP * (pdq / GRP), DP, a.px, sm, red);
+        grid_sync(a.barrier, target, a.trace);
+        gemv<2, true, EPI_SWIGLU, float>(
+            a.px, a.p_ln2 + (size_t)l * DP, a.p_eps, DP,
+            a.p_gu_q + (size_t)l * 2 * a.PFF * (DP / 2),
+            a.p_gu_s + (size_t)l * 2 * a.PFF * (DP / GRP), a.PFF, a.pff, sm,
+            red);
+        grid_sync(a.barrier, target, a.trace);
+        gemv<1, false, EPI_RESID, float>(
+            a.pff, nullptr, a.p_eps, a.PFF,
+            a.p_dn_q + (size_t)l * DP * (a.PFF / 2),
+            a.p_dn_s + (size_t)l * DP * (a.PFF / GRP), DP, a.px, sm, red);
+        grid_sync(a.barrier, target, a.trace);
+      }
+      if (tok >= 1) {
+        pred_head(a, f, tok, sm, red);
+        grid_sync(a.barrier, target, a.trace);
+      }
+    }
+
+    // ---- feedback (code_15 is the last window's argmax)
+    const int code15 = grid_argmax(a, red, ired);
+    if (blockIdx.x == 0 && threadIdx.x == 0)
+      a.codes[f * N_TOKENS + N_TOKENS - 1] = code15;
+    feedback(a, f, code15);
+    grid_sync(a.barrier, target, a.trace);
+
+    // ---- talker step
+    for (int l = 0; l < a.L; ++l) {
+      gemv<1, true, EPI_STORE, bf16>(
+          a.x, a.t_ln1 + (size_t)l * D, a.t_eps, D,
+          a.t_wqkv_q + (size_t)l * nqkv * (D / 2),
+          a.t_wqkv_s + (size_t)l * nqkv * (D / GRP), nqkv, a.qkv, sm, red);
+      grid_sync(a.barrier, target, a.trace);
+      talker_attn(a, f, l, start, length, sm);
+      grid_sync(a.barrier, target, a.trace);
+      gemv<1, false, EPI_RESID, bf16>(
+          a.ctx, nullptr, a.t_eps, dq, a.t_wo_q + (size_t)l * D * (dq / 2),
+          a.t_wo_s + (size_t)l * D * (dq / GRP), D, a.x, sm, red);
+      grid_sync(a.barrier, target, a.trace);
+      gemv<2, true, EPI_SWIGLU, bf16>(
+          a.x, a.t_ln2 + (size_t)l * D, a.t_eps, D,
+          a.t_gu_q + (size_t)l * 2 * a.FF * (D / 2),
+          a.t_gu_s + (size_t)l * 2 * a.FF * (D / GRP), a.FF, a.ff, sm, red);
+      grid_sync(a.barrier, target, a.trace);
+      gemv<1, false, EPI_RESID, bf16>(
+          a.ff, nullptr, a.t_eps, a.FF,
+          a.t_dn_q + (size_t)l * D * (a.FF / 2),
+          a.t_dn_s + (size_t)l * D * (a.FF / GRP), D, a.x, sm, red);
+      grid_sync(a.barrier, target, a.trace);
+    }
+    codec_head(a, sm, red);
+    grid_sync(a.barrier, target, a.trace);
+  }
+  grid_exit(a.barrier);
+}
+
+// One block per row: the sampler alone (sample_block), for the tests.
+__global__ void __launch_bounds__(THREADS)
+sample_kernel(const float* __restrict__ logits, const float* __restrict__ u,
+              int* __restrict__ out, int V, float temp, float top_k,
+              float top_p) {
+  __shared__ float red[WARPS];
+  __shared__ int ired[WARPS];
+  const int c = sample_block<false>(logits + (size_t)blockIdx.x * V, V,
+                                    u[blockIdx.x], temp, top_k, top_p, red,
+                                    ired);
+  if (threadIdx.x == 0) out[blockIdx.x] = c;
+}
+
+}  // namespace
+
+// ptrs / ints / flts in the order of kernels/chunk_step.gen_chunk_fused;
+// info (host) gets the grid: blocks, blocks per SM.
+extern "C" int qtts_chunk_step(void* const* ptrs, int n_ptrs,
+                               const int* ints, int n_ints,
+                               const float* flts, int n_flts, int* info,
+                               void* stream) {
+  if (n_ptrs != N_PTRS || n_ints != N_INTS || n_flts != N_FLTS)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  int i = 0;
+  auto P = [&]() { return ptrs[i++]; };
+  a.logits = (const float*)P(); a.hidden = (const float*)P();
+  a.cos = (const float*)P(); a.sin = (const float*)P();
+  a.u = (const float*)P(); a.lengths = (const int*)P();
+  a.write_idx = (const int*)P();
+  a.t_ln1 = (const float*)P(); a.t_ln2 = (const float*)P();
+  a.t_qn = (const float*)P(); a.t_kn = (const float*)P();
+  a.t_wqkv_q = (const uint8_t*)P(); a.t_wqkv_s = (const bf16*)P();
+  a.t_wo_q = (const uint8_t*)P(); a.t_wo_s = (const bf16*)P();
+  a.t_gu_q = (const uint8_t*)P(); a.t_gu_s = (const bf16*)P();
+  a.t_dn_q = (const uint8_t*)P(); a.t_dn_s = (const bf16*)P();
+  a.cache_k = (bf16*)P(); a.cache_v = (bf16*)P();
+  a.tfn = (const float*)P(); a.chead_q = (const int8_t*)P();
+  a.chead_s = (const float*)P(); a.proj_w = (const float*)P();
+  a.proj_b = (const float*)P(); a.tts_pad = (const float*)P();
+  a.ctab_fb = P(); a.ctab_pred = (const bf16*)P();
+  a.pfn = (const float*)P(); a.phead_q = (const int8_t*)P();
+  a.phead_s = (const float*)P(); a.pcos = (const float*)P();
+  a.psin = (const float*)P();
+  a.p_ln1 = (const float*)P(); a.p_ln2 = (const float*)P();
+  a.p_qn = (const float*)P(); a.p_kn = (const float*)P();
+  a.p_wqkv_q = (const uint8_t*)P(); a.p_wqkv_s = (const float*)P();
+  a.p_wo_q = (const uint8_t*)P(); a.p_wo_s = (const float*)P();
+  a.p_gu_q = (const uint8_t*)P(); a.p_gu_s = (const float*)P();
+  a.p_dn_q = (const uint8_t*)P(); a.p_dn_s = (const float*)P();
+  a.codes = (int*)P(); a.logits_out = (float*)P();
+  a.hidden_out = (float*)P(); a.taps = (float*)P();
+  a.x = (bf16*)P(); a.qkv = (bf16*)P(); a.ctx = (bf16*)P();
+  a.ff = (bf16*)P(); a.px = (bf16*)P(); a.pqkv = (bf16*)P();
+  a.pctx = (bf16*)P(); a.pff = (bf16*)P(); a.pk = (bf16*)P();
+  a.pv = (bf16*)P(); a.best_v = (float*)P(); a.best_i = (int*)P();
+  a.barrier = (unsigned*)P(); a.trace = (long long*)P();
+  int j = 0;
+  a.F = ints[j++]; a.L = ints[j++]; a.D = ints[j++]; a.H = ints[j++];
+  a.Hkv = ints[j++]; a.t_dh = ints[j++]; a.FF = ints[j++]; a.C = ints[j++];
+  a.prompt_cap = ints[j++]; a.LP = ints[j++]; a.DP = ints[j++];
+  a.PH = ints[j++]; a.PHkv = ints[j++]; a.p_dh = ints[j++];
+  a.PFF = ints[j++]; a.R_fb = ints[j++]; a.R_pd = ints[j++];
+  a.V = ints[j++]; a.fb_bf16 = ints[j++]; a.max_blocks_per_sm = ints[j++];
+  a.t_eps = flts[0]; a.p_eps = flts[1]; a.temperature = flts[2];
+  a.top_k = flts[3]; a.top_p = flts[4]; a.t_scale = flts[5];
+  a.p_scale = flts[6];
+
+  const int g2 = 2 * qtts::W4_GROUP;
+  const bool ok =
+      a.F >= 1 && a.F <= MAX_FRAMES && a.L >= 1 && a.LP >= 1 &&
+      a.t_dh == TDH && a.p_dh == PDH && a.Hkv > 0 && a.H % a.Hkv == 0 &&
+      a.H / a.Hkv <= MAX_G && a.PHkv > 0 && a.PH % a.PHkv == 0 &&
+      a.PH / a.PHkv <= MAX_G && a.D % g2 == 0 && a.D <= MAX_D &&
+      a.DP % g2 == 0 && a.DP <= MAX_D && a.FF % g2 == 0 && a.FF <= MAX_K &&
+      a.PFF % g2 == 0 && a.PFF <= MAX_K && (a.H * TDH) % g2 == 0 &&
+      a.H * TDH <= MAX_K && (a.PH * PDH) % g2 == 0 && a.PH * PDH <= MAX_K &&
+      a.C > 0 && a.V > 0 && a.V <= MAX_V && a.R_fb > 0 && a.R_pd > 0 &&
+      a.max_blocks_per_sm >= 1;
+  if (!ok) return (int)cudaErrorInvalidValue;
+
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chunk_kernel,
+                                                      THREADS, 0);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  per_sm = min(per_sm, a.max_blocks_per_sm);   // the scratch's slots
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  info[0] = per_sm * sms;
+  info[1] = per_sm;
+  void* params[] = {(void*)&a};
+  e = cudaLaunchCooperativeKernel((const void*)chunk_kernel,
+                                  dim3(per_sm * sms), dim3(THREADS), params,
+                                  0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int qtts_sample_threshold(const float* logits, const float* u,
+                                     int* out, int B, int V, float temp,
+                                     float top_k, float top_p,
+                                     void* stream) {
+  if (B < 1 || V < 1 || V > MAX_V) return (int)cudaErrorInvalidValue;
+  sample_kernel<<<B, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      logits, u, out, V, temp, top_k, top_p);
+  return (int)cudaGetLastError();
+}

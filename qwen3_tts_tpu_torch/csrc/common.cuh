@@ -1,6 +1,16 @@
 // Device code shared by the port's CUDA kernels: the decode-attention tile
-// loop (flash_decode.cu, talker_step.cu, predictor_frame.cu), block
-// reductions, bf16 rounding, and the launch helper for dynamic shared memory.
+// loop (flash_decode.cu, talker_step.cu, predictor_frame.cu, chunk_step.cu),
+// the per-head q/k norm + rope, the predictor's 16-slot token attention,
+// block and thread-group reductions, bf16 rounding, and the launch helper
+// for dynamic shared memory.
+//
+// Thread groups.  The `_g` functions run on a group of NT threads (a whole
+// block, or a warp-aligned part of one): `tid` is the thread's index in the
+// group and `bar` its barrier, 0 for __syncthreads (the whole block) or a
+// named barrier 1..15 of NT threads.  The functions without `_g` are the
+// whole-block forms (tid = threadIdx.x, bar 0).  CG = true reads every
+// global input with ld.global.cg (L2, not L1): for data that other blocks
+// of a persistent kernel wrote during the same launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,21 +30,49 @@ __device__ __forceinline__ float bf2f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Sum / max over a block of NT threads (NT a multiple of 32); every thread
+template <int NT>
+__device__ __forceinline__ void group_sync(int bar) {
+  if (bar == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(NT) : "memory");
+}
+
+template <bool CG>
+__device__ __forceinline__ float ld_bf(const __nv_bfloat16* p) {
+  if (CG)
+    return __bfloat162float(__ushort_as_bfloat16(
+        __ldcg(reinterpret_cast<const unsigned short*>(p))));
+  return __bfloat162float(*p);
+}
+
+template <bool CG>
+__device__ __forceinline__ uint4 ld_16(const void* p) {
+  if (CG) return __ldcg(reinterpret_cast<const uint4*>(p));
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Sum / max over a group of NT threads (NT a multiple of 32); every thread
 // gets the result.  `red` holds NT / 32 floats.  The order of the sum is
 // fixed (warp butterfly, then warps in order), so every thread and every
 // run agree.
 template <int NT>
-__device__ __forceinline__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float group_sum(float v, float* red, int tid,
+                                           int bar) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read by a previous call
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
+  group_sync<NT>(bar);  // red may still be read by a previous call
+  if ((tid & 31) == 0) red[tid >> 5] = v;
+  group_sync<NT>(bar);
   float s = red[0];
 #pragma unroll
   for (int w = 1; w < NT / 32; ++w) s += red[w];
   return s;
+}
+
+template <int NT>
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  return group_sum<NT>(v, red, threadIdx.x, 0);
 }
 
 template <int NT>
@@ -59,14 +97,14 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 // get p = 0 exactly.  Thread t scores slot t of each DH-slot tile (the row
 // read as 16-byte vectors), the block takes the tile's max, then thread t
 // accumulates its column of P.V over the tile.
-template <int DH>
-__device__ __forceinline__ void attend_tiles(
+template <int DH, bool CG>
+__device__ __forceinline__ void attend_tiles_g(
     const float (*q_s)[DH], int G, const __nv_bfloat16* __restrict__ kp,
     const __nv_bfloat16* __restrict__ vp, int end, int length, int cursor,
     int prompt_cap, float score_scale, float (*p_s)[DH],
-    float (*red_s)[DH / 32], float* m, float* l, float* acc) {
+    float (*red_s)[DH / 32], float* m, float* l, float* acc, int t,
+    int bar) {
   constexpr int NW = DH / 32;
-  const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   for (int t0 = 0; t0 < end; t0 += DH) {
@@ -79,10 +117,10 @@ __device__ __forceinline__ void attend_tiles(
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) s[g] = 0.f;
     if (live) {
-      const uint4* krow = reinterpret_cast<const uint4*>(kp + (size_t)c * DH);
+      const __nv_bfloat16* krow = kp + (size_t)c * DH;
 #pragma unroll
       for (int i = 0; i < DH / 8; ++i) {
-        const uint4 u = krow[i];
+        const uint4 u = ld_16<CG>(krow + i * 8);
         const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -107,7 +145,7 @@ __device__ __forceinline__ void attend_tiles(
         if (lane == 0) red_s[g][warp] = x;
       }
     }
-    __syncthreads();
+    group_sync<DH>(bar);
 #pragma unroll
     for (int g = 0; g < MAX_G; ++g) {
       if (g < G) {
@@ -122,13 +160,13 @@ __device__ __forceinline__ void attend_tiles(
         acc[g] *= alpha;
       }
     }
-    __syncthreads();
+    group_sync<DH>(bar);
     // ---- P.V: thread t owns output column t
     const int n = min(DH, end - t0);
     const __nv_bfloat16* vt = vp + (size_t)t0 * DH + t;
 #pragma unroll 4
     for (int j = 0; j < n; ++j) {
-      const float vv = __bfloat162float(vt[(size_t)j * DH]);
+      const float vv = ld_bf<CG>(vt + (size_t)j * DH);
 #pragma unroll
       for (int g = 0; g < MAX_G; ++g) {
         if (g < G) {
@@ -138,8 +176,19 @@ __device__ __forceinline__ void attend_tiles(
         }
       }
     }
-    __syncthreads();  // p_s and red_s are rewritten by the next tile
+    group_sync<DH>(bar);  // p_s and red_s are rewritten by the next tile
   }
+}
+
+template <int DH>
+__device__ __forceinline__ void attend_tiles(
+    const float (*q_s)[DH], int G, const __nv_bfloat16* __restrict__ kp,
+    const __nv_bfloat16* __restrict__ vp, int end, int length, int cursor,
+    int prompt_cap, float score_scale, float (*p_s)[DH],
+    float (*red_s)[DH / 32], float* m, float* l, float* acc) {
+  attend_tiles_g<DH, false>(q_s, G, kp, vp, end, length, cursor, prompt_cap,
+                            score_scale, p_s, red_s, m, l, acc, threadIdx.x,
+                            0);
 }
 
 // For a block of DH threads: read the G query heads of kv head `kvh`
@@ -150,33 +199,32 @@ __device__ __forceinline__ void attend_tiles(
 // holds column t of q head g (bf16 values, as f32; visible to the whole
 // block), *k_out and *v_out column t of k and v.  x_s: [MAX_G + 1][DH]
 // scratch; red: DH / 32 floats.
-template <int DH>
-__device__ __forceinline__ void norm_rope_heads(
+template <int DH, bool CG>
+__device__ __forceinline__ void norm_rope_heads_g(
     const __nv_bfloat16* __restrict__ row, int H, int Hkv, int kvh, int G,
     const float* __restrict__ qn, const float* __restrict__ kn,
     const float* __restrict__ cos, const float* __restrict__ sin, float eps,
     float (*q_s)[DH], float (*x_s)[DH], float* red, float* k_out,
-    float* v_out) {
-  const int t = threadIdx.x;
+    float* v_out, int t, int bar) {
   float raw[MAX_G + 1];
 #pragma unroll
   for (int g = 0; g <= MAX_G; ++g) {
     if (g < G)
-      raw[g] = bf2f(row[(size_t)(kvh * G + g) * DH + t]);
+      raw[g] = ld_bf<CG>(row + (size_t)(kvh * G + g) * DH + t);
     else if (g == G)
-      raw[g] = bf2f(row[(size_t)(H + kvh) * DH + t]);
+      raw[g] = ld_bf<CG>(row + (size_t)(H + kvh) * DH + t);
   }
-  *v_out = bf2f(row[(size_t)(H + Hkv + kvh) * DH + t]);
+  *v_out = ld_bf<CG>(row + (size_t)(H + Hkv + kvh) * DH + t);
 #pragma unroll
   for (int g = 0; g <= MAX_G; ++g) {
     if (g <= G) {
-      const float ss = block_sum<DH>(raw[g] * raw[g], red);
+      const float ss = group_sum<DH>(raw[g] * raw[g], red, t, bar);
       const float inv = 1.0f / sqrtf(ss / (float)DH + eps);
       x_s[g][t] = bf16r(__fmul_rn(__fmul_rn(raw[g], inv),
                                   g < G ? qn[t] : kn[t]));
     }
   }
-  __syncthreads();
+  group_sync<DH>(bar);
   const float c = cos[t], s = sin[t];
 #pragma unroll
   for (int g = 0; g <= MAX_G; ++g) {
@@ -190,7 +238,62 @@ __device__ __forceinline__ void norm_rope_heads(
         *k_out = r;
     }
   }
-  __syncthreads();
+  group_sync<DH>(bar);
+}
+
+template <int DH>
+__device__ __forceinline__ void norm_rope_heads(
+    const __nv_bfloat16* __restrict__ row, int H, int Hkv, int kvh, int G,
+    const float* __restrict__ qn, const float* __restrict__ kn,
+    const float* __restrict__ cos, const float* __restrict__ sin, float eps,
+    float (*q_s)[DH], float (*x_s)[DH], float* red, float* k_out,
+    float* v_out) {
+  norm_rope_heads_g<DH, false>(row, H, Hkv, kvh, G, qn, kn, cos, sin, eps,
+                               q_s, x_s, red, k_out, v_out, threadIdx.x, 0);
+}
+
+// Scratch of one token-attention group of DH threads (token_attend_g).
+template <int DH>
+struct AttnScratch {
+  float q[MAX_G][DH];
+  float x[MAX_G + 1][DH];
+  float p[MAX_G][DH];
+  float red_s[MAX_G][DH / 32];
+  float red[DH / 32];
+};
+
+// The predictor's attention of token `tok` for kv head `kvh`, on a group of
+// DH threads: q/k norm and rope at position tok (cos/sin rows of that
+// position), the k/v row written into slot tok of the head's 16-slot
+// block kp/vp ([16, DH] bf16), then attention over slots [0, tok] with
+// scores (q . k) * scale in f32.  Returns thread t's column of each query
+// head's context in ctx[g] (g < G).
+template <int DH, bool CG>
+__device__ __forceinline__ void token_attend_g(
+    const __nv_bfloat16* __restrict__ row, int H, int Hkv, int kvh, int G,
+    const float* __restrict__ qn, const float* __restrict__ kn,
+    const float* __restrict__ cos, const float* __restrict__ sin, float eps,
+    __nv_bfloat16* kp, __nv_bfloat16* vp, int tok, float scale,
+    AttnScratch<DH>& s, float* ctx, int t, int bar) {
+  float kv, vv;
+  norm_rope_heads_g<DH, CG>(row, H, Hkv, kvh, G, qn, kn, cos, sin, eps, s.q,
+                            s.x, s.red, &kv, &vv, t, bar);
+  kp[(size_t)tok * DH + t] = __float2bfloat16_rn(kv);
+  vp[(size_t)tok * DH + t] = __float2bfloat16_rn(vv);
+  group_sync<DH>(bar);
+  float m[MAX_G], l[MAX_G], acc[MAX_G];
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    m[g] = NEG;
+    l[g] = 0.f;
+    acc[g] = 0.f;
+  }
+  // every slot s <= tok is visible (length 0, prompt_cap 0)
+  attend_tiles_g<DH, CG>(s.q, G, kp, vp, tok + 1, 0, tok, 0, scale, s.p,
+                         s.red_s, m, l, acc, t, bar);
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g)
+    if (g < G) ctx[g] = acc[g] / fmaxf(l[g], 1e-30f);
 }
 
 // Launch helper: raise the kernel's dynamic shared memory limit once when

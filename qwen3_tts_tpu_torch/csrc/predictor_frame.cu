@@ -149,7 +149,8 @@ i8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
 }
 
 // Token t of lanes [b0, b0 + gridDim.y): q/k norm and rope at position t,
-// k/v written into slot t, attention over slots [0, t].
+// k/v written into slot t, attention over slots [0, t] (common.cuh
+// token_attend_g).
 template <int DH>
 __global__ void __launch_bounds__(DH)
 frame_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
@@ -164,39 +165,18 @@ frame_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
   const int t = threadIdx.x;
   const int G = H / Hkv;
 
-  __shared__ float q_s[MAX_G][DH];
-  __shared__ float x_s[MAX_G + 1][DH];
-  __shared__ float p_s[MAX_G][DH];
-  __shared__ float red_s[MAX_G][DH / 32];
-  __shared__ float red[DH / 32];
-
-  float kv, vv;
-  qtts::norm_rope_heads<DH>(qkv + (size_t)bl * (H + 2 * Hkv) * DH, H, Hkv,
-                            kvh, G, qn, kn, cos + (size_t)tok * DH,
-                            sin + (size_t)tok * DH, eps, q_s, x_s, red, &kv,
-                            &vv);
+  __shared__ qtts::AttnScratch<DH> sc;
   const size_t head = ((size_t)layer * B + b0 + bl) * Hkv + kvh;
-  __nv_bfloat16* kp = kc + head * N_TOKENS * DH;
-  __nv_bfloat16* vp = vc + head * N_TOKENS * DH;
-  kp[(size_t)tok * DH + t] = __float2bfloat16_rn(kv);
-  vp[(size_t)tok * DH + t] = __float2bfloat16_rn(vv);
-  __syncthreads();
-
-  float m[MAX_G], l[MAX_G], acc[MAX_G];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = qtts::NEG;
-    l[g] = 0.f;
-    acc[g] = 0.f;
-  }
-  // every slot s <= tok is visible (length 0, prompt_cap 0)
-  qtts::attend_tiles<DH>(q_s, G, kp, vp, tok + 1, 0, tok, 0, scale, p_s,
-                         red_s, m, l, acc);
+  float c[MAX_G];
+  qtts::token_attend_g<DH, false>(
+      qkv + (size_t)bl * (H + 2 * Hkv) * DH, H, Hkv, kvh, G, qn, kn,
+      cos + (size_t)tok * DH, sin + (size_t)tok * DH, eps,
+      kc + head * N_TOKENS * DH, vc + head * N_TOKENS * DH, tok, scale, sc,
+      c, t, 0);
 #pragma unroll
   for (int g = 0; g < MAX_G; ++g)
     if (g < G)
-      ctx[((size_t)bl * H + kvh * G + g) * DH + t] =
-          __float2bfloat16_rn(acc[g] / fmaxf(l[g], 1e-30f));
+      ctx[((size_t)bl * H + kvh * G + g) * DH + t] = __float2bfloat16_rn(c[g]);
 }
 
 // One block per lane: code t (code0 at t = 0, else the argmax of the

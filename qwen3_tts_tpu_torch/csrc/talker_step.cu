@@ -42,7 +42,7 @@
 // every block, and 140 launches per step are what a faster version
 // removes (a persistent kernel with TMA weight streaming).
 
-#include "common.cuh"
+#include "w4a8.cuh"
 
 namespace {
 
@@ -51,56 +51,13 @@ using qtts::bf2f;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int GROUP = 128;             // int4 group along K
-constexpr float INV127 = (float)(1.0 / 127.0);
+constexpr int GROUP = qtts::W4_GROUP;
 
 enum { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
 
-// The block's prologue: rows in [NB, K] bf16 (RMS-normed with weights
-// norm_w when RMS) quantized to int8 xq [NB, K] with per-row scale sx_s:
-// sx = max(amax, 1e-8) * f32(1/127), xq = round_half_even(h / sx).
-template <int NB, bool RMS>
-__device__ __forceinline__ void quantize_rows(
-    const __nv_bfloat16* __restrict__ in, const float* __restrict__ norm_w,
-    int K, float eps, int8_t* xq, float* sx_s, float* red) {
-  const int tid = threadIdx.x;
-  for (int b = 0; b < NB; ++b) {
-    const __nv_bfloat16* xr = in + (size_t)b * K;
-    float inv = 1.f;
-    if (RMS) {
-      float ss = 0.f;
-      for (int k = tid; k < K; k += THREADS) {
-        const float v = bf2f(xr[k]);
-        ss += v * v;
-      }
-      ss = qtts::block_sum<THREADS>(ss, red);
-      inv = 1.0f / sqrtf(ss / (float)K + eps);
-    }
-    float am = 0.f;
-    for (int k = tid; k < K; k += THREADS) {
-      const float v = bf2f(xr[k]);
-      const float h = RMS ? bf16r(__fmul_rn(__fmul_rn(v, inv), norm_w[k])) : v;
-      am = fmaxf(am, fabsf(h));
-    }
-    am = qtts::block_max<THREADS>(am, red);
-    const float sx = __fmul_rn(fmaxf(am, 1e-8f), INV127);
-    if (tid == 0) sx_s[b] = sx;
-    for (int k = tid; k < K; k += THREADS) {
-      const float v = bf2f(xr[k]);
-      const float h = RMS ? bf16r(__fmul_rn(__fmul_rn(v, inv), norm_w[k])) : v;
-      xq[(size_t)b * K + k] = (int8_t)rintf(__fdiv_rn(h, sx));
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ int sext4(uint32_t nibbles) {
-  // four 4-bit two's complement values, one per byte -> four int8
-  return (int)__vsub4(nibbles ^ 0x08080808u, 0x08080808u);
-}
-
 // dst[b, n] for n < N: the w4a8 product of the (normed) input rows with
-// output columns n (and n + N for the SwiGLU pair), then the epilogue.
+// output columns n (and n + N for the SwiGLU pair), then the epilogue
+// (w4a8.cuh: quantize_rows, w4a8_warp_row).
 template <int NB, bool RMS, int EPI>
 __global__ void __launch_bounds__(THREADS)
 w4a8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
@@ -112,73 +69,24 @@ w4a8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* xq = reinterpret_cast<int8_t*>(smem);             // [NB, K]
   int* gd = reinterpret_cast<int*>(smem + (size_t)NB * K);  // [W, R, ng, NB]
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(      // [NB, K]
+      gd + (size_t)WARPS * R * (K / GROUP) * NB);
   __shared__ float red[WARPS];
   __shared__ float sx_s[NB];
 
-  quantize_rows<NB, RMS>(in, norm_w, K, eps, xq, sx_s, red);
+  qtts::quantize_rows<NB, RMS, THREADS, false>(in, norm_w, K, eps, xs, xq,
+                                               sx_s, red);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + warp;
   if (row >= N) return;  // warp-uniform; no block barrier follows
   const int ng = K / GROUP;
-  int* gw = gd + (size_t)warp * R * ng * NB;
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const uint8_t* wrow = wq + (size_t)(row + r * N) * (K / 2);
-    for (int g0 = 0; g0 < ng; g0 += 8) {
-      const int g = g0 + (lane >> 2);
-      int dot[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) dot[b] = 0;
-      if (g < ng) {
-        const int quarter = lane & 3;                 // 32 of the 128 rows
-        const uint4 wv =
-            *reinterpret_cast<const uint4*>(wrow + g * 64 + quarter * 16);
-        const uint32_t ww[4] = {wv.x, wv.y, wv.z, wv.w};
-        const int k0 = g * GROUP + quarter * 32;
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const int4* xv = reinterpret_cast<const int4*>(xq + (size_t)b * K + k0);
-          const int4 x0 = xv[0], x1 = xv[1];
-          const int xs[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            dot[b] = __dp4a(sext4(ww[i] & 0x0F0F0F0Fu), xs[2 * i], dot[b]);
-            dot[b] = __dp4a(sext4((ww[i] >> 4) & 0x0F0F0F0Fu), xs[2 * i + 1],
-                            dot[b]);
-          }
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        dot[b] += __shfl_xor_sync(0xffffffffu, dot[b], 1);
-        dot[b] += __shfl_xor_sync(0xffffffffu, dot[b], 2);
-      }
-      if ((lane & 3) == 0 && g < ng) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b) gw[((size_t)r * ng + g) * NB + b] = dot[b];
-      }
-    }
-  }
-  __syncwarp();
-  if (lane >= NB) return;
-  const int b = lane;
-  const int nb = ng / 2;
   float y[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const __nv_bfloat16* sr = ws + (size_t)(row + r * N) * ng;
-    const int* dr = gw + (size_t)r * ng * NB + b;
-    float acc = 0.f;
-    for (int i = 0; i < nb; ++i) {          // JAX order: i, then nb + i
-      acc = __fadd_rn(acc, __fmul_rn((float)dr[i * NB], bf2f(sr[i])));
-      acc = __fadd_rn(acc, __fmul_rn((float)dr[(nb + i) * NB], bf2f(sr[nb + i])));
-    }
-    y[r] = bf16r(__fmul_rn(acc, sx_s[b]));
-  }
-  __nv_bfloat16* o = dst + (size_t)b * N + row;
+  qtts::w4a8_warp_row<NB, R>(xq, sx_s, K, wq, ws, N, row,
+                             gd + (size_t)warp * R * ng * NB, y);
+  if (lane >= NB) return;
+  __nv_bfloat16* o = dst + (size_t)lane * N + row;
   if (EPI == EPI_STORE) {
     *o = __float2bfloat16_rn(y[0]);
   } else if (EPI == EPI_RESID) {
@@ -265,7 +173,8 @@ cudaError_t gemv(const __nv_bfloat16* in, const float* norm_w, float eps,
                  __nv_bfloat16* dst, cudaStream_t st) {
   constexpr int R = EPI == EPI_SWIGLU ? 2 : 1;
   const size_t smem =
-      (size_t)NB * K + (size_t)WARPS * R * (K / GROUP) * NB * sizeof(int);
+      (size_t)NB * K * (1 + sizeof(__nv_bfloat16)) +
+      (size_t)WARPS * R * (K / GROUP) * NB * sizeof(int);
   auto kernel = w4a8_gemv_kernel<NB, RMS, EPI>;
   cudaError_t e = qtts::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;

@@ -9,16 +9,26 @@ A request is one prompt plan, assembled and prefilled on the device, then
 the bulk loop (runtime/generate._gen_bulk) over 4-frame chunks, each
 decoded to audio by the native codec, with an early exit at EOS.
 
-Decode path: `TtsEngine(fused=None)` (the default) resolves once, at
-construction, as the JAX package resolves its own defaults: the fused
-path on a CUDA device, the exact path on the CPU.  The fused path is the
-JAX package's per-kernel schedule (QTTS_FUSED_CHUNK=0 with the talker and
-predictor kernels at their defaults): one w4a8 talker-step kernel per
-frame and one int8 predictor-frame kernel per frame, on weights the
-kernels quantize once from the bf16 ones.  fused=False is the exact path
-(the JAX package's QTTS_FUSED_*=0): plain weights, op by op.  fused=True
-forces the kernels (their plain versions on CPU tensors) and raises
-ValueError, naming the failed gate, for a config they do not take.
+Decode paths: `TtsEngine(fused=None, chunk=None)` (the defaults) resolve
+once, at construction, as the JAX package resolves its own defaults.
+fused=None is True on a CUDA device (or when chunk=True is asked for),
+False on the CPU; chunk=None is True when fused is and the chunk kernel's
+gate holds at batch 1 and cfg.runtime.frames_per_chunk.  So the card runs
+the chunk path and the CPU the exact path by default:
+
+- chunk (fused=True, chunk=True; the JAX package's default on its
+  accelerator): each 4-frame chunk is ONE launch of the chunk kernel
+  (kernels/chunk_step: sampler, projection, w4a8 predictor, feedback,
+  w4a8 talker step and codec head for every frame);
+- per-kernel (fused=True, chunk=False; QTTS_FUSED_CHUNK=0 in the JAX
+  package): one w4a8 talker-step kernel and one int8 predictor-frame
+  kernel per frame;
+- exact (fused=False; QTTS_FUSED_*=0): plain weights, op by op.
+
+The kernels quantize the bf16 weights once.  fused=True or chunk=True on a
+config their kernels do not take, and chunk=True with fused=False, raise
+ValueError naming the failed gate; nothing falls back.  On the CPU the
+kernels' plain versions run.
 
 No weight files are read yet: without `weights`, every model runs on
 deterministic random weights (development mode) at the configured widths,
@@ -48,7 +58,8 @@ from .models import talker as talker_lib
 from .models.codec import decoder as codec_decoder
 from .models.transformer import dtype_of
 from .prompt import PromptBuilder, PromptPlan
-from .runtime.generate import Generator, SamplerParams, fused_unsupported
+from .runtime.generate import (Generator, SamplerParams,
+                               chunk_unsupported, fused_unsupported)
 from .utils.logging import get_logger, log_event
 from .utils.metrics import GenerationMetrics, Stopwatch
 from .utils.tokenizer import Tokenizer
@@ -97,13 +108,14 @@ class TtsEngine:
     def __init__(self, model_dir="models", config: Optional[EngineConfig] = None,
                  init_seed: int = 0, speakers_dir=None, device="cuda",
                  weights: Optional[Dict] = None,
-                 fused: Optional[bool] = None):
+                 fused: Optional[bool] = None,
+                 chunk: Optional[bool] = None):
         """weights: optional {"assets": Assets, "talker", "predictor",
         "codec_decoder": param dicts} already on `device` (io/from_jax
         builds them from the JAX package's arrays); None draws random
-        development weights from `init_seed`.  fused: the decode path
-        (module docstring); None = fused on a CUDA device, exact on the
-        CPU."""
+        development weights from `init_seed`.  fused, chunk: the decode
+        path (module docstring); None, None = the chunk path on a CUDA
+        device, the exact path on the CPU."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             set_cuda_precision()
@@ -120,12 +132,19 @@ class TtsEngine:
         self.last_metrics: Optional[GenerationMetrics] = None
         self.last_codes: Optional[np.ndarray] = None
 
-        self.fused = (self.device.type == "cuda") if fused is None \
-            else bool(fused)
+        self.fused = (self.device.type == "cuda" or chunk is True) \
+            if fused is None else bool(fused)
+        if chunk and not self.fused:
+            raise ValueError("chunk decode path: needs fused=True")
         why = fused_unsupported(self.config) if self.fused else None
         if why:
             raise ValueError(f"fused decode path: {why}")
-        log_event("decode_path", fused=self.fused, requested=fused,
+        why = chunk_unsupported(self.config) if self.fused else "fused off"
+        if chunk and why:
+            raise ValueError(f"chunk decode path: {why}")
+        self.chunk = why is None if chunk is None else bool(chunk)
+        log_event("decode_path", fused=self.fused, chunk=self.chunk,
+                  requested_fused=fused, requested_chunk=chunk,
                   device=str(self.device))
 
         if weights is None:
@@ -139,7 +158,7 @@ class TtsEngine:
         self.generator = Generator(self.config, self.talker_params,
                                    self.predictor_params, self.assets.pack(),
                                    codec_params=self.codec_decoder_params,
-                                   fused=self.fused)
+                                   fused=self.fused, chunk=self.chunk)
 
         for cand in ([Path(speakers_dir)] if speakers_dir else
                      [self.model_dir / "preset_speakers", Path("speakers")]):

@@ -80,3 +80,71 @@ def talker_w4a8_from_jax(layer_w: Dict[str, Any], device="cpu"
         out[name + "_s"] = to_tensor(layer_w[name + "_s"], device).transpose(
             -1, -2).contiguous().to(torch.bfloat16)
     return out
+
+
+def _int4_from_half_split(a) -> torch.Tensor:
+    """The JAX half-split int4 bytes [L, K/2, N] (byte row r = K-row r in
+    the low nibble, K-row r + K/2 in the high one) as int8 values
+    [L, K, N]."""
+    u = np.asarray(a).astype(np.uint8).astype(np.int16)
+    q = np.concatenate([u & 0xF, (u >> 4) & 0xF], axis=-2)
+    return torch.from_numpy(np.where(q >= 8, q - 16, q).astype(np.int8))
+
+
+def chunk_pack_from_jax(pred_w: Dict[str, Any], extras: Dict[str, Any],
+                        device="cpu") -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's kernels/chunk_step pack {"pred_w", "extras"} from the JAX
+    package's `prep_predictor_w4` and `prep_chunk_extras` arrays.
+
+    pred_w: the q columns of wqkv go back from the JAX kernel's c-major
+    head order (`_head_perm`) to head order; wo keeps its row order, which
+    is the port's too (kernels/chunk_step docstring); the half-split int4
+    bytes are packed again in ops.quant.pack_int4's layout and the f32
+    scales [L, K/128, N] transposed to [L, N, K/128]; norms lose their
+    tiling and middle axis.  extras: the codec head loses its padding rows
+    [2160, 2176), proj_w is transposed back to [1024, 2048], the row
+    vectors lose their leading axis and the rope rows their tiling."""
+    seg = np.asarray(pred_w["seg_q"])
+    h, dh = seg.shape[1], seg.shape[0] // seg.shape[1]
+    hkv = np.asarray(pred_w["seg_k"]).shape[1]
+    dq = h * dh
+    rep = h // hkv
+    perm = np.concatenate([np.arange(dh) + ((i % hkv) * rep + i // hkv) * dh
+                           for i in range(h)])
+
+    def unperm_cols(a):
+        a = np.array(a)
+        a[..., perm] = np.array(a[..., :dq])
+        return a
+
+    pw = {"ln1": to_tensor(np.asarray(pred_w["ln1"])[:, 0], device).float(),
+          "ln2": to_tensor(np.asarray(pred_w["ln2"])[:, 0], device).float(),
+          "qn": to_tensor(np.asarray(pred_w["qn"])[:, 0, :dh],
+                          device).float(),
+          "kn": to_tensor(np.asarray(pred_w["kn"])[:, 0, :dh],
+                          device).float()}
+    for name in ("wqkv", "wo", "gu", "dn"):
+        q = _int4_from_half_split(pred_w[name + "_q"])
+        s = np.asarray(pred_w[name + "_s"], np.float32)
+        if name == "wqkv":
+            q = torch.from_numpy(unperm_cols(q.numpy()))
+            s = unperm_cols(s)
+        pw[name + "_q"] = pack_int4(q).to(device)
+        pw[name + "_s"] = torch.from_numpy(
+            np.ascontiguousarray(s.transpose(0, 2, 1))).to(device)
+    e = {k: np.asarray(v) for k, v in extras.items()}
+    v_codec = 2160
+    pdh = e["pcos"].shape[1] // h
+    ex = {"tfn": e["tfn"][0], "chead_q": e["chead_q"][:v_codec],
+          "chead_s": e["chead_s"][0, :v_codec], "proj_w": e["proj_w"].T,
+          "proj_b": e["proj_b"][0], "tts_pad": e["tts_pad"][0],
+          "pfn": e["pfn"][0], "phead_q": e["phead_q"],
+          "phead_s": e["phead_s"].reshape(-1), "pcos": e["pcos"][:, :pdh],
+          "psin": e["psin"][:, :pdh], "ctab_fb": e["ctab_fb"],
+          "ctab_pred": e["ctab_pred"]}
+    ex = {k: to_tensor(np.ascontiguousarray(v), device)
+          for k, v in ex.items()}
+    for k in ("tfn", "chead_s", "proj_w", "proj_b", "tts_pad", "pfn",
+              "phead_s", "pcos", "psin"):
+        ex[k] = ex[k].float()
+    return {"pred_w": pw, "extras": ex}

@@ -28,8 +28,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "build"
 SOURCES = ("flash_decode.cu", "flash_prefill.cu", "talker_step.cu",
-           "predictor_frame.cu")
-HEADERS = ("common.cuh",)
+           "predictor_frame.cu", "chunk_step.cu")
+HEADERS = ("common.cuh", "w4a8.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,6 +49,9 @@ SIGNATURES = {
                         + [_I] * 9 + [_F, _F, _P],         # L..pc eps scale st
     "qtts_predictor_frame": [_P] * 27                      # predictor_frame.cu
                             + [_I] * 9 + [_F, _F, _P],     # L..V eps scale st
+    "qtts_chunk_step": [_P, _I, _P, _I, _P, _I, _P, _P],   # chunk_step.cu
+    "qtts_sample_threshold": [_P, _P, _P, _I, _I,          # lg u out B V
+                              _F, _F, _F, _P],             # t k p stream
 }
 
 

@@ -1,0 +1,600 @@
+"""A chunk of whole decode frames in one kernel launch.
+
+`gen_chunk_fused` is the port of the Pallas kernel of the same name
+(qwen3_tts_tpu/kernels/chunk_step.py) at batch 1: n_frames (1-8) frames,
+each
+
+  sample code_0 from the carried codec logits (greedy, or the threshold
+  sampler of ops.sampling.sample_threshold with a uniform given by the
+  caller) -> project the talker hidden 2048 -> 1024 (f32, then bf16) ->
+  the predictor's 16 tokens (w4a8 weights with f32 group scales, a 16-slot
+  KV zeroed per frame, greedy window argmax, next input
+  ctab_pred[t][code_t]) -> feedback = f32 sum of the 16 codec_tables rows
+  + tts_pad, then bf16 -> the talker's w4a8 decode step (talker_step's
+  weights), writing frame f's k/v IN PLACE at slot write_idx + f -> the
+  final norm (kept in f32 as the hidden) and the int8 codec head,
+  bf16(h) . bf16(q) x row scale in f32, over rows [0, 2160).
+
+On a CUDA tensor it makes ONE cooperative launch of `csrc/chunk_step.cu`;
+on a CPU tensor it runs `gen_chunk_plain`, the same function in plain
+PyTorch.  There is no other route: a CUDA input the kernel does not take,
+or a cooperative launch the card refuses, raises.
+
+The plain version follows the JAX kernel op for op: `_qmm4` for every
+predictor and talker matmul (talker_step.qmm4_plain, with the predictor's
+f32 scales), RMSNorm and rope as in talker_step, the predictor's attention
+over slots s <= t with scores scaled after the dot.  Talker attention runs
+in the JAX kernel's order: the cache prefix [0, write_idx) with slot c
+visible iff c < length or c >= prompt_cap, in 512-slot tiles with an
+online softmax, then the chunk's own frames write_idx .. write_idx + f as
+one more merge.  The CUDA kernel computes the same function with the
+same roundings to bf16, but its f32 sums run in another order: the
+prefix in talker_step.cu's 128-slot tiles (so the softmax rescales at
+other points), and the dot products, norms and feedback sum in its lanes'
+order.  That is the drift chip_smoke.py and tests/test_torch_cuda.py
+hold it to.
+
+The JAX kernel packs the predictor's q heads in "c-major" order (q head
+j * rep + c of kv head j at position c * n_kv_heads + j; `_head_perm`) and
+only then quantizes wo to int4 in groups of 128 input rows: that order
+decides which heads share a group scale.  The port keeps the q columns of
+wqkv in head order and writes the attention context in the c-major order,
+so wo's rows and groups are the JAX kernel's; the segment matrices, tiled
+norms and lane rolls of the TPU layout are not carried over.  The codec
+head needs no padding to 2176 rows.  The JAX batched forms (8/16 lanes,
+24/32 at <= 4 frames) are not ported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.quant import (INT4_GROUP, pack_int4, quantize_head,
+                         quantize_int4_grouped)
+from ..ops.rope import inv_frequencies
+from ..ops.sampling import sample_threshold
+from . import predictor_frame as predictor_kernel
+from . import talker_step as talker_kernel
+from .talker_step import _rms, _rotate_half, qmm4_plain
+
+N_TOKENS = 16
+WINDOW = 2048
+V_CODEC = 2160            # sampled logit range [0, 2160), prompt.rs:5-16
+MAX_FRAMES = 8
+PREFIX_TILE = 512         # the JAX kernel's KV_CHUNK
+NEG_INF = -1e30
+PRED_HEAD_DIM = 64        # the kernel's predictor attention
+
+
+def unsupported(tcfg, pcfg, batch: int, n_frames: int) -> Optional[str]:
+    """The first gate of the chunk kernel that the configs fail at
+    (batch, n_frames), or None: the JAX gate at batch 1 plus what the
+    port's kernel needs."""
+    g2 = 2 * INT4_GROUP
+    gates = (
+        (batch == 1, f"batch {batch} != 1 (the batched forms are not "
+                     "ported)"),
+        (1 <= n_frames <= MAX_FRAMES,
+         f"n_frames {n_frames} outside [1, {MAX_FRAMES}]"),
+        (pcfg.d_model % g2 == 0, f"predictor d_model {pcfg.d_model} % {g2}"
+                                 " != 0"),
+        (pcfg.n_heads * pcfg.head_dim % g2 == 0,
+         f"predictor n_heads * head_dim {pcfg.n_heads * pcfg.head_dim} % "
+         f"{g2} != 0"),
+        (pcfg.d_ff % g2 == 0, f"predictor d_ff {pcfg.d_ff} % {g2} != 0"),
+        (pcfg.n_residual_codebooks == N_TOKENS - 1,
+         f"n_residual_codebooks {pcfg.n_residual_codebooks} != 15"),
+        (pcfg.head_dim == PRED_HEAD_DIM,
+         f"predictor head_dim {pcfg.head_dim} != {PRED_HEAD_DIM}"),
+    )
+    why = talker_kernel.unsupported(tcfg, 1) \
+        or predictor_kernel.unsupported(pcfg, 1)
+    if why:
+        return f"chunk_step: {why}"
+    for ok, why in gates:
+        if not ok:
+            return f"chunk_step: {why}"
+    return None
+
+
+def supported(tcfg, pcfg, batch: int, n_frames: int) -> bool:
+    return unsupported(tcfg, pcfg, batch, n_frames) is None
+
+
+def _c_major(h: int, hkv: int) -> List[int]:
+    """The q head at each position of the c-major order."""
+    rep = h // hkv
+    return [(i % hkv) * rep + i // hkv for i in range(h)]
+
+
+def prep_predictor_w4(pcfg, params) -> Dict[str, Any]:
+    """The predictor in the chunk kernel's form, made once: f32 norms
+    (q/k norms [L, head_dim]) and per matrix `<m>_q` uint8 [L, N, K/2]
+    (ops.quant.pack_int4) with `<m>_s` f32 [L, N, K/128].  wo's input
+    rows are in the c-major head order (module docstring)."""
+    lw = params["layers"]
+    h, hkv, dh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
+    rows = torch.tensor(np.concatenate(
+        [np.arange(dh) + head * dh for head in _c_major(h, hkv)]),
+        device=lw["wo"].device)
+
+    def q4(w):
+        packed, scales = [], []
+        for layer in range(w.shape[0]):
+            q, s = quantize_int4_grouped(w[layer], scale_dtype=torch.float32)
+            packed.append(pack_int4(q))
+            scales.append(s.t().contiguous())
+        return torch.stack(packed), torch.stack(scales)
+
+    out = {"ln1": lw["ln1"].float().contiguous(),
+           "ln2": lw["ln2"].float().contiguous(),
+           "qn": lw["q_norm"].float().contiguous(),
+           "kn": lw["k_norm"].float().contiguous()}
+    for name, w in (("wqkv", lw["wqkv"]), ("wo", lw["wo"][:, rows]),
+                    ("gu", lw["w_gate_up"]), ("dn", lw["w_down"])):
+        out[name + "_q"], out[name + "_s"] = q4(w)
+    return out
+
+
+def prep_chunk_extras(tcfg, pcfg, talker_params, predictor_params,
+                      assets_pack) -> Dict[str, Any]:
+    """The kernel's other static inputs, made once: the talker's final
+    norm; the codec head as int8 with f32 row scales over rows [0, 2160);
+    proj_w [1024, 2048] and proj_b in f32; tts_pad; the predictor's final
+    norm; its lm-head as int8 with f32 row scales; its rope rows
+    pcos/psin [16, head_dim]; the feedback tables as stored; tables
+    0..14 of codec_tables_1024 in bf16."""
+    hq, hs = quantize_head(talker_params["codec_head"][:V_CODEC])
+    pq, ps = quantize_head(predictor_params["lm_head"])
+    dev = hq.device
+    inv = inv_frequencies(pcfg.head_dim, pcfg.rope_theta)
+    ang = np.arange(N_TOKENS, dtype=np.float32)[:, None] * inv[None, :]
+    return {
+        "tfn": talker_params["final_norm"].float().contiguous(),
+        "chead_q": hq.contiguous(), "chead_s": hs.contiguous(),
+        "proj_w": assets_pack["proj_w"].float().contiguous(),
+        "proj_b": assets_pack["proj_b"].float().contiguous(),
+        "tts_pad": assets_pack["tts_pad"].float().contiguous(),
+        "pfn": predictor_params["final_norm"].float().contiguous(),
+        "phead_q": pq.contiguous(), "phead_s": ps.contiguous(),
+        "pcos": torch.from_numpy(np.concatenate(
+            [np.cos(ang), np.cos(ang)], -1)).to(dev),
+        "psin": torch.from_numpy(np.concatenate(
+            [np.sin(ang), np.sin(ang)], -1)).to(dev),
+        "ctab_fb": assets_pack["codec_tables"].contiguous(),
+        "ctab_pred": assets_pack["codec_tables_1024"][:N_TOKENS - 1].to(
+            torch.bfloat16).contiguous(),
+    }
+
+
+# ------------------------------------------------------------- plain version
+def _predict_plain(pcfg, w, ex, px, code0, taps, force=None):
+    """The predictor phase: px [B, D] bf16, code0 [B] -> codes [B, 16].
+    With `force` [B, 16], each next input is taken from force's code where
+    the frame's own pick (which it returns) differs."""
+    b = px.shape[0]
+    h, hkv, dh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
+    dq, dkv, eps, L = h * dh, hkv * dh, pcfg.rms_eps, pcfg.n_layers
+    dev = px.device
+    kc = torch.zeros(L, b, hkv, N_TOKENS, dh, dtype=torch.bfloat16,
+                     device=dev)
+    vc = torch.zeros_like(kc)
+    slots = torch.arange(N_TOKENS, device=dev)
+    tables = ex["ctab_pred"]
+    x = px
+    codes = [code0.to(torch.int32)]
+    for t in range(N_TOKENS):
+        cos, sin = ex["pcos"][t], ex["psin"][t]
+        for layer in range(L):
+            def mm(v, name):
+                return qmm4_plain(v, w[name + "_q"][layer],
+                                  w[name + "_s"][layer])
+
+            hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
+            qkv = mm(hn, "wqkv")
+            q = qkv[:, :dq].reshape(b, h, dh)
+            k = qkv[:, dq:dq + dkv].reshape(b, hkv, dh)
+            v = qkv[:, dq + dkv:].reshape(b, hkv, dh)
+            q = _rms(q, w["qn"][layer], eps).to(torch.bfloat16).float()
+            k = _rms(k, w["kn"][layer], eps).to(torch.bfloat16).float()
+            q = (q * cos + _rotate_half(q) * sin).to(torch.bfloat16)
+            k = (k * cos + _rotate_half(k) * sin).to(torch.bfloat16)
+            kc[layer, :, :, t] = k
+            vc[layer, :, :, t] = v
+            qg = q.float().reshape(b, hkv, h // hkv, dh)
+            scores = torch.einsum("bkgd,bksd->bkgs", qg,
+                                  kc[layer].float()) * (dh ** -0.5)
+            scores = scores.masked_fill(slots > t, NEG_INF)
+            p = torch.softmax(scores, dim=-1)
+            ctx = torch.einsum("bkgs,bksd->bkgd", p, vc[layer].float())
+            ctx = ctx.transpose(1, 2).reshape(b, dq)           # c-major
+            x = x + mm(ctx.to(torch.bfloat16), "wo")
+            hn2 = _rms(x, w["ln2"][layer], eps).to(torch.bfloat16)
+            gu = mm(hn2, "gu")
+            f = gu.shape[-1] // 2
+            ff = F.silu(gu[:, :f].float()).to(torch.bfloat16) * gu[:, f:]
+            x = x + mm(ff, "dn")
+        if t >= 1:
+            hf = _rms(x, ex["pfn"], eps).to(torch.bfloat16)
+            lo = (t - 1) * WINDOW
+            logits = (hf.float() @ ex["phead_q"][lo:lo + WINDOW].float().t()
+                      ) * ex["phead_s"][lo:lo + WINDOW]
+            if taps is not None:
+                taps.append(logits)
+            codes.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        if t < N_TOKENS - 1:
+            code = codes[t] if force is None else force[:, t]
+            x = tables[t][code.long().clamp(0, tables.shape[1] - 1)].to(
+                torch.bfloat16)
+    return torch.stack(codes, dim=1)
+
+
+def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
+    """q [B, H, Dh] bf16 against one layer's cache [B, Hkv, C, Dh]: the
+    prefix [0, start) in `tile`-slot tiles, then the chunk's frames
+    start .. start + f (already written) as one more merge."""
+    b, h, dh = q.shape
+    hkv, cap = kc.shape[1], kc.shape[2]
+    qs = q.float().reshape(b, hkv, h // hkv, dh) * (dh ** -0.5)
+    m = torch.full((b, hkv, h // hkv, 1), NEG_INF, device=q.device)
+    s = torch.zeros_like(m)
+    acc = torch.zeros_like(qs)
+    lens = lengths.long()[:, None]
+    for c0 in range(0, start, tile):
+        c1 = min(c0 + tile, cap)
+        c = torch.arange(c0, c1, device=q.device)[None, :]
+        sb = torch.einsum("bkgd,bkcd->bkgc", qs, kc[:, :, c0:c1].float())
+        valid = (c < lens) | ((c >= prompt_cap) & (c < start))
+        sb = torch.where(valid[:, None, None, :], sb,
+                         torch.tensor(NEG_INF, device=q.device))
+        mb = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        pe = torch.exp(sb - mb)
+        alpha = torch.exp(m - mb)
+        acc = acc * alpha + torch.einsum("bkgc,bkcd->bkgd", pe,
+                                         vc[:, :, c0:c1].float())
+        s = s * alpha + pe.sum(dim=-1, keepdim=True)
+        m = mb
+    kn = kc[:, :, start:start + f + 1].float()
+    vn = vc[:, :, start:start + f + 1].float()
+    sc = torch.einsum("bkgd,bkcd->bkgc", qs, kn)
+    m_f = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+    p = torch.exp(sc - m_f)
+    alpha = torch.exp(m - m_f)
+    acc = acc * alpha + torch.einsum("bkgc,bkcd->bkgd", p, vn)
+    s = s * alpha + p.sum(dim=-1, keepdim=True)
+    ctx = acc / torch.clamp(s, min=1e-30)
+    return ctx.reshape(b, h * dh).to(torch.bfloat16)
+
+
+def _talker_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths, start, f,
+                  prompt_cap, tile):
+    """The talker's layers for frame f: k/v written at slot start + f."""
+    b = x.shape[0]
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dq, dkv, eps = h * dh, hkv * dh, cfg.rms_eps
+    cos, sin = cos.float()[:, None, :], sin.float()[:, None, :]
+    for layer in range(cfg.n_layers):
+        def mm(v, name):
+            return qmm4_plain(v, w[name + "_q"][layer], w[name + "_s"][layer])
+
+        hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
+        qkv = mm(hn, "wqkv")
+        q = qkv[:, :dq].reshape(b, h, dh)
+        k = qkv[:, dq:dq + dkv].reshape(b, hkv, dh)
+        v = qkv[:, dq + dkv:].reshape(b, hkv, dh)
+        q = _rms(q, w["qn"][layer], eps).to(torch.bfloat16).float()
+        k = _rms(k, w["kn"][layer], eps).to(torch.bfloat16).float()
+        q = (q * cos + _rotate_half(q) * sin).to(torch.bfloat16)
+        k = (k * cos + _rotate_half(k) * sin).to(torch.bfloat16)
+        cache_k[layer][:, :, start + f] = k
+        cache_v[layer][:, :, start + f] = v
+        ctx = _chunk_attend_plain(q, cache_k[layer], cache_v[layer],
+                                  lengths, start, f, prompt_cap, tile)
+        x = x + mm(ctx, "wo")
+        hn2 = _rms(x, w["ln2"][layer], eps).to(torch.bfloat16)
+        gu = mm(hn2, "gu")
+        n = gu.shape[-1] // 2
+        ff = F.silu(gu[:, :n].float()).to(torch.bfloat16) * gu[:, n:]
+        x = x + mm(ff, "dn")
+    return x
+
+
+def _feedback(tables, codes, tts_pad):
+    """bf16(sum_q tables[q][codes[:, q]] (f32) + tts_pad)."""
+    n_q, rows = tables.shape[0], tables.shape[1]
+    idx = (torch.arange(n_q, device=codes.device)[None, :] * rows
+           + codes.long().clamp(0, rows - 1))
+    fb = tables.reshape(n_q * rows, -1)[idx].float().sum(dim=1)
+    return (fb + tts_pad).to(torch.bfloat16)
+
+
+def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
+                    cache_v, lengths, write_idx, cos, sin, u, sampler,
+                    prompt_cap: int,
+                    taps: Optional[List[torch.Tensor]] = None,
+                    force_codes: Optional[torch.Tensor] = None,
+                    prefix_tile: int = PREFIX_TILE):
+    """`gen_chunk_fused` in plain PyTorch (same arguments and effects).
+
+    Two arguments serve the kernel's checks.  force_codes [1, F, 16]
+    int32: the frames go on with these codes (the predictor's next inputs,
+    the feedback) where their own picks differ, and the picks are what it
+    returns; it holds the plain version on the kernel's path past a near
+    tie of two logits.  prefix_tile: the cache prefix's tile (the JAX
+    kernel's 512 by default); another tile is an equally valid order of
+    the same sums, so the two results differ only by the order drift."""
+    n_frames = u.shape[0]
+    start = int(write_idx[0])
+    if start + n_frames > cache_k.shape[3]:
+        raise ValueError(f"chunk_step: slots {start}..{start + n_frames} "
+                         f"past the cache capacity {cache_k.shape[3]}")
+    temperature, top_k, top_p = sampler
+    lg, hid = logits.float(), hidden.float()
+    codes = []
+    for f in range(n_frames):
+        code0 = sample_threshold(lg, u[f], temperature, top_k, top_p)
+        px = (hid @ ex["proj_w"].t() + ex["proj_b"]).to(torch.bfloat16)
+        force = None if force_codes is None else force_codes[:, f]
+        fc = _predict_plain(pcfg, pw, ex, px, code0, taps, force)
+        x = _feedback(ex["ctab_fb"], fc if force is None else force,
+                      ex["tts_pad"])
+        x = _talker_plain(tcfg, tw, x, cos[f], sin[f], cache_k, cache_v,
+                          lengths, start, f, prompt_cap, prefix_tile)
+        hid = _rms(x, ex["tfn"], tcfg.rms_eps)
+        lg = (hid.to(torch.bfloat16).float() @ ex["chead_q"].float().t()
+              ) * ex["chead_s"]
+        codes.append(fc)
+    return torch.stack(codes, dim=1), lg, hid
+
+
+# ------------------------------------------------------------------- kernel
+# argument order of csrc/chunk_step.cu's ChunkArgs (pointers, ints, floats)
+_TALKER = ("ln1", "ln2", "qn", "kn", "wqkv_q", "wqkv_s", "wo_q", "wo_s",
+           "gu_q", "gu_s", "dn_q", "dn_s")
+_EXTRAS = ("tfn", "chead_q", "chead_s", "proj_w", "proj_b", "tts_pad",
+           "ctab_fb", "ctab_pred", "pfn", "phead_q", "phead_s", "pcos",
+           "psin")
+MAX_BLOCKS_PER_SM = 8      # 256-thread blocks: 2048 threads per SM (the
+                           # argmax scratch holds one slot per block)
+
+
+def _check(tcfg, pcfg, ex, tensors):
+    L, d, h, hkv, dh, f = (tcfg.n_layers, tcfg.d_model, tcfg.n_heads,
+                           tcfg.n_kv_heads, tcfg.head_dim, tcfg.d_ff)
+    LP, dp, ph, phkv, pdh, pf = (pcfg.n_layers, pcfg.d_model, pcfg.n_heads,
+                                 pcfg.n_kv_heads, pcfg.head_dim, pcfg.d_ff)
+    nf, cap, g = tensors["u"].shape[0], tensors["cache_k"].shape[3], \
+        INT4_GROUP
+    f32, i32, bf, u8, i8 = (torch.float32, torch.int32, torch.bfloat16,
+                            torch.uint8, torch.int8)
+    rows_fb = ex["ctab_fb"].shape[1]
+    want = {
+        "logits": ((1, V_CODEC), f32), "hidden": ((1, d), f32),
+        "cos": ((nf, 1, dh), f32), "sin": ((nf, 1, dh), f32),
+        "u": ((nf, 1), f32), "lengths": ((1,), i32), "write_idx": ((1,), i32),
+        "cache_k": ((L, 1, hkv, cap, dh), bf),
+        "cache_v": ((L, 1, hkv, cap, dh), bf),
+        "tfn": ((d,), f32), "chead_q": ((V_CODEC, d), i8),
+        "chead_s": ((V_CODEC,), f32), "proj_w": ((dp, d), f32),
+        "proj_b": ((dp,), f32), "tts_pad": ((d,), f32),
+        "ctab_fb": ((N_TOKENS, rows_fb, d), ex["ctab_fb"].dtype),
+        "ctab_pred": ((N_TOKENS - 1, ex["ctab_pred"].shape[1], dp), bf),
+        "pfn": ((dp,), f32), "phead_q": (((N_TOKENS - 1) * WINDOW, dp), i8),
+        "phead_s": (((N_TOKENS - 1) * WINDOW,), f32),
+        "pcos": ((N_TOKENS, pdh), f32), "psin": ((N_TOKENS, pdh), f32)}
+    for pre, (layers, D, H, HKV, DH, FF, sdt) in (
+            ("t_", (L, d, h, hkv, dh, f, bf)),
+            ("p_", (LP, dp, ph, phkv, pdh, pf, f32))):
+        nqkv, dq = (H + 2 * HKV) * DH, H * DH
+        want.update({
+            pre + "ln1": ((layers, D), f32), pre + "ln2": ((layers, D), f32),
+            pre + "qn": ((layers, DH), f32), pre + "kn": ((layers, DH), f32),
+            pre + "wqkv_q": ((layers, nqkv, D // 2), u8),
+            pre + "wqkv_s": ((layers, nqkv, D // g), sdt),
+            pre + "wo_q": ((layers, D, dq // 2), u8),
+            pre + "wo_s": ((layers, D, dq // g), sdt),
+            pre + "gu_q": ((layers, 2 * FF, D // 2), u8),
+            pre + "gu_s": ((layers, 2 * FF, D // g), sdt),
+            pre + "dn_q": ((layers, D, FF // 2), u8),
+            pre + "dn_s": ((layers, D, FF // g), sdt)})
+    if ex["ctab_fb"].dtype not in (f32, bf):
+        raise ValueError("chunk_step: ctab_fb must be f32 or bf16")
+    dev = tensors["logits"].device
+    for name, (shape, dtype) in want.items():
+        t = tensors[name]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"chunk_step: {name} must be {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"chunk_step: {name} must be contiguous and "
+                             "16-byte aligned")
+        if t.device != dev:
+            raise ValueError("chunk_step: all inputs must be on one device")
+
+
+def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
+                    cache_v, lengths, write_idx, cos, sin, u, sampler,
+                    prompt_cap: int,
+                    taps: Optional[List[torch.Tensor]] = None,
+                    clocks: Optional[torch.Tensor] = None,
+                    scratch: Optional[Dict[str, torch.Tensor]] = None):
+    """Run u.shape[0] whole frames at batch 1.
+
+    tw: talker_step.prep_layer_weights; pw: prep_predictor_w4; ex:
+    prep_chunk_extras; logits [1, 2160] f32 and hidden [1, 2048] f32 carried
+    from the previous frame; cache_k/v [L, 1, Hkv, C, Dh] bf16, written IN
+    PLACE at slots write_idx .. write_idx + F - 1; lengths and write_idx
+    [1] int32 (read on the device); cos/sin [F, 1, head_dim] f32 talker
+    rope rows of the F positions; u [F, 1] f32 uniforms; sampler
+    (temperature, top_k, top_p).  Returns (codes [1, F, 16] int32,
+    logits [1, 2160] f32, hidden [1, 2048] f32).  `taps`, when given, gets
+    the predictor's f32 window logits [1, 2048] appended (15 per frame);
+    without it the kernel stores none.  `scratch` (chunk_scratch; made
+    for the call when None) is kept by a caller that decodes chunk after
+    chunk.  The cooperative grid holds as many blocks as can be resident (at most
+    MAX_BLOCKS_PER_SM per SM).  `clocks`, an int64 CUDA tensor of
+    len(phase_labels(...)) + 1 entries, gets block 0's SM clock at the
+    kernel's start and as it leaves each grid barrier (the kernel's
+    phases, for measurements).  Each kernel launch adds one to
+    `gen_chunk_fused.launches` and leaves its grid (blocks, blocks per SM)
+    in `gen_chunk_fused.grid`."""
+    if hidden.device.type == "cpu":
+        return gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden,
+                               cache_k, cache_v, lengths, write_idx, cos,
+                               sin, u, sampler, prompt_cap, taps)
+    if hidden.device.type != "cuda":
+        raise ValueError(f"chunk_step runs on cuda or cpu, not "
+                         f"{hidden.device}")
+    n_frames = u.shape[0] if u.dim() else 0
+    why = unsupported(tcfg, pcfg, hidden.shape[0], n_frames)
+    if why:
+        raise ValueError(why)
+    tensors = dict(logits=logits, hidden=hidden, cos=cos, sin=sin, u=u,
+                   lengths=lengths, write_idx=write_idx, cache_k=cache_k,
+                   cache_v=cache_v)
+    tensors.update({"t_" + k: tw[k] for k in _TALKER})
+    tensors.update({"p_" + k: pw[k] for k in _TALKER})
+    tensors.update({k: ex[k] for k in _EXTRAS})
+    _check(tcfg, pcfg, ex, tensors)
+    if clocks is not None and (
+            clocks.dtype != torch.int64 or clocks.device != hidden.device
+            or clocks.numel() != len(phase_labels(tcfg, pcfg, n_frames)) + 1):
+        raise ValueError("chunk_step: clocks must be int64 on the inputs' "
+                         "device, one entry per phase + 1")
+    dev = hidden.device
+    spec = _scratch_spec(tcfg, pcfg, dev)
+    if scratch is None:
+        scratch = chunk_scratch(tcfg, pcfg, dev)
+    for name, (shape, dtype) in spec.items():
+        t = scratch.get(name)
+        if (t is None or tuple(t.shape) != shape or t.dtype != dtype
+                or t.device != dev):
+            raise ValueError(f"chunk_step: scratch {name} must be {dtype} "
+                             f"{shape} on {dev} (chunk_scratch)")
+    from .build import LIBRARY, check
+    d, h, hkv, dh, ff = (tcfg.d_model, tcfg.n_heads, tcfg.n_kv_heads,
+                         tcfg.head_dim, tcfg.d_ff)
+    dp, ph, phkv, pdh, pff = (pcfg.d_model, pcfg.n_heads, pcfg.n_kv_heads,
+                              pcfg.head_dim, pcfg.d_ff)
+    out = dict(
+        codes=torch.empty(n_frames, N_TOKENS, dtype=torch.int32, device=dev),
+        logits_out=torch.empty(1, V_CODEC, dtype=torch.float32, device=dev),
+        hidden_out=torch.empty(1, d, dtype=torch.float32, device=dev))
+    tap_buf = None if taps is None else torch.empty(
+        n_frames, N_TOKENS - 1, WINDOW, dtype=torch.float32, device=dev)
+    ptrs = [logits, hidden, cos, sin, u, lengths, write_idx]
+    ptrs += [tw[k] for k in _TALKER] + [cache_k, cache_v]
+    ptrs += [ex[k] for k in _EXTRAS] + [pw[k] for k in _TALKER]
+    ptrs += list(out.values()) + [tap_buf]
+    ptrs += [scratch[k] for k in spec]
+    ints = [n_frames, tcfg.n_layers, d, h, hkv, dh, ff, cache_k.shape[3],
+            int(prompt_cap), pcfg.n_layers, dp, ph, phkv, pdh, pff,
+            ex["ctab_fb"].shape[1], ex["ctab_pred"].shape[1], V_CODEC,
+            int(ex["ctab_fb"].dtype == torch.bfloat16),
+            MAX_BLOCKS_PER_SM]
+    temperature, top_k, top_p = sampler
+    flts = [tcfg.rms_eps, pcfg.rms_eps, temperature, top_k, top_p,
+            dh ** -0.5, pdh ** -0.5]
+    c_ptrs = (ctypes.c_void_p * (len(ptrs) + 1))(
+        *[None if t is None else t.data_ptr() for t in ptrs],
+        clocks.data_ptr() if clocks is not None else None)
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_flts = (ctypes.c_float * len(flts))(*flts)
+    grid = (ctypes.c_int * 2)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = LIBRARY.get().qtts_chunk_step(c_ptrs, len(c_ptrs), c_ints,
+                                           len(ints), c_flts, len(flts),
+                                           grid, stream)
+    check(rc, "gen_chunk_fused")
+    gen_chunk_fused.launches += 1
+    gen_chunk_fused.grid = (grid[0], grid[1])
+    if taps is not None:
+        taps.extend(t[None] for t in tap_buf.reshape(-1, WINDOW))
+    return (out["codes"][None], out["logits_out"], out["hidden_out"])
+
+
+gen_chunk_fused.launches = 0
+gen_chunk_fused.grid = (0, 0)
+
+
+def _scratch_spec(tcfg, pcfg, device) -> Dict[str, Any]:
+    """{name: (shape, dtype)} of the kernel's scratch, in the order of
+    csrc/chunk_step.cu's Args."""
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    h, hkv, dh = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
+    ph, phkv, pdh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
+    slots = (torch.cuda.get_device_properties(device).multi_processor_count
+             * MAX_BLOCKS_PER_SM)
+    kv = (pcfg.n_layers, phkv, N_TOKENS, pdh)
+    return {"x": ((tcfg.d_model,), bf), "qkv": (((h + 2 * hkv) * dh,), bf),
+            "ctx": ((h * dh,), bf), "ff": ((tcfg.d_ff,), bf),
+            "px": ((pcfg.d_model,), bf),
+            "pqkv": (((ph + 2 * phkv) * pdh,), bf), "pctx": ((ph * pdh,), bf),
+            "pff": ((pcfg.d_ff,), bf), "pk": (kv, bf), "pv": (kv, bf),
+            "best_v": ((slots,), f32), "best_i": ((slots,), i32),
+            "barrier": ((2,), i32)}
+
+
+def chunk_scratch(tcfg, pcfg, device) -> Dict[str, torch.Tensor]:
+    """The kernel's scratch on a CUDA device, made once and passed to
+    every `gen_chunk_fused` call of one stream: the activations, the
+    predictor's 16-slot KV, the blocks' argmax slots and the grid barrier's
+    two counters (made zero here; the last block to leave a launch sets
+    them back to zero)."""
+    device = torch.device(device)
+    out = {name: torch.empty(shape, dtype=dtype, device=device)
+           for name, (shape, dtype) in _scratch_spec(tcfg, pcfg,
+                                                     device).items()}
+    out["barrier"].zero_()
+    return out
+
+
+def phase_labels(tcfg, pcfg, n_frames: int) -> List[str]:
+    """The kernel's phases in launch order (one grid barrier after each):
+    per frame "sample+project", per predictor token and layer "p_qkv",
+    "p_attn", "p_wo", "p_gate_up", "p_down" and after tokens 1..15
+    "p_head", then "feedback", per talker layer "t_qkv", "t_attn", "t_wo",
+    "t_gate_up", "t_down", and "codec_head"."""
+    layer = ("qkv", "attn", "wo", "gate_up", "down")
+    frame = ["sample+project"]
+    for tok in range(N_TOKENS):
+        frame += [f"p_{n}" for n in layer] * pcfg.n_layers
+        frame += ["p_head"] if tok else []
+    frame += ["feedback"] + [f"t_{n}" for n in layer] * tcfg.n_layers
+    return (frame + ["codec_head"]) * n_frames
+
+
+def sample_fused(logits, u, temperature: float, top_k: int,
+                 top_p: float) -> torch.Tensor:
+    """The chunk kernel's sampler alone (the device function that
+    `gen_chunk_fused` runs in its block 0), one block per row: logits
+    [B, V] f32, u [B] f32 -> codes [B] int32.  On a CPU tensor it runs
+    ops.sampling.sample_threshold.  Used by the tests and chip_smoke.py;
+    the decode path reaches the sampler only inside the chunk kernel."""
+    if logits.device.type == "cpu":
+        return sample_threshold(logits, u, temperature, top_k, top_p)
+    if logits.device.type != "cuda":
+        raise ValueError(f"sample_fused runs on cuda or cpu, not "
+                         f"{logits.device}")
+    b, v = logits.shape
+    if (logits.dtype != torch.float32 or u.dtype != torch.float32
+            or tuple(u.shape) != (b,) or not logits.is_contiguous()
+            or not u.is_contiguous() or u.device != logits.device
+            or not 0 < v <= 4096):
+        raise ValueError("sample_fused: logits [B, V <= 4096] f32 and u [B] "
+                         "f32, contiguous, on one device")
+    from .build import LIBRARY, check
+    out = torch.empty(b, dtype=torch.int32, device=logits.device)
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        rc = LIBRARY.get().qtts_sample_threshold(
+            logits.data_ptr(), u.data_ptr(), out.data_ptr(), b, v,
+            float(temperature), float(top_k), float(top_p), stream)
+    check(rc, "sample_fused")
+    return out

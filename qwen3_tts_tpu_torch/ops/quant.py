@@ -7,9 +7,13 @@ those weights themselves, once, with the JAX package's math:
 
 - `quantize_weight`: symmetric per-output-column int8 (the predictor
   kernel's weights, and per row for its lm-head);
+- `quantize_head`: per-row int8 of an LM head (the chunk kernel's codec
+  head and predictor lm-head);
 - `quantize_int4_grouped`: symmetric int4 in groups of INT4_GROUP = 128
   along the contraction axis, scales stored as bf16 (the talker step's
-  w4a8 weights; `qs4` of qwen3_tts_tpu/kernels/talker_step.py).
+  w4a8 weights; `qs4` of qwen3_tts_tpu/kernels/talker_step.py) or as f32
+  (the chunk kernel's predictor; `_pack_w4` of
+  qwen3_tts_tpu/kernels/chunk_step.py): the integers are the same.
 
 Packed int4 layout of the port (`pack_int4` / `unpack_int4`).  A weight
 [..., K, N] (x @ w) is stored OUTPUT-MAJOR as uint8 [..., N, K/2]: one
@@ -63,15 +67,21 @@ def quantize_weight(w: torch.Tensor, axis: int = -2
     return q, scale.squeeze(axis)
 
 
-def quantize_int4_grouped(w: torch.Tensor, group: int = INT4_GROUP
+def quantize_head(head: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LM head [vocab, d] -> (int8 [vocab, d], f32 per-row scales [vocab])."""
+    return quantize_weight(head, axis=-1)
+
+
+def quantize_int4_grouped(w: torch.Tensor, group: int = INT4_GROUP,
+                          scale_dtype: torch.dtype = torch.bfloat16
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric grouped int4 of w [..., K, N] (contraction axis K).
 
     Per group of `group` K rows and output column: scale = max(amax,
     1e-8) / 7 in f32, q = clip(round_half_even(w / scale), -7, 7).
-    Returns (q int8 [..., K, N] with values in [-7, 7], scales bf16
-    [..., K/group, N]): the quantization uses the f32 scale, the product
-    the bf16 one, as in the JAX package."""
+    Returns (q int8 [..., K, N] with values in [-7, 7], scales
+    `scale_dtype` [..., K/group, N]): the quantization uses the f32
+    scale, the product the stored one, as in the JAX package."""
     wf = w.float()
     *lead, k, n = wf.shape
     if k % group:
@@ -80,7 +90,7 @@ def quantize_int4_grouped(w: torch.Tensor, group: int = INT4_GROUP
     amax = wg.abs().amax(dim=-2, keepdim=True)
     scale = torch.clamp(amax, min=1e-8) / 7.0
     q = torch.clamp(torch.round(wg / scale), -7, 7).to(torch.int8)
-    return q.reshape(*lead, k, n), scale.squeeze(-2).to(torch.bfloat16)
+    return q.reshape(*lead, k, n), scale.squeeze(-2).to(scale_dtype)
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,11 @@ smallest prefix whose cumulative probability reaches top_p, including the
 token that crosses it (and always the top token).  The draw is an
 inverse-CDF draw from a uniform of the caller's `torch.Generator`: the
 same filtered distribution as the JAX package, not the same draws.
+
+`sample_threshold` is the chunk kernel's sampler (`_sample_inkernel` of
+qwen3_tts_tpu/kernels/chunk_step.py) in plain PyTorch: no sort, thresholds
+found by bisection, the uniform given by the caller.  It is the plain
+version of the sampler inside csrc/chunk_step.cu.
 """
 
 from __future__ import annotations
@@ -60,3 +65,51 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator,
     n_kept = (probs > 0).sum(-1, keepdim=True)
     rank = torch.minimum(rank, n_kept - 1)
     return torch.gather(order, -1, rank)[..., 0].to(torch.int32)
+
+
+def sample_threshold(logits: torch.Tensor, u: torch.Tensor,
+                     temperature: float, top_k: int, top_p: float
+                     ) -> torch.Tensor:
+    """Codes [B] int32 from logits [B, V] f32 and uniforms u [B] in [0, 1).
+
+    temperature <= 0: the argmax, lowest index on ties.  Otherwise, all in
+    f32: 24 bisection steps for the k-th largest logit (lo from -1e5, hi
+    the max; kept: lg >= lo, or everything when top_k <= 0), the softmax
+    of (lg - max) / max(temperature, 1e-6) over the kept set, 24 bisection
+    steps for the nucleus threshold q (kept: p > q, lo from 0, hi the
+    largest p), then 12 bisection steps on the column index for the first
+    column whose prefix sum of kept p exceeds u * total."""
+    lg = logits.float()
+    b, v = lg.shape
+    m = lg.max(dim=1, keepdim=True).values
+    col = torch.arange(v, device=lg.device)[None, :]
+    if temperature <= 0.0:
+        return torch.where(lg >= m, col, v).min(dim=1).values.to(torch.int32)
+    f32 = dict(dtype=torch.float32, device=lg.device)
+    lo, hi = torch.full((b, 1), -1e5, **f32), m
+    top_kf = torch.tensor(float(top_k), **f32)
+    for _ in range(24):
+        mid = 0.5 * (lo + hi)
+        ge = (lg >= mid).float().sum(dim=1, keepdim=True) >= top_kf
+        lo, hi = torch.where(ge, mid, lo), torch.where(ge, hi, mid)
+    keep_k = (lg >= lo) | (top_kf <= 0)
+    temp_c = torch.tensor(max(float(temperature), 1e-6), **f32)
+    e = torch.exp(torch.where(keep_k, (lg - m) / temp_c,
+                              torch.tensor(-1e30, **f32)))
+    p = e / e.sum(dim=1, keepdim=True)
+    plo, phi = torch.zeros((b, 1), **f32), p.max(dim=1, keepdim=True).values
+    top_pf = torch.tensor(float(top_p), **f32)
+    for _ in range(24):
+        qmid = 0.5 * (plo + phi)
+        ge = torch.where(p > qmid, p, 0.0).sum(dim=1, keepdim=True) >= top_pf
+        plo, phi = torch.where(ge, qmid, plo), torch.where(ge, phi, qmid)
+    final = torch.where(keep_k & (p > plo), p, 0.0)
+    target = u.float().reshape(b, 1) * final.sum(dim=1, keepdim=True)
+    ilo = torch.zeros((b, 1), dtype=torch.int64, device=lg.device)
+    ihi = torch.full((b, 1), v - 1, dtype=torch.int64, device=lg.device)
+    for _ in range(12):                                # 2^12 > V
+        imid = (ilo + ihi) // 2
+        gt = torch.where(col <= imid, final, 0.0).sum(dim=1,
+                                                      keepdim=True) > target
+        ihi, ilo = torch.where(gt, imid, ihi), torch.where(gt, ilo, imid + 1)
+    return ihi[:, 0].to(torch.int32)

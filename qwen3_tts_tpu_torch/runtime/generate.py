@@ -10,13 +10,18 @@ boundary where every lane is done (EOS or its frame budget).  That check
 reads `done` from the device once per chunk: the one host sync of the
 loop.  The talker KV cache and the codec ring are updated in place.
 
-Two decode paths share this loop.  The exact path multiplies the plain
-weights op by op.  The fused path (`Generator(fused=True)`;
-`TtsEngine` takes it by default on a CUDA device) is the JAX package's per-kernel schedule: each talker step
-is one kernels/talker_step call (w4a8) and each predictor frame one
-kernels/predictor_frame call (int8); the Generator quantizes and packs
-both models' weights once, at construction, under talker_params
-["fused_w4a8"] and predictor_params["fused_int8"].
+Three decode paths share this loop.  The exact path
+(`Generator(fused=False)`) multiplies the plain weights op by op.  The
+per-kernel path (`fused=True, chunk=False`) is the JAX package's
+per-kernel schedule: each talker step is one kernels/talker_step call
+(w4a8) and each predictor frame one kernels/predictor_frame call (int8);
+the Generator packs both models' weights once, under talker_params
+["fused_w4a8"] and predictor_params["fused_int8"].  The chunk path
+(`fused=True, chunk=True`; `TtsEngine`'s default on a CUDA device) runs
+each chunk of frames as ONE kernels/chunk_step launch
+(`_gen_frames_chunk`): the Generator packs the talker's w4a8 weights and
+the chunk kernel's predictor and extras once, under talker_params
+["fused_w4a8"] and ["chunk"].
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import torch
 
 from ..core import protocol as P
 from ..core.config import EngineConfig
+from ..kernels import chunk_step as chunk_kernel
 from ..kernels import predictor_frame as predictor_kernel
 from ..kernels import talker_step as talker_kernel
 from ..models import predictor as predictor_lib
@@ -115,8 +121,18 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
 
     Returns (state, codes [B, n_frames, 16] int32, valid [B, n_frames]
     bool).  Frames after a lane's EOS are generated but flagged invalid;
-    the EOS frame itself is invalid too.
+    the EOS frame itself is invalid too.  Where the Generator packed the
+    chunk kernel (talker_params["chunk"]), the frames go through it; a
+    batch or frame count it does not take raises ValueError.
     """
+    chunk_pack = talker_params.get("chunk")
+    if chunk_pack is not None:
+        why = chunk_kernel.unsupported(cfg.talker, cfg.predictor,
+                                       state.hidden.shape[0], n_frames)
+        if why:
+            raise ValueError(why)
+        return _gen_frames_chunk(cfg, talker_params, chunk_pack, state,
+                                 sampler, n_frames, prompt_cap)
     tables_1024 = assets_pack["codec_tables_1024"]
     proj_w = assets_pack["proj_w"].float()
     proj_b = assets_pack["proj_b"].float()
@@ -141,6 +157,41 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
         codes_out.append(codes)
         valid_out.append(~done)
     return state, torch.stack(codes_out, 1), torch.stack(valid_out, 1)
+
+
+def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
+                      state: GenState, sampler: SamplerParams,
+                      n_frames: int, prompt_cap: int,
+                      ) -> Tuple[GenState, torch.Tensor, torch.Tensor]:
+    """gen_frames through the chunk kernel: one uniform per frame and lane
+    from state.generator (drawn once per chunk), the talker rope rows of
+    positions pos .. pos + n_frames - 1, one gen_chunk_fused call (cache
+    written in place), then the EOS bookkeeping of gen_frames."""
+    dev = state.hidden.device
+    b = state.hidden.shape[0]
+    u = torch.rand((n_frames, b), generator=state.generator, device=dev)
+    p = (state.pos.long()[None, :]
+         + torch.arange(n_frames, device=dev)[:, None])          # [F, B]
+    cos, sin = talker_lib._rope_tables(cfg.talker, talker_lib._pos4(p))
+    cache = state.cache
+    codes, logits, hidden = chunk_kernel.gen_chunk_fused(
+        cfg.talker, cfg.predictor, talker_params["fused_w4a8"],
+        chunk_pack["pred_w"], chunk_pack["extras"],
+        state.logits.float().contiguous(), state.hidden.float().contiguous(),
+        cache.k, cache.v, cache.lengths, cache.write_idx,
+        cos.float().contiguous(), sin.float().contiguous(), u,
+        (sampler.temperature, sampler.top_k, sampler.top_p), prompt_cap,
+        scratch=chunk_pack.get("scratch"))
+    eos = codes[:, :, 0] == P.EOS                             # [B, F]
+    cum = torch.cumsum(eos.to(torch.int32), dim=1) > 0
+    valid = ~(state.done[:, None] | cum)
+    cache.write_idx = cache.write_idx + n_frames
+    state = GenState(cache=cache, logits=logits.to(state.logits.dtype),
+                     hidden=hidden.to(state.hidden.dtype),
+                     pos=state.pos + n_frames, step=state.step + n_frames,
+                     done=state.done | cum[:, -1],
+                     generator=state.generator)
+    return state, codes, valid
 
 
 def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
@@ -203,30 +254,60 @@ def fused_unsupported(cfg: EngineConfig, batch: int = 1):
             or predictor_kernel.unsupported(cfg.predictor, batch))
 
 
+def chunk_unsupported(cfg: EngineConfig, batch: int = 1):
+    """The first gate of the chunk kernel that `cfg` fails at `batch` and
+    cfg.runtime.frames_per_chunk, or None."""
+    return chunk_kernel.unsupported(cfg.talker, cfg.predictor, batch,
+                                    cfg.runtime.frames_per_chunk)
+
+
 class Generator:
     """Holds the weights of one engine and runs the generation steps.
 
-    fused=True packs the talker's w4a8 and the predictor's int8 kernel
-    weights once, here, and decodes through the two kernels (whose
-    wrappers raise ValueError for inputs they do not take; TtsEngine
-    checks `fused_unsupported` before it builds anything)."""
+    fused=True packs the talker's w4a8 kernel weights once, here; with
+    chunk=False it also packs the predictor's int8 weights and decodes
+    through the talker-step and predictor-frame kernels, with chunk=True
+    it packs the chunk kernel's predictor and extras and decodes each
+    chunk through kernels/chunk_step.  chunk=True without fused=True, or
+    for a config the chunk kernel does not take, raises ValueError (the
+    kernels' wrappers raise for inputs they do not take; TtsEngine checks
+    the gates before it builds anything)."""
 
     def __init__(self, cfg: EngineConfig, talker_params, predictor_params,
-                 assets_pack, codec_params=None, fused: bool = False):
+                 assets_pack, codec_params=None, fused: bool = False,
+                 chunk: bool = False):
         self.cfg = cfg
         self.talker_params = talker_params
         self.predictor_params = predictor_params
         self.assets_pack = assets_pack
         self.codec_params = codec_params
-        if fused:
-            with torch.no_grad():
+        if chunk and not fused:
+            raise ValueError("the chunk decode path needs fused=True")
+        why = chunk_unsupported(cfg) if chunk else None
+        if why:
+            raise ValueError(why)
+        with torch.no_grad():
+            if fused:
                 self.talker_params = dict(
                     talker_params, fused_w4a8=talker_kernel.prep_layer_weights(
                         cfg.talker, talker_params))
+            if fused and not chunk:
                 self.predictor_params = dict(
                     predictor_params,
                     fused_int8=predictor_kernel.prep_predictor_weights(
                         cfg.predictor, predictor_params))
+            if chunk:
+                self.talker_params["chunk"] = {
+                    "pred_w": chunk_kernel.prep_predictor_w4(
+                        cfg.predictor, predictor_params),
+                    "extras": chunk_kernel.prep_chunk_extras(
+                        cfg.talker, cfg.predictor, talker_params,
+                        predictor_params, assets_pack)}
+                dev = self.talker_params["chunk"]["extras"]["tfn"].device
+                if dev.type == "cuda":
+                    self.talker_params["chunk"]["scratch"] = \
+                        chunk_kernel.chunk_scratch(cfg.talker, cfg.predictor,
+                                                   dev)
 
     def start(self, embeds: torch.Tensor, lengths: torch.Tensor,
               generator: torch.Generator) -> GenState:

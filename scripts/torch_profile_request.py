@@ -2,13 +2,14 @@
 """Where one preset-voice request's time goes in qwen3_tts_tpu_torch.
 
     python3 scripts/torch_profile_request.py [--frames 32] [--out DIR]
-        [--fused {1,0}]
+        [--path {chunk,step,exact}]
 
-Runs a full-width TtsEngine(device="cuda", fused=...) (random weights,
-greedy, one warm-up request; --fused 1, the default, is the engine's
-default decode path on the card: the talker-step and predictor-frame
-kernels; 0 the exact path), then one request under torch.profiler with CPU
-and CUDA activities.  Prints the request's ms/frame with and without the profiler,
+Runs a full-width TtsEngine(device="cuda") on one decode path (random
+weights, greedy, one warm-up request): --path chunk, the default, is the
+engine's default on the card (one chunk-kernel launch per 4 frames), step
+the per-kernel path (chunk=False: talker-step and predictor-frame
+kernels), exact the exact path (fused=False).  Then one request under
+torch.profiler with CPU and CUDA activities.  Prints the request's ms/frame with and without the profiler,
 the device-busy share (sum of kernel time over wall time), kernel launches
 per frame, and the top operators by device and by host time; writes the
 tables under --out (a chrome trace of one request is ~100 MB, so none is
@@ -27,6 +28,9 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 TEXT = "Hello from the H100."
+PATHS = {"chunk": dict(fused=True, chunk=True),
+         "step": dict(fused=True, chunk=False),
+         "exact": dict(fused=False)}
 
 
 def main() -> int:
@@ -34,7 +38,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--out", type=Path,
                     default=Path("qwen3_tts_tpu_torch/build/profile"))
-    ap.add_argument("--fused", type=int, choices=(0, 1), default=1)
+    ap.add_argument("--path", choices=tuple(PATHS), default="chunk")
     args = ap.parse_args()
 
     import torch
@@ -49,7 +53,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     engine = TtsEngine(device="cuda", speakers_dir="speakers",
-                       fused=bool(args.fused))
+                       **PATHS[args.path])
     engine.set_max_steps(args.frames)
     engine.set_sampler_config(SamplerConfig(temperature=0.0, seed=1))
     voice = engine.get_speaker("vivian")
@@ -75,7 +79,7 @@ def main() -> int:
     args.out.mkdir(parents=True, exist_ok=True)
     by_dev = events.table(sort_by="self_device_time_total", row_limit=25)
     by_cpu = events.table(sort_by="self_cpu_time_total", row_limit=25)
-    path = "fused" if args.fused else "exact"
+    path = args.path
     (args.out / f"torch_request_ops_{path}.txt").write_text(
         f"{card}\n\nby device time\n{by_dev}\n\nby host time\n{by_cpu}\n")
     print(by_dev)

@@ -27,6 +27,21 @@ cuBLAS's, so its window logits drift by a few hundredths over 16 tokens x
 6 layers: 5e-2 of max |logits| while codes agree, and a code may differ
 only where the plain top-2 gap is below 0.1 (nothing compared after).
 Duplicated lanes must agree bit for bit (lane isolation).
+
+Chunk kernel (one cooperative launch per chunk of frames) against its
+plain version, at a small width and at full width, one frame and four: the
+same w4a8 integer dots and group order as the talker step, so the same
+drift classes and tolerances: frame 0's code_0 exact and its window
+logits within 1e-1 of max |plain| until a code differs; the first code
+that differs must be explained by the measured difference of the logits
+it was taken from (top-2 gap <= twice the max difference), and in frame 0
+be a near tie (gap <= 0.1); later frames start from a state that already
+differs by the step's drift; while all codes agree, logits, hidden and the
+written k/v rows within 1e-1 of max |plain|; every other cache slot bit
+for bit (chip_smoke.py states the same policy with its first measurements).  The sampler alone
+(the kernel's block 0 code) against ops.sampling.sample_threshold on the
+same uniforms: greedy exact, sampled equal on >= 99 % of draws (f32 sums
+in another order).
 """
 
 import numpy as np
@@ -37,6 +52,7 @@ from qwen3_tts_tpu_torch.kernels.flash_decode import (
     decode_attention_plain, flash_gqa_decode_stacked)
 from qwen3_tts_tpu_torch.kernels.flash_prefill import (
     flash_gqa_prefill_stacked, prefill_attention_plain)
+from qwen3_tts_tpu_torch.kernels import chunk_step as tcs
 from qwen3_tts_tpu_torch.kernels import predictor_frame as tpf
 from qwen3_tts_tpu_torch.kernels import talker_step as tts
 
@@ -303,3 +319,202 @@ def test_step_kernels_reject_what_they_do_not_take(dev, talker, predictor):
     with pytest.raises(ValueError):          # input of the wrong width
         tpf.predict_frame_fused(pcfg, pw, torch.zeros(1, 1000, device=dev),
                                 _i32([3], dev), tables)
+
+
+def _chunk_case(dev, full, seed, cap=1024):
+    """Weights, packs and carried state of one chunk test, made on the
+    card from a seed: full width, or the CPU tests' small width."""
+    from qwen3_tts_tpu_torch.core.config import PredictorConfig, TalkerConfig
+    from qwen3_tts_tpu_torch.models import predictor as tpred
+    from qwen3_tts_tpu_torch.models import talker as ttalk
+    if full:
+        tcfg, pcfg = TalkerConfig(), PredictorConfig()
+    else:
+        tcfg = TalkerConfig(d_model=256, n_layers=2, n_heads=2,
+                            n_kv_heads=1, head_dim=128, d_ff=256)
+        pcfg = PredictorConfig(d_model=256, n_layers=2, n_heads=4,
+                               n_kv_heads=2, head_dim=64, d_ff=256)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    with torch.no_grad():
+        tp = ttalk.init_talker_params(tcfg, g)
+        pp = tpred.init_predictor_params(pcfg, g)
+        d, dp = tcfg.d_model, pcfg.d_model
+        pack = {"proj_w": rnd(dp, d, scale=0.05), "proj_b": rnd(dp, scale=0.01),
+                "tts_pad": rnd(d, scale=0.02),
+                "codec_tables": rnd(16, 2160, d, scale=0.02).to(torch.bfloat16),
+                "codec_tables_1024": rnd(16, 2048, dp, scale=0.02).to(
+                    torch.bfloat16)}
+        tw = tts.prep_layer_weights(tcfg, tp)
+        pw = tcs.prep_predictor_w4(pcfg, pp)
+        ex = tcs.prep_chunk_extras(tcfg, pcfg, tp, pp, pack)
+    shape = (tcfg.n_layers, 1, tcfg.n_kv_heads, cap, tcfg.head_dim)
+    state = dict(k=rnd(*shape, scale=0.5).to(torch.bfloat16),
+                 v=rnd(*shape, scale=0.5).to(torch.bfloat16),
+                 logits=rnd(1, 2160, scale=2.0), hidden=rnd(1, d, scale=0.5))
+    return tcfg, pcfg, tw, pw, ex, state
+
+
+def _run_chunk(fn, case, n_frames, prompt_cap, length, start, u, sampler,
+               state=None, **kw):
+    """One call from the case's carried state, or from `state` (logits,
+    hidden, k, v); the caches are copied first."""
+    from qwen3_tts_tpu_torch.models import talker as ttalk
+    tcfg, pcfg, tw, pw, ex, st = case
+    dev = st["k"].device
+    lg, hd, k, v = ((st["logits"], st["hidden"], st["k"], st["v"])
+                    if state is None else state)
+    k, v = k.clone(), v.clone()
+    p = start + torch.arange(n_frames, device=dev)[:, None]
+    cos, sin = ttalk._rope_tables(tcfg, ttalk._pos4(p))
+    codes, lg, hd = fn(tcfg, pcfg, tw, pw, ex, lg, hd, k, v,
+                       _i32([length], dev), _i32([start], dev),
+                       cos.float().contiguous(), sin.float().contiguous(), u,
+                       sampler, prompt_cap, **kw)
+    torch.cuda.synchronize()
+    return codes, lg, hd, k, v
+
+
+def _zeros_u(n, dev):
+    return torch.zeros(n, 1, device=dev)
+
+
+def _all_but(rows, cap=1024):
+    keep = torch.ones(cap, dtype=torch.bool)
+    keep[rows] = False
+    return keep
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_chunk_kernel_matches_plain(dev, full):
+    """Every frame of a 4-frame launch against the plain version run from
+    the kernel's own state after the frame before (the outputs and cache
+    of the shorter launch, which the longer one repeats bit for bit), on
+    the kernel's codes: code_0 exact, a later code differing from the plain
+    pick only at a near tie (top-2 gap <= 0.1) that the logits' measured
+    difference explains, layer 0's written k/v row within 1e-2 of max
+    |plain|, the window logits, carried logits, hidden state and written
+    k/v rows within max(1e-1, 2 s), s being how far the plain version moves
+    from itself with its prefix in the kernel's 128-slot tiles (chip_smoke.py
+    says why), other slots untouched."""
+    case = _chunk_case(dev, full, seed=5)
+    greedy = (0.0, 40, 0.9)
+    for prompt_cap, length, start in ((32, 31, 32), (128, 117, 159),
+                                      (128, 90, 1020)):
+        tk = []
+        before = tcs.gen_chunk_fused.launches
+        runs = [_run_chunk(tcs.gen_chunk_fused, case, n, prompt_cap, length,
+                           start, _zeros_u(n, dev), greedy,
+                           taps=tk if n == 4 else None)
+                for n in range(1, 5)]
+        assert tcs.gen_chunk_fused.launches == before + 4
+        codes = runs[-1][0]
+        assert codes.shape == (1, 4, 16) and codes.dtype == torch.int32
+        assert len(tk) == 60
+        for f in range(1, 4):
+            keep = _all_but(start + f).to(dev)
+            assert torch.equal(runs[f][0][:, :f], runs[f - 1][0])
+            for a, b in zip(runs[f][3:], runs[f - 1][3:]):
+                assert torch.equal(a[:, :, :, keep], b[:, :, :, keep])
+        keep = _all_but(slice(start, start + 4)).to(dev)
+        for a, orig in zip(runs[-1][3:], (case[5]["k"], case[5]["v"])):
+            assert torch.equal(a[:, :, :, keep], orig[:, :, :, keep])
+        for f in range(4):
+            state = None if f == 0 else runs[f - 1][1:]
+            tp, t128 = [], []
+            want = _run_chunk(tcs.gen_chunk_plain, case, 1, prompt_cap,
+                              length, start + f, _zeros_u(1, dev), greedy,
+                              state=state, taps=tp,
+                              force_codes=codes[:, f:f + 1])
+            alt = _run_chunk(tcs.gen_chunk_plain, case, 1, prompt_cap,
+                             length, start + f, _zeros_u(1, dev), greedy,
+                             state=state, taps=t128,
+                             force_codes=codes[:, f:f + 1], prefix_tile=128)
+            got, kt = runs[f], tk[f * 15:(f + 1) * 15]
+            assert all(bool(torch.isfinite(x).all()) for x in got[1:3])
+            assert want[0][0, 0, 0] == codes[0, f, 0], f
+            for t in range(1, 16):
+                if want[0][0, 0, t] != codes[0, f, t]:
+                    top2 = tp[t - 1][0].topk(2).values
+                    gap = (top2[0] - top2[1]).item()
+                    seen = (kt[t - 1][0] - tp[t - 1][0]).abs().max().item()
+                    assert gap <= 0.1 and gap <= 2 * seen, (f, t, gap, seen)
+            row = start + f
+            tol = max(1e-1, 2 * max(_chunk_errs(alt, want, t128, tp, row)))
+            assert max(_chunk_errs(got, want, kt, tp, row)) <= tol, f
+            for a, b in zip(got[3:], want[3:]):
+                assert _rel(a[0, :, :, row], b[0, :, :, row]) <= 1e-2, f
+
+
+def _chunk_errs(a, b, ta, tb, row):
+    """rel err of run a against run b: window logits, logits, hidden, the
+    k/v row written at `row` in every layer."""
+    return (max(_rel(x, y) for x, y in zip(ta, tb)), _rel(a[1], b[1]),
+            _rel(a[2], b[2]),
+            max(_rel(x[:, :, :, row], y[:, :, :, row])
+                for x, y in zip(a[3:], b[3:])))
+
+
+def test_chunk_kernel_kept_scratch_and_no_taps_repeat_a_launch(dev):
+    """A scratch kept over launches (its barrier counters as the last
+    launch left them: zero) and a launch without taps give what a fresh
+    launch gives."""
+    case = _chunk_case(dev, False, seed=9)
+    args = (case, 4, 32, 31, 32, _zeros_u(4, dev), (0.0, 40, 0.9))
+    ref = _run_chunk(tcs.gen_chunk_fused, *args, taps=[])
+    scratch = tcs.chunk_scratch(case[0], case[1], dev)
+    for _ in range(3):
+        got = _run_chunk(tcs.gen_chunk_fused, *args, scratch=scratch)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert scratch["barrier"].tolist() == [0, 0]
+    with pytest.raises(ValueError, match="scratch"):
+        _run_chunk(tcs.gen_chunk_fused, *args,
+                   scratch=dict(scratch, px=scratch["px"][:8]))
+
+
+def test_chunk_kernel_sampled_codes_in_range_and_phase_clocks(dev):
+    case = _chunk_case(dev, False, seed=6)
+    u = torch.tensor([[0.3], [0.7], [0.1], [0.9]], device=dev)
+    n_phases = len(tcs.phase_labels(case[0], case[1], 4))
+    clocks = torch.zeros(n_phases + 1, dtype=torch.int64, device=dev)
+    codes = _run_chunk(tcs.gen_chunk_fused, case, 4, 32, 31, 32, u,
+                       (0.7, 40, 0.9), clocks=clocks)[0]
+    assert bool((codes[..., 0] < 2160).all()) and bool((codes >= 0).all())
+    assert bool((codes[..., 1:] < 2048).all())
+    assert bool((clocks.diff() > 0).all())          # one clock per phase
+
+
+def test_sampler_kernel_matches_plain(dev):
+    from qwen3_tts_tpu_torch.ops.sampling import sample_threshold
+    rng = np.random.default_rng(8)
+    lg = (rng.standard_normal((64, 2160)) * 2).astype(np.float32)
+    lg[1, [7, 900, 2000]] = lg[1].max() + 1.0          # a three-way tie
+    lgt = torch.from_numpy(lg).to(dev)
+    zeros = torch.zeros(64, device=dev)
+    got = tcs.sample_fused(lgt, zeros, 0.0, 40, 0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sample_threshold(lgt.cpu(), zeros.cpu(),
+                                                   0.0, 40, 0.9))
+    n = 4000
+    row = torch.from_numpy(np.tile(lg[0], (n, 1))).to(dev)
+    us = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    got = tcs.sample_fused(row, us, 0.7, 40, 0.9).cpu()
+    want = sample_threshold(row.cpu(), us.cpu(), 0.7, 40, 0.9)
+    assert (got == want).float().mean().item() >= 0.99
+
+
+def test_chunk_kernel_rejects_what_it_does_not_take(dev):
+    case = _chunk_case(dev, False, seed=7)
+    tcfg, pcfg, tw, pw, ex, st = case
+    with pytest.raises(ValueError):          # f32 cache
+        tcs.gen_chunk_fused(tcfg, pcfg, tw, pw, ex, st["logits"],
+                            st["hidden"], st["k"].float(), st["v"].float(),
+                            _i32([3], dev), _i32([40], dev),
+                            torch.zeros(1, 1, 128, device=dev),
+                            torch.zeros(1, 1, 128, device=dev),
+                            _zeros_u(1, dev), (0.0, 40, 0.9), 32)
+    with pytest.raises(ValueError):          # nine frames
+        _run_chunk(tcs.gen_chunk_fused, case, 9, 32, 31, 32,
+                   _zeros_u(9, dev), (0.0, 40, 0.9))

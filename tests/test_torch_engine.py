@@ -210,6 +210,7 @@ def test_imports_without_jax():
         "    importlib.import_module(m.name)\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax') and sys.modules[k]"
         " for k in sys.modules)\n"
+        "assert 'qwen3_tts_tpu_torch.kernels.chunk_step' in sys.modules\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
@@ -394,13 +395,14 @@ def test_fused_engine_serves_on_cpu(pair):
     cfg = _fused_engine_config()
     g = torch.Generator().manual_seed(0)
     eng = TtsEngine(model_dir=je.model_dir, config=cfg, device="cpu",
-                    fused=True, weights=dict(
+                    fused=True, chunk=False, weights=dict(
                         assets=te.assets,
                         talker=ttalk.init_talker_params(cfg.talker, g),
                         predictor=tpred.init_predictor_params(
                             cfg.predictor, g),
                         codec_decoder=te.codec_decoder_params))
     assert eng.fused and "fused_w4a8" in eng.generator.talker_params
+    assert not eng.chunk and "chunk" not in eng.generator.talker_params
     before = (tts.talker_step_fused.launches,
               tpf.predict_frame_fused.launches)
     eng.set_max_steps(6)
@@ -422,3 +424,54 @@ def test_fused_engine_serves_on_cpu(pair):
 def test_fused_engine_refuses_configs_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="talker_step: head_dim 16 != 128"):
         TtsEngine(config=TC.tiny(), device="cpu", fused=True)
+
+
+# (f) The chunk path (TtsEngine(fused=True, chunk=True): the plain version
+# of kernels/chunk_step on the CPU) at the same config.
+def test_chunk_engine_serves_on_cpu(pair):
+    from qwen3_tts_tpu_torch.kernels import chunk_step as tcs
+    from qwen3_tts_tpu_torch.kernels import predictor_frame as tpf
+    from qwen3_tts_tpu_torch.kernels import talker_step as tts
+    from qwen3_tts_tpu_torch.models import predictor as tpred
+    from qwen3_tts_tpu_torch.models import talker as ttalk
+    je, te = pair
+    assert (te.fused, te.chunk) == (False, False)   # defaults on the CPU
+    cfg = _fused_engine_config()
+    g = torch.Generator().manual_seed(0)
+    eng = TtsEngine(model_dir=je.model_dir, config=cfg, device="cpu",
+                    fused=True, chunk=True, weights=dict(
+                        assets=te.assets,
+                        talker=ttalk.init_talker_params(cfg.talker, g),
+                        predictor=tpred.init_predictor_params(
+                            cfg.predictor, g),
+                        codec_decoder=te.codec_decoder_params))
+    assert eng.chunk and "chunk" in eng.generator.talker_params
+    counters = (tcs.gen_chunk_fused, tts.talker_step_fused,
+                tpf.predict_frame_fused)
+    before = [f.launches for f in counters]
+    eng.set_max_steps(6)
+    eng.set_sampler_config(TS(temperature=0.0, seed=1))
+    voice = eng.get_speaker("vivian")
+    audio = eng.generate_with_voice("chunk path", voice)
+    codes = eng.last_codes
+    n = eng.last_metrics.frames
+    assert 0 < n <= 6 and codes.shape == (n, 16)
+    assert len(audio.samples) == n * cfg.codec_decoder.samples_per_frame
+    assert np.isfinite(audio.samples).all()
+    assert (codes[:, 0] < 2160).all() and (codes[:, 1:] < 2048).all()
+    eng.generate_with_voice("chunk path", voice)
+    np.testing.assert_array_equal(eng.last_codes, codes)
+    assert [f.launches for f in counters] == before        # plain on CPU
+
+
+def test_chunk_path_resolution_and_refusals():
+    import dataclasses
+    with pytest.raises(ValueError, match="chunk decode path: needs fused"):
+        TtsEngine(config=_fused_engine_config(), device="cpu", fused=False,
+                  chunk=True)
+    cfg = _fused_engine_config()
+    cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime,
+                                                  frames_per_chunk=9))
+    with pytest.raises(ValueError,
+                       match="chunk_step: n_frames 9 outside"):
+        TtsEngine(config=cfg, device="cpu", fused=True, chunk=True)
