@@ -1,6 +1,8 @@
 // Device code shared by the port's CUDA kernels: the decode-attention tile
-// loop (flash_decode.cu, talker_step.cu, predictor_frame.cu, chunk_step.cu),
-// the per-head q/k norm + rope, the predictor's 16-slot token attention,
+// loop (flash_decode.cu, talker_step.cu, predictor_frame.cu, chunk_step.cu,
+// kv_lanes.cu) and the current token's column after it (talker_step.cu,
+// kv_lanes.cu), the per-head q/k norm + rope, the predictor's 16-slot token
+// attention,
 // block and thread-group reductions, bf16 rounding, and the launch helper
 // for dynamic shared memory.
 //
@@ -189,6 +191,30 @@ __device__ __forceinline__ void attend_tiles(
   attend_tiles_g<DH, false>(q_s, G, kp, vp, end, length, cursor, prompt_cap,
                             score_scale, p_s, red_s, m, l, acc, threadIdx.x,
                             0);
+}
+
+// After attend_tiles over the prefix [0, cursor): the current token as
+// the last column, always visible, its k and v from registers (thread t
+// holds column t: k_t, v_t); then head g's normalised output, column t, at
+// out[g * DH + t] in bf16.  For a block of DH threads; red: DH / 32 floats.
+template <int DH>
+__device__ __forceinline__ void attend_current(
+    const float (*q_s)[DH], int G, float k_t, float v_t, float* m, float* l,
+    float* acc, float* red, __nv_bfloat16* out) {
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int g = 0; g < MAX_G; ++g) {
+    if (g < G) {
+      const float sc = block_sum<DH>(q_s[g][t] * k_t, red);
+      const float m_f = fmaxf(m[g], sc);
+      const float alpha = expf(m[g] - m_f);
+      const float p = expf(sc - m_f);
+      acc[g] = acc[g] * alpha + p * v_t;
+      l[g] = l[g] * alpha + p;
+      out[(size_t)g * DH + t] =
+          __float2bfloat16_rn(acc[g] / fmaxf(l[g], 1e-30f));
+    }
+  }
 }
 
 // For a block of DH threads: read the G query heads of kv head `kvh`

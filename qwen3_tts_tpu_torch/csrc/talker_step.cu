@@ -1,13 +1,21 @@
 // One talker decode step over all layers, w4a8, for Hopper.
 //
 // Replaces: qwen3_tts_tpu/kernels/talker_step.py talker_step_fused (the
-// Pallas TPU kernel) in its default weight mode "w4a8", decode batch
-// B <= 4, one cursor per lane.  Contract: x [B, D] bf16 in; out [B, D]
-// bf16 = the hidden state BEFORE the final norm; the k/v row of every
-// layer written IN PLACE into k/v caches [L, B, Hkv, C, Dh] bf16 at slot
-// write_idx[b].  Numerics follow the Pallas kernel op for op (see
-// kernels/talker_step.py): per-row int8 activations, exact integer dots per
-// 128-row group, groups summed in f32 in the JAX order with the bf16 scales.
+// Pallas TPU kernel) in its default weight mode "w4a8", at the JAX gate's
+// decode batches: B <= 4, or B % 8 == 0 up to 96; one cursor per lane.
+// Contract: x [B, D] bf16 in; out [B, D] bf16 = the hidden state BEFORE
+// the final norm.  The current token's k/v row of every layer goes either
+// IN PLACE into the k/v caches [L, B, Hkv, C, Dh] bf16 at slot
+// write_idx[b] (uniform mode: k_tok == nullptr), or into the token buffers
+// k_tok / v_tok [L, B, Hkv, Dh] (per-lane mode, continuous batching), from
+// which the caller's one append_kv_lanes launch (kv_lanes.cu) writes them,
+// as the JAX kernel does.  Either way attention reads only slots below
+// write_idx[b] and takes the current token from registers, so the two
+// modes compute the same numbers.  Numerics follow the Pallas kernel op
+// for op (see kernels/talker_step.py): per-row int8 activations, exact
+// integer dots per 128-row group, groups summed in f32 in the JAX order
+// with the bf16 scales.  Every lane's arithmetic is that of B = 1, so a
+// lane's outputs are bit-equal to the one-lane kernel's on its inputs.
 //
 // Weights (ops/quant.py pack_int4): per matrix uint8 [L, N, K/2], output
 // column n's K values contiguous, each 4-byte word holding K rows 8m..8m+3
@@ -22,13 +30,19 @@
 // What the design does about it: weights are read once, as 16-byte vectors
 // along each output column, with the int4 nibbles unpacked in registers
 // (__vsub4 sign extension) into __dp4a dot products against int8
-// activations in shared memory; no weight is dequantized to memory.  Per
-// layer there are five launches on the caller's stream:
+// activations in shared memory; no weight is dequantized to memory.
+// Batch rows run in tiles of NB <= 8 (NB = B for B <= 4, else 8): a GEMV
+// block quantizes its tile's rows into shared memory (NB * K * 3 bytes +
+// the group dots: 159 KB at K = 6144, NB = 8; 16 rows would not fit in
+// 227 KB), and grid.x runs over the B / NB tiles, so the tiles that read
+// one block of weight columns are neighbours in launch order and mostly
+// meet those weights in L2.  Per layer there are five launches on the
+// caller's stream:
 //   qkv     w4a8 GEMV whose prologue recomputes RMSNorm(x) and the int8
 //           quantization of the row in every block (2048 values: cheaper
 //           than a launch) -> qkv [B, Nqkv] bf16;
 //   attn    one block per (kv head, lane), serving its G query heads from
-//           one K/V read: q/k RMSNorm, rope, the in-place k/v write, the
+//           one K/V read: q/k RMSNorm, rope, the k/v write, the
 //           live-prefix loop of flash_decode.cu (common.cuh attend_tiles)
 //           and the current token as one more column from registers;
 //   wo      w4a8 GEMV + residual add into out;
@@ -74,12 +88,15 @@ w4a8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
   __shared__ float red[WARPS];
   __shared__ float sx_s[NB];
 
+  const int tile = blockIdx.x;      // batch rows [tile * NB, tile * NB + NB)
+  in += (size_t)tile * NB * K;
+  dst += (size_t)tile * NB * N;
   qtts::quantize_rows<NB, RMS, THREADS, false>(in, norm_w, K, eps, xs, xq,
                                                sx_s, red);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + warp;
+  const int row = blockIdx.y * WARPS + warp;
   if (row >= N) return;  // warp-uniform; no block barrier follows
   const int ng = K / GROUP;
   float y[R];
@@ -103,7 +120,9 @@ template <int DH>
 __global__ void __launch_bounds__(DH)
 step_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
                  __nv_bfloat16* __restrict__ ctx, __nv_bfloat16* kc,
-                 __nv_bfloat16* vc, const float* __restrict__ cos,
+                 __nv_bfloat16* vc, __nv_bfloat16* __restrict__ k_tok,
+                 __nv_bfloat16* __restrict__ v_tok,
+                 const float* __restrict__ cos,
                  const float* __restrict__ sin, const float* __restrict__ qn,
                  const float* __restrict__ kn, const int* __restrict__ lengths,
                  const int* __restrict__ write_idx, int layer, int B, int H,
@@ -134,7 +153,10 @@ step_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
   const size_t head = ((size_t)layer * B + b) * Hkv + kvh;
   __nv_bfloat16* kp = kc + head * (size_t)C * DH;
   __nv_bfloat16* vp = vc + head * (size_t)C * DH;
-  if (cursor >= 0 && cursor < C) {
+  if (k_tok != nullptr) {             // per-lane mode: the token buffer
+    k_tok[head * DH + t] = __float2bfloat16_rn(kv);
+    v_tok[head * DH + t] = __float2bfloat16_rn(vv);
+  } else if (cursor >= 0 && cursor < C) {
     kp[(size_t)cursor * DH + t] = __float2bfloat16_rn(kv);
     vp[(size_t)cursor * DH + t] = __float2bfloat16_rn(vv);
   }
@@ -152,25 +174,14 @@ step_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
   qtts::attend_tiles<DH>(q_s, G, kp, vp, max(0, min(cursor, C)), length,
                          cursor, prompt_cap, 1.0f, p_s, red_s, m, l, acc);
   // the current token: one more column, always visible
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    if (g < G) {
-      const float sc = qtts::block_sum<DH>(q_s[g][t] * kv, red);
-      const float m_f = fmaxf(m[g], sc);
-      const float alpha = expf(m[g] - m_f);
-      const float p = expf(sc - m_f);
-      acc[g] = acc[g] * alpha + p * vv;
-      l[g] = l[g] * alpha + p;
-      ctx[((size_t)b * H + kvh * G + g) * DH + t] =
-          __float2bfloat16_rn(acc[g] / fmaxf(l[g], 1e-30f));
-    }
-  }
+  qtts::attend_current<DH>(q_s, G, kv, vv, m, l, acc, red,
+                           ctx + ((size_t)b * H + kvh * G) * DH);
 }
 
 template <int NB, bool RMS, int EPI>
 cudaError_t gemv(const __nv_bfloat16* in, const float* norm_w, float eps,
                  int K, const uint8_t* wq, const __nv_bfloat16* ws, int N,
-                 __nv_bfloat16* dst, cudaStream_t st) {
+                 __nv_bfloat16* dst, int tiles, cudaStream_t st) {
   constexpr int R = EPI == EPI_SWIGLU ? 2 : 1;
   const size_t smem =
       (size_t)NB * K * (1 + sizeof(__nv_bfloat16)) +
@@ -178,8 +189,8 @@ cudaError_t gemv(const __nv_bfloat16* in, const float* norm_w, float eps,
   auto kernel = w4a8_gemv_kernel<NB, RMS, EPI>;
   cudaError_t e = qtts::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<(N + WARPS - 1) / WARPS, THREADS, smem, st>>>(in, norm_w, eps, K,
-                                                         wq, ws, N, dst);
+  kernel<<<dim3(tiles, (N + WARPS - 1) / WARPS), THREADS, smem, st>>>(
+      in, norm_w, eps, K, wq, ws, N, dst);
   return cudaGetLastError();
 }
 
@@ -192,40 +203,43 @@ cudaError_t run_step(const __nv_bfloat16* x, __nv_bfloat16* out,
                      const uint8_t* gu_q, const __nv_bfloat16* gu_s,
                      const uint8_t* dn_q, const __nv_bfloat16* dn_s,
                      __nv_bfloat16* kc, __nv_bfloat16* vc,
+                     __nv_bfloat16* k_tok, __nv_bfloat16* v_tok,
                      const int* lengths, const int* write_idx,
                      __nv_bfloat16* qkv, __nv_bfloat16* ctx,
-                     __nv_bfloat16* ff, int L, int D, int H, int Hkv, int DH,
-                     int F, int C, int prompt_cap, float eps, float scale,
-                     cudaStream_t st) {
+                     __nv_bfloat16* ff, int L, int B, int D, int H, int Hkv,
+                     int DH, int F, int C, int prompt_cap, float eps,
+                     float scale, cudaStream_t st) {
   const int dq = H * DH;
   const int nqkv = (H + 2 * Hkv) * DH;
-  cudaError_t e = cudaMemcpyAsync(out, x, (size_t)NB * D * sizeof(*x),
+  const int tiles = B / NB;
+  cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * D * sizeof(*x),
                                   cudaMemcpyDeviceToDevice, st);
   for (int l = 0; l < L && e == cudaSuccess; ++l) {
     e = gemv<NB, true, EPI_STORE>(out, ln1 + (size_t)l * D, eps, D,
                                   wqkv_q + (size_t)l * nqkv * (D / 2),
                                   wqkv_s + (size_t)l * nqkv * (D / GROUP),
-                                  nqkv, qkv, st);
+                                  nqkv, qkv, tiles, st);
     if (e != cudaSuccess) break;
-    step_attn_kernel<128><<<dim3(Hkv, NB), 128, 0, st>>>(
-        qkv, ctx, kc, vc, cos, sin, qn + (size_t)l * DH, kn + (size_t)l * DH,
-        lengths, write_idx, l, NB, H, Hkv, C, prompt_cap, eps, scale);
+    step_attn_kernel<128><<<dim3(Hkv, B), 128, 0, st>>>(
+        qkv, ctx, kc, vc, k_tok, v_tok, cos, sin, qn + (size_t)l * DH,
+        kn + (size_t)l * DH, lengths, write_idx, l, B, H, Hkv, C, prompt_cap,
+        eps, scale);
     e = cudaGetLastError();
     if (e != cudaSuccess) break;
     e = gemv<NB, false, EPI_RESID>(ctx, nullptr, eps, dq,
                                    wo_q + (size_t)l * D * (dq / 2),
                                    wo_s + (size_t)l * D * (dq / GROUP), D,
-                                   out, st);
+                                   out, tiles, st);
     if (e != cudaSuccess) break;
     e = gemv<NB, true, EPI_SWIGLU>(out, ln2 + (size_t)l * D, eps, D,
                                    gu_q + (size_t)l * 2 * F * (D / 2),
                                    gu_s + (size_t)l * 2 * F * (D / GROUP), F,
-                                   ff, st);
+                                   ff, tiles, st);
     if (e != cudaSuccess) break;
     e = gemv<NB, false, EPI_RESID>(ff, nullptr, eps, F,
                                    dn_q + (size_t)l * D * (F / 2),
                                    dn_s + (size_t)l * D * (F / GROUP), D, out,
-                                   st);
+                                   tiles, st);
   }
   return e;
 }
@@ -238,11 +252,12 @@ extern "C" int qtts_talker_step(
     const void* wqkv_q, const void* wqkv_s, const void* wo_q,
     const void* wo_s, const void* gu_q, const void* gu_s, const void* dn_q,
     const void* dn_s, void* k_cache, void* v_cache, const int* lengths,
-    const int* write_idx, void* qkv_buf, void* ctx_buf, void* ff_buf, int L,
-    int B, int D, int H, int Hkv, int DH, int F, int C, int prompt_cap,
-    float eps, float scale, void* stream) {
+    const int* write_idx, void* qkv_buf, void* ctx_buf, void* ff_buf,
+    void* k_tok, void* v_tok, int L, int B, int D, int H, int Hkv, int DH,
+    int F, int C, int prompt_cap, float eps, float scale, void* stream) {
   const int g2 = 2 * GROUP;
-  if (B < 1 || B > 4 || DH != 128 || Hkv <= 0 || H % Hkv != 0 ||
+  const bool batch_ok = (B >= 1 && B <= 4) || (B % 8 == 0 && B <= 96);
+  if (!batch_ok || DH != 128 || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv > qtts::MAX_G || D % g2 != 0 || (H * DH) % g2 != 0 ||
       F % g2 != 0 || C <= 0 || L <= 0)
     return (int)cudaErrorInvalidValue;
@@ -254,16 +269,18 @@ extern "C" int qtts_talker_step(
   run_step<NB>(bp(x), static_cast<bf*>(out), cos, sin, ln1, ln2, qn, kn,      \
                up(wqkv_q), bp(wqkv_s), up(wo_q), bp(wo_s), up(gu_q),          \
                bp(gu_s), up(dn_q), bp(dn_s), static_cast<bf*>(k_cache),       \
-               static_cast<bf*>(v_cache), lengths, write_idx,                 \
+               static_cast<bf*>(v_cache), static_cast<bf*>(k_tok),            \
+               static_cast<bf*>(v_tok), lengths, write_idx,                   \
                static_cast<bf*>(qkv_buf), static_cast<bf*>(ctx_buf),          \
-               static_cast<bf*>(ff_buf), L, D, H, Hkv, DH, F, C, prompt_cap,  \
-               eps, scale, st)
+               static_cast<bf*>(ff_buf), L, B, D, H, Hkv, DH, F, C,           \
+               prompt_cap, eps, scale, st)
   cudaError_t e;
   switch (B) {
     case 1: e = QTTS_STEP(1); break;
     case 2: e = QTTS_STEP(2); break;
     case 3: e = QTTS_STEP(3); break;
-    default: e = QTTS_STEP(4); break;
+    case 4: e = QTTS_STEP(4); break;
+    default: e = QTTS_STEP(8); break;     // B % 8 == 0: B / 8 row tiles
   }
 #undef QTTS_STEP
   return (int)e;

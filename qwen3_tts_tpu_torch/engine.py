@@ -57,7 +57,7 @@ from .models import predictor as predictor_lib
 from .models import talker as talker_lib
 from .models.codec import decoder as codec_decoder
 from .models.transformer import dtype_of
-from .prompt import PromptBuilder, PromptPlan
+from .prompt import PromptBuilder, PromptPlan, assemble
 from .runtime.generate import (Generator, SamplerParams,
                                chunk_unsupported, fused_unsupported)
 from .utils.logging import get_logger, log_event
@@ -303,6 +303,17 @@ class TtsEngine:
         while b < s and b < cap:
             b *= 2
         return min(max(b, 32), cap)
+
+    def prompt_to_device(self, plans, bucket: Optional[int] = None):
+        """Assemble PromptPlans to embeddings on the device.  Returns
+        (embeds [B, bucket, 2048] f32, lengths [B] int32 numpy)."""
+        a, lengths, bucket = self._plans_to_arrays(plans, bucket)
+        t = {k: torch.from_numpy(v).to(self.device) for k, v in a.items()}
+        embeds = assemble(
+            self.assets.text_table, self.assets.codec_tables, t["text_idx"],
+            t["codec_idx"], t["frame_slot"], t["spk_flag"], t["frames"],
+            t["spk_emb"], torch.from_numpy(lengths).to(self.device))
+        return embeds, lengths
 
     def _start_state(self, plan: PromptPlan, generator: torch.Generator):
         """Assembly + prefill of one plan (no prefix-KV reuse yet).

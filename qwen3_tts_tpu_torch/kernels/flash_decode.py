@@ -1,18 +1,35 @@
-"""Single-token GQA decode attention over the stacked KV cache.
+"""Decode attention over the stacked KV cache, and the per-lane cache
+writes of continuous batching.
 
-`flash_gqa_decode_stacked` is the port of the Pallas kernel of the same
-name (qwen3_tts_tpu/kernels/flash_decode.py): on a CUDA tensor it launches
-the hand-written kernel in `csrc/flash_decode.cu`, which reads only the
-live prefix [0, write_idx] of one layer; on a CPU tensor it runs
-`decode_attention_plain`, the same function in plain PyTorch.  There is no
-other route: a CUDA input the kernel does not take raises.
+Ports of four Pallas kernels of qwen3_tts_tpu/kernels/flash_decode.py, each
+with a plain PyTorch version in this module.  On a CUDA tensor a wrapper
+launches its hand-written kernel; on a CPU tensor it runs the plain
+version.  There is no other route: a CUDA input a kernel does not take
+raises.  Each wrapper counts its launches in `<wrapper>.launches`.
+
+- `flash_gqa_decode_stacked` (`csrc/flash_decode.cu`): one query row per
+  lane against the live prefix [0, write_idx] of one layer, the current
+  token already written;
+- `flash_gqa_decode_append` (`csrc/kv_lanes.cu`): the same attention over
+  slots below each lane's own cursor plus the current token, whose k/v row
+  the kernel writes into the cache at that cursor (the exact path under
+  per-lane cursors);
+- `inject_prompt_lanes` (`csrc/kv_lanes.cu`): compact prefilled lanes into
+  slots [0, S) of chosen lanes of the big cache (lane refill);
+- `append_kv_lanes` (`csrc/kv_lanes.cu`): one k/v row per (layer, lane) at
+  per-lane cursors (the per-lane talker step).
+
+The last three write INTO the caller's cache and return it; the JAX
+functions return new arrays that alias their donated inputs.  The TPU
+kernels' 8-row aligned read-modify-write window (a bf16 DMA cannot address
+one row) is not carried over: each kernel writes exactly its rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..ops.attention import gqa_attend, history_mask
+from ..ops.attention import gqa_attend, history_mask, update_cache
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8      # query heads per kv head the kernel takes
@@ -92,3 +109,188 @@ def flash_gqa_decode_stacked(q: torch.Tensor, k_all: torch.Tensor,
 
 
 flash_gqa_decode_stacked.launches = 0
+
+
+# ------------------------------------------------- per-lane cursors and refill
+def decode_append_plain(q: torch.Tensor, k_all: torch.Tensor,
+                        v_all: torch.Tensor, k_new: torch.Tensor,
+                        v_new: torch.Tensor, lengths: torch.Tensor,
+                        write_idx: torch.Tensor, layer: int,
+                        prompt_cap: int) -> torch.Tensor:
+    """`flash_gqa_decode_append` in plain PyTorch: write each lane's row at
+    write_idx[b] of layer `layer`, then `decode_attention_plain` (whose
+    mask keeps the self slot).  Same arguments and effects."""
+    update_cache(k_all[layer], k_new[:, None], write_idx)
+    update_cache(v_all[layer], v_new[:, None], write_idx)
+    return decode_attention_plain(q, k_all, v_all, lengths, write_idx, layer,
+                                  prompt_cap)
+
+
+def flash_gqa_decode_append(q: torch.Tensor, k_all: torch.Tensor,
+                            v_all: torch.Tensor, k_new: torch.Tensor,
+                            v_new: torch.Tensor, lengths: torch.Tensor,
+                            write_idx: torch.Tensor, layer: int,
+                            prompt_cap: int) -> torch.Tensor:
+    """Decode attention for the current token at per-lane cursors, with
+    its k/v row appended to the cache IN PLACE.
+
+    q: [B, H, Dh] bf16; k_all/v_all: [L, B, Hkv, C, Dh] bf16; k_new/v_new:
+    [B, Hkv, Dh] bf16, the current token's rows (not yet written);
+    lengths, write_idx: [B] int32.  Slots c < write_idx[b] with c <
+    lengths[b] or c >= prompt_cap are visible, and the current token.
+    Writes k_new/v_new at (layer, b, :, write_idx[b]) and returns the
+    attention [B, H, Dh].  Each launch adds one to
+    `flash_gqa_decode_append.launches`.
+    """
+    if q.device.type == "cpu":
+        return decode_append_plain(q, k_all, v_all, k_new, v_new, lengths,
+                                   write_idx, layer, prompt_cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash decode runs on cuda or cpu, not {q.device}")
+    _check(q, k_all, v_all, lengths, write_idx, layer)
+    b, h, dh = q.shape
+    hkv, cap = k_all.shape[2], k_all.shape[3]
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        if (tuple(t.shape) != (b, hkv, dh) or t.dtype != torch.bfloat16
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be contiguous bfloat16 "
+                             f"[{b}, {hkv}, {dh}] on {q.device}")
+    from .build import LIBRARY, check
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = LIBRARY.get().qtts_decode_append(
+            q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+            k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
+            lengths.data_ptr(), write_idx.data_ptr(), int(layer), b, h, hkv,
+            cap, dh, int(prompt_cap), dh ** -0.5, stream)
+    check(rc, "flash_gqa_decode_append")
+    flash_gqa_decode_append.launches += 1
+    return out
+
+
+flash_gqa_decode_append.launches = 0
+
+
+def _check_cache_pair(where, big, v_big, small, v_small, small_rank_dims):
+    for name, t in (("k_big", big), ("v_big", v_big), ("k_small", small),
+                    ("v_small", v_small)):
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{where}: {name} must be contiguous bfloat16, "
+                             f"got {t.dtype} contiguous={t.is_contiguous()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{where}: {name} must be 16-byte aligned")
+        if t.device != big.device:
+            raise ValueError(f"{where}: all inputs must be on one device")
+    if big.dim() != 5 or v_big.shape != big.shape:
+        raise ValueError(f"{where}: caches must be [L, B, Hkv, C, Dh], got "
+                         f"{tuple(big.shape)} / {tuple(v_big.shape)}")
+    if v_small.shape != small.shape or small.dim() != small_rank_dims:
+        raise ValueError(f"{where}: rows {tuple(small.shape)} / "
+                         f"{tuple(v_small.shape)}")
+    if big.shape[-1] % 8:
+        raise ValueError(f"{where}: head_dim {big.shape[-1]} % 8 != 0")
+
+
+def inject_prompt_lanes_plain(k_big, v_big, k_small, v_small, lanes):
+    """`inject_prompt_lanes` in plain PyTorch (same arguments and effects)."""
+    s = k_small.shape[3]
+    idx = lanes.long()
+    k_big[:, idx, :, :s] = k_small.to(k_big.dtype)
+    v_big[:, idx, :, :s] = v_small.to(v_big.dtype)
+    return k_big, v_big
+
+
+def inject_prompt_lanes(k_big: torch.Tensor, v_big: torch.Tensor,
+                        k_small: torch.Tensor, v_small: torch.Tensor,
+                        lanes: torch.Tensor):
+    """Copy R prefilled lanes' prompt k/v into the big cache, IN PLACE.
+
+    k_big/v_big: [L, B, Hkv, C, Dh] bf16; k_small/v_small: [L, R, Hkv, S,
+    Dh] bf16 compact prefill caches (S <= C); lanes: [R] int32 target
+    lanes, each in [0, B) (the caller checks: a lane outside is skipped by
+    the kernel), duplicates allowed only with identical rows.  Slots
+    [0, S) of lane lanes[r] take row r; every other slot is untouched.
+    Returns (k_big, v_big).  Each launch adds one to
+    `inject_prompt_lanes.launches`.
+    """
+    if k_big.device.type == "cpu":
+        return inject_prompt_lanes_plain(k_big, v_big, k_small, v_small,
+                                         lanes)
+    if k_big.device.type != "cuda":
+        raise ValueError(f"inject_prompt_lanes runs on cuda or cpu, not "
+                         f"{k_big.device}")
+    _check_cache_pair("inject_prompt_lanes", k_big, v_big, k_small, v_small,
+                      5)
+    n_layers, b, hkv, cap, dh = k_big.shape
+    r, s = k_small.shape[1], k_small.shape[3]
+    if (k_small.shape[0], k_small.shape[2], k_small.shape[4]) != (
+            n_layers, hkv, dh) or s > cap:
+        raise ValueError(f"inject_prompt_lanes: rows {tuple(k_small.shape)} "
+                         f"do not fit cache {tuple(k_big.shape)}")
+    if (lanes.dtype != torch.int32 or tuple(lanes.shape) != (r,)
+            or lanes.device != k_big.device or not lanes.is_contiguous()):
+        raise ValueError(f"inject_prompt_lanes: lanes must be contiguous "
+                         f"int32 [{r}] on {k_big.device}")
+    from .build import LIBRARY, check
+    with torch.cuda.device(k_big.device):
+        stream = torch.cuda.current_stream(k_big.device).cuda_stream
+        rc = LIBRARY.get().qtts_inject_lanes(
+            k_big.data_ptr(), v_big.data_ptr(), k_small.data_ptr(),
+            v_small.data_ptr(), lanes.data_ptr(), n_layers, r, b, hkv, cap,
+            s, dh, stream)
+    check(rc, "inject_prompt_lanes")
+    inject_prompt_lanes.launches += 1
+    return k_big, v_big
+
+
+inject_prompt_lanes.launches = 0
+
+
+def append_kv_lanes_plain(k_big, v_big, k_tok, v_tok, starts):
+    """`append_kv_lanes` in plain PyTorch (same arguments and effects)."""
+    for layer in range(k_big.shape[0]):
+        update_cache(k_big[layer], k_tok[layer][:, None], starts)
+        update_cache(v_big[layer], v_tok[layer][:, None], starts)
+    return k_big, v_big
+
+
+def append_kv_lanes(k_big: torch.Tensor, v_big: torch.Tensor,
+                    k_tok: torch.Tensor, v_tok: torch.Tensor,
+                    starts: torch.Tensor):
+    """Write one token's k/v row per (layer, lane) at per-lane cursors, IN
+    PLACE.
+
+    k_big/v_big: [L, B, Hkv, C, Dh] bf16; k_tok/v_tok: [L, B, Hkv, Dh]
+    bf16; starts: [B] int32 slots (a cursor outside [0, C) writes
+    nothing).  Slot starts[b] of every layer and kv head of lane b takes
+    the row; every other slot is untouched.  Returns (k_big, v_big).  Each
+    launch adds one to `append_kv_lanes.launches`.
+    """
+    if k_big.device.type == "cpu":
+        return append_kv_lanes_plain(k_big, v_big, k_tok, v_tok, starts)
+    if k_big.device.type != "cuda":
+        raise ValueError(f"append_kv_lanes runs on cuda or cpu, not "
+                         f"{k_big.device}")
+    _check_cache_pair("append_kv_lanes", k_big, v_big, k_tok, v_tok, 4)
+    n_layers, b, hkv, cap, dh = k_big.shape
+    if tuple(k_tok.shape) != (n_layers, b, hkv, dh):
+        raise ValueError(f"append_kv_lanes: rows {tuple(k_tok.shape)} do "
+                         f"not fit cache {tuple(k_big.shape)}")
+    if (starts.dtype != torch.int32 or tuple(starts.shape) != (b,)
+            or starts.device != k_big.device or not starts.is_contiguous()):
+        raise ValueError(f"append_kv_lanes: starts must be contiguous int32 "
+                         f"[{b}] on {k_big.device}")
+    from .build import LIBRARY, check
+    with torch.cuda.device(k_big.device):
+        stream = torch.cuda.current_stream(k_big.device).cuda_stream
+        rc = LIBRARY.get().qtts_append_lanes(
+            k_big.data_ptr(), v_big.data_ptr(), k_tok.data_ptr(),
+            v_tok.data_ptr(), starts.data_ptr(), n_layers, b, hkv, cap, dh,
+            stream)
+    check(rc, "append_kv_lanes")
+    append_kv_lanes.launches += 1
+    return k_big, v_big
+
+
+append_kv_lanes.launches = 0

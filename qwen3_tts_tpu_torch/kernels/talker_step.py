@@ -23,11 +23,24 @@ the B <= 4 attention loop):
   prompt_cap <= c < write_idx[b]; the current token is one more column,
   always visible.
 The step writes each layer's k/v row into the cache at write_idx IN PLACE
-and returns the hidden state BEFORE the final norm.  The engine passes one
-cursor for all lanes; the kernel reads each lane's own write_idx[b].
+and returns the hidden state BEFORE the final norm.  Every lane has its own
+cursor write_idx[b].  With uniform_cursor=True (one request, all cursors
+equal) the kernel writes each row into the cache as it goes; with
+uniform_cursor=False (continuous batching) it writes the rows into a
+[L, B, Hkv, Dh] token buffer, and one `flash_decode.append_kv_lanes` launch
+after the last layer writes them, as the JAX kernel does.  Attention never
+reads the slot being written (the prefix loop stops below the cursor and
+the current token comes from registers), so both modes give the same
+numbers, and the plain version serves both.
 
-The JAX kernel's other weight modes (int8, w8a8, bf16), its batched form
-(B % 8 == 0 up to 96) and its tuning switches are not ported.
+Batches: 1-4 lanes, or a multiple of 8 up to 96 (the JAX gate).  The
+kernel runs the batch rows of each matmul in tiles of at most 8; each
+lane's arithmetic is that of batch 1, so a lane's outputs equal the
+1-lane kernel's bit for bit.  Attention scores stay f32 at every batch
+(the JAX batched loop's bf16 score inputs are a TPU matrix-unit artefact).
+
+The JAX kernel's other weight modes (int8, w8a8, bf16) and its tuning
+switches are not ported.
 """
 
 from __future__ import annotations
@@ -39,19 +52,23 @@ import torch.nn.functional as F
 
 from ..ops.quant import (INT4_GROUP, pack_int4, quantize_int4_grouped,
                          unpack_int4)
+from ..ops.attention import update_cache
+from .flash_decode import append_kv_lanes
 
-MAX_BATCH = 4
+MAX_BATCH = 96        # 1-4 lanes, or a multiple of 8 up to this
 MAX_GROUP = 8          # query heads per kv head the attention kernel takes
 INV127 = 1.0 / 127.0   # a Python float: becomes f32(1/127), as in JAX
 
 
 def unsupported(cfg, batch: int) -> Optional[str]:
     """The first gate `cfg` at `batch` fails, or None.  The JAX gate
-    (talker_step.supported, w4a8, decode batches 1-4) plus what the port's
-    attention kernel needs (at most MAX_GROUP query heads per kv head)."""
+    (talker_step.supported, w4a8: decode batches 1-4, or a multiple of 8
+    up to 96) plus what the port's attention kernel needs (at most
+    MAX_GROUP query heads per kv head)."""
     g2 = 2 * INT4_GROUP
     gates = (
-        (1 <= batch <= MAX_BATCH, f"batch {batch} outside [1, {MAX_BATCH}]"),
+        (1 <= batch <= 4 or (batch % 8 == 0 and 8 <= batch <= MAX_BATCH),
+         f"batch {batch} is not 1-4 or a multiple of 8 up to {MAX_BATCH}"),
         (cfg.qk_norm, "qk_norm is off"),
         (cfg.head_dim == 128, f"head_dim {cfg.head_dim} != 128"),
         (cfg.n_heads % cfg.n_kv_heads == 0,
@@ -154,14 +171,14 @@ def _attend_plain(q, kc, vc, lengths, write_idx, prompt_cap):
 
 def talker_step_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
                       write_idx, prompt_cap: int) -> torch.Tensor:
-    """`talker_step_fused` in plain PyTorch (same arguments and effects)."""
+    """`talker_step_fused` in plain PyTorch (same arguments and effects,
+    but for uniform_cursor: that changes only where the kernel stages its
+    k/v rows, so the plain version writes each layer's rows at once)."""
     b = x.shape[0]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dq, dkv, eps = h * dh, hkv * dh, cfg.rms_eps
     cos = cos.float()[:, None, :]
     sin = sin.float()[:, None, :]
-    lanes = torch.arange(b, device=x.device)
-    wi = write_idx.long()
     x = x.to(torch.bfloat16)
     for layer in range(cfg.n_layers):
         def mm(v, name):
@@ -176,8 +193,8 @@ def talker_step_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
         k = _rms(k, w["kn"][layer], eps).to(torch.bfloat16).float()
         q = (q * cos + _rotate_half(q) * sin).to(torch.bfloat16)
         k = (k * cos + _rotate_half(k) * sin).to(torch.bfloat16)
-        cache_k[layer][lanes, :, wi] = k
-        cache_v[layer][lanes, :, wi] = v
+        update_cache(cache_k[layer], k[:, None], write_idx)
+        update_cache(cache_v[layer], v[:, None], write_idx)
         ctx = _attend_plain(q, cache_k[layer], cache_v[layer], lengths,
                             write_idx, prompt_cap)
         x = x + mm(ctx, "wo")
@@ -235,14 +252,17 @@ def _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx):
 
 
 def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
-                      write_idx, prompt_cap: int) -> torch.Tensor:
+                      write_idx, prompt_cap: int,
+                      uniform_cursor: bool = True) -> torch.Tensor:
     """One decode step over all layers.
 
     w: `prep_layer_weights(cfg, params)`; x [B, D] bf16 input embedding;
-    cos/sin [B, head_dim] f32 rope rows of this position; cache_k/v
+    cos/sin [B, head_dim] f32 rope rows of each lane's position; cache_k/v
     [L, B, Hkv, C, Dh] bf16, written IN PLACE at write_idx; lengths and
-    write_idx [B] int32.  Returns the hidden state [B, D] bf16 BEFORE the
-    final norm.  Each kernel call adds one to `talker_step_fused.launches`.
+    write_idx [B] int32.  uniform_cursor=False stages the k/v rows and
+    appends them with one append_kv_lanes launch (module docstring).
+    Returns the hidden state [B, D] bf16 BEFORE the final norm.  Each
+    kernel call adds one to `talker_step_fused.launches`.
     """
     if x.device.type == "cpu":
         return talker_step_plain(cfg, w, x, cos, sin, cache_k, cache_v,
@@ -258,6 +278,9 @@ def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
                       device=x.device)
     ctx = torch.empty(b, h * dh, dtype=torch.bfloat16, device=x.device)
     ff = torch.empty(b, f, dtype=torch.bfloat16, device=x.device)
+    tok = [None, None] if uniform_cursor else [
+        torch.empty(cfg.n_layers, b, hkv, dh, dtype=torch.bfloat16,
+                    device=x.device) for _ in range(2)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = LIBRARY.get().qtts_talker_step(
@@ -265,11 +288,14 @@ def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
             *[w[k].data_ptr() for k in _WEIGHTS],
             cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
             write_idx.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-            ff.data_ptr(), cfg.n_layers, b, d, h, hkv, dh, f,
+            ff.data_ptr(), *[0 if t is None else t.data_ptr() for t in tok],
+            cfg.n_layers, b, d, h, hkv, dh, f,
             cache_k.shape[3], int(prompt_cap), float(cfg.rms_eps),
             dh ** -0.5, stream)
     check(rc, "talker_step_fused")
     talker_step_fused.launches += 1
+    if not uniform_cursor:
+        append_kv_lanes(cache_k, cache_v, *tok, write_idx)
     return out
 
 

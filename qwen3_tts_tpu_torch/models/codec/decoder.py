@@ -129,6 +129,25 @@ def init_decoder_state(cfg: CodecDecoderConfig, batch: int,
         conv_hist=hists, up_tail=tails)
 
 
+def reset_lanes(state: DecoderState, lane_mask: torch.Tensor
+                ) -> DecoderState:
+    """Zero the streaming state of the lanes where lane_mask[b] (bool [B]
+    on the state's device), IN PLACE, with no host sync: continuous
+    batching refills those lanes with new streams.  Returns the state."""
+    m = lane_mask.to(device=state.count.device, dtype=torch.bool)
+
+    def lanes(t: torch.Tensor, dim: int) -> torch.Tensor:
+        return m.reshape((1,) * dim + (-1,) + (1,) * (t.dim() - dim - 1))
+
+    state.ring_k.masked_fill_(lanes(state.ring_k, 1), 0)
+    state.ring_v.masked_fill_(lanes(state.ring_v, 1), 0)
+    state.ring_pos.masked_fill_(lanes(state.ring_pos, 0), -1)
+    state.count.masked_fill_(m, 0)
+    for t in list(state.conv_hist) + list(state.up_tail):
+        t.masked_fill_(lanes(t, 0), 0)
+    return state
+
+
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Snake activation x + sin^2(alpha*x)/alpha (per-channel alpha)."""
     a = alpha[None, :, None].float()

@@ -68,14 +68,17 @@ def talker_prefill(cfg: TalkerConfig, params, embeds: torch.Tensor,
 
 def talker_decode_step(cfg: TalkerConfig, params, embed: torch.Tensor,
                        pos: torch.Tensor, cache: KVCache, prompt_cap: int,
+                       uniform_cursor: bool = True,
                        ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """One autoregressive step on the feedback embedding (cache written in
-    place).  embed: [B, 2048]; pos: [B] logical positions.
+    place).  embed: [B, 2048]; pos: [B] logical positions; uniform_cursor
+    as in transformer.decoder_forward.
     Returns (codec_logits [B, V_codec] f32, hidden [B, D], cache)."""
     cos, sin = _rope_tables(cfg, _pos4(pos.long()[:, None]))
     hidden_all, cache = transformer.decoder_forward(
         cfg, params, embed[:, None, :].to(transformer.dtype_of(cfg.dtype)),
-        cos, sin, cache, prompt_cap=prompt_cap)
+        cos, sin, cache, prompt_cap=prompt_cap,
+        uniform_cursor=uniform_cursor)
     hidden = hidden_all[:, 0]
     return _codec_logits(params, hidden), hidden, cache
 

@@ -10,9 +10,15 @@ padding is handled by the attention masks.  Attention runs through the
 port's kernels (kernels/flash_prefill, kernels/flash_decode): the CUDA
 kernels for tensors on the card, their plain versions on the CPU.  When
 `params` carries the talker's packed w4a8 weights under "fused_w4a8"
-(runtime/generate.Generator adds them for `TtsEngine(fused=True)`), a
-decode step (S == 1) is one call of kernels/talker_step.talker_step_fused
-instead, followed by the final norm.
+(runtime/generate.Generator adds them for `TtsEngine(fused=True)`) and the
+talker-step kernel takes the batch, a decode step (S == 1) is one call of
+kernels/talker_step.talker_step_fused instead, followed by the final norm.
+
+Cursors: every lane has its own write_idx.  uniform_cursor=True (one
+request, or lanes that started together) writes all lanes at write_idx[0];
+uniform_cursor=False (continuous batching) writes each lane at its own
+cursor, and a decode step then attends through
+kernels/flash_decode.flash_gqa_decode_append, which appends the row.
 """
 
 from __future__ import annotations
@@ -23,8 +29,10 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_decode import flash_gqa_decode_stacked
+from ..kernels.flash_decode import (flash_gqa_decode_append,
+                                    flash_gqa_decode_stacked)
 from ..kernels.flash_prefill import flash_gqa_prefill_stacked
+from ..kernels.talker_step import supported as talker_step_supported
 from ..kernels.talker_step import talker_step_fused
 from ..ops.attention import update_cache
 from ..ops.norms import rms_norm
@@ -35,8 +43,8 @@ from ..ops.rope import apply_rope
 @dataclass
 class KVCache:
     """Stacked KV cache.  k and v are written in place by
-    `decoder_forward`; write_idx (the next free slot, one value per lane,
-    all equal on this path) is replaced by the advanced cursor."""
+    `decoder_forward`; write_idx (the next free slot of each lane) is
+    replaced by the advanced cursor."""
 
     k: torch.Tensor          # [L, B, Hkv, C, Dh]
     v: torch.Tensor          # [L, B, Hkv, C, Dh]
@@ -100,21 +108,25 @@ def init_decoder_params(cfg, generator: torch.Generator) -> Dict[str, Any]:
 
 def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
-                    prompt_cap: int) -> Tuple[torch.Tensor, KVCache]:
+                    prompt_cap: int, uniform_cursor: bool = True,
+                    ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder over S new tokens written at the cache cursor.
 
     x: [B, S, D]; cos/sin: [B, S, Dh] rotary tables of the new positions.
     S > 1 is a prefill: its rows attend slots [0, min(max(prompt_cap, S),
-    C)).  S == 1 is a decode step over the live prefix.  All lanes share
-    one cursor (write_idx[0]).  k/v of the new rows are written into the
-    cache IN PLACE.  Returns (hidden [B, S, D] after the final norm, the
-    same cache with write_idx advanced by S).
+    C)).  S == 1 is a decode step over the live prefix.  uniform_cursor:
+    all lanes write at write_idx[0]; False: each lane at its own
+    write_idx[b] (module docstring).  k/v of the new rows are written into
+    the cache IN PLACE.  Returns (hidden [B, S, D] after the final norm,
+    the same cache with write_idx advanced by S).
     """
     b, s, _ = x.shape
-    if s == 1 and "fused_w4a8" in params:
+    if (s == 1 and "fused_w4a8" in params
+            and talker_step_supported(cfg, b)):
         hidden1 = talker_step_fused(
             cfg, params["fused_w4a8"], x[:, 0], cos[:, 0], sin[:, 0],
-            cache.k, cache.v, cache.lengths, cache.write_idx, prompt_cap)
+            cache.k, cache.v, cache.lengths, cache.write_idx, prompt_cap,
+            uniform_cursor=uniform_cursor)
         hidden = rms_norm(hidden1[:, None, :], params["final_norm"],
                           cfg.rms_eps)
         cache.write_idx = cache.write_idx + 1
@@ -122,7 +134,7 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     layers = params["layers"]
     start = cache.write_idx
-    write_at = start[:1].long()
+    write_at = start[:1] if uniform_cursor else start
     window = min(max(prompt_cap, s), cache.capacity)
     for layer in range(cfg.n_layers):
         hn = rms_norm(x, layers["ln1"][layer], cfg.rms_eps)
@@ -135,16 +147,24 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
             kk = rms_norm(kk, layers["k_norm"][layer], cfg.rms_eps)
         q = apply_rope(q, cos, sin).contiguous()
         kk = apply_rope(kk, cos, sin)
-        update_cache(cache.k[layer], kk, write_at)
-        update_cache(cache.v[layer], vv, write_at)
-        if s == 1:
-            attn = flash_gqa_decode_stacked(
-                q[:, 0], cache.k, cache.v, cache.lengths, start, layer,
-                prompt_cap)
+        if s == 1 and not uniform_cursor:
+            # the kernel appends each lane's row at its own cursor
+            attn = flash_gqa_decode_append(
+                q[:, 0], cache.k, cache.v,
+                kk[:, 0].to(cache.k.dtype).contiguous(),
+                vv[:, 0].to(cache.v.dtype).contiguous(), cache.lengths,
+                start, layer, prompt_cap)
         else:
-            attn = flash_gqa_prefill_stacked(
-                q, cache.k, cache.v, cache.lengths, start, layer,
-                prompt_cap, window)
+            update_cache(cache.k[layer], kk, write_at)
+            update_cache(cache.v[layer], vv, write_at)
+            if s == 1:
+                attn = flash_gqa_decode_stacked(
+                    q[:, 0], cache.k, cache.v, cache.lengths, start, layer,
+                    prompt_cap)
+            else:
+                attn = flash_gqa_prefill_stacked(
+                    q, cache.k, cache.v, cache.lengths, start, layer,
+                    prompt_cap, window)
         x = x + matmul(attn.reshape(b, s, h * dh), layers["wo"][layer])
         hn = rms_norm(x, layers["ln2"][layer], cfg.rms_eps)
         gu = matmul(hn, layers["w_gate_up"][layer])

@@ -64,10 +64,24 @@ def gqa_attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 def update_cache(cache: torch.Tensor, new: torch.Tensor,
                  start: torch.Tensor) -> torch.Tensor:
     """Write `new` [B, S, Hkv, Dh] into cache [B, Hkv, C, Dh] IN PLACE at
-    slots start..start+S-1, where `start` is a one-element int64 tensor
-    (one cursor for every lane).  The index stays on the device, so the
-    write needs no host sync.  Returns `cache`."""
-    s = new.shape[1]
-    slots = start.reshape(1) + torch.arange(s, device=cache.device)
-    cache.index_copy_(2, slots, new.transpose(1, 2).to(cache.dtype))
+    slots start..start+S-1.  `start` is a one-element integer tensor (one
+    cursor for every lane) or a [B] one (per-lane cursors: lane b writes
+    at start[b]..start[b]+S-1, and a slot outside [0, C) writes nothing,
+    as in the per-lane kernels of kernels/flash_decode.py).  The index
+    stays on the device, so the write needs no host sync.  Returns
+    `cache`."""
+    b, s = new.shape[0], new.shape[1]
+    if start.numel() == 1:
+        steps = torch.arange(s, device=cache.device)
+        cache.index_copy_(2, start.reshape(1).long() + steps,
+                          new.transpose(1, 2).to(cache.dtype))
+        return cache
+    cap = cache.shape[2]
+    lanes = torch.arange(b, device=cache.device)
+    for j in range(s):          # one slot per lane at a time: no index repeats
+        slot = start.long().reshape(b) + j
+        inside = ((slot >= 0) & (slot < cap))[:, None, None]
+        at = slot.clamp(0, cap - 1)
+        cache[lanes, :, at] = torch.where(inside, new[:, j].to(cache.dtype),
+                                          cache[lanes, :, at])
     return cache

@@ -15,13 +15,20 @@ Three decode paths share this loop.  The exact path
 per-kernel path (`fused=True, chunk=False`) is the JAX package's
 per-kernel schedule: each talker step is one kernels/talker_step call
 (w4a8) and each predictor frame one kernels/predictor_frame call (int8);
-the Generator packs both models' weights once, under talker_params
+`fused=True` packs both models' weights once, under talker_params
 ["fused_w4a8"] and predictor_params["fused_int8"].  The chunk path
 (`fused=True, chunk=True`; `TtsEngine`'s default on a CUDA device) runs
 each chunk of frames as ONE kernels/chunk_step launch
-(`_gen_frames_chunk`): the Generator packs the talker's w4a8 weights and
-the chunk kernel's predictor and extras once, under talker_params
-["fused_w4a8"] and ["chunk"].
+(`_gen_frames_chunk`), for which the Generator also packs the chunk
+kernel's predictor and extras under talker_params["chunk"].
+
+Which kernel runs is decided per call by the kernels' gates, as in the JAX
+package: the chunk kernel where its pack is present, the cursor is uniform
+and it takes the batch and frame count; otherwise frame by frame, with the
+predictor kernel where it takes the batch and the talker-step kernel where
+it does, and the exact modules elsewhere.  Continuous batching
+(serve/continuous.py) decodes with per-lane cursors (uniform_cursor=False)
+and refills freed lanes with `prefill_lanes`.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from ..kernels import predictor_frame as predictor_kernel
 from ..kernels import talker_step as talker_kernel
 from ..models import predictor as predictor_lib
 from ..models import talker as talker_lib
+from ..kernels.flash_decode import inject_prompt_lanes
 from ..models.codec import decoder as codec_decoder
 from ..models.transformer import KVCache
 from ..ops.sampling import sample_logits
@@ -103,10 +111,12 @@ def _frame_emb_sum(codec_tables: torch.Tensor,
 
 def _predict_frame_dispatch(cfg: EngineConfig, predictor_params, h1024,
                             code0, tables_1024) -> torch.Tensor:
-    """The predictor kernel where the Generator packed its weights, else
-    the exact path."""
+    """The predictor kernel where the Generator packed its weights and the
+    kernel takes the batch (JAX generate.py's dispatch), else the exact
+    predictor."""
     packed = predictor_params.get("fused_int8")
-    if packed is not None:
+    if packed is not None and predictor_kernel.supported(cfg.predictor,
+                                                         h1024.shape[0]):
         return predictor_kernel.predict_frame_fused(
             cfg.predictor, packed, h1024, code0, tables_1024)
     return predictor_lib.predict_frame(cfg.predictor, predictor_params,
@@ -116,21 +126,22 @@ def _predict_frame_dispatch(cfg: EngineConfig, predictor_params, h1024,
 def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
                assets_pack: Dict[str, Any], state: GenState,
                sampler: SamplerParams, n_frames: int, prompt_cap: int,
+               uniform_cursor: bool = True,
                ) -> Tuple[GenState, torch.Tensor, torch.Tensor]:
     """Generate `n_frames` frames.
 
     Returns (state, codes [B, n_frames, 16] int32, valid [B, n_frames]
     bool).  Frames after a lane's EOS are generated but flagged invalid;
     the EOS frame itself is invalid too.  Where the Generator packed the
-    chunk kernel (talker_params["chunk"]), the frames go through it; a
-    batch or frame count it does not take raises ValueError.
+    chunk kernel (talker_params["chunk"]), the cursor is uniform and the
+    kernel's gate takes the batch and frame count, the frames go through
+    it; otherwise they run one by one (JAX generate.py:199-206).
+    uniform_cursor=False: each lane writes at its own cursor.
     """
     chunk_pack = talker_params.get("chunk")
-    if chunk_pack is not None:
-        why = chunk_kernel.unsupported(cfg.talker, cfg.predictor,
-                                       state.hidden.shape[0], n_frames)
-        if why:
-            raise ValueError(why)
+    if (chunk_pack is not None and uniform_cursor
+            and chunk_kernel.supported(cfg.talker, cfg.predictor,
+                                       state.hidden.shape[0], n_frames)):
         return _gen_frames_chunk(cfg, talker_params, chunk_pack, state,
                                  sampler, n_frames, prompt_cap)
     tables_1024 = assets_pack["codec_tables_1024"]
@@ -150,7 +161,7 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
             + tts_pad
         logits, hidden, cache = talker_lib.talker_decode_step(
             cfg.talker, talker_params, feedback, state.pos, state.cache,
-            prompt_cap=prompt_cap)
+            prompt_cap=prompt_cap, uniform_cursor=uniform_cursor)
         state = GenState(cache=cache, logits=logits, hidden=hidden,
                          pos=state.pos + 1, step=state.step + 1, done=done,
                          generator=state.generator)
@@ -197,7 +208,8 @@ def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
 def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
               assets_pack, codec_params, state: GenState,
               dec_state: codec_decoder.DecoderState, sampler: SamplerParams,
-              budgets=None, *, max_frames: int, chunk: int, prompt_cap: int):
+              budgets=None, *, max_frames: int, chunk: int, prompt_cap: int,
+              uniform_cursor: bool = True):
     """Whole-request generation: a loop over `chunk`-frame groups, each
     followed by its codec decode, that exits at the first chunk boundary
     where every lane is done.
@@ -208,7 +220,8 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
     wav [B, F*spf] f32, frames_done int, saw_eos [B] bool) with F =
     max_frames rounded up to whole chunks; columns past a lane's budget
     are invalid, so the budget is exact.  saw_eos[i] is True iff lane i
-    sampled EOS (rather than running out of budget).
+    sampled EOS (rather than running out of budget).  uniform_cursor as in
+    gen_frames.
     """
     b = state.hidden.shape[0]
     dev = state.hidden.device
@@ -230,7 +243,7 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
         prev_done = state.done
         state, codes, valid = gen_frames(
             cfg, talker_params, predictor_params, assets_pack, state,
-            sampler, chunk, prompt_cap)
+            sampler, chunk, prompt_cap, uniform_cursor)
         # gen_frames only flips `done` on a sampled EOS
         saw_eos = saw_eos | (state.done & ~prev_done)
         codes_buf[:, ci * chunk:(ci + 1) * chunk] = codes
@@ -245,6 +258,45 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
     valid_buf &= torch.arange(f_cap, device=dev)[None, :] < budgets[:, None]
     return (state, dec_state, codes_buf, valid_buf, wav_buf, ci * chunk,
             saw_eos)
+
+
+def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
+                  lengths: torch.Tensor, lanes: torch.Tensor,
+                  state: GenState) -> GenState:
+    """Refill R lanes of a running batch with new prompts (continuous
+    batching), in place.  embeds: [R, S, 2048] right-padded prompts of one
+    bucket S; lengths, lanes: [R] int32 on the state's device, lanes
+    distinct or repeated only with identical rows.  The prompts prefill
+    into a compact fresh cache of capacity S (the prefill kernel's window
+    is S), `inject_prompt_lanes` copies it into slots [0, S) of the lanes,
+    and each lane's lengths, write_idx (= S: the decode region starts at
+    the bucket, as after `prefill`), pos, logits, hidden and done are set.
+    The old occupant's decode slots stay in the cache but sit at or above
+    the new cursor, which no attention reads, and are overwritten as the
+    new stream decodes.  Other lanes are untouched.  Returns the state."""
+    r, s_max, _ = embeds.shape
+    lengths = lengths.to(torch.int32)
+    compact = talker_lib.init_talker_cache(cfg.talker, r, s_max,
+                                           embeds.device)
+    logits, hidden, compact = talker_lib.talker_prefill(
+        cfg.talker, talker_params, embeds, lengths, compact)
+    cache = state.cache
+    inject_prompt_lanes(cache.k, cache.v, compact.k, compact.v, lanes)
+    idx = lanes.long()
+
+    def put(t: torch.Tensor, rows) -> torch.Tensor:
+        # a copy: the small state tensors may alias each other
+        t = t.clone()
+        t[idx] = rows
+        return t
+
+    cache.lengths = put(cache.lengths, lengths)
+    cache.write_idx = put(cache.write_idx, s_max)
+    state.logits = put(state.logits, logits.to(state.logits.dtype))
+    state.hidden = put(state.hidden, hidden.to(state.hidden.dtype))
+    state.pos = put(state.pos, lengths)
+    state.done = put(state.done, False)
+    return state
 
 
 def fused_unsupported(cfg: EngineConfig, batch: int = 1):
@@ -264,14 +316,14 @@ def chunk_unsupported(cfg: EngineConfig, batch: int = 1):
 class Generator:
     """Holds the weights of one engine and runs the generation steps.
 
-    fused=True packs the talker's w4a8 kernel weights once, here; with
-    chunk=False it also packs the predictor's int8 weights and decodes
-    through the talker-step and predictor-frame kernels, with chunk=True
-    it packs the chunk kernel's predictor and extras and decodes each
-    chunk through kernels/chunk_step.  chunk=True without fused=True, or
-    for a config the chunk kernel does not take, raises ValueError (the
-    kernels' wrappers raise for inputs they do not take; TtsEngine checks
-    the gates before it builds anything)."""
+    fused=True packs the talker's w4a8 and the predictor's int8 kernel
+    weights once, here, and decodes through the talker-step and
+    predictor-frame kernels; chunk=True also packs the chunk kernel's
+    predictor and extras and decodes each chunk through
+    kernels/chunk_step where its gate holds (gen_frames).  chunk=True
+    without fused=True, or for a config the chunk kernel does not take,
+    raises ValueError (the kernels' wrappers raise for inputs they do not
+    take; TtsEngine checks the gates before it builds anything)."""
 
     def __init__(self, cfg: EngineConfig, talker_params, predictor_params,
                  assets_pack, codec_params=None, fused: bool = False,
@@ -291,7 +343,6 @@ class Generator:
                 self.talker_params = dict(
                     talker_params, fused_w4a8=talker_kernel.prep_layer_weights(
                         cfg.talker, talker_params))
-            if fused and not chunk:
                 self.predictor_params = dict(
                     predictor_params,
                     fused_int8=predictor_kernel.prep_predictor_weights(
@@ -323,8 +374,30 @@ class Generator:
                           frame_slot, spk_flag, frames, spk_emb, lengths)
         return self.start(embeds, lengths, generator)
 
+    def refill_lanes(self, state: GenState, embeds_r: torch.Tensor,
+                     lengths, lanes) -> GenState:
+        """Prefill len(lanes) lanes of a running batch with new prompts
+        (see prefill_lanes).  embeds_r: [R, S, 2048]; lengths, lanes:
+        length-R host sequences.  Unlike the JAX package, R is not padded:
+        the padding there bounds XLA's compiled shapes, which eager
+        PyTorch does not have."""
+        b = state.hidden.shape[0]
+        lanes = [int(x) for x in lanes]
+        if len(lanes) != embeds_r.shape[0] or len(lengths) != len(lanes):
+            raise ValueError(f"refill of {embeds_r.shape[0]} prompts with "
+                             f"{len(lengths)} lengths and {len(lanes)} lanes")
+        if not all(0 <= x < b for x in lanes):
+            raise ValueError(f"refill lanes {lanes} outside [0, {b})")
+        dev = embeds_r.device
+        with torch.no_grad():
+            return prefill_lanes(
+                self.cfg, self.talker_params, embeds_r,
+                torch.tensor(list(lengths), dtype=torch.int32, device=dev),
+                torch.tensor(lanes, dtype=torch.int32, device=dev), state)
+
     def run_bulk(self, state: GenState, dec_state, sampler: SamplerParams,
-                 prompt_cap: int, max_frames: int, budgets=None):
+                 prompt_cap: int, max_frames: int, budgets=None,
+                 uniform_cursor: bool = True):
         """Whole-request generation with the codec decode fused per chunk
         of cfg.runtime.frames_per_chunk frames (see _gen_bulk).  Returns
         (state, dec_state, codes, valid, wav, frames_done, saw_eos)."""
@@ -334,4 +407,4 @@ class Generator:
                          self.assets_pack, self.codec_params, state,
                          dec_state, sampler, budgets, max_frames=max_frames,
                          chunk=self.cfg.runtime.frames_per_chunk,
-                         prompt_cap=prompt_cap)
+                         prompt_cap=prompt_cap, uniform_cursor=uniform_cursor)

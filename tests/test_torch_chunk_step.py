@@ -350,7 +350,8 @@ def _port_slice(c, n_chunks, n_frames):
     gen = tg.Generator(cfg, c["tp"], c["pp"], c["tpack"], fused=True,
                        chunk=True)
     assert "chunk" in gen.talker_params
-    assert "fused_int8" not in gen.predictor_params
+    # the per-frame schedule's predictor weights too (per-lane frames)
+    assert "fused_int8" in gen.predictor_params
     st = c["state"]
     i32 = lambda x: torch.tensor([x], dtype=torch.int32)
     state = tg.GenState(

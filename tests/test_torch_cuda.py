@@ -105,6 +105,22 @@ def test_prefill_kernel_matches_plain(dev, s, window, dh, h, hkv, start,
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize("b,s", [(8, 32), (8, 128), (32, 32), (32, 128)])
+def test_prefill_kernel_lane_refill(dev, b, s):
+    """The serving refill's shape: b prompts of one bucket S into a compact
+    cache of capacity S, window S, ragged lengths."""
+    rng = np.random.default_rng(b + s)
+    k, v, t = _cache(rng, 3, b, 8, s, 128, dev)
+    q = t((b, s, 16, 128))
+    lengths = _i32([s - (13 * i) % s for i in range(b)], dev)
+    start = _i32([0] * b, dev)
+    got = flash_gqa_prefill_stacked(q, k, v, lengths, start, 2, s, s)
+    torch.cuda.synchronize()
+    want = prefill_attention_plain(q, k, v, lengths, start, 2, s, s)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 def test_prefill_kernel_long_prompt(dev):
     rng = np.random.default_rng(7)
     b, s, h, hkv, dh = 1, 4096, 16, 8, 128
@@ -276,7 +292,7 @@ def _codes_agree(got, want, tk, tp):
     return equal
 
 
-@pytest.mark.parametrize("b", [1, 3, 5])
+@pytest.mark.parametrize("b", [1, 3, 5, 8, 32])
 def test_predictor_frame_matches_plain(dev, predictor, b):
     cfg, w, tables = predictor
     g = torch.Generator(device=dev).manual_seed(b)
@@ -518,3 +534,149 @@ def test_chunk_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):          # nine frames
         _run_chunk(tcs.gen_chunk_fused, case, 9, 32, 31, 32,
                    _zeros_u(9, dev), (0.0, 40, 0.9))
+
+
+# ---------------------------------------- continuous batching: per-lane caches
+# flash_gqa_decode_append: attention within the decode kernel's bound of its
+# plain version's f32 result; the written row bit-exact, every other slot
+# untouched, a poisoned stale row at the slot being written never read.
+# inject_prompt_lanes / append_kv_lanes: copies, so bit-exact.
+def test_decode_append_kernel_matches_plain(dev):
+    from qwen3_tts_tpu_torch.kernels.flash_decode import (
+        decode_append_plain, flash_gqa_decode_append)
+    rng = np.random.default_rng(21)
+    b, h, hkv, dh, cap, prompt_cap = 4, 16, 8, 128, 1024, 128
+    k, v, t = _cache(rng, 2, b, hkv, cap, dh, dev)
+    q, kn, vn = t((b, h, dh)), t((b, hkv, dh)), t((b, hkv, dh))
+    cursors = [0, 511, 512, 1023]
+    lengths, wi = _i32([0, 100, 128, 37], dev), _i32(cursors, dev)
+    for i, c in enumerate(cursors):
+        k[1, i, :, c] = 1e3
+        v[1, i, :, c] = float("nan")
+    kk, vk, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
+    got = flash_gqa_decode_append(q, kk, vk, kn, vn, lengths, wi, 1,
+                                  prompt_cap)
+    torch.cuda.synchronize()
+    want = decode_append_plain(q.float(), kp, vp, kn, vn, lengths, wi, 1,
+                               prompt_cap)
+    torch.testing.assert_close(got.float(), want, atol=DECODE_ATOL,
+                               rtol=DECODE_RTOL)
+    assert torch.equal(kk, kp) and torch.equal(vk, vp)
+
+
+def test_inject_and_append_lanes_match_plain(dev):
+    from qwen3_tts_tpu_torch.kernels.flash_decode import (
+        append_kv_lanes, append_kv_lanes_plain, inject_prompt_lanes,
+        inject_prompt_lanes_plain)
+    rng = np.random.default_rng(22)
+    n_layers, b, hkv, cap, dh, s = 3, 8, 8, 256, 128, 64
+    k, v, t = _cache(rng, n_layers, b, hkv, cap, dh, dev)
+    ks, vs = t((n_layers, 3, hkv, s, dh)), t((n_layers, 3, hkv, s, dh))
+    ks[:, 2], vs[:, 2] = ks[:, 0], vs[:, 0]
+    lanes = _i32([5, 1, 5], dev)                   # lane 5 twice, same rows
+    got = [x.clone() for x in (k, v)]
+    want = [x.clone() for x in (k, v)]
+    inject_prompt_lanes(*got, ks, vs, lanes)
+    torch.cuda.synchronize()
+    inject_prompt_lanes_plain(*want, ks, vs, lanes)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    kt, vt = t((n_layers, b, hkv, dh)), t((n_layers, b, hkv, dh))
+    starts = _i32([0, 7, 8, 63, 64, 255, 128, 1], dev)
+    append_kv_lanes(*got, kt, vt, starts)
+    torch.cuda.synchronize()
+    append_kv_lanes_plain(*want, kt, vt, starts)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert torch.equal(got[0][:, 3, :, 63], kt[:, 3])
+
+
+def test_talker_step_batched_per_lane_matches_plain(dev, talker):
+    """B = 8 and 32, ragged per-lane cursors, two layers at full width:
+    each lane bit-equal to the one-lane kernel on its inputs; each layer,
+    from the kernel's own hidden state at the layer before, within 2e-2 of
+    the plain version with its softmax in the kernel's order
+    (chunk_step._talker_plain, 128-slot prefix tiles) run on that lane
+    alone (on the card the plain version orders its sums by shape, so a
+    batched plain call is not lane for lane the B = 1 one), at least half
+    of the (layer, lane) pairs bit-equal (an f32 sum in another order
+    flips a bf16 rounding now and then, and the next int8 quantization
+    moves one element by a step: 1.15e-2 of max in one layer on one
+    H100); the rows the per-lane mode appends likewise; every other slot
+    untouched."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.kernels import chunk_step as tcs
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    cfg, w = talker
+    cd = dataclasses.replace(cfg, n_layers=2)
+    wd = {name: x[:2] for name, x in w.items()}
+    for b in (8, 32):
+        k, v, x, _, _ = _step_inputs(cd, b, 1024, 0, dev, b)
+        cursors = [128 + (37 * i) % 896 for i in range(b)]
+        pos = torch.tensor(cursors, device=dev)
+        cos, sin = talker_lib._rope_tables(cd, talker_lib._pos4(pos[:, None]))
+        cos, sin = cos[:, 0].contiguous(), sin[:, 0].contiguous()
+        lens, wi = _i32([(60 + 13 * i) % 128 for i in range(b)], dev), \
+            _i32(cursors, dev)
+        kk, vk = k.clone(), v.clone()
+        got = tts.talker_step_fused(cd, wd, x, cos, sin, kk, vk, lens, wi,
+                                    128, uniform_cursor=False)
+        torch.cuda.synchronize()
+        for i, c in enumerate(cursors):
+            # copies: the kernel takes 16-byte aligned tensors
+            lane = tuple(t[i:i + 1].clone() for t in (x, cos, sin))
+            li, wl = lens[i:i + 1].clone(), wi[i:i + 1].clone()
+            mine = [t[:, i:i + 1].clone() for t in (k, v)]
+            one = tts.talker_step_fused(cd, wd, *lane, *mine, li, wl, 128)
+            assert torch.equal(got[i], one[0]), i
+            for a, m in zip((kk, vk), mine):
+                assert torch.equal(a[:, i, :, c], m[:, 0, :, c]), i
+        # layer by layer, from the kernel's own state at the layer before
+        c1 = dataclasses.replace(cfg, n_layers=1)
+        h1 = tts.talker_step_fused(c1, {name: t[:1] for name, t in w.items()},
+                                   x, cos, sin, k[:1].clone(), v[:1].clone(),
+                                   lens, wi, 128, uniform_cursor=False)
+        outs, es = (x, h1, got), []
+        for layer in range(2):
+            w1 = {name: t[layer:layer + 1] for name, t in w.items()}
+            for i, c in enumerate(cursors):
+                lane = tuple(t[i:i + 1].clone() for t in (outs[layer], cos,
+                                                          sin))
+                tiled = [t[layer:layer + 1, i:i + 1].clone() for t in (k, v)]
+                alt = tcs._talker_plain(c1, w1, *lane, *tiled,
+                                        lens[i:i + 1].clone(), c, 0, 128, 128)
+                es.append(max(_rel(outs[layer + 1][i:i + 1], alt),
+                              *(_rel(a[layer, i, :, c], p[0, 0, :, c])
+                                for a, p in zip((kk, vk), tiled))))
+        assert max(es) <= 2e-2, es
+        assert 2 * sum(e == 0 for e in es) >= len(es), es
+        lanes = torch.arange(b, device=dev)
+        for a, orig in ((kk, k), (vk, v)):
+            a[:, lanes, :, wi.long()] = 0
+            orig = orig.clone()
+            orig[:, lanes, :, wi.long()] = 0
+            assert torch.equal(a, orig)
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_talker_step_batched_lanes_equal_single_lane(dev, talker, n):
+    """n identical lanes through the batched kernel (one row tile, then
+    four): bit-equal to each other and to the one-lane kernel (each lane's
+    arithmetic is B = 1's)."""
+    import dataclasses
+    cfg, w = talker
+    cd = dataclasses.replace(cfg, n_layers=2)
+    wd = {name: x[:2] for name, x in w.items()}
+    k1, v1, x1, cos1, sin1 = _step_inputs(cd, 1, 512, 200, dev, 5)
+    rep = lambda t_: t_.expand(t_.shape[0], n, *t_.shape[2:]).contiguous()
+    kn, vn = rep(k1), rep(v1)
+    xn = x1.expand(n, -1).contiguous()
+    cosn, sinn = cos1.expand(n, -1).contiguous(), sin1.expand(n, -1).contiguous()
+    one = tts.talker_step_fused(cd, wd, x1, cos1, sin1, k1, v1,
+                                _i32([90], dev), _i32([200], dev), 128)
+    many = tts.talker_step_fused(cd, wd, xn, cosn, sinn, kn, vn,
+                                 _i32([90] * n, dev), _i32([200] * n, dev),
+                                 128, uniform_cursor=False)
+    torch.cuda.synchronize()
+    for i in range(n):
+        assert torch.equal(many[i], one[0])
+        assert torch.equal(kn[:, i], k1[:, 0]) and torch.equal(vn[:, i],
+                                                               v1[:, 0])

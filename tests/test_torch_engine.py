@@ -211,6 +211,8 @@ def test_imports_without_jax():
         "assert not any(k.split('.')[0] in ('jax', 'flax') and sys.modules[k]"
         " for k in sys.modules)\n"
         "assert 'qwen3_tts_tpu_torch.kernels.chunk_step' in sys.modules\n"
+        "assert 'qwen3_tts_tpu_torch.serve.continuous' in sys.modules\n"
+        "assert 'qwen3_tts_tpu_torch.serve.codec_path' in sys.modules\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,

@@ -225,9 +225,54 @@ def test_plain_step_bit_exact_without_excess_precision():
     assert out.stdout.strip().endswith("bit-exact")
 
 
+def test_plain_step_per_lane_cursors_batch8(setup):
+    """B = 8 with ragged per-lane cursors (continuous batching; the cases of
+    tests/test_talker_kernel.py:314): the plain version in per-lane mode
+    against the Pallas kernel's batched per-lane form within REL_TOL (its
+    batched scores take bf16 inputs, the port's stay f32), every untouched
+    slot bit for bit; and each lane bit-equal to the plain version at
+    B = 1 on that lane alone."""
+    jcfg, tcfg, params, jw, _ = setup
+    b = 8
+    lengths = [(96 * (i + 1)) % 512 or 512 for i in range(b)]
+    starts = [PCAP + (3 * i) % 6 for i in range(b)]
+    k, v, x = _state(jcfg, b, 21)
+    cos, sin = _rope(jcfg, starts)
+    jh, jk, jv = jts.talker_step_fused(
+        jcfg, params, jnp.asarray(x, jnp.bfloat16), jnp.asarray(cos),
+        jnp.asarray(sin), jnp.asarray(k, jnp.bfloat16),
+        jnp.asarray(v, jnp.bfloat16), jnp.asarray(lengths, jnp.int32),
+        jnp.asarray(starts, jnp.int32), PCAP, interpret=True, weights="w4a8")
+    w = talker_w4a8_from_jax(jw)
+    kc, vc = _t(k), _t(v)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32)
+    got = tts.talker_step_fused(
+        tcfg, w, _t(x), _t(cos, torch.float32), _t(sin, torch.float32), kc,
+        vc, i32(lengths), i32(starts), PCAP, uniform_cursor=False)
+    _assert_close(got.float().numpy(), np.asarray(jh, np.float32))
+    for cache, want, orig in ((kc, jk, k), (vc, jv, v)):
+        got_c, want = cache.float().numpy(), np.asarray(want, np.float32)
+        for i, s in enumerate(starts):
+            _assert_close(got_c[:, i, :, s], want[:, i, :, s])
+            keep = np.arange(CAP) != s
+            np.testing.assert_array_equal(got_c[:, i, :, keep],
+                                          orig[:, i, :, keep])
+    for i in range(b):
+        k1, v1 = _t(k[:, i:i + 1]), _t(v[:, i:i + 1])
+        one = tts.talker_step_fused(
+            tcfg, w, _t(x[i:i + 1]), _t(cos[i:i + 1], torch.float32),
+            _t(sin[i:i + 1], torch.float32), k1, v1, i32(lengths[i:i + 1]),
+            i32(starts[i:i + 1]), PCAP)
+        assert torch.equal(one[0], got[i]), i
+        assert torch.equal(k1[:, 0], kc[:, i]) and torch.equal(v1[:, 0],
+                                                               vc[:, i]), i
+
+
 def test_supported_gate():
     assert tts.supported(TTC(), 1) and tts.supported(TTC(), 4)
-    assert tts.unsupported(TTC(), 5) == "talker_step: batch 5 outside [1, 4]"
+    assert tts.supported(TTC(), 8) and tts.supported(TTC(), 96)
+    assert tts.unsupported(TTC(), 5) == (
+        "talker_step: batch 5 is not 1-4 or a multiple of 8 up to 96")
     assert "head_dim" in tts.unsupported(TTC.tiny(), 1)
     assert "d_ff" in tts.unsupported(TTC(d_ff=6000), 1)
 
