@@ -1,20 +1,28 @@
 // Whole decode frames of one chunk in ONE cooperative launch, for Hopper.
 //
 // Replaces: qwen3_tts_tpu/kernels/chunk_step.py gen_chunk_fused (the Pallas
-// TPU kernel) at batch 1, with its in-kernel sampler `_sample_inkernel`.
+// TPU kernel) at its batches: 1 lane, 8 or 16 lanes at F <= 8 frames, 24 or
+// 32 lanes at F <= 4 (the JAX gate), with its in-kernel sampler
+// `_sample_inkernel`.
 // Contract (kernels/chunk_step.py): F <= 8 frames; each frame samples
-// code_0 from the carried codec logits (greedy, or the threshold sampler
-// with the caller's uniform u[f]), projects the f32 hidden 2048 -> 1024,
-// runs the predictor's 16 tokens (w4a8 weights, f32 group scales, 16-slot
-// KV, window argmax, next input ctab_pred[t][code_t]), sums the feedback
-// (16 codec-table rows + tts_pad), runs the 28-layer w4a8 talker step
-// writing the frame's k/v row IN PLACE at slot write_idx + f, and applies
-// the final norm (kept as the f32 hidden) and the int8 codec head over rows
-// [0, 2160) for the next frame's logits.  It rounds to bf16 where the
-// Pallas kernel and kernels/chunk_step.gen_chunk_plain do, but its f32
-// sums run in its lanes' order, and the cache prefix goes in 128-slot
-// tiles (the plain version and the JAX kernel: 512), so the online softmax
-// rescales at other points; chip_smoke.py holds the result to that drift.
+// code_0 of every lane from the carried codec logits (greedy, or the
+// threshold sampler with the caller's uniform u[f, b]), projects the f32
+// hidden 2048 -> 1024, runs the predictor's 16 tokens (w4a8 weights, f32
+// group scales, 16-slot KV, window argmax, next input ctab_pred[t][code_t]),
+// sums the feedback (16 codec-table rows + tts_pad), runs the 28-layer w4a8
+// talker step writing the frame's k/v row IN PLACE at slot write_idx + f
+// (one cursor for every lane: write_idx[0]; the prompt lengths are per
+// lane), and applies the final norm (kept as the f32 hidden) and the int8
+// codec head over rows [0, 2160) for the next frame's logits.  It rounds to
+// bf16 where the Pallas kernel and kernels/chunk_step.gen_chunk_plain do,
+// but its f32 sums run in its lanes' order, and the cache prefix goes in
+// 128-slot tiles (the plain version and the JAX kernel: 512), so the online
+// softmax rescales at other points; chip_smoke.py holds the result to that
+// drift.  Every lane of a batched launch computes exactly what the one-lane
+// launch computes on that lane's inputs (bit for bit; chip_smoke.py checks
+// it): the JAX kernel's batched loop scores q.k and p.v in bf16, a TPU
+// matrix-unit artefact that is not carried over, nor is its bf16 proj_w at
+// b >= 24.
 //
 // Design.  The TPU kernel runs frames and layer groups as a sequential grid
 // on one core; Hopper runs blocks in parallel and carries nothing between
@@ -29,46 +37,63 @@
 // runs the device code of talker_step.cu and predictor_frame.cu (shared in
 // w4a8.cuh and common.cuh) with the block's index in that loop in place of
 // blockIdx:
-//   sample + project  block 0 samples code_0 (same arithmetic as
-//                     ops.sampling.sample_threshold); every block projects
-//                     rows of h1024 = hidden . proj_w^T + proj_b (f32);
+//   sample + project  block b < B samples code_0 of lane b (same arithmetic
+//                     as ops.sampling.sample_threshold); every block
+//                     projects rows of h1024 = hidden . proj_w^T + proj_b
+//                     (f32) for its lanes;
 //   predictor         per token t and layer: qkv GEMV (RMSNorm + int8
 //                     prologue recomputed by every block), attention (one
-//                     group of 64 threads per kv head, named barriers),
-//                     wo + residual, gate_up + SwiGLU, down + residual;
-//                     after token t >= 1 the final norm and the 2048-row
-//                     int8 window GEMV, each block writing its rows' best
-//                     (value, lowest index) to scratch; the next phase
-//                     reduces those in every block (no extra barrier) and
-//                     gathers the next input row from ctab_pred;
+//                     group of 64 threads per (lane, kv head), named
+//                     barriers), wo + residual, gate_up + SwiGLU, down +
+//                     residual; after token t >= 1 the final norm and the
+//                     2048-row int8 window GEMV, each block writing its
+//                     rows' best (value, lowest index) per lane to scratch;
+//                     the next phase reduces those in every block (no extra
+//                     barrier) and gathers the next input row from ctab_pred;
 //   feedback          code_15 as above, then x = bf16(sum of 16 rows + pad);
 //   talker            per layer: qkv, attention (one group of 128 threads
-//                     per kv head: q/k norm + rope, the in-place k/v write,
-//                     the cache prefix [0, start) in 128-slot tiles, then
-//                     the chunk's own slots start .. start + f as one more
-//                     merge: the JAX order), wo, gate_up, down;
+//                     per (lane, kv head): q/k norm + rope, the in-place k/v
+//                     write, the cache prefix [0, start) in 128-slot tiles,
+//                     then the chunk's own slots start .. start + f as one
+//                     more merge: the JAX order), wo, gate_up, down;
 //   codec head        final norm -> hidden (f32), int8 head -> logits.
 // Data that other blocks wrote during the launch is read with ld.global.cg
 // (L2; L1 is not coherent across SMs); weights with ordinary loads.
 //
+// Lanes.  One lane runs `chunk_kernel` (a static shared-memory union of
+// ~29 KB: two blocks per SM).  B = 8-32 lanes run `chunk_kernel_rows`
+// (namespace `rows`), the same phases written for row tiles of NB lanes
+// and instantiated at ROWS = 8: the blocks are split into B / 8 groups,
+// group i serving lanes 8i .. 8i + 7 in every row-wise phase (GEMVs,
+// projection, heads, feedback), so each block normalises and quantizes its
+// tile's 8 rows once per phase and reads each weight column once for all 8
+// (w4a8.cuh's NB-row GEMV, as talker_step.cu runs it); the B / 8 groups
+// read the same columns at about the same time, mostly from L2.  Eight
+// int8 + bf16 rows of K = 6144 and their group dots take 156 KB of dynamic
+// shared memory, so that kernel runs one block per SM.  Attention phases
+// spread (lane, kv head) pairs over all blocks; the argmax scratch holds
+// one slot per (lane, block).
+//
 // Barriers per frame: 1 + 16 x 6 x 5 + 15 + 1 + 28 x 5 + 1 = 638 at full
-// width.  Measured on an H100 (chip_smoke.py reads block 0's clock at
-// each barrier through `clocks`): 5.3 ms per frame, the lightest phases
-// (the predictor's wo) ~4 us each, so barrier + prologue cost about
-// 2.5 ms of a frame; the attention phases, which keep only 2-4 blocks
-// busy, take 11 us (predictor) and 27 us (talker) each, 1.8 ms.  That is
-// the price of right-and-simple here.
+// width, at every B.  Measured on an H100 at B = 1 (chip_smoke.py reads
+// block 0's clock at each barrier through `clocks`): 5.3 ms per frame, the
+// lightest phases (the predictor's wo) ~4 us each, so barrier + prologue
+// cost about 2.5 ms of a frame; the attention phases, which keep only 2-4
+// blocks busy, take 11 us (predictor) and 27 us (talker) each, 1.8 ms.
+// That is the price of right-and-simple here.
 //
 // What bounds it on the card: bytes.  Per frame at full width, the
 // talker's 0.70 GB of int4 weights and 22 MB of bf16 scales (0.216 ms at
 // 3.35 TB/s), the predictor's 37.7 MB of int4 and 2.4 MB of f32 scales,
 // read once if the 50 MB L2 keeps them over the 16 tokens (0.012 ms) or
 // 16 times if not (0.19 ms), and 31 MB of lm-head windows (0.009 ms):
-// 0.24-0.42 ms per frame, plus barrier latency.  Later work, not here:
-// wgmma / TMA weight streaming, an L2 access-policy window that pins the
-// predictor, split-K attention over more blocks, fewer barriers (fusing
-// phases whose data a block can recompute), and the batched forms.
+// 0.24-0.42 ms per frame, plus barrier latency, plus at B lanes each lane's
+// visible cache prefix.  Later work, not here: wgmma / TMA weight
+// streaming, an L2 access-policy window that pins the predictor, split-K
+// attention over more blocks, fewer barriers (fusing phases whose data a
+// block can recompute).
 
+#include <algorithm>
 #include <climits>
 
 #include "w4a8.cuh"
@@ -91,7 +116,9 @@ constexpr int MAX_D = 4096;        // widest row a block stages
 constexpr int MAX_V = 4096;        // sampler columns
 constexpr int TDH = 128;           // talker head_dim
 constexpr int PDH = 64;            // predictor head_dim
-constexpr int N_PTRS = 64, N_INTS = 20, N_FLTS = 7;
+constexpr int ROWS = 8;            // lanes per row tile of the batched form
+constexpr int MAX_B = 32;
+constexpr int N_PTRS = 65, N_INTS = 21, N_FLTS = 7;
 constexpr long long BARRIER_TIMEOUT = 1LL << 34;   // SM cycles, ~8 s
 
 enum { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
@@ -121,15 +148,18 @@ struct Args {
   const uint8_t* p_dn_q;   const float* p_dn_s;
   // outputs
   int* codes; float *logits_out, *hidden_out, *taps;
+  bf16* xtaps;                     // optional, batched form: [B, F, L + 1, D]
   // scratch
   bf16 *x, *qkv, *ctx, *ff, *px, *pqkv, *pctx, *pff, *pk, *pv;
-  float* best_v; int* best_i;
+  float* best_v; int* best_i;      // one lane: [blocks]; B: [B, blocks]
   unsigned* barrier;               // [arrivals, check-outs], 0 at launch
   long long* trace;                // optional: phase clocks of block 0
   // sizes
   int F, L, D, H, Hkv, t_dh, FF, C, prompt_cap, LP, DP, PH, PHkv, p_dh, PFF,
-      R_fb, R_pd, V, fb_bf16, max_blocks_per_sm;
+      R_fb, R_pd, V, fb_bf16, max_blocks_per_sm, B;
   float t_eps, p_eps, temperature, top_k, top_p, t_scale, p_scale;
+  // the batched form's shared-memory layout (set by the launcher)
+  int kmax, gd_ints;
 };
 
 struct GemvSmem {
@@ -749,6 +779,633 @@ sample_kernel(const float* __restrict__ logits, const float* __restrict__ u,
   if (threadIdx.x == 0) out[blockIdx.x] = c;
 }
 
+// ============================================ the batched form (B = 8-32)
+// The phases of chunk_kernel for NB lanes at once, each lane's arithmetic
+// that of the one-lane code above (so every lane is bit-equal to a
+// one-lane launch): each row-wise phase serves the block's row tile of NB
+// lanes; attention phases take (lane, kv head) items over all blocks.
+namespace rows {
+
+// What a phase sees of the block's dynamic shared memory, for NB rows
+// (lanes) at once; the phases' regions overlap (one phase at a time).
+template <int NB>
+struct Views {
+  int8_t* xq;                      // [NB, K] GEMV: int8 rows
+  bf16* xs;                        // [NB, K] GEMV: (normed) bf16 rows
+  int* gd;                         // [WARPS, R, K / 128, NB] group dots
+  float* sx;                       // [NB] GEMV: row scales
+  float* h;                        // [NB, D] projection: f32 hidden rows
+  bf16* xb;                        // [NB, K] heads: normed bf16 rows
+  qtts::AttnScratch<TDH>* ta;      // [THREADS / TDH]
+  qtts::AttnScratch<PDH>* pa;      // [THREADS / PDH]
+};
+
+// Small per-block state, in static shared memory.
+template <int NB>
+struct Small {
+  float red[WARPS];
+  int ired[WARPS];
+  float bv[WARPS * NB];            // the head's best (value, row) per warp
+  int bi[WARPS * NB];              //   and lane
+  int code[NB];                    // the block's lanes' codes
+  int row[NB];                     // and their (clamped) table rows
+};
+
+// The block's row tile: lanes tile * NB .. tile * NB + NB - 1, served by
+// the nblk blocks with blockIdx.x % tiles == tile; rank is the block's
+// index among them.  One tile: every block, rank = blockIdx.x.
+struct Part {
+  int tile, rank, nblk;
+};
+
+__device__ __forceinline__ Part partition(int tiles) {
+  Part p;
+  p.tile = blockIdx.x % tiles;
+  p.rank = blockIdx.x / tiles;
+  p.nblk = (gridDim.x - p.tile + tiles - 1) / tiles;
+  return p;
+}
+
+// The input rows of a GEMV: row b is base + (idx ? idx[b] : first + b) * K.
+struct Rows {
+  const bf16* base;
+  const int* idx;
+  int first;
+};
+
+template <int NB>
+__device__ __forceinline__ float pick(const float (&x)[NB], int i) {
+  float r = x[0];
+#pragma unroll
+  for (int b = 1; b < NB; ++b)
+    if (b == i) r = x[b];
+  return r;
+}
+
+// A full warp's dots of int8 row w [K] with the NB bf16 rows xs [NB, K]
+// (shared), in f32; every lane gets every sum.  K % 16 == 0.  Each row's
+// sum runs in the one-row order.
+template <int NB>
+__device__ __forceinline__ void i8_rows_dot(const int8_t* __restrict__ w,
+                                            const bf16* xs, int K,
+                                            float (&acc)[NB]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+  for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
+    const uint4 wv = *reinterpret_cast<const uint4*>(w + k0);
+    const int8_t* w8 = reinterpret_cast<const int8_t*>(&wv);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const uint4* xv = reinterpret_cast<const uint4*>(xs + (size_t)b * K + k0);
+      const uint4 xa = xv[0], xb = xv[1];
+      const __nv_bfloat162* h0 = reinterpret_cast<const __nv_bfloat162*>(&xa);
+      const __nv_bfloat162* h1 = reinterpret_cast<const __nv_bfloat162*>(&xb);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f0 = __bfloat1622float2(h0[j]);
+        const float2 f1 = __bfloat1622float2(h1[j]);
+        acc[b] = fmaf(f0.x, (float)w8[2 * j], acc[b]);
+        acc[b] = fmaf(f0.y, (float)w8[2 * j + 1], acc[b]);
+        acc[b] = fmaf(f1.x, (float)w8[8 + 2 * j], acc[b]);
+        acc[b] = fmaf(f1.y, (float)w8[8 + 2 * j + 1], acc[b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], o);
+}
+
+// s.code[b] = the window argmax of lane tile * NB + b: (value, lowest
+// index) over the entries of the tile's blocks, one warp per lane.
+template <int NB>
+__device__ void lane_argmax(const Args& a, const Part& p, Small<NB>& s) {
+  static_assert(NB <= WARPS, "one warp per lane");
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp < NB) {
+    const size_t base = (size_t)(p.tile * NB + warp) * gridDim.x;
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    for (int r = lane; r < p.nblk; r += 32) {
+      const float v = __ldcg(a.best_v + base + r);
+      const int k = __ldcg(a.best_i + base + r);
+      if (better(v, k, bv, bi)) {
+        bv = v;
+        bi = k;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) s.code[warp] = bi;
+  }
+  __syncthreads();
+}
+
+// dst[lane, n] for n < N and the block's NB lanes (grid-stride over output
+// columns within the tile, one warp each): the w4a8 product of each lane's
+// (normed) input row with column n (and n + N for the SwiGLU pair), then
+// the epilogue; the talker_step.cu GEMV body.  Each row is quantized alone,
+// as at B = 1.
+template <int NB, int R, bool RMS, int EPI, typename S>
+__device__ void gemv(const Rows& in, const float* norm_w, float eps, int K,
+                     const uint8_t* wq, const S* ws, int N, bf16* dst,
+                     const Views<NB>& v, const Part& p, float* red) {
+#pragma unroll 1
+  for (int b = 0; b < NB; ++b)
+    qtts::quantize_rows<1, RMS, THREADS, true>(
+        in.base + (size_t)(in.idx ? in.idx[b] : in.first + b) * K, norm_w,
+        K, eps, v.xs + (size_t)b * K, v.xq + (size_t)b * K, v.sx + b, red);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* gw = v.gd + (size_t)warp * R * (K / qtts::W4_GROUP) * NB;
+  for (int col = p.rank * WARPS + warp; col < N; col += p.nblk * WARPS) {
+    float y[R];
+    qtts::w4a8_warp_row<NB, R>(v.xq, v.sx, K, wq, ws, N, col, gw, y);
+    if (lane < NB) {
+      bf16* o = dst + (size_t)(p.tile * NB + lane) * N + col;
+      if (EPI == EPI_STORE) {
+        *o = __float2bfloat16_rn(y[0]);
+      } else if (EPI == EPI_RESID) {
+        *o = __float2bfloat16_rn(__fadd_rn(ld_bf<true>(o), y[0]));
+      } else {
+        const float gate = y[0];
+        const float act = bf16r(__fdiv_rn(gate, 1.0f + expf(-gate)));
+        *o = __float2bfloat16_rn(__fmul_rn(act, y[R - 1]));
+      }
+    }
+    __syncwarp();                  // gw is rewritten by the next column
+  }
+}
+
+// Block b < B: code_0 of lane b, frame f.  Every block: px = bf16(hid .
+// proj_w^T + b) for its lanes.
+template <int NB>
+__device__ void sample_project(const Args& a, int f, const Views<NB>& v,
+                               const Part& p, Small<NB>& s) {
+  const float* lg = f == 0 ? a.logits : a.logits_out;
+  const float* hid = f == 0 ? a.hidden : a.hidden_out;
+  if ((int)blockIdx.x < a.B) {
+    const int b = blockIdx.x;
+    const int c0 = sample_block<true>(lg + (size_t)b * a.V, a.V,
+                                      a.u[f * a.B + b], a.temperature,
+                                      a.top_k, a.top_p, s.red, s.ired);
+    if (threadIdx.x == 0) a.codes[((size_t)b * a.F + f) * N_TOKENS] = c0;
+  }
+  const int lane0 = p.tile * NB;
+  for (int b = 0; b < NB; ++b)
+    for (int k = threadIdx.x; k < a.D; k += THREADS)
+      v.h[(size_t)b * a.D + k] = __ldcg(hid + (size_t)(lane0 + b) * a.D + k);
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int row = p.rank * WARPS + warp; row < a.DP;
+       row += p.nblk * WARPS) {
+    const float* w = a.proj_w + (size_t)row * a.D;
+    float acc[NB];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) acc[b] = 0.f;
+    for (int k = lane * 4; k < a.D; k += 32 * 4) {
+      const float4 wv = *reinterpret_cast<const float4*>(w + k);
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const float* h = v.h + (size_t)b * a.D;
+        acc[b] = fmaf(h[k], wv.x, acc[b]);
+        acc[b] = fmaf(h[k + 1], wv.y, acc[b]);
+        acc[b] = fmaf(h[k + 2], wv.z, acc[b]);
+        acc[b] = fmaf(h[k + 3], wv.w, acc[b]);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], o);
+    if (lane < NB)
+      a.px[(size_t)(lane0 + lane) * a.DP + row] =
+          __float2bfloat16_rn(__fadd_rn(pick(acc, lane), a.proj_b[row]));
+  }
+}
+
+// The input rows of token tok >= 1, layer 0: ctab_pred[tok - 1][code] of
+// each of the block's lanes (code_0 from the sampler; later codes from the
+// last window's argmax, which the tile's first block also writes out).
+// The tile's first block copies them into px for the residual adds.
+template <int NB>
+__device__ Rows token_rows(const Args& a, int f, int tok, const Part& p,
+                           Small<NB>& s) {
+  const int prev = tok - 1;
+  const int lane0 = p.tile * NB;
+  if (prev == 0) {
+    if (threadIdx.x < NB)
+      s.code[threadIdx.x] = __ldcg(
+          a.codes + ((size_t)(lane0 + threadIdx.x) * a.F + f) * N_TOKENS);
+    __syncthreads();
+  } else {
+    lane_argmax<NB>(a, p, s);
+  }
+  if (threadIdx.x < NB) {
+    const int c = s.code[threadIdx.x];
+    if (prev >= 1 && p.rank == 0)
+      a.codes[((size_t)(lane0 + threadIdx.x) * a.F + f) * N_TOKENS + prev] = c;
+    s.row[threadIdx.x] = min(max(c, 0), a.R_pd - 1);
+  }
+  __syncthreads();
+  const Rows in{a.ctab_pred + (size_t)prev * a.R_pd * a.DP, s.row, 0};
+  if (p.rank == 0)
+    for (int b = 0; b < NB; ++b)
+      for (int k = threadIdx.x; k < a.DP; k += THREADS)
+        a.px[(size_t)(lane0 + b) * a.DP + k] =
+            in.base[(size_t)s.row[b] * a.DP + k];
+  return in;
+}
+
+// Predictor attention of token `tok`, layer l: one group of PDH threads per
+// (lane, kv head); the context goes out in the c-major head order of wo's
+// rows (position c * PHkv + j for head j * G + c).
+__device__ void pred_attn(const Args& a, int tok, int l,
+                          qtts::AttnScratch<PDH>* pa) {
+  constexpr int GPB = THREADS / PDH;
+  const int grp = threadIdx.x / PDH;
+  const int t = threadIdx.x % PDH;
+  const int G = a.PH / a.PHkv;
+  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH, pdq = a.PH * PDH;
+  for (int it = blockIdx.x * GPB + grp; it < a.B * a.PHkv;
+       it += gridDim.x * GPB) {
+    const int b = it / a.PHkv, kvh = it % a.PHkv;
+    const size_t head =
+        (((size_t)b * a.LP + l) * a.PHkv + kvh) * N_TOKENS * PDH;
+    float c[MAX_G];
+    qtts::token_attend_g<PDH, true>(
+        a.pqkv + (size_t)b * pnqkv, a.PH, a.PHkv, kvh, G,
+        a.p_qn + (size_t)l * PDH, a.p_kn + (size_t)l * PDH,
+        a.pcos + (size_t)tok * PDH, a.psin + (size_t)tok * PDH, a.p_eps,
+        a.pk + head, a.pv + head, tok, a.p_scale, pa[grp], c, t, 1 + grp);
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G)
+        a.pctx[(size_t)b * pdq + ((size_t)g * a.PHkv + kvh) * PDH + t] =
+            __float2bfloat16_rn(c[g]);
+  }
+}
+
+// Window tok - 1 of the predictor's lm-head for the block's lanes: logits
+// into taps, each block's best (value, lowest row) per lane into the
+// scratch.
+template <int NB>
+__device__ void pred_head(const Args& a, int f, int tok, const Views<NB>& v,
+                          const Part& p, Small<NB>& s) {
+  const int lane0 = p.tile * NB;
+  for (int b = 0; b < NB; ++b) {
+    const bf16* x = a.px + (size_t)(lane0 + b) * a.DP;
+    const float inv = rms_inv(x, a.DP, a.p_eps, s.red);
+    for (int k = threadIdx.x; k < a.DP; k += THREADS)
+      v.xb[(size_t)b * a.DP + k] = __float2bfloat16_rn(
+          __fmul_rn(__fmul_rn(ld_bf<true>(x + k), inv), a.pfn[k]));
+  }
+  __syncthreads();
+  const int win = tok - 1;
+  const int8_t* W = a.phead_q + (size_t)win * WINDOW * a.DP;
+  const float* S = a.phead_s + (size_t)win * WINDOW;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  float* out = a.taps == nullptr || lane >= NB
+                   ? nullptr
+                   : a.taps + (((size_t)(lane0 + lane) * a.F + f) *
+                                   (N_TOKENS - 1) + win) * WINDOW;
+  float bv[NB];
+  int bi[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    bv[b] = -INFINITY;
+    bi[b] = INT_MAX;
+  }
+  for (int row = p.rank * WARPS + warp; row < WINDOW;
+       row += p.nblk * WARPS) {
+    float lg[NB];
+    i8_rows_dot<NB>(W + (size_t)row * a.DP, v.xb, a.DP, lg);
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      lg[b] = __fmul_rn(lg[b], S[row]);
+      if (lg[b] > bv[b]) {          // rows rise: the first max is kept
+        bv[b] = lg[b];
+        bi[b] = row;
+      }
+    }
+    if (out != nullptr) out[row] = pick(lg, lane);
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      s.bv[warp * NB + b] = bv[b];
+      s.bi[warp * NB + b] = bi[b];
+    }
+  __syncthreads();
+  if (threadIdx.x < NB) {
+    const int b = threadIdx.x;
+    float best = s.bv[b];
+    int at = s.bi[b];
+    for (int w = 1; w < WARPS; ++w)
+      if (better(s.bv[w * NB + b], s.bi[w * NB + b], best, at)) {
+        best = s.bv[w * NB + b];
+        at = s.bi[w * NB + b];
+      }
+    const size_t slot = (size_t)(lane0 + b) * gridDim.x + p.rank;
+    a.best_v[slot] = best;
+    a.best_i[slot] = at;
+  }
+}
+
+// x = bf16(sum_q ctab_fb[q][code_q] (f32, q in order) + tts_pad) for the
+// block's lanes; code15: their last codes.
+template <int NB>
+__device__ void feedback(const Args& a, int f, const int* code15,
+                         const Part& p) {
+  for (int b = 0; b < NB; ++b) {
+    const int ln = p.tile * NB + b;
+    const int* cr = a.codes + ((size_t)ln * a.F + f) * N_TOKENS;
+    int code[N_TOKENS];
+#pragma unroll
+    for (int q = 0; q < N_TOKENS; ++q) {
+      const int c = q < N_TOKENS - 1 ? __ldcg(cr + q) : code15[b];
+      code[q] = min(max(c, 0), a.R_fb - 1);
+    }
+    for (int k = p.rank * THREADS + threadIdx.x; k < a.D;
+         k += p.nblk * THREADS) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < N_TOKENS; ++q) {
+        const size_t i = ((size_t)q * a.R_fb + code[q]) * a.D + k;
+        s = __fadd_rn(s, a.fb_bf16
+                             ? bf2f(static_cast<const bf16*>(a.ctab_fb)[i])
+                             : static_cast<const float*>(a.ctab_fb)[i]);
+      }
+      a.x[(size_t)ln * a.D + k] = __float2bfloat16_rn(__fadd_rn(s, a.tts_pad[k]));
+    }
+  }
+}
+
+// Talker attention of frame f, layer l: one group of TDH threads per
+// (lane, kv head) (talker_step.cu step_attn_kernel, with the chunk's own
+// slots).
+__device__ void talker_attn(const Args& a, int f, int l, int start,
+                            qtts::AttnScratch<TDH>* ta) {
+  constexpr int GPB = THREADS / TDH;
+  const int grp = threadIdx.x / TDH;
+  const int t = threadIdx.x % TDH;
+  const int bar = 1 + grp;
+  const int G = a.H / a.Hkv;
+  const int nqkv = (a.H + 2 * a.Hkv) * TDH, dq = a.H * TDH;
+  for (int it = blockIdx.x * GPB + grp; it < a.B * a.Hkv;
+       it += gridDim.x * GPB) {
+    const int b = it / a.Hkv, kvh = it % a.Hkv;
+    const int length = a.lengths[b];
+    qtts::AttnScratch<TDH>& s = ta[grp];
+    float kv, vv;
+    qtts::norm_rope_heads_g<TDH, true>(
+        a.qkv + (size_t)b * nqkv, a.H, a.Hkv, kvh, G,
+        a.t_qn + (size_t)l * TDH, a.t_kn + (size_t)l * TDH,
+        a.cos + ((size_t)f * a.B + b) * TDH,
+        a.sin + ((size_t)f * a.B + b) * TDH, a.t_eps, s.q, s.x, s.red, &kv,
+        &vv, t, bar);
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G) s.q[g][t] = __fmul_rn(s.q[g][t], a.t_scale);
+    const size_t head = ((size_t)l * a.B + b) * a.Hkv + kvh;
+    bf16* kp = a.cache_k + head * a.C * TDH;
+    bf16* vp = a.cache_v + head * a.C * TDH;
+    const int slot = start + f;
+    if (slot < a.C) {
+      kp[(size_t)slot * TDH + t] = __float2bfloat16_rn(kv);
+      vp[(size_t)slot * TDH + t] = __float2bfloat16_rn(vv);
+    }
+    qtts::group_sync<TDH>(bar);
+    float m[MAX_G], l_[MAX_G], acc[MAX_G];
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      m[g] = qtts::NEG;
+      l_[g] = 0.f;
+      acc[g] = 0.f;
+    }
+    // the cache prefix [0, start): prompt slots < length, generated slots
+    // >= prompt_cap (no cursor column: -1)
+    qtts::attend_tiles_g<TDH, true>(s.q, G, kp, vp, min(start, a.C), length,
+                                    -1, a.prompt_cap, 1.0f, s.p, s.red_s, m,
+                                    l_, acc, t, bar);
+    // the chunk's frames 0..f at slots start..start+f, one merge
+    const int n_loc = min(f + 1, a.C - start);
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g >= G) continue;
+      float sc[MAX_FRAMES];
+      float mx = m[g];
+#pragma unroll
+      for (int j = 0; j < MAX_FRAMES; ++j) {
+        if (j < n_loc) {
+          sc[j] = qtts::group_sum<TDH>(
+              s.q[g][t] * ld_bf<true>(kp + (size_t)(start + j) * TDH + t),
+              s.red, t, bar);
+          mx = fmaxf(mx, sc[j]);
+        }
+      }
+      const float alpha = expf(m[g] - mx);
+      float ac = acc[g] * alpha, ls = l_[g] * alpha;
+#pragma unroll
+      for (int j = 0; j < MAX_FRAMES; ++j) {
+        if (j < n_loc) {
+          const float p = expf(sc[j] - mx);
+          ac += p * ld_bf<true>(vp + (size_t)(start + j) * TDH + t);
+          ls += p;
+        }
+      }
+      a.ctx[(size_t)b * dq + ((size_t)kvh * G + g) * TDH + t] =
+          __float2bfloat16_rn(ac / fmaxf(ls, 1e-30f));
+    }
+  }
+}
+
+// xtaps[lane, f, slot] = x of every lane (the talker's residual entering
+// layer `slot`, or the last layer's output at slot L), when asked for: x
+// is only read in the phase that calls this.
+__device__ void tap_x(const Args& a, int f, int slot) {
+  if (a.xtaps == nullptr) return;
+  const int n = a.B * a.D;
+  for (int i = blockIdx.x * THREADS + threadIdx.x; i < n;
+       i += gridDim.x * THREADS) {
+    const int b = i / a.D, k = i % a.D;
+    a.xtaps[(((size_t)b * a.F + f) * (a.L + 1) + slot) * a.D + k] =
+        __float2bfloat16_rn(ld_bf<true>(a.x + i));
+  }
+}
+
+// hidden = RMSNorm(x, tfn) in f32 (the tile's first block writes it out);
+// logits[n] = (bf16(hidden) . chead_q[n]) * chead_s[n] for n < V, for the
+// block's lanes.
+template <int NB>
+__device__ void codec_head(const Args& a, const Views<NB>& v, const Part& p,
+                           float* red) {
+  const int lane0 = p.tile * NB;
+  for (int b = 0; b < NB; ++b) {
+    const bf16* x = a.x + (size_t)(lane0 + b) * a.D;
+    const float inv = rms_inv(x, a.D, a.t_eps, red);
+    for (int k = threadIdx.x; k < a.D; k += THREADS) {
+      const float h = __fmul_rn(__fmul_rn(ld_bf<true>(x + k), inv), a.tfn[k]);
+      v.xb[(size_t)b * a.D + k] = __float2bfloat16_rn(h);
+      if (p.rank == 0) a.hidden_out[(size_t)(lane0 + b) * a.D + k] = h;
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int row = p.rank * WARPS + warp; row < a.V; row += p.nblk * WARPS) {
+    float acc[NB];
+    i8_rows_dot<NB>(a.chead_q + (size_t)row * a.D, v.xb, a.D, acc);
+    if (lane < NB)
+      a.logits_out[(size_t)(lane0 + lane) * a.V + row] =
+          __fmul_rn(pick(acc, lane), a.chead_s[row]);
+  }
+}
+
+// The launch: F frames of every phase, NB lanes per row tile.
+template <int NB>
+__device__ void run(const Args& a, const Views<NB>& v, Small<NB>& s) {
+  const Part p = partition(a.B / NB);
+  unsigned target = 0;             // bar[0] at the next barrier
+  if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    a.trace[0] = clock64();
+  const int start = a.write_idx[0];
+  const int GRP = qtts::W4_GROUP;
+  const int lane0 = p.tile * NB;
+  // predictor and talker matrix sizes
+  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH, pdq = a.PH * PDH;
+  const int nqkv = (a.H + 2 * a.Hkv) * TDH, dq = a.H * TDH;
+  const int DP = a.DP, D = a.D;
+
+  for (int f = 0; f < a.F; ++f) {
+    sample_project<NB>(a, f, v, p, s);
+    grid_sync(a.barrier, target, a.trace);
+
+    // ---- predictor: 16 tokens x LP layers
+    for (int tok = 0; tok < N_TOKENS; ++tok) {
+      for (int l = 0; l < a.LP; ++l) {
+        Rows in{a.px, nullptr, lane0};
+        if (l == 0 && tok >= 1) in = token_rows<NB>(a, f, tok, p, s);
+        gemv<NB, 1, true, EPI_STORE, float>(
+            in, a.p_ln1 + (size_t)l * DP, a.p_eps, DP,
+            a.p_wqkv_q + (size_t)l * pnqkv * (DP / 2),
+            a.p_wqkv_s + (size_t)l * pnqkv * (DP / GRP), pnqkv, a.pqkv, v,
+            p, s.red);
+        grid_sync(a.barrier, target, a.trace);
+        pred_attn(a, tok, l, v.pa);
+        grid_sync(a.barrier, target, a.trace);
+        gemv<NB, 1, false, EPI_RESID, float>(
+            Rows{a.pctx, nullptr, lane0}, nullptr, a.p_eps, pdq,
+            a.p_wo_q + (size_t)l * DP * (pdq / 2),
+            a.p_wo_s + (size_t)l * DP * (pdq / GRP), DP, a.px, v, p, s.red);
+        grid_sync(a.barrier, target, a.trace);
+        gemv<NB, 2, true, EPI_SWIGLU, float>(
+            Rows{a.px, nullptr, lane0}, a.p_ln2 + (size_t)l * DP, a.p_eps,
+            DP, a.p_gu_q + (size_t)l * 2 * a.PFF * (DP / 2),
+            a.p_gu_s + (size_t)l * 2 * a.PFF * (DP / GRP), a.PFF, a.pff, v,
+            p, s.red);
+        grid_sync(a.barrier, target, a.trace);
+        gemv<NB, 1, false, EPI_RESID, float>(
+            Rows{a.pff, nullptr, lane0}, nullptr, a.p_eps, a.PFF,
+            a.p_dn_q + (size_t)l * DP * (a.PFF / 2),
+            a.p_dn_s + (size_t)l * DP * (a.PFF / GRP), DP, a.px, v, p,
+            s.red);
+        grid_sync(a.barrier, target, a.trace);
+      }
+      if (tok >= 1) {
+        pred_head<NB>(a, f, tok, v, p, s);
+        grid_sync(a.barrier, target, a.trace);
+      }
+    }
+
+    // ---- feedback (code_15 is the last window's argmax)
+    lane_argmax<NB>(a, p, s);
+    if (threadIdx.x < NB && p.rank == 0)
+      a.codes[((size_t)(lane0 + threadIdx.x) * a.F + f) * N_TOKENS +
+              N_TOKENS - 1] = s.code[threadIdx.x];
+    feedback<NB>(a, f, s.code, p);
+    grid_sync(a.barrier, target, a.trace);
+
+    // ---- talker step
+    for (int l = 0; l < a.L; ++l) {
+      tap_x(a, f, l);
+      gemv<NB, 1, true, EPI_STORE, bf16>(
+          Rows{a.x, nullptr, lane0}, a.t_ln1 + (size_t)l * D, a.t_eps, D,
+          a.t_wqkv_q + (size_t)l * nqkv * (D / 2),
+          a.t_wqkv_s + (size_t)l * nqkv * (D / GRP), nqkv, a.qkv, v, p,
+          s.red);
+      grid_sync(a.barrier, target, a.trace);
+      talker_attn(a, f, l, start, v.ta);
+      grid_sync(a.barrier, target, a.trace);
+      gemv<NB, 1, false, EPI_RESID, bf16>(
+          Rows{a.ctx, nullptr, lane0}, nullptr, a.t_eps, dq,
+          a.t_wo_q + (size_t)l * D * (dq / 2),
+          a.t_wo_s + (size_t)l * D * (dq / GRP), D, a.x, v, p, s.red);
+      grid_sync(a.barrier, target, a.trace);
+      gemv<NB, 2, true, EPI_SWIGLU, bf16>(
+          Rows{a.x, nullptr, lane0}, a.t_ln2 + (size_t)l * D, a.t_eps, D,
+          a.t_gu_q + (size_t)l * 2 * a.FF * (D / 2),
+          a.t_gu_s + (size_t)l * 2 * a.FF * (D / GRP), a.FF, a.ff, v, p,
+          s.red);
+      grid_sync(a.barrier, target, a.trace);
+      gemv<NB, 1, false, EPI_RESID, bf16>(
+          Rows{a.ff, nullptr, lane0}, nullptr, a.t_eps, a.FF,
+          a.t_dn_q + (size_t)l * D * (a.FF / 2),
+          a.t_dn_s + (size_t)l * D * (a.FF / GRP), D, a.x, v, p, s.red);
+      grid_sync(a.barrier, target, a.trace);
+    }
+    tap_x(a, f, a.L);
+    codec_head<NB>(a, v, p, s.red);
+    grid_sync(a.barrier, target, a.trace);
+  }
+  grid_exit(a.barrier);
+}
+
+// Bytes of dynamic shared memory of the batched form: the largest of its
+// phases' regions (Views).
+size_t smem_bytes(const Args& a) {
+  const size_t gemv = (size_t)3 * ROWS * a.kmax + (size_t)4 * a.gd_ints +
+                      4 * ROWS;
+  const size_t proj = (size_t)4 * ROWS * a.D;
+  const size_t head = (size_t)2 * ROWS * std::max(a.D, a.DP);
+  const size_t ta = (THREADS / TDH) * sizeof(qtts::AttnScratch<TDH>);
+  const size_t pa = (THREADS / PDH) * sizeof(qtts::AttnScratch<PDH>);
+  return std::max({gemv, proj, head, ta, pa});
+}
+
+}  // namespace rows
+
+// B = 8-32 lanes in row tiles of ROWS: dynamic shared memory
+// (rows::smem_bytes), one block per SM at full width.
+__global__ void __launch_bounds__(THREADS, 1) chunk_kernel_rows(const Args a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  __shared__ rows::Small<ROWS> s;
+  rows::Views<ROWS> v;
+  v.xq = reinterpret_cast<int8_t*>(dyn);
+  v.xs = reinterpret_cast<bf16*>(dyn + (size_t)ROWS * a.kmax);
+  v.gd = reinterpret_cast<int*>(dyn + (size_t)3 * ROWS * a.kmax);
+  v.sx = reinterpret_cast<float*>(v.gd + a.gd_ints);
+  v.h = reinterpret_cast<float*>(dyn);
+  v.xb = reinterpret_cast<bf16*>(dyn);
+  v.ta = reinterpret_cast<qtts::AttnScratch<TDH>*>(dyn);
+  v.pa = reinterpret_cast<qtts::AttnScratch<PDH>*>(dyn);
+  rows::run<ROWS>(a, v, s);
+}
+
 }  // namespace
 
 // ptrs / ints / flts in the order of kernels/chunk_step.gen_chunk_fused;
@@ -788,6 +1445,7 @@ extern "C" int qtts_chunk_step(void* const* ptrs, int n_ptrs,
   a.p_dn_q = (const uint8_t*)P(); a.p_dn_s = (const float*)P();
   a.codes = (int*)P(); a.logits_out = (float*)P();
   a.hidden_out = (float*)P(); a.taps = (float*)P();
+  a.xtaps = (bf16*)P();
   a.x = (bf16*)P(); a.qkv = (bf16*)P(); a.ctx = (bf16*)P();
   a.ff = (bf16*)P(); a.px = (bf16*)P(); a.pqkv = (bf16*)P();
   a.pctx = (bf16*)P(); a.pff = (bf16*)P(); a.pk = (bf16*)P();
@@ -800,13 +1458,18 @@ extern "C" int qtts_chunk_step(void* const* ptrs, int n_ptrs,
   a.PH = ints[j++]; a.PHkv = ints[j++]; a.p_dh = ints[j++];
   a.PFF = ints[j++]; a.R_fb = ints[j++]; a.R_pd = ints[j++];
   a.V = ints[j++]; a.fb_bf16 = ints[j++]; a.max_blocks_per_sm = ints[j++];
+  a.B = ints[j++];
   a.t_eps = flts[0]; a.p_eps = flts[1]; a.temperature = flts[2];
   a.top_k = flts[3]; a.top_p = flts[4]; a.t_scale = flts[5];
   a.p_scale = flts[6];
 
   const int g2 = 2 * qtts::W4_GROUP;
+  // the JAX gate: 1 lane, 8 or 16 at F <= 8, 24 or 32 at F <= 4
+  const bool batch_ok =
+      a.B == 1 || (a.B % ROWS == 0 && a.B <= MAX_B &&
+                   (a.B <= 16 || a.F <= 4));
   const bool ok =
-      a.F >= 1 && a.F <= MAX_FRAMES && a.L >= 1 && a.LP >= 1 &&
+      batch_ok && a.F >= 1 && a.F <= MAX_FRAMES && a.L >= 1 && a.LP >= 1 &&
       a.t_dh == TDH && a.p_dh == PDH && a.Hkv > 0 && a.H % a.Hkv == 0 &&
       a.H / a.Hkv <= MAX_G && a.PHkv > 0 && a.PH % a.PHkv == 0 &&
       a.PH / a.PHkv <= MAX_G && a.D % g2 == 0 && a.D <= MAX_D &&
@@ -817,25 +1480,40 @@ extern "C" int qtts_chunk_step(void* const* ptrs, int n_ptrs,
       a.max_blocks_per_sm >= 1;
   if (!ok) return (int)cudaErrorInvalidValue;
 
+  // the batched form's shared memory: ROWS rows of the widest GEMV input,
+  // and the group dots of the widest R * K (gate_up: R = 2)
+  a.kmax = std::max({a.D, a.H * TDH, a.FF, a.DP, a.PH * PDH, a.PFF});
+  a.gd_ints = WARPS * ROWS * std::max(a.kmax, 2 * std::max(a.D, a.DP)) /
+              qtts::W4_GROUP;
+  const bool rows = a.B > 1;
+  const size_t smem = rows ? rows::smem_bytes(a) : 0;
+  const void* kernel = rows ? (const void*)chunk_kernel_rows
+                            : (const void*)chunk_kernel;
+
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && rows) e = qtts::allow_smem(chunk_kernel_rows, smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chunk_kernel,
-                                                      THREADS, 0);
+    e = rows ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, chunk_kernel_rows, THREADS, smem)
+             : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, chunk_kernel, THREADS, 0);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
   per_sm = min(per_sm, a.max_blocks_per_sm);   // the scratch's slots
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // every lane needs a block for its sampler
+  if (per_sm < 1 || per_sm * sms < a.B)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
   info[0] = per_sm * sms;
   info[1] = per_sm;
   void* params[] = {(void*)&a};
-  e = cudaLaunchCooperativeKernel((const void*)chunk_kernel,
-                                  dim3(per_sm * sms), dim3(THREADS), params,
-                                  0, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel(kernel, dim3(per_sm * sms), dim3(THREADS),
+                                  params, smem,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -315,16 +315,24 @@ class TtsEngine:
             t["spk_emb"], torch.from_numpy(lengths).to(self.device))
         return embeds, lengths
 
-    def _start_state(self, plan: PromptPlan, generator: torch.Generator):
-        """Assembly + prefill of one plan (no prefix-KV reuse yet).
-        Returns (GenState, bucket)."""
-        a, lengths, bucket = self._plans_to_arrays(plan)
+    def start_plans(self, plans, bucket: Optional[int],
+                    generator: torch.Generator):
+        """Assembly + prefill of one plan or a list of plans (a wave) at
+        one bucket (None: the longest plan's).  Returns (GenState,
+        lengths [B] int32 numpy, bucket)."""
+        a, lengths, bucket = self._plans_to_arrays(plans, bucket)
         dev = self.device
         t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
         state = self.generator.start_from_plans(
             self.assets.text_table, self.assets.codec_tables, t["text_idx"],
             t["codec_idx"], t["frame_slot"], t["spk_flag"], t["frames"],
             t["spk_emb"], torch.from_numpy(lengths).to(dev), generator)
+        return state, lengths, bucket
+
+    def _start_state(self, plan: PromptPlan, generator: torch.Generator):
+        """Assembly + prefill of one plan (no prefix-KV reuse yet).
+        Returns (GenState, bucket)."""
+        state, _, bucket = self.start_plans(plan, None, generator)
         return state, bucket
 
     @torch.no_grad()

@@ -1,8 +1,9 @@
 """A chunk of whole decode frames in one kernel launch.
 
 `gen_chunk_fused` is the port of the Pallas kernel of the same name
-(qwen3_tts_tpu/kernels/chunk_step.py) at batch 1: n_frames (1-8) frames,
-each
+(qwen3_tts_tpu/kernels/chunk_step.py) at the JAX gate's batches: 1, 8 or
+16 lanes at n_frames 1-8, 24 or 32 lanes at n_frames <= 4.  Per frame and
+lane
 
   sample code_0 from the carried codec logits (greedy, or the threshold
   sampler of ops.sampling.sample_threshold with a uniform given by the
@@ -11,9 +12,11 @@ each
   KV zeroed per frame, greedy window argmax, next input
   ctab_pred[t][code_t]) -> feedback = f32 sum of the 16 codec_tables rows
   + tts_pad, then bf16 -> the talker's w4a8 decode step (talker_step's
-  weights), writing frame f's k/v IN PLACE at slot write_idx + f -> the
-  final norm (kept in f32 as the hidden) and the int8 codec head,
-  bf16(h) . bf16(q) x row scale in f32, over rows [0, 2160).
+  weights), writing frame f's k/v IN PLACE at slot write_idx + f (one
+  cursor for every lane, as a wave's prefill to one bucket leaves it; the
+  prompt lengths are per lane) -> the final norm (kept in f32 as the
+  hidden) and the int8 codec head, bf16(h) . bf16(q) x row scale in f32,
+  over rows [0, 2160).
 
 On a CUDA tensor it makes ONE cooperative launch of `csrc/chunk_step.cu`;
 on a CPU tensor it runs `gen_chunk_plain`, the same function in plain
@@ -41,8 +44,13 @@ decides which heads share a group scale.  The port keeps the q columns of
 wqkv in head order and writes the attention context in the c-major order,
 so wo's rows and groups are the JAX kernel's; the segment matrices, tiled
 norms and lane rolls of the TPU layout are not carried over.  The codec
-head needs no padding to 2176 rows.  The JAX batched forms (8/16 lanes,
-24/32 at <= 4 frames) are not ported.
+head needs no padding to 2176 rows.
+
+At B > 1 lanes every lane computes what the one-lane kernel computes on
+its inputs, bit for bit: the JAX batched forms' bf16 q.k scores and bf16
+p for the p.v product (matrix-unit artefacts of the TPU loop) and its bf16
+proj_w at b >= 24 (ROADMAP Queue C) are not carried over.  The plain
+version runs row-wise at any batch.
 """
 
 from __future__ import annotations
@@ -71,14 +79,21 @@ NEG_INF = -1e30
 PRED_HEAD_DIM = 64        # the kernel's predictor attention
 
 
+BATCHES = (1, 8, 16, 24, 32)
+MAX_FRAMES_WIDE = 4       # frames per launch at 24 and 32 lanes
+
+
 def unsupported(tcfg, pcfg, batch: int, n_frames: int) -> Optional[str]:
     """The first gate of the chunk kernel that the configs fail at
-    (batch, n_frames), or None: the JAX gate at batch 1 plus what the
-    port's kernel needs."""
+    (batch, n_frames), or None: the JAX gate (batch 1, 8 or 16; 24 or 32
+    at n_frames <= 4) plus what the port's kernel needs."""
     g2 = 2 * INT4_GROUP
+    if batch not in BATCHES:
+        return f"chunk_step: batch {batch} not in {BATCHES}"
+    if batch > 16 and n_frames > MAX_FRAMES_WIDE:
+        return (f"chunk_step: batch {batch} takes n_frames <= "
+                f"{MAX_FRAMES_WIDE}, not {n_frames}")
     gates = (
-        (batch == 1, f"batch {batch} != 1 (the batched forms are not "
-                     "ported)"),
         (1 <= n_frames <= MAX_FRAMES,
          f"n_frames {n_frames} outside [1, {MAX_FRAMES}]"),
         (pcfg.d_model % g2 == 0, f"predictor d_model {pcfg.d_model} % {g2}"
@@ -92,8 +107,8 @@ def unsupported(tcfg, pcfg, batch: int, n_frames: int) -> Optional[str]:
         (pcfg.head_dim == PRED_HEAD_DIM,
          f"predictor head_dim {pcfg.head_dim} != {PRED_HEAD_DIM}"),
     )
-    why = talker_kernel.unsupported(tcfg, 1) \
-        or predictor_kernel.unsupported(pcfg, 1)
+    why = talker_kernel.unsupported(tcfg, batch) \
+        or predictor_kernel.unsupported(pcfg, batch)
     if why:
         return f"chunk_step: {why}"
     for ok, why in gates:
@@ -271,36 +286,51 @@ def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
     return ctx.reshape(b, h * dh).to(torch.bfloat16)
 
 
-def _talker_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths, start, f,
-                  prompt_cap, tile):
-    """The talker's layers for frame f: k/v written at slot start + f."""
+def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
+                        lengths, start, f, prompt_cap, tile):
+    """Talker layer `layer` of frame f from the residual x [B, d] bf16:
+    its k/v row written at slot start + f, the attention in
+    _chunk_attend_plain's order.  Returns the next residual (bf16)."""
     b = x.shape[0]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dq, dkv, eps = h * dh, hkv * dh, cfg.rms_eps
     cos, sin = cos.float()[:, None, :], sin.float()[:, None, :]
-    for layer in range(cfg.n_layers):
-        def mm(v, name):
-            return qmm4_plain(v, w[name + "_q"][layer], w[name + "_s"][layer])
 
-        hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
-        qkv = mm(hn, "wqkv")
-        q = qkv[:, :dq].reshape(b, h, dh)
-        k = qkv[:, dq:dq + dkv].reshape(b, hkv, dh)
-        v = qkv[:, dq + dkv:].reshape(b, hkv, dh)
-        q = _rms(q, w["qn"][layer], eps).to(torch.bfloat16).float()
-        k = _rms(k, w["kn"][layer], eps).to(torch.bfloat16).float()
-        q = (q * cos + _rotate_half(q) * sin).to(torch.bfloat16)
-        k = (k * cos + _rotate_half(k) * sin).to(torch.bfloat16)
-        cache_k[layer][:, :, start + f] = k
-        cache_v[layer][:, :, start + f] = v
-        ctx = _chunk_attend_plain(q, cache_k[layer], cache_v[layer],
-                                  lengths, start, f, prompt_cap, tile)
-        x = x + mm(ctx, "wo")
-        hn2 = _rms(x, w["ln2"][layer], eps).to(torch.bfloat16)
-        gu = mm(hn2, "gu")
-        n = gu.shape[-1] // 2
-        ff = F.silu(gu[:, :n].float()).to(torch.bfloat16) * gu[:, n:]
-        x = x + mm(ff, "dn")
+    def mm(v, name):
+        return qmm4_plain(v, w[name + "_q"][layer], w[name + "_s"][layer])
+
+    hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
+    qkv = mm(hn, "wqkv")
+    q = qkv[:, :dq].reshape(b, h, dh)
+    k = qkv[:, dq:dq + dkv].reshape(b, hkv, dh)
+    v = qkv[:, dq + dkv:].reshape(b, hkv, dh)
+    q = _rms(q, w["qn"][layer], eps).to(torch.bfloat16).float()
+    k = _rms(k, w["kn"][layer], eps).to(torch.bfloat16).float()
+    q = (q * cos + _rotate_half(q) * sin).to(torch.bfloat16)
+    k = (k * cos + _rotate_half(k) * sin).to(torch.bfloat16)
+    cache_k[layer][:, :, start + f] = k
+    cache_v[layer][:, :, start + f] = v
+    ctx = _chunk_attend_plain(q, cache_k[layer], cache_v[layer], lengths,
+                              start, f, prompt_cap, tile)
+    x = x + mm(ctx, "wo")
+    hn2 = _rms(x, w["ln2"][layer], eps).to(torch.bfloat16)
+    gu = mm(hn2, "gu")
+    n = gu.shape[-1] // 2
+    ff = F.silu(gu[:, :n].float()).to(torch.bfloat16) * gu[:, n:]
+    return x + mm(ff, "dn")
+
+
+def _talker_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths, start, f,
+                  prompt_cap, tile, xs=None):
+    """The talker's layers for frame f: k/v written at slot start + f.
+    xs, when given, gets the residual entering each layer and the last."""
+    for layer in range(cfg.n_layers):
+        if xs is not None:
+            xs.append(x)
+        x = _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
+                                lengths, start, f, prompt_cap, tile)
+    if xs is not None:
+        xs.append(x)
     return x
 
 
@@ -318,10 +348,12 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
                     prompt_cap: int,
                     taps: Optional[List[torch.Tensor]] = None,
                     force_codes: Optional[torch.Tensor] = None,
-                    prefix_tile: int = PREFIX_TILE):
-    """`gen_chunk_fused` in plain PyTorch (same arguments and effects).
+                    prefix_tile: int = PREFIX_TILE,
+                    layer_taps: Optional[List[torch.Tensor]] = None):
+    """`gen_chunk_fused` in plain PyTorch (same arguments and effects,
+    layer_taps included).
 
-    Two arguments serve the kernel's checks.  force_codes [1, F, 16]
+    Two arguments serve the kernel's checks.  force_codes [B, F, 16]
     int32: the frames go on with these codes (the predictor's next inputs,
     the feedback) where their own picks differ, and the picks are what it
     returns; it holds the plain version on the kernel's path past a near
@@ -343,8 +375,11 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
         fc = _predict_plain(pcfg, pw, ex, px, code0, taps, force)
         x = _feedback(ex["ctab_fb"], fc if force is None else force,
                       ex["tts_pad"])
+        xs = None if layer_taps is None else []
         x = _talker_plain(tcfg, tw, x, cos[f], sin[f], cache_k, cache_v,
-                          lengths, start, f, prompt_cap, prefix_tile)
+                          lengths, start, f, prompt_cap, prefix_tile, xs)
+        if xs is not None:
+            layer_taps.append(torch.stack(xs, dim=1))
         hid = _rms(x, ex["tfn"], tcfg.rms_eps)
         lg = (hid.to(torch.bfloat16).float() @ ex["chead_q"].float().t()
               ) * ex["chead_s"]
@@ -360,7 +395,7 @@ _EXTRAS = ("tfn", "chead_q", "chead_s", "proj_w", "proj_b", "tts_pad",
            "ctab_fb", "ctab_pred", "pfn", "phead_q", "phead_s", "pcos",
            "psin")
 MAX_BLOCKS_PER_SM = 8      # 256-thread blocks: 2048 threads per SM (the
-                           # argmax scratch holds one slot per block)
+                           # argmax scratch holds one slot per lane and block)
 
 
 def _check(tcfg, pcfg, ex, tensors):
@@ -368,17 +403,17 @@ def _check(tcfg, pcfg, ex, tensors):
                            tcfg.n_kv_heads, tcfg.head_dim, tcfg.d_ff)
     LP, dp, ph, phkv, pdh, pf = (pcfg.n_layers, pcfg.d_model, pcfg.n_heads,
                                  pcfg.n_kv_heads, pcfg.head_dim, pcfg.d_ff)
-    nf, cap, g = tensors["u"].shape[0], tensors["cache_k"].shape[3], \
-        INT4_GROUP
+    nf, b, cap, g = (tensors["u"].shape[0], tensors["u"].shape[1],
+                     tensors["cache_k"].shape[3], INT4_GROUP)
     f32, i32, bf, u8, i8 = (torch.float32, torch.int32, torch.bfloat16,
                             torch.uint8, torch.int8)
     rows_fb = ex["ctab_fb"].shape[1]
     want = {
-        "logits": ((1, V_CODEC), f32), "hidden": ((1, d), f32),
-        "cos": ((nf, 1, dh), f32), "sin": ((nf, 1, dh), f32),
-        "u": ((nf, 1), f32), "lengths": ((1,), i32), "write_idx": ((1,), i32),
-        "cache_k": ((L, 1, hkv, cap, dh), bf),
-        "cache_v": ((L, 1, hkv, cap, dh), bf),
+        "logits": ((b, V_CODEC), f32), "hidden": ((b, d), f32),
+        "cos": ((nf, b, dh), f32), "sin": ((nf, b, dh), f32),
+        "u": ((nf, b), f32), "lengths": ((b,), i32), "write_idx": ((b,), i32),
+        "cache_k": ((L, b, hkv, cap, dh), bf),
+        "cache_v": ((L, b, hkv, cap, dh), bf),
         "tfn": ((d,), f32), "chead_q": ((V_CODEC, d), i8),
         "chead_s": ((V_CODEC,), f32), "proj_w": ((dp, d), f32),
         "proj_b": ((dp,), f32), "tts_pad": ((d,), f32),
@@ -422,38 +457,51 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
                     prompt_cap: int,
                     taps: Optional[List[torch.Tensor]] = None,
                     clocks: Optional[torch.Tensor] = None,
-                    scratch: Optional[Dict[str, torch.Tensor]] = None):
-    """Run u.shape[0] whole frames at batch 1.
+                    scratch: Optional[Dict[str, torch.Tensor]] = None,
+                    layer_taps: Optional[List[torch.Tensor]] = None):
+    """Run u.shape[0] whole frames of B lanes (B in BATCHES; the gate).
 
     tw: talker_step.prep_layer_weights; pw: prep_predictor_w4; ex:
-    prep_chunk_extras; logits [1, 2160] f32 and hidden [1, 2048] f32 carried
-    from the previous frame; cache_k/v [L, 1, Hkv, C, Dh] bf16, written IN
+    prep_chunk_extras; logits [B, 2160] f32 and hidden [B, 2048] f32 carried
+    from the previous frame; cache_k/v [L, B, Hkv, C, Dh] bf16, written IN
     PLACE at slots write_idx .. write_idx + F - 1; lengths and write_idx
-    [1] int32 (read on the device); cos/sin [F, 1, head_dim] f32 talker
-    rope rows of the F positions; u [F, 1] f32 uniforms; sampler
-    (temperature, top_k, top_p).  Returns (codes [1, F, 16] int32,
-    logits [1, 2160] f32, hidden [1, 2048] f32).  `taps`, when given, gets
-    the predictor's f32 window logits [1, 2048] appended (15 per frame);
-    without it the kernel stores none.  `scratch` (chunk_scratch; made
-    for the call when None) is kept by a caller that decodes chunk after
-    chunk.  The cooperative grid holds as many blocks as can be resident (at most
-    MAX_BLOCKS_PER_SM per SM).  `clocks`, an int64 CUDA tensor of
-    len(phase_labels(...)) + 1 entries, gets block 0's SM clock at the
-    kernel's start and as it leaves each grid barrier (the kernel's
-    phases, for measurements).  Each kernel launch adds one to
-    `gen_chunk_fused.launches` and leaves its grid (blocks, blocks per SM)
-    in `gen_chunk_fused.grid`."""
+    [B] int32 (read on the device; the kernel takes write_idx[0] as every
+    lane's cursor: the caller keeps the cursor uniform); cos/sin
+    [F, B, head_dim] f32 talker rope rows of each lane's F positions; u
+    [F, B] f32 uniforms; sampler (temperature, top_k, top_p).  Returns
+    (codes [B, F, 16] int32, logits [B, 2160] f32, hidden [B, 2048] f32).
+    `taps`, when given, gets the predictor's f32 window logits [B, 2048]
+    appended (15 per frame); without it the kernel stores none.
+    `layer_taps`, when given, gets per frame the talker's bf16 residual
+    [B, L + 1, 2048]: the row entering each layer (the feedback first) and
+    the last layer's output, for checks that hold the kernel layer by
+    layer from its own state; the one-lane kernel has no such output, so
+    it is refused at B = 1 on the card.  `scratch`
+    (chunk_scratch at this B; made for the call when None) is kept by a
+    caller that decodes chunk after chunk.  The cooperative grid holds as
+    many blocks as can be resident (at most MAX_BLOCKS_PER_SM per SM; the
+    batched form, 156 KB of shared memory per block at full width, one).
+    `clocks`, an int64 CUDA tensor of len(phase_labels(...)) + 1 entries,
+    gets block 0's SM clock at the kernel's start and as it leaves each
+    grid barrier (the kernel's phases, for measurements).  Each kernel
+    launch adds one to `gen_chunk_fused.launches` and leaves its grid
+    (blocks, blocks per SM) in `gen_chunk_fused.grid`."""
     if hidden.device.type == "cpu":
         return gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden,
                                cache_k, cache_v, lengths, write_idx, cos,
-                               sin, u, sampler, prompt_cap, taps)
+                               sin, u, sampler, prompt_cap, taps,
+                               layer_taps=layer_taps)
     if hidden.device.type != "cuda":
         raise ValueError(f"chunk_step runs on cuda or cpu, not "
                          f"{hidden.device}")
     n_frames = u.shape[0] if u.dim() else 0
-    why = unsupported(tcfg, pcfg, hidden.shape[0], n_frames)
+    b = hidden.shape[0]
+    why = unsupported(tcfg, pcfg, b, n_frames)
     if why:
         raise ValueError(why)
+    if layer_taps is not None and b == 1:
+        raise ValueError("chunk_step: layer_taps is an output of the "
+                         "batched form (B > 1) only")
     tensors = dict(logits=logits, hidden=hidden, cos=cos, sin=sin, u=u,
                    lengths=lengths, write_idx=write_idx, cache_k=cache_k,
                    cache_v=cache_v)
@@ -467,9 +515,9 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
         raise ValueError("chunk_step: clocks must be int64 on the inputs' "
                          "device, one entry per phase + 1")
     dev = hidden.device
-    spec = _scratch_spec(tcfg, pcfg, dev)
+    spec = _scratch_spec(tcfg, pcfg, dev, b)
     if scratch is None:
-        scratch = chunk_scratch(tcfg, pcfg, dev)
+        scratch = chunk_scratch(tcfg, pcfg, dev, b)
     for name, (shape, dtype) in spec.items():
         t = scratch.get(name)
         if (t is None or tuple(t.shape) != shape or t.dtype != dtype
@@ -482,21 +530,24 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     dp, ph, phkv, pdh, pff = (pcfg.d_model, pcfg.n_heads, pcfg.n_kv_heads,
                               pcfg.head_dim, pcfg.d_ff)
     out = dict(
-        codes=torch.empty(n_frames, N_TOKENS, dtype=torch.int32, device=dev),
-        logits_out=torch.empty(1, V_CODEC, dtype=torch.float32, device=dev),
-        hidden_out=torch.empty(1, d, dtype=torch.float32, device=dev))
+        codes=torch.empty(b, n_frames, N_TOKENS, dtype=torch.int32,
+                          device=dev),
+        logits_out=torch.empty(b, V_CODEC, dtype=torch.float32, device=dev),
+        hidden_out=torch.empty(b, d, dtype=torch.float32, device=dev))
     tap_buf = None if taps is None else torch.empty(
-        n_frames, N_TOKENS - 1, WINDOW, dtype=torch.float32, device=dev)
+        b, n_frames, N_TOKENS - 1, WINDOW, dtype=torch.float32, device=dev)
     ptrs = [logits, hidden, cos, sin, u, lengths, write_idx]
     ptrs += [tw[k] for k in _TALKER] + [cache_k, cache_v]
     ptrs += [ex[k] for k in _EXTRAS] + [pw[k] for k in _TALKER]
-    ptrs += list(out.values()) + [tap_buf]
+    xtap_buf = None if layer_taps is None else torch.empty(
+        b, n_frames, tcfg.n_layers + 1, d, dtype=torch.bfloat16, device=dev)
+    ptrs += list(out.values()) + [tap_buf, xtap_buf]
     ptrs += [scratch[k] for k in spec]
     ints = [n_frames, tcfg.n_layers, d, h, hkv, dh, ff, cache_k.shape[3],
             int(prompt_cap), pcfg.n_layers, dp, ph, phkv, pdh, pff,
             ex["ctab_fb"].shape[1], ex["ctab_pred"].shape[1], V_CODEC,
             int(ex["ctab_fb"].dtype == torch.bfloat16),
-            MAX_BLOCKS_PER_SM]
+            MAX_BLOCKS_PER_SM, b]
     temperature, top_k, top_p = sampler
     flts = [tcfg.rms_eps, pcfg.rms_eps, temperature, top_k, top_p,
             dh ** -0.5, pdh ** -0.5]
@@ -515,42 +566,49 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     gen_chunk_fused.launches += 1
     gen_chunk_fused.grid = (grid[0], grid[1])
     if taps is not None:
-        taps.extend(t[None] for t in tap_buf.reshape(-1, WINDOW))
-    return (out["codes"][None], out["logits_out"], out["hidden_out"])
+        taps.extend(tap_buf.permute(1, 2, 0, 3).reshape(-1, b, WINDOW))
+    if layer_taps is not None:
+        layer_taps.extend(xtap_buf.unbind(1))
+    return out["codes"], out["logits_out"], out["hidden_out"]
 
 
 gen_chunk_fused.launches = 0
 gen_chunk_fused.grid = (0, 0)
 
 
-def _scratch_spec(tcfg, pcfg, device) -> Dict[str, Any]:
-    """{name: (shape, dtype)} of the kernel's scratch, in the order of
-    csrc/chunk_step.cu's Args."""
+def _scratch_spec(tcfg, pcfg, device, batch: int = 1) -> Dict[str, Any]:
+    """{name: (shape, dtype)} of the kernel's scratch at `batch` lanes, in
+    the order of csrc/chunk_step.cu's Args: each lane's rows one after the
+    other (flat, so batch 1 keeps the one-lane shapes)."""
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     h, hkv, dh = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
     ph, phkv, pdh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
+    b = int(batch)
     slots = (torch.cuda.get_device_properties(device).multi_processor_count
              * MAX_BLOCKS_PER_SM)
-    kv = (pcfg.n_layers, phkv, N_TOKENS, pdh)
-    return {"x": ((tcfg.d_model,), bf), "qkv": (((h + 2 * hkv) * dh,), bf),
-            "ctx": ((h * dh,), bf), "ff": ((tcfg.d_ff,), bf),
-            "px": ((pcfg.d_model,), bf),
-            "pqkv": (((ph + 2 * phkv) * pdh,), bf), "pctx": ((ph * pdh,), bf),
-            "pff": ((pcfg.d_ff,), bf), "pk": (kv, bf), "pv": (kv, bf),
-            "best_v": ((slots,), f32), "best_i": ((slots,), i32),
+    kv = (b * pcfg.n_layers, phkv, N_TOKENS, pdh)
+    return {"x": ((b * tcfg.d_model,), bf),
+            "qkv": ((b * (h + 2 * hkv) * dh,), bf),
+            "ctx": ((b * h * dh,), bf), "ff": ((b * tcfg.d_ff,), bf),
+            "px": ((b * pcfg.d_model,), bf),
+            "pqkv": ((b * (ph + 2 * phkv) * pdh,), bf),
+            "pctx": ((b * ph * pdh,), bf), "pff": ((b * pcfg.d_ff,), bf),
+            "pk": (kv, bf), "pv": (kv, bf),
+            "best_v": ((b * slots,), f32), "best_i": ((b * slots,), i32),
             "barrier": ((2,), i32)}
 
 
-def chunk_scratch(tcfg, pcfg, device) -> Dict[str, torch.Tensor]:
-    """The kernel's scratch on a CUDA device, made once and passed to
-    every `gen_chunk_fused` call of one stream: the activations, the
-    predictor's 16-slot KV, the blocks' argmax slots and the grid barrier's
-    two counters (made zero here; the last block to leave a launch sets
-    them back to zero)."""
+def chunk_scratch(tcfg, pcfg, device, batch: int = 1
+                  ) -> Dict[str, torch.Tensor]:
+    """The kernel's scratch at `batch` lanes on a CUDA device, made once
+    and passed to every `gen_chunk_fused` call of one stream: the
+    activations, the predictor's 16-slot KV, the argmax slots (one per lane
+    and block) and the grid barrier's two counters (made zero here; the
+    last block to leave a launch sets them back to zero)."""
     device = torch.device(device)
     out = {name: torch.empty(shape, dtype=dtype, device=device)
-           for name, (shape, dtype) in _scratch_spec(tcfg, pcfg,
-                                                     device).items()}
+           for name, (shape, dtype) in _scratch_spec(tcfg, pcfg, device,
+                                                     batch).items()}
     out["barrier"].zero_()
     return out
 

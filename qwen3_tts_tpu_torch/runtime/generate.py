@@ -20,15 +20,19 @@ per-kernel schedule: each talker step is one kernels/talker_step call
 (`fused=True, chunk=True`; `TtsEngine`'s default on a CUDA device) runs
 each chunk of frames as ONE kernels/chunk_step launch
 (`_gen_frames_chunk`), for which the Generator also packs the chunk
-kernel's predictor and extras under talker_params["chunk"].
+kernel's predictor and extras under talker_params["chunk"], with the
+kernel's scratch made at the first chunk of each batch size.
 
 Which kernel runs is decided per call by the kernels' gates, as in the JAX
 package: the chunk kernel where its pack is present, the cursor is uniform
-and it takes the batch and frame count; otherwise frame by frame, with the
-predictor kernel where it takes the batch and the talker-step kernel where
-it does, and the exact modules elsewhere.  Continuous batching
-(serve/continuous.py) decodes with per-lane cursors (uniform_cursor=False)
-and refills freed lanes with `prefill_lanes`.
+and it takes the batch and frame count (1, 8 or 16 lanes; 24 or 32 at
+<= 4 frames); otherwise frame by frame, with the predictor kernel where it
+takes the batch and the talker-step kernel where it does, and the exact
+modules elsewhere.  Wave batching (serve/batch.py) prefills a whole wave
+to one bucket, so its cursor is uniform and a wave of 8-32 lanes takes the
+chunk kernel.  Continuous batching (serve/continuous.py) decodes with
+per-lane cursors (uniform_cursor=False) and refills freed lanes with
+`prefill_lanes`.
 """
 
 from __future__ import annotations
@@ -175,11 +179,19 @@ def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
                       n_frames: int, prompt_cap: int,
                       ) -> Tuple[GenState, torch.Tensor, torch.Tensor]:
     """gen_frames through the chunk kernel: one uniform per frame and lane
-    from state.generator (drawn once per chunk), the talker rope rows of
-    positions pos .. pos + n_frames - 1, one gen_chunk_fused call (cache
-    written in place), then the EOS bookkeeping of gen_frames."""
+    from state.generator (drawn once per chunk), each lane's talker rope
+    rows of positions pos .. pos + n_frames - 1, one gen_chunk_fused call
+    (cache written in place; the kernel's scratch for this batch size is
+    made at its first chunk and kept in chunk_pack["scratch"]), then the
+    EOS bookkeeping of gen_frames, lane by lane."""
     dev = state.hidden.device
     b = state.hidden.shape[0]
+    scratch = None
+    if dev.type == "cuda":
+        scratch = chunk_pack["scratch"].get(b)
+        if scratch is None:
+            scratch = chunk_pack["scratch"][b] = chunk_kernel.chunk_scratch(
+                cfg.talker, cfg.predictor, dev, b)
     u = torch.rand((n_frames, b), generator=state.generator, device=dev)
     p = (state.pos.long()[None, :]
          + torch.arange(n_frames, device=dev)[:, None])          # [F, B]
@@ -192,7 +204,7 @@ def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
         cache.k, cache.v, cache.lengths, cache.write_idx,
         cos.float().contiguous(), sin.float().contiguous(), u,
         (sampler.temperature, sampler.top_k, sampler.top_p), prompt_cap,
-        scratch=chunk_pack.get("scratch"))
+        scratch=scratch)
     eos = codes[:, :, 0] == P.EOS                             # [B, F]
     cum = torch.cumsum(eos.to(torch.int32), dim=1) > 0
     valid = ~(state.done[:, None] | cum)
@@ -354,11 +366,7 @@ class Generator:
                     "extras": chunk_kernel.prep_chunk_extras(
                         cfg.talker, cfg.predictor, talker_params,
                         predictor_params, assets_pack)}
-                dev = self.talker_params["chunk"]["extras"]["tfn"].device
-                if dev.type == "cuda":
-                    self.talker_params["chunk"]["scratch"] = \
-                        chunk_kernel.chunk_scratch(cfg.talker, cfg.predictor,
-                                                   dev)
+                self.talker_params["chunk"]["scratch"] = {}   # per batch
 
     def start(self, embeds: torch.Tensor, lengths: torch.Tensor,
               generator: torch.Generator) -> GenState:

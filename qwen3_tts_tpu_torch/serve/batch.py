@@ -1,14 +1,44 @@
-"""Request and result types of the batch schedulers.  Counterpart of
-qwen3_tts_tpu/serve/batch.py (`BatchRequest`, `BatchResult`); its wave
-scheduler, `BatchSynthesizer`, is not ported yet."""
+"""Wave batching and the request and result types of the batch schedulers.
+Counterpart of qwen3_tts_tpu/serve/batch.py (`BatchRequest`, `BatchResult`,
+`BatchSynthesizer`).
+
+Requests are grouped into waves of `batch_size` streams; every stream of a
+wave prefills together, right-padded to one prompt bucket (the longest
+prompt's), so the whole wave decodes at one cursor and a wave of 8 or 16
+lanes (24 or 32 at the 4-frame serving chunk) runs each chunk of frames
+as one chunk-kernel launch on the card (runtime/generate.gen_frames).  A
+stream finishes at EOS or its own frame budget; its lane keeps computing
+until the wave drains (static batching; serve/continuous.py refills lanes
+instead).  A short last wave is padded with copies of its first request,
+each with that request's frame budget.
+
+    synth = BatchSynthesizer(TtsEngine(device="cuda"), batch_size=8)
+    results = synth.synthesize([BatchRequest(text, voice), ...])
+
+Each wave runs through Generator.run_bulk, with one host sync per chunk
+for the early exit.  Differences from the JAX synthesizer: no `mesh`
+(tensor and data parallelism are not ported: ROADMAP Queue A item 15), no
+ONNX codec (item 12); both raise NotImplementedError.  JAX's chunk-at-a-time
+fallback (QTTS_BULK=0) is not ported: it gives the same audio, and the
+streaming slice brings a chunked loop with a caller.  Pad lanes run to
+their copied request's budget, not to the engine's max_steps as in JAX;
+real lanes do not depend on it.
+"""
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
+import torch
+
+from ..core import protocol as P_
 from ..io.audio import AudioSample
 from ..io.voice_file import VoiceFile
+from ..models.codec import decoder as codec_decoder
+from ..runtime.generate import SamplerParams
 
 
 @dataclass
@@ -29,3 +59,75 @@ class BatchResult:
     # audio chunk (continuous batching fills it); None when the scheduler
     # does not track it.
     ttft_ms: Optional[float] = None
+
+
+def _result(samples: np.ndarray, frames: int, eos: bool) -> BatchResult:
+    return BatchResult(audio=AudioSample(samples=samples.astype(np.float32),
+                                         sample_rate=P_.SAMPLE_RATE,
+                                         channels=1),
+                       frames=int(frames), eos=bool(eos))
+
+
+class BatchSynthesizer:
+    """Synthesizes waves of `batch_size` streams on one engine's weights."""
+
+    def __init__(self, engine, batch_size: int = 8, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError("a device mesh (tensor and data "
+                                      "parallelism) is not yet ported")
+        if getattr(engine, "onnx_decoder", None) is not None:
+            raise NotImplementedError("the ONNX codec path is not yet ported")
+        self.engine = engine
+        self.batch_size = int(batch_size)
+
+    def synthesize(self, requests: Sequence[BatchRequest],
+                   ) -> List[BatchResult]:
+        out: List[BatchResult] = []
+        with torch.no_grad():
+            for lo in range(0, len(requests), self.batch_size):
+                out.extend(self._run_wave(requests[lo:lo + self.batch_size]))
+        return out
+
+    # ------------------------------------------------------------------
+    def _run_wave(self, wave: Sequence[BatchRequest]) -> List[BatchResult]:
+        """One wave through Generator.run_bulk with per-lane budgets: a
+        lane is done at EOS or its own budget, and the loop exits at the
+        first chunk where every lane is."""
+        eng = self.engine
+        cfg = eng.config
+        n_real = len(wave)
+        b = self.batch_size
+
+        plans = [r.plan if r.plan is not None
+                 else eng._build_voice_prompt(r.text, r.voice, r.instruct)
+                 for r in wave]
+        plans = plans + [plans[0]] * (b - n_real)     # pad lanes
+        bucket = eng._bucket(max(p.length for p in plans))
+        seed = eng.sampler_config.seed
+        if seed is None:
+            seed = time.time_ns() & 0x7FFFFFFFFFFFFFFF
+        state, _, bucket = eng.start_plans(
+            plans, bucket, torch.Generator(device=eng.device).manual_seed(seed))
+        sampler = SamplerParams.make(eng.sampler_config)
+        budgets = [r.max_frames or eng.max_steps for r in wave]
+        budgets = np.asarray(budgets + [budgets[0]] * (b - n_real), np.int64)
+        # an over-budget request must not run past the KV capacity
+        budgets = np.minimum(budgets,
+                             min(eng.max_steps, cfg.runtime.max_steps))
+        spf = cfg.codec_decoder.samples_per_frame
+        dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, b,
+                                                     eng.device)
+        state, dec_state, codes, valid, wav, _, saw_eos = \
+            eng.generator.run_bulk(
+                state, dec_state, sampler, prompt_cap=bucket,
+                max_frames=int(budgets.max()),
+                budgets=torch.as_tensor(budgets.astype(np.int32),
+                                        device=eng.device))
+        wav_np = wav.cpu().numpy()
+        valid_np = valid.cpu().numpy()
+        eos_np = saw_eos.cpu().numpy()
+        out = []
+        for i in range(n_real):
+            k = int(valid_np[i].sum())
+            out.append(_result(wav_np[i, : k * spf], k, eos_np[i]))
+        return out

@@ -415,7 +415,7 @@ def test_gates_name_what_fails():
     t, p = TTC(), TPC()
     assert tcs.supported(t, p, 1, 4) and tcs.supported(t, p, 1, 8)
     assert tcs.unsupported(t, p, 2, 4) == \
-        "chunk_step: batch 2 != 1 (the batched forms are not ported)"
+        "chunk_step: batch 2 not in (1, 8, 16, 24, 32)"
     assert tcs.unsupported(t, p, 1, 9) == \
         "chunk_step: n_frames 9 outside [1, 8]"
     assert "talker_step: head_dim" in tcs.unsupported(TTC.tiny(), p, 1, 4)

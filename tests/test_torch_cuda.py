@@ -38,7 +38,10 @@ it was taken from (top-2 gap <= twice the max difference), and in frame 0
 be a near tie (gap <= 0.1); later frames start from a state that already
 differs by the step's drift; while all codes agree, logits, hidden and the
 written k/v rows within 1e-1 of max |plain|; every other cache slot bit
-for bit (chip_smoke.py states the same policy with its first measurements).  The sampler alone
+for bit (chip_smoke.py states the same policy with its first measurements).
+The batched forms (B = 8 and 32 lanes, two layers at full width): every
+lane bit-equal to the one-lane launch on its inputs; B = 4 refused.  The
+sampler alone
 (the kernel's block 0 code) against ops.sampling.sample_threshold on the
 same uniforms: greedy exact, sampled equal on >= 99 % of draws (f32 sums
 in another order).
@@ -337,14 +340,19 @@ def test_step_kernels_reject_what_they_do_not_take(dev, talker, predictor):
                                 _i32([3], dev), tables)
 
 
-def _chunk_case(dev, full, seed, cap=1024):
+def _chunk_case(dev, full, seed, cap=1024, n_layers=None):
     """Weights, packs and carried state of one chunk test, made on the
-    card from a seed: full width, or the CPU tests' small width."""
+    card from a seed: full width (n_layers of each model: all by default),
+    or the CPU tests' small width."""
+    import dataclasses
     from qwen3_tts_tpu_torch.core.config import PredictorConfig, TalkerConfig
     from qwen3_tts_tpu_torch.models import predictor as tpred
     from qwen3_tts_tpu_torch.models import talker as ttalk
     if full:
         tcfg, pcfg = TalkerConfig(), PredictorConfig()
+        if n_layers is not None:
+            tcfg = dataclasses.replace(tcfg, n_layers=n_layers)
+            pcfg = dataclasses.replace(pcfg, n_layers=n_layers)
     else:
         tcfg = TalkerConfig(d_model=256, n_layers=2, n_heads=2,
                             n_kv_heads=1, head_dim=128, d_ff=256)
@@ -534,6 +542,134 @@ def test_chunk_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):          # nine frames
         _run_chunk(tcs.gen_chunk_fused, case, 9, 32, 31, 32,
                    _zeros_u(9, dev), (0.0, 40, 0.9))
+
+
+@pytest.mark.parametrize("b", [8, 32])
+def test_chunk_kernel_lanes_match_the_one_lane_kernel(dev, b):
+    """The batched form (full width, two layers each, B lanes with ragged
+    prompt lengths and positions, one cursor, sampled): every lane
+    bit-equal to a one-lane launch on that lane's inputs and uniforms
+    (codes, logits, hidden, its cache block); the slots being written
+    poisoned first, every other slot untouched; one launch counted."""
+    from qwen3_tts_tpu_torch.models import talker as ttalk
+    tcfg, pcfg, tw, pw, ex, _ = _chunk_case(dev, True, seed=10 + b,
+                                            n_layers=2)
+    g = torch.Generator(device=dev).manual_seed(b)
+    cap, start, pcap, n = 1024, 600, 128, 4
+    lens = _i32([pcap - 1 - (7 * i) % 64 for i in range(b)], dev)
+    pos = lens + (start - pcap)
+    shape = (tcfg.n_layers, b, tcfg.n_kv_heads, cap, tcfg.head_dim)
+    k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(2))
+    k[:, :, :, start:start + n], v[:, :, :, start:start + n] = 1e3, -1e3
+    lg = torch.randn(b, 2160, generator=g, device=dev) * 2.0
+    hd = torch.randn(b, tcfg.d_model, generator=g, device=dev)
+    u = torch.rand(n, b, generator=g, device=dev)
+
+    def run(lg, hd, k, v, lens, pos, u):
+        k, v = k.clone(), v.clone()
+        p = pos.long()[None, :] + torch.arange(n, device=dev)[:, None]
+        cos, sin = ttalk._rope_tables(tcfg, ttalk._pos4(p))
+        out = tcs.gen_chunk_fused(
+            tcfg, pcfg, tw, pw, ex, lg, hd, k, v, lens,
+            torch.full_like(lens, start), cos.float().contiguous(),
+            sin.float().contiguous(), u.contiguous(), (0.7, 40, 0.9), pcap)
+        torch.cuda.synchronize()
+        return (*out, k, v)
+
+    before = tcs.gen_chunk_fused.launches
+    many = run(lg, hd, k, v, lens, pos, u)
+    assert tcs.gen_chunk_fused.launches == before + 1
+    assert many[0].shape == (b, n, 16) and many[1].shape == (b, 2160)
+    keep = _all_but(slice(start, start + n)).to(dev)
+    for got, orig in zip(many[3:], (k, v)):
+        assert torch.equal(got[:, :, :, keep], orig[:, :, :, keep])
+    for i in range(b):
+        one = run(lg[i:i + 1].clone(), hd[i:i + 1].clone(),
+                  k[:, i:i + 1].clone(), v[:, i:i + 1].clone(),
+                  lens[i:i + 1].clone(), pos[i:i + 1].clone(),
+                  u[:, i:i + 1].clone())
+        assert torch.equal(one[0][0], many[0][i]), i
+        assert torch.equal(one[1][0], many[1][i]), i
+        assert torch.equal(one[2][0], many[2][i]), i
+        assert torch.equal(one[3][:, 0], many[3][:, i]), i
+        assert torch.equal(one[4][:, 0], many[4][:, i]), i
+
+
+def test_chunk_kernel_layer_taps_hold_layer_by_layer(dev):
+    """The batched form's layer_taps (B = 8, two layers each, sampled):
+    every talker layer of the plain version in the kernel's softmax order,
+    run from the kernel's residual entering it and the kernel's cache,
+    within 2e-2 of max of the kernel's next residual and written k/v row
+    (this file's layer-by-layer bound of the talker step); the kernel's
+    layer-0 input is the feedback of its codes, and the final norm of its
+    last residual its hidden.  At B = 1 layer_taps is refused."""
+    from qwen3_tts_tpu_torch.models import talker as ttalk
+    tcfg, pcfg, tw, pw, ex, st = _chunk_case(dev, True, seed=44, n_layers=2)
+    g = torch.Generator(device=dev).manual_seed(45)
+    b, cap, start, pcap, n = 8, 1024, 300, 128, 4
+    lens = _i32([pcap - 1 - (9 * i) % 64 for i in range(b)], dev)
+    pos = lens + (start - pcap)
+    shape = (tcfg.n_layers, b, tcfg.n_kv_heads, cap, tcfg.head_dim)
+    k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(2))
+    p = pos.long()[None, :] + torch.arange(n, device=dev)[:, None]
+    cos, sin = (t.float().contiguous() for t in ttalk._rope_tables(
+        tcfg, ttalk._pos4(p)))
+    xt = []
+    codes, lg, hd = tcs.gen_chunk_fused(
+        tcfg, pcfg, tw, pw, ex, torch.randn(b, 2160, generator=g,
+                                            device=dev) * 2.0,
+        torch.randn(b, tcfg.d_model, generator=g, device=dev), k, v, lens,
+        torch.full_like(lens, start), cos, sin,
+        torch.rand(n, b, generator=g, device=dev), (0.7, 40, 0.9), pcap,
+        layer_taps=xt)
+    torch.cuda.synchronize()
+    assert len(xt) == n and xt[0].shape == (b, tcfg.n_layers + 1,
+                                            tcfg.d_model)
+    rel = lambda a, b_: ((a.float() - b_.float()).abs().max()
+                         / b_.float().abs().max()).item()
+    for f in range(n):
+        fb = tcs._feedback(ex["ctab_fb"], codes[:, f], ex["tts_pad"])
+        assert rel(xt[f][:, 0], fb) <= 1e-2, f
+        kc, vc = k.clone(), v.clone()
+        for layer in range(tcfg.n_layers):
+            y = tcs._talker_layer_plain(tcfg, tw, layer, xt[f][:, layer],
+                                        cos[f], sin[f], kc, vc, lens, start,
+                                        f, pcap, 128)
+            for i in range(b):
+                assert rel(xt[f][i, layer + 1], y[i]) <= 2e-2, (f, layer, i)
+                for got, want in ((k, kc), (v, vc)):
+                    assert rel(got[layer, i, :, start + f],
+                               want[layer, i, :, start + f]) <= 2e-2
+    hid = tcs._rms(xt[-1][:, -1], ex["tfn"], tcfg.rms_eps)
+    assert rel(hd, hid) <= 1e-4
+    one = [t[:, :1].clone() for t in (k, v)]
+    with pytest.raises(ValueError, match="layer_taps"):
+        tcs.gen_chunk_fused(
+            tcfg, pcfg, tw, pw, ex, st["logits"], st["hidden"], *one,
+            lens[:1].clone(), _i32([start], dev), cos[:, :1].contiguous(),
+            sin[:, :1].contiguous(), torch.zeros(n, 1, device=dev),
+            (0.0, 40, 0.9), pcap, layer_taps=[])
+
+
+def test_chunk_kernel_refuses_a_batch_outside_its_gate(dev):
+    """A CUDA input at B = 4 (the wave then takes the step schedule by
+    gen_frames' gate) raises before any launch."""
+    tcfg, pcfg, tw, pw, ex, st = _chunk_case(dev, False, seed=7)
+    b = 4
+    before = tcs.gen_chunk_fused.launches
+    shape = (tcfg.n_layers, b, tcfg.n_kv_heads, 1024, tcfg.head_dim)
+    k = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="batch 4 not in"):
+        tcs.gen_chunk_fused(
+            tcfg, pcfg, tw, pw, ex, st["logits"].expand(b, -1).contiguous(),
+            st["hidden"].expand(b, -1).contiguous(), k, k.clone(),
+            _i32([31] * b, dev), _i32([32] * b, dev),
+            torch.zeros(4, b, 128, device=dev),
+            torch.zeros(4, b, 128, device=dev), torch.zeros(4, b, device=dev),
+            (0.0, 40, 0.9), 32)
+    assert tcs.gen_chunk_fused.launches == before
 
 
 # ---------------------------------------- continuous batching: per-lane caches
