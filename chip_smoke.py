@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py [--phases kernels,chunk,reference,engine,serving,wave]
+    python3 chip_smoke.py [--phases kernels,chunk,reference,engine,serving,
+                                    wave,weights]
 
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
@@ -20,6 +21,13 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
        128, the decode cursors above), as one layer and as the whole
        28-layer step;
      - predict_frame_fused (int8, full width, B=1): codes and window logits;
+     - the one-layer flash_gqa_decode (the stacked entry's kernel on a
+       layer's view; a scalar and a per-lane write_idx);
+     - talker_step_fused in its int8, w8a8 and bf16 weight modes (full
+       width, B = 1, 8 and 32): lanes bit-equal to the one-lane kernel,
+       layer by layer against the plain talker in the kernel's orders;
+     - matmul_int4 at the talker's four weight shapes, M = 1 and 128,
+       beside torch.matmul on the dequantized bf16 weight;
   3. chunk: gen_chunk_fused (one cooperative launch per chunk; full width,
      B=1, F=4, C=1024) against gen_chunk_plain on copies of one cache at
      (prompt_cap, length, start) = (32, 31, 32), (128, 117, 159) and
@@ -53,6 +61,15 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      mixed-budget run with a padded last wave, and batch 8 on a chunk=False
      engine (the step schedule); launch counts, frames/s, per-stream RTF
      and one profiled wave per batch size.
+  8. weights: the deployed weight path at full width: a synthetic model
+     directory (F16 talker and predictor GGUFs under llama.cpp names,
+     the assets GGUF, codec/decoder.npz; written from a seed, ~4.6 GB,
+     removed at the end), TtsEngine(model_dir, quant="q8_0") built twice
+     (the second from the weight cache, its tensors equal to the first's),
+     a greedy request and its rerun on the chunk path, the per-kernel
+     path in each talker mode (w4a8, int8, w8a8, bf16), the exact path
+     (int8 matmuls, a8w8 prefill) and the exact path on int4 layers
+     (matmul_int4); launch counts per path and talker mode.
 It prints one JSON line with the kernels' numbers (each with bound_ms: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 the card's peak for their type, from this run's shapes), then the card's
@@ -63,6 +80,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -207,12 +225,37 @@ def cuda_ms(fn, iters: int = 28, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def graph_ms(fn, n: int = 20, reps: int = 3) -> float:
+    """Device time per call of fn: n calls captured in one CUDA graph and
+    replayed, timed with CUDA events, so that the host's enqueue time
+    (the wrapper's Python and ctypes, ~40 us, more than a small kernel
+    takes) leaves no gaps between the kernels as it does in cuda_ms."""
+    import torch
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        graph.replay()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / (reps * n)
+
+
 def check_kernels(dev, failures):
     """Kernel vs plain at the main path's shapes; returns per-kernel
     results {name: {max_abs_err, ms, plain_ms}}."""
     import torch
     from qwen3_tts_tpu_torch.kernels.flash_decode import (
-        decode_attention_plain, flash_gqa_decode_stacked)
+        decode_attention_plain, decode_layer_plain, flash_gqa_decode,
+        flash_gqa_decode_stacked)
     from qwen3_tts_tpu_torch.kernels.flash_prefill import (
         flash_gqa_prefill_stacked, prefill_attention_plain)
     from qwen3_tts_tpu_torch.ops.attention import history_mask
@@ -352,6 +395,58 @@ def check_kernels(dev, failures):
     out["flash_gqa_decode_stacked"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib)
+
+    # the one-layer entry, flash_gqa_decode (the stacked wrapper's kernel on
+    # the view k_all[layer]): a scalar write_idx on layer 7's view, and
+    # per-lane cursors on a B = 4 layer cache
+    errs1 = []
+
+    def one_layer(q, kc, vc, lens, wi, prompt_cap, what):
+        got = flash_gqa_decode(q, kc, vc, lens, wi, prompt_cap)
+        torch.cuda.synchronize()
+        wl = (wi if torch.is_tensor(wi) else
+              torch.full((q.shape[0],), wi, dtype=torch.int32, device=dev))
+        want = decode_layer_plain(q.float(), kc.float(), vc.float(), lens, wl,
+                                  prompt_cap)
+        diff = (got.float() - want).abs()
+        if not bool((diff <= DECODE_ATOL + DECODE_RTOL * want.abs()).all()):
+            failures.append(f"flash_gqa_decode disagrees with plain ({what})")
+        errs1.append(diff.max().item())
+        print(f"[kernel] flash_gqa_decode {what}: max_abs_err="
+              f"{errs1[-1]:.3e} tol={tol}")
+
+    for prompt_cap, length, cursor in ((32, 31, 48), (128, 90, 1023)):
+        one_layer(q, talker_kv[0][7], talker_kv[1][7], i32(length), cursor,
+                  prompt_cap, f"C=1024 one layer, scalar write_idx={cursor} "
+                  f"prompt_cap={prompt_cap} length={length}")
+    kv4 = (rnd(4, 8, 1024, 128), rnd(4, 8, 1024, 128))
+    one_layer(rnd(4, 16, 128), *kv4, i32(31, 100, 117, 90),
+              i32(128, 159, 600, 1023), 128,
+              "B=4 C=1024 per-lane write_idx 128/159/600/1023")
+    ms = plain = 0.0
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            ms += cuda_ms(lambda i: flash_gqa_decode(
+                q, talker_kv[0][i % 28], talker_kv[1][i % 28], lens, wi,
+                32)) / 2
+        else:
+            plain += cuda_ms(lambda i: decode_layer_plain(
+                q, talker_kv[0][i % 28], talker_kv[1][i % 28], lens, wi,
+                32)) / 2
+    dev_k = graph_ms(lambda i: flash_gqa_decode(
+        q, talker_kv[0][i % 28], talker_kv[1][i % 28], lens, wi, 32))
+    dev_l = graph_ms(lambda i: sdpa(qt, talker_kv[0][i % 28],
+                                     talker_kv[1][i % 28],
+                                     attn_mask=mask[:, None], enable_gqa=True))
+    print(f"[kernel] flash_gqa_decode C=1024 cursor=48 one layer: {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, torch sdpa {lib:.4f} ms (the same "
+          f"inputs as the stacked entry), bound {b_ms:.5f} ms ({b_by}); "
+          f"device time (CUDA graph of 20 calls) kernel {dev_k:.4f} ms, sdpa "
+          f"{dev_l:.4f} ms")
+    out["flash_gqa_decode"] = dict(
+        max_abs_err=max(errs1), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib, device_ms=dev_k,
+        library_device_ms=dev_l)
     return out
 
 
@@ -442,6 +537,262 @@ def check_talker_step(dev, failures):
           f"({b_by}), no single PyTorch call")
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+INT4_SHAPES = ((2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048))
+# matmul_int4 against matmul_int4_plain: the same bf16 dequantized weights
+# and bf16 x, f32 sums in another order
+INT4_TOL = 1e-4
+
+
+def check_int4(dev, failures):
+    """matmul_int4 against matmul_int4_plain at the talker's four weight
+    shapes, M = 1 (decode) and 128 (prefill), within INT4_TOL of max |y|;
+    timed at M = 1 and 128 beside torch.matmul on the pre-dequantized bf16
+    weight (library_ms), with enough weight copies in turn that they do
+    not sit in the 50 MB L2 between launches."""
+    import torch
+    from qwen3_tts_tpu_torch.kernels.int4_matmul import (
+        _dequant_bf16, matmul_int4, matmul_int4_plain)
+    from qwen3_tts_tpu_torch.ops.quant import quantize_weight_int4
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    shapes, worst = {}, 0.0
+    for k, n in INT4_SHAPES:
+        w = quantize_weight_int4(torch.randn(k, n, generator=g, device=dev)
+                                 * k ** -0.5)
+        wb = nbytes(w.values())
+        copies = [w] + [{key: t.clone() for key, t in w.items()}
+                        for _ in range(max(0, math.ceil(64e6 / wb) - 1))]
+        dense = [_dequant_bf16(c) for c in copies[:max(2, math.ceil(
+            64e6 / (k * n * 2)))]]
+        row = {}
+        for m in (1, 128):
+            x = (torch.randn(m, k, generator=g, device=dev) * 0.5).to(
+                torch.bfloat16)
+            got = matmul_int4(x, w)
+            torch.cuda.synchronize()
+            want = matmul_int4_plain(x, w)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            worst = max(worst, err)
+            if not (err <= INT4_TOL and bool(torch.isfinite(got).all())):
+                failures.append(f"matmul_int4 disagrees with plain at "
+                                f"{k}x{n} M={m}")
+            ms = plain = 0.0
+            for order in ("plain", "kernel", "kernel", "plain"):
+                fn = matmul_int4 if order == "kernel" else matmul_int4_plain
+                t = cuda_ms(lambda i: fn(x, copies[i % len(copies)]))
+                if order == "kernel":
+                    ms += t / 2
+                else:
+                    plain += t / 2
+            lib = cuda_ms(lambda i: torch.matmul(x, dense[i % len(dense)]))
+            dev_k = graph_ms(lambda i: matmul_int4(x, copies[i % len(copies)]))
+            dev_l = graph_ms(lambda i: torch.matmul(x, dense[i % len(dense)]))
+            b_ms, b_by = bound(wb + x.numel() * 2 + m * n * 4,
+                               2 * m * k * n, "bf16")
+            row[m] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=b_ms, bound_by=b_by, rel_err=err,
+                          device_ms=dev_k, library_device_ms=dev_l)
+            print(f"[kernel] matmul_int4 K={k} N={n} M={m}: rel_err={err:.3e} "
+                  f"tol={INT4_TOL}; {ms:.4f} ms, plain {plain:.4f} ms, torch "
+                  f"matmul on the bf16 dequantized weight {lib:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}); device time (CUDA graph) kernel "
+                  f"{dev_k:.4f} ms, torch matmul {dev_l:.4f} ms; "
+                  f"{len(copies)} weight copies in turn")
+        shapes[f"{k}x{n}"] = row
+        del copies, dense
+    head = shapes["2048x12288"][1]
+    return dict(max_abs_err=worst, ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], device_ms=head["device_ms"],
+                shapes=shapes)
+
+
+# The talker step's int8, w8a8 and bf16 modes against chunk_step's plain
+# talker in the kernel's orders (its softmax in 128-slot tiles; the int8
+# and bf16 f32 dots in the kernel's lane order, qmm8_lanes_plain), layer
+# by layer from the kernel's own state.  What is left to differ: the
+# RMSNorm and q/k-norm sums (1/sqrt against rsqrt) and the softmax's
+# in-tile sums, which flip a bf16 rounding now and then.  w8a8 quantizes
+# each row as w4a8 does, so a flip moves an int8 unit (as in w4a8, PR 5:
+# 94.6-98.2 % of pairs exact); int8 and bf16 carry a flip as a small
+# bf16 difference into later GEMVs, whose products then all differ a
+# little.  At least MODE_EXACT_SHARE of the (layer, lane) pairs exact,
+# each within STEP_TOL_LAYER.
+MODE_EXACT_SHARE = {"int8": 0.5, "bf16": 0.5, "w8a8": 0.9}
+
+
+def check_talker_modes(dev, failures):
+    """talker_step_fused in the int8, w8a8 and bf16 weight modes at full
+    width (28 layers, C = 1024): B = 1 (uniform cursor 48, bucket 32) and
+    B = 8 and 32 (ragged per-lane cursors, uniform_cursor=False).  Each
+    lane of B > 1 bit-equal to the one-lane kernel; each lane alone against
+    chunk_step._talker_plain (MODE_EXACT_SHARE's comment) within
+    STEP_TOL_LAYER at one layer and layer by layer over 28; the end-to-end
+    difference printed.  Each B timed beside talker_step_plain (the JAX
+    `_qmm` numerics) and the bound of the bytes it must move."""
+    import dataclasses
+
+    import torch
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.kernels import chunk_step as cs
+    from qwen3_tts_tpu_torch.kernels.talker_step import (
+        prep_layer_weights, talker_step_fused, talker_step_plain)
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    from qwen3_tts_tpu_torch.models.transformer import init_decoder_params
+
+    cfg = EngineConfig().talker
+    n_layers, cap = cfg.n_layers, 1024
+    g = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        params = init_decoder_params(cfg, g)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.5).to(
+            torch.bfloat16)
+
+    def i32(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    def rope(positions):
+        p = torch.tensor(positions, device=dev)[:, None]
+        cos, sin = talker_lib._rope_tables(cfg, talker_lib._pos4(p))
+        return cos[:, 0].contiguous(), sin[:, 0].contiguous()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp_min(1e-30)).item()
+
+    out = {}
+    for mode in ("int8", "w8a8", "bf16"):
+        with torch.no_grad():
+            w = prep_layer_weights(cfg, params, mode)
+        res = {}
+        for b in (1, 8, 32):
+            kv = [rnd(n_layers, b, cfg.n_kv_heads, cap, cfg.head_dim)
+                  for _ in range(2)]
+            x = rnd(b, cfg.d_model)
+            if b == 1:
+                pcap, cursors, lengths, uniform = 32, [48], [31], True
+            else:
+                pcap, uniform = 128, False
+                pcaps = [32 if i % 2 else 128 for i in range(b)]
+                cursors = [pc + (97 * i) % (cap - pc)
+                           for i, pc in enumerate(pcaps)]
+                lengths = [pc - 1 - (7 * i) % 20 for i, pc in enumerate(pcaps)]
+            cos, sin = rope(cursors)
+            lens, wi = i32(lengths), i32(cursors)
+            lanes, st = torch.arange(b, device=dev), wi.long()
+
+            def lane_args(i, src):
+                return (tuple(t[i:i + 1].clone() for t in (src, cos, sin)),
+                        lens[i:i + 1].clone(), wi[i:i + 1].clone())
+
+            # one layer: each lane against the one-lane kernel and the plain
+            # talker in the kernel's orders on that lane alone
+            c1 = dataclasses.replace(cfg, n_layers=1)
+            w1 = {k: t[:1] for k, t in w.items()}
+            cache = [t[:1].clone() for t in kv]
+            got = talker_step_fused(c1, w1, x, cos, sin, *cache, lens, wi,
+                                    pcap, uniform_cursor=uniform, mode=mode)
+            torch.cuda.synchronize()
+            one_lane, e1 = True, []
+            for i in range(b):
+                (args, li, wl) = lane_args(i, x)
+                mine, tiled = ([t[:1, i:i + 1].clone() for t in kv]
+                               for _ in range(2))
+                one = talker_step_fused(c1, w1, *args, *mine, li, wl, pcap,
+                                        mode=mode)
+                c = cursors[i]
+                alt = cs._talker_plain(c1, w1, *args, *tiled, li, c, 0, pcap,
+                                       128, mode=mode)
+                one_lane = (one_lane and torch.equal(got[i], one[0])
+                            and all(torch.equal(a[:, i, :, c], m_[:, 0, :, c])
+                                    for a, m_ in zip(cache, mine)))
+                e1.append(max(rel(got[i:i + 1], alt),
+                              *(rel(a[:, i, :, c], p_[:, 0, :, c])
+                                for a, p_ in zip(cache, tiled))))
+            # layer by layer from the kernel's own state; the end to end
+            # difference of the 28-layer step, printed
+            cache, outs, rows = [t.clone() for t in kv], [x], []
+            for d in range(1, n_layers + 1):
+                outs.append(talker_step_fused(
+                    dataclasses.replace(cfg, n_layers=d),
+                    {k: t[:d] for k, t in w.items()}, x, cos, sin,
+                    *(a[:d] for a in cache), lens, wi, pcap,
+                    uniform_cursor=uniform, mode=mode))
+                rows.append([a[d - 1][lanes, :, st].clone() for a in cache])
+            del cache
+            per_layer = []
+            for layer in range(n_layers):
+                wl_ = {k: t[layer:layer + 1] for k, t in w.items()}
+                for i, c in enumerate(cursors):
+                    tiled = [t[layer:layer + 1, i:i + 1].clone() for t in kv]
+                    (args, li, _) = lane_args(i, outs[layer])
+                    alt = cs._talker_plain(c1, wl_, *args, *tiled, li, c, 0,
+                                           pcap, 128, mode=mode)
+                    per_layer.append(max(
+                        rel(outs[layer + 1][i:i + 1], alt),
+                        *(rel(r[i], p_[0, 0, :, c])
+                          for r, p_ in zip(rows[layer], tiled))))
+            e2e = []
+            for i, c in enumerate(cursors):
+                tiled = [t[:, i:i + 1].clone() for t in kv]
+                (args, li, _) = lane_args(i, x)
+                alt = cs._talker_plain(cfg, w, *args, *tiled, li, c, 0, pcap,
+                                       128, mode=mode)
+                e2e.append(rel(outs[-1][i:i + 1], alt))
+            n_pairs = len(per_layer)
+            n_exact = sum(e == 0 for e in per_layer)
+            ok = (one_lane and max(e1) <= STEP_TOL_LAYER
+                  and max(per_layer) <= STEP_TOL_LAYER
+                  and n_exact >= MODE_EXACT_SHARE[mode] * n_pairs
+                  and all(bool(torch.isfinite(o.float()).all())
+                          for o in outs))
+            if not ok:
+                failures.append(f"talker_step_fused ({mode}) B={b} disagrees "
+                                "with the plain talker")
+            # timing: the kernel and talker_step_plain in turns
+            ms = pl = 0.0
+            for order in ("plain", "kernel", "kernel", "plain"):
+                if order == "kernel":
+                    ms += cuda_ms(lambda i: talker_step_fused(
+                        cfg, w, x, cos, sin, *kv, lens, wi, pcap,
+                        uniform_cursor=uniform, mode=mode), iters=10) / 2
+                else:
+                    pl += cuda_ms(lambda i: talker_step_plain(
+                        cfg, w, x, cos, sin, *kv, lens, wi, pcap, mode),
+                        1, 1) / 2
+            visible = sum(min(ln, c) + max(0, c - pcap) + 1
+                          for ln, c in zip(lengths, cursors))
+            n_w = sum(w[k].numel() for k in ("wqkv_q", "wo_q", "gu_q",
+                                              "dn_q"))
+            b_ms, b_by = bound(nbytes(w.values()) + 2 * x.numel() * 2
+                               + nbytes((cos, sin)) + n_layers * 2 * visible
+                               * cfg.n_kv_heads * cfg.head_dim * 2,
+                               2 * n_w * b,
+                               "int8" if mode == "w8a8" else "bf16")
+            res[b] = dict(ms=ms, plain_ms=pl, bound_ms=b_ms, bound_by=b_by,
+                          exact_pairs=f"{n_exact}/{n_pairs}",
+                          max_layer_err=max(per_layer), end_to_end=max(e2e))
+            print(f"[kernel] talker_step_fused mode={mode} B={b} "
+                  f"{'uniform cursor' if uniform else 'per-lane'} C={cap} "
+                  f"cursors {min(cursors)}-{max(cursors)}: each lane "
+                  f"bit-equal to the 1-lane kernel={one_lane}; one layer, "
+                  f"each lane alone against the plain talker in the kernel's "
+                  f"orders: max {max(e1):.3e} (tol {STEP_TOL_LAYER}); "
+                  f"{n_layers} layers one by one from the kernel's state: "
+                  f"{n_exact} of {n_pairs} (layer, lane) exact (at least "
+                  f"{MODE_EXACT_SHARE[mode]}), max {max(per_layer):.3e}, the "
+                  f"others {sorted(f'{e:.1e}' for e in per_layer if e)[-6:]} "
+                  f"(largest 6); end to end (printed) max {max(e2e):.3e}; "
+                  f"{ms:.4f} ms per step, plain {pl:.2f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by})")
+            del kv, outs, rows
+        out[mode] = res
+        del w
+    return out
 
 
 def check_predictor_frame(dev, failures):
@@ -758,6 +1109,192 @@ def check_chunk(dev, failures):
     return out
 
 
+# ROADMAP Queue C #1: a talker layer of the batched chunk kernel that
+# moves beyond STEP_TOL_LAYER where the plain layer's own tile order moves
+# it not at all (s = 0) is replayed on that lane alone through
+# replay_layer with one of the kernel's sum orders swapped in at a time.
+REPLAY_ORDERS = ((), ("rms",), ("rms-sum",), ("rms-inv",), ("qk",),
+                 ("qk-sum",), ("qk-inv",), ("softmax",),
+                 ("softmax", "scores-a"), ("softmax", "scores-b"),
+                 ("rms", "qk", "softmax", "scores-a"),
+                 ("rms", "qk", "softmax", "scores-b"))
+REPLAYS = []       # (case, frame, lane, layer, {orders: (err, n_diff)})
+
+
+def _butterfly(v):
+    """A warp's xor butterfly (16, 8, 4, 2, 1) over the last axis (32):
+    every lane ends with the same sum, in this order."""
+    import torch
+    lanes = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def _rms_kernel_order(x, w, eps, threads, kernel_sum=True,
+                      kernel_inv=True):
+    """f32 (x * inv) * w, x [..., K], with the kernels' RMSNorm
+    (common.cuh group_sum; w4a8.cuh quantize_rows, norm_rope_heads_g):
+    kernel_sum, the sum of squares as thread t of `threads` adds
+    x[t + threads * i]^2 for i in order, then a warp butterfly and the
+    warps in order (else torch's mean); kernel_inv, inv = 1 / sqrt(ss / K
+    + eps) (else torch's rsqrt)."""
+    import torch
+    xf = x.float()
+    k = xf.shape[-1]
+    if kernel_sum:
+        part = torch.zeros(*xf.shape[:-1], threads, device=x.device)
+        for i in range(k // threads):
+            part = part + xf[..., i * threads:(i + 1) * threads] ** 2
+        warps = _butterfly(part.reshape(*part.shape[:-1], threads // 32, 32))
+        ms = warps[..., 0]
+        for i in range(1, threads // 32):
+            ms = ms + warps[..., i]
+        ms = ms / k
+    else:
+        ms = (xf * xf).mean(dim=-1)
+    inv = 1.0 / torch.sqrt(ms + eps) if kernel_inv else torch.rsqrt(ms + eps)
+    return (xf * inv[..., None]) * w.float()
+
+
+def _scores_kernel_order(qs, kt, fused_first):
+    """q . k per slot in the kernel's thread order (common.cuh
+    attend_tiles_g): over the head's dims in pairs, s += q[d] k[d] +
+    q[d+1] k[d+1], the pair's two products joined by one fma (the first
+    product fused with fused_first, else the second), emulated in f64.
+    qs [..., G, Dh] f32, kt [..., C, Dh] -> [..., G, C]."""
+    import torch
+    qd = qs.double()[..., :, None, :]                  # [..., G, 1, Dh]
+    kd = kt.double()[..., None, :, :]                  # [..., 1, C, Dh]
+    s = 0.0
+    for d in range(0, qs.shape[-1], 2):
+        a = qd[..., d] * kd[..., d]                    # exact in f64
+        c = qd[..., d + 1] * kd[..., d + 1]
+        pair = (a + c.float().double() if fused_first
+                else c + a.float().double()).float()
+        s = s + pair                                   # s starts at 0.f
+    return s
+
+
+def _attend_kernel_order(q, kc, vc, lengths, start, f, prompt_cap, tile,
+                         scores=None):
+    """chunk_step._chunk_attend_plain with the kernel's in-tile sums
+    (common.cuh attend_tiles_g, chunk_step.cu talker_attn): per tile the
+    max, then l and acc rescaled and P.V and l summed slot by slot in slot
+    order (acc by fma, here in f64: p * v is exact there), then the
+    chunk's frames with their scores summed by the 128-thread butterfly
+    order.  The prefix scores are torch's dot, or with scores "a" / "b"
+    _scores_kernel_order's (fused_first True / False)."""
+    import torch
+    b, h, dh = q.shape
+    hkv = kc.shape[1]
+    g = h // hkv
+    qs = q.float().reshape(b, hkv, g, dh) * (dh ** -0.5)
+    m = torch.full((b, hkv, g), -1e30, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qs)
+    lens = lengths.long()
+    for c0 in range(0, start, tile):
+        c1 = min(c0 + tile, start)
+        c = torch.arange(c0, c1, device=q.device)
+        sc = (torch.einsum("bkgd,bkcd->bkgc", qs, kc[:, :, c0:c1].float())
+              if scores is None else
+              _scores_kernel_order(qs, kc[:, :, c0:c1].float(),
+                                   scores == "a"))
+        valid = ((c[None] < lens[:, None]) | (c[None] >= prompt_cap))
+        valid = valid[:, None, None, :]
+        tmax = torch.where(valid, sc, torch.tensor(-1e30, device=q.device)
+                           ).amax(-1)
+        m_new = torch.maximum(m, tmax)
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(sc - m_new[..., None]),
+                        torch.zeros((), device=q.device))
+        m, l, acc = m_new, l * alpha, acc * alpha[..., None]
+        vt = vc[:, :, c0:c1].double()
+        for j in range(c1 - c0):
+            acc = (acc.double() + p[..., j:j + 1].double()
+                   * vt[:, :, None, j]).float()
+            l = l + p[..., j]
+    kn = kc[:, :, start:start + f + 1].float()
+    vn = vc[:, :, start:start + f + 1]
+    prod = qs[:, :, :, None, :] * kn[:, :, None]          # [b, k, g, n, dh]
+    warps = _butterfly(prod.reshape(*prod.shape[:-1], dh // 32, 32))
+    sc = warps[..., 0]
+    for i in range(1, dh // 32):
+        sc = sc + warps[..., i]
+    mx = torch.maximum(m, sc.amax(-1))
+    alpha = torch.exp(m - mx)
+    ac, ls = acc * alpha[..., None], l * alpha
+    for j in range(f + 1):
+        p = torch.exp(sc[..., j] - mx)
+        ac = (ac.double() + p[..., None].double()
+              * vn[:, :, None, j].double()).float()
+        ls = ls + p
+    return (ac / torch.clamp(ls, min=1e-30)[..., None]).reshape(
+        b, h * dh).to(torch.bfloat16)
+
+
+def replay_layer(cfg, w, layer, x, cos, sin, cache_k, cache_v, lengths,
+                 start, f, prompt_cap, orders):
+    """chunk_step._talker_layer_plain (w4a8, the prefix in 128-slot tiles)
+    with the kernel's order for the sums named in `orders`: "rms" the
+    layer's two RMSNorms (256 threads; "rms-sum" their sum of squares
+    only, "rms-inv" their 1 / sqrt only), "qk" the per-head q/k norms (128
+    threads; "qk-sum", "qk-inv" likewise), "softmax" the attention's
+    in-tile sums, "scores-a" / "scores-b" its prefix scores
+    (_scores_kernel_order).  The residual adds are one f32 add and one
+    bf16 rounding on both sides (nothing to swap)."""
+    import torch
+    import torch.nn.functional as F
+    from qwen3_tts_tpu_torch.kernels import chunk_step as cs
+    from qwen3_tts_tpu_torch.kernels.talker_step import qmm4_plain
+    b = x.shape[0]
+    h, hkv, dh, eps = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.rms_eps
+    dq, dkv = h * dh, hkv * dh
+    cos, sin = cos.float()[:, None, :], sin.float()[:, None, :]
+
+    def mm(v, name):
+        return qmm4_plain(v, w[name + "_q"][layer], w[name + "_s"][layer])
+
+    def norm(v, wt, name, threads):
+        full = name in orders
+        ks, ki = full or name + "-sum" in orders, full or name + "-inv" in orders
+        if not (ks or ki):
+            return cs._rms(v, wt, eps)
+        return _rms_kernel_order(v, wt, eps, threads, ks, ki)
+
+    def rms(v, wt):
+        return norm(v, wt, "rms", 256)
+
+    def qk(v, wt):
+        return norm(v, wt, "qk", dh)
+
+    hn = rms(x, w["ln1"][layer]).to(torch.bfloat16)
+    qkv = mm(hn, "wqkv")
+    q = qk(qkv[:, :dq].reshape(b, h, dh), w["qn"][layer])
+    k = qk(qkv[:, dq:dq + dkv].reshape(b, hkv, dh), w["kn"][layer])
+    v = qkv[:, dq + dkv:].reshape(b, hkv, dh)
+    q, k = q.to(torch.bfloat16).float(), k.to(torch.bfloat16).float()
+    q = (q * cos + cs._rotate_half(q) * sin).to(torch.bfloat16)
+    k = (k * cos + cs._rotate_half(k) * sin).to(torch.bfloat16)
+    cache_k[layer][:, :, start + f] = k
+    cache_v[layer][:, :, start + f] = v
+    if "softmax" in orders:
+        sc = "a" if "scores-a" in orders else "b" if "scores-b" in orders \
+            else None
+        ctx = _attend_kernel_order(q, cache_k[layer], cache_v[layer],
+                                   lengths, start, f, prompt_cap, 128, sc)
+    else:
+        ctx = cs._chunk_attend_plain(q, cache_k[layer], cache_v[layer],
+                                     lengths, start, f, prompt_cap, 128)
+    x = x + mm(ctx, "wo")
+    hn2 = rms(x, w["ln2"][layer]).to(torch.bfloat16)
+    gu = mm(hn2, "gu")
+    n = gu.shape[-1] // 2
+    ff = F.silu(gu[:, :n].float()).to(torch.bfloat16) * gu[:, n:]
+    return x + mm(ff, "dn")
+
+
 def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
     """gen_chunk_fused at B = 8, 16, 24 and 32 lanes (F = 4, C = 1024, ragged
     prompt lengths and positions, one cursor; at B = 8 the cursor starts at
@@ -844,6 +1381,26 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                     n_diff = int((x[j, layer + 1] != y[j]).sum())
                     wide.append((f, i, layer, f"{e:.2e}", f"s={sens:.1e}",
                                  n_diff))
+                if e > STEP_TOL_LAYER and sens == 0:
+                    rep = {}
+                    for orders in REPLAY_ORDERS:
+                        kr, vr = k[:, j:j + 1].clone(), v[:, j:j + 1].clone()
+                        yr = replay_layer(
+                            tcfg, tw, layer, x[j:j + 1, layer],
+                            cos[j:j + 1], sin[j:j + 1], kr, vr,
+                            lens[idx][j:j + 1].clone(), start, f,
+                            prompt_cap, orders)
+                        rep["+".join(orders) or "plain"] = (
+                            rel(x[j, layer + 1], yr[0]),
+                            int((x[j, layer + 1] != yr[0]).sum()))
+                    REPLAYS.append((replay_case, f, i, layer, rep))
+                    print(f"[replay] {replay_case} (frame {f}, lane {i}, "
+                          f"layer {layer}): the plain layer on this lane "
+                          f"alone against the kernel's next residual with "
+                          f"the kernel's order for the sums named (rel err, "
+                          f"elements differing of {tcfg.d_model}): "
+                          + "; ".join(f"{o}: {er:.2e}, {nd}"
+                                      for o, (er, nd) in rep.items()))
                 e_kv.append(max(rel(full[3][layer, i, :, slot],
                                     k[layer, j, :, slot]),
                                 rel(full[4][layer, i, :, slot],
@@ -876,6 +1433,7 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
         keep[start:start + n_frames] = False
         rows = sorted({0, b - 1, *range(0, b, 8)})
         for mode, sampler in (("greedy", greedy), ("sampled", sampled)):
+            replay_case = f"B={b} start={start} {mode}"
             u = (torch.zeros(n_frames, b, device=dev) if mode == "greedy"
                  else torch.rand(n_frames, b, generator=g, device=dev))
             taps, xt = [], []
@@ -1559,6 +2117,12 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
     "flash_gqa_decode_stacked": (
         "qwen3_tts_tpu_torch/csrc/flash_decode.cu",
         "qwen3_tts_tpu/kernels/flash_decode.py:171"),
+    "flash_gqa_decode": (
+        "qwen3_tts_tpu_torch/csrc/flash_decode.cu",
+        "qwen3_tts_tpu/kernels/flash_decode.py:606"),
+    "matmul_int4": (
+        "qwen3_tts_tpu_torch/csrc/int4_matmul.cu",
+        "qwen3_tts_tpu/kernels/int4_matmul.py:60"),
     "talker_step_fused": (
         "qwen3_tts_tpu_torch/csrc/talker_step.cu",
         "qwen3_tts_tpu/kernels/talker_step.py:953"),
@@ -1575,7 +2139,8 @@ PATH_KERNELS = {
     "chunk": ("flash_gqa_prefill_stacked", "gen_chunk_fused"),
     "step": ("flash_gqa_prefill_stacked", "talker_step_fused",
              "predict_frame_fused"),
-    "exact": ("flash_gqa_prefill_stacked", "flash_gqa_decode_stacked"),
+    "exact": ("flash_gqa_prefill_stacked", "flash_gqa_decode_stacked",
+              "flash_gqa_decode"),
 }
 PATH_FORBIDDEN = {"chunk": ("talker_step_fused", "predict_frame_fused")}
 # the serving queues: on the default engine per-lane frames take the step
@@ -1619,7 +2184,7 @@ def drive_engine(dev, failures):
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
     from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
     from qwen3_tts_tpu_torch.kernels.flash_decode import (
-        flash_gqa_decode_stacked)
+        flash_gqa_decode, flash_gqa_decode_stacked)
     from qwen3_tts_tpu_torch.kernels.flash_prefill import (
         flash_gqa_prefill_stacked)
     from qwen3_tts_tpu_torch.kernels.predictor_frame import (
@@ -1628,7 +2193,8 @@ def drive_engine(dev, failures):
 
     fns = {f.__name__: f for f in (
         flash_gqa_prefill_stacked, flash_gqa_decode_stacked,
-        talker_step_fused, predict_frame_fused, gen_chunk_fused)}
+        flash_gqa_decode, talker_step_fused, predict_frame_fused,
+        gen_chunk_fused)}
     t0 = time.perf_counter()
     default = TtsEngine(device=dev, speakers_dir="speakers")
     torch.cuda.synchronize()
@@ -2067,11 +2633,300 @@ def drive_wave(dev, failures):
     return counts
 
 
+# The weights phase: a synthetic model directory in the published layout
+# at full EngineConfig() widths and depths, read by
+# TtsEngine(quant="q8_0"): int8 device weights.  Its paths and the kernels
+# each must launch (the first path naming a kernel gives its `launches` in
+# the kernels line when no earlier phase did); every per-kernel path
+# launches its own talker-step mode and no other
+WEIGHTS_PATH_KERNELS = {
+    "weights-chunk": ("flash_gqa_prefill_stacked", "gen_chunk_fused"),
+    "weights-step-w4a8": ("talker_step_fused", "predict_frame_fused"),
+    "weights-step-int8": ("talker_step_fused", "predict_frame_fused"),
+    "weights-step-w8a8": ("talker_step_fused", "predict_frame_fused"),
+    "weights-step-bf16": ("talker_step_fused", "predict_frame_fused"),
+    "weights-exact": ("flash_gqa_prefill_stacked", "flash_gqa_decode",
+                      "flash_gqa_decode_stacked"),
+    "weights-int4": ("matmul_int4", "flash_gqa_decode"),
+}
+WEIGHTS_FORBIDDEN = {
+    "weights-chunk": ("talker_step_fused", "predict_frame_fused",
+                      "matmul_int4"),
+    "weights-exact": ("talker_step_fused", "gen_chunk_fused", "matmul_int4"),
+    "weights-int4": ("talker_step_fused", "gen_chunk_fused"),
+}
+WEIGHTS_TEXT = "Weights read from a GGUF model directory."   # bucket 32
+TALKER_VOCAB = 3072        # the talker GGUF's LM head rows (>= 2160)
+
+
+def write_model_dir(root, dev, seed: int = 11) -> dict:
+    """A model directory in the published layout under `root`, made from a
+    seed on the card: gguf_q8_0/ with the talker (28 x 2048) and
+    predictor (6 x 1024) GGUFs in F16 under llama.cpp's tensor names (the
+    random init's scales: d^-0.5, (h * dh)^-0.5, d_ff^-0.5; unit norms)
+    and qwen3_assets.gguf (tests/test_engine_gguf.py's row counts: text
+    rows up to EOS_TOKEN, 3,100 codec rows), and codec/decoder.npz from
+    the codec's random init.  Returns {file: (seconds, bytes)}."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import EngineConfig
+    from qwen3_tts_tpu_torch.core import protocol as P
+    from qwen3_tts_tpu_torch.io.gguf import write_gguf
+    from qwen3_tts_tpu_torch.models.codec import decoder as codec_decoder
+
+    cfg = EngineConfig()
+    gdir = root / "gguf_q8_0"
+    gdir.mkdir(parents=True)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def f16(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).half(
+        ).cpu().numpy()
+
+    def lm(c, vocab):
+        d, f, dq, dkv = (c.d_model, c.d_ff, c.n_heads * c.head_dim,
+                         c.n_kv_heads * c.head_dim)
+        ones = np.ones(d, np.float32)
+        t = {}
+        for i in range(c.n_layers):
+            p_ = f"blk.{i}."
+            t.update({
+                p_ + "attn_norm.weight": ones, p_ + "ffn_norm.weight": ones,
+                p_ + "attn_q.weight": f16(dq, d, scale=d ** -0.5),
+                p_ + "attn_k.weight": f16(dkv, d, scale=d ** -0.5),
+                p_ + "attn_v.weight": f16(dkv, d, scale=d ** -0.5),
+                p_ + "attn_output.weight": f16(d, dq, scale=dq ** -0.5),
+                p_ + "attn_q_norm.weight": np.ones(c.head_dim, np.float32),
+                p_ + "attn_k_norm.weight": np.ones(c.head_dim, np.float32),
+                p_ + "ffn_gate.weight": f16(f, d, scale=d ** -0.5),
+                p_ + "ffn_up.weight": f16(f, d, scale=d ** -0.5),
+                p_ + "ffn_down.weight": f16(d, f, scale=f ** -0.5)})
+        t["output_norm.weight"] = ones
+        t["output.weight"] = f16(vocab, d, scale=d ** -0.5)
+        meta = {"general.architecture": "qwen3",
+                "qwen3.block_count": c.n_layers,
+                "qwen3.attention.head_count": c.n_heads,
+                "qwen3.attention.head_count_kv": c.n_kv_heads,
+                "qwen3.embedding_length": d,
+                "qwen3.feed_forward_length": f,
+                "qwen3.attention.key_length": c.head_dim,
+                "qwen3.rope.freq_base": float(c.rope_theta)}
+        return t, meta
+
+    written = {}
+    for name, make in (
+            ("qwen3_tts_talker.gguf", lambda: lm(cfg.talker, TALKER_VOCAB)),
+            ("qwen3_tts_predictor.gguf",
+             lambda: lm(cfg.predictor, cfg.predictor.vocab_size)),
+            ("qwen3_assets.gguf", lambda: ({
+                "proj.weight": f16(P.PREDICTOR_DIM, P.TALKER_DIM,
+                                   scale=0.02).astype(np.float32),
+                "proj.bias": f16(P.PREDICTOR_DIM, scale=0.02).astype(
+                    np.float32),
+                "text_embd": f16(P.EOS_TOKEN + 2, P.TALKER_DIM, scale=0.02),
+                **{f"codec_embd.{i}": f16(3100, P.TALKER_DIM, scale=0.02)
+                   for i in range(P.NUM_CODEBOOKS)}}, {}))):
+        t0 = time.perf_counter()
+        tensors, meta = make()
+        write_gguf(gdir / name, tensors, meta)
+        del tensors
+        written[name] = (time.perf_counter() - t0,
+                         (gdir / name).stat().st_size)
+    t0 = time.perf_counter()
+    (root / "codec").mkdir()
+    with torch.no_grad():
+        dec = codec_decoder.init_decoder_params(cfg.codec_decoder, g)
+    flat = {}
+
+    def walk(node, prefix):
+        items = (node.items() if isinstance(node, dict)
+                 else enumerate(node) if isinstance(node, (list, tuple))
+                 else None)
+        if items is None:
+            flat[prefix[:-1]] = node.float().cpu().numpy()
+            return
+        for k, v in items:
+            walk(v, f"{prefix}{k}/")
+
+    walk(dec, "")
+    np.savez(root / "codec" / "decoder.npz", **flat)
+    written["codec/decoder.npz"] = (
+        time.perf_counter() - t0, (root / "codec" / "decoder.npz").stat()
+        .st_size)
+    return written
+
+
+def drive_weights(dev, failures):
+    """The deployed weight path at full width: write_model_dir, then
+    TtsEngine(model_dir, quant="q8_0") twice (the second reads the weight
+    cache; its tensors must equal the first's), then one greedy request
+    (MAX_STEPS frames, bucket 32) and a rerun on each path: chunk (the
+    default: w4a8 re-quantized from the int8 weights), per-kernel in each
+    talker mode, exact (int8 matmuls, a8w8 prefill), and the exact path on
+    quantize_decoder_layers_int4 layers (8 frames: matmul_int4).  Each
+    request: frames x 2000 finite, non-silent samples, the rerun's codes
+    equal, the path's kernels launched and no other talker mode's.
+    Returns {path: {kernel: launches}} (and the talker's by mode)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.flash_decode import (
+        flash_gqa_decode, flash_gqa_decode_stacked)
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.int4_matmul import matmul_int4
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import MODES, talker_step_fused
+    from qwen3_tts_tpu_torch.kernels.build import BUILD_ROOT
+    from qwen3_tts_tpu_torch.ops import quant as Q
+
+    fns = {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, flash_gqa_decode_stacked,
+        flash_gqa_decode, talker_step_fused, predict_frame_fused,
+        gen_chunk_fused, matmul_int4)}
+    root = BUILD_ROOT / f"smoke_model_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    counts = {}
+    try:
+        written = write_model_dir(root, dev)
+        for name, (sec, size) in written.items():
+            print(f"[weights] wrote {name}: {size / 1e9:.3f} GB in "
+                  f"{sec:.2f} s")
+        builds = []
+        for n in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng = TtsEngine(root, quant="q8_0", device=dev,
+                            speakers_dir="speakers")
+            torch.cuda.synchronize()
+            builds.append((eng, time.perf_counter() - t0))
+            print(f"[weights] TtsEngine(quant='q8_0') build {n + 1}: "
+                  f"{builds[-1][1]:.2f} s (talker from "
+                  f"{eng.weight_sources.get('talker')}, "
+                  f"{eng.load_seconds['talker']:.2f} s; predictor from "
+                  f"{eng.weight_sources.get('predictor')}, "
+                  f"{eng.load_seconds['predictor']:.2f} s; assets "
+                  f"{eng.load_seconds['assets']:.2f} s; kernel weights "
+                  f"packed in {eng.load_seconds['kernel_pack']:.2f} s); "
+                  f"random components {eng.dev_mode_components}; "
+                  f"talker {eng.config.talker.n_layers} x "
+                  f"{eng.config.talker.d_model}, fused={eng.fused} "
+                  f"chunk={eng.chunk}")
+        (e1, _), (e2, _) = builds
+        leaves = lambda t: (
+            [x for v in (t.values() if isinstance(t, dict) else t)
+             for x in leaves(v)] if isinstance(t, (dict, list)) else [t])
+        same = all(
+            torch.equal(a, b) and a.dtype == b.dtype
+            for p1, p2 in ((e1.talker_params, e2.talker_params),
+                           (e1.predictor_params, e2.predictor_params))
+            for a, b in zip(leaves(p1), leaves(p2)))
+        int8 = (Q.is_quantized(e1.talker_params["layers"]["wqkv"])
+                and Q.is_quantized(e1.predictor_params["lm_head"]))
+        cached = e2.weight_sources == {"talker": "cache",
+                                       "predictor": "cache"}
+        print(f"[weights] int8 device weights={int8}; second build read the "
+              f"weight cache={cached}, tensors equal to the first build's="
+              f"{same}; random components {e1.dev_mode_components}")
+        if not (int8 and cached and same and not e1.dev_mode_components
+                and e1.fused and e1.chunk):
+            failures.append("weights: the GGUF engine or its cache is wrong")
+        del e2, builds
+        weights = dict(assets=e1.assets, talker=e1.talker_params,
+                       predictor=e1.predictor_params,
+                       codec_decoder=e1.codec_decoder_params)
+        spf = e1.config.codec_decoder.samples_per_frame
+
+        def run(path, engine, frames):
+            engine.set_max_steps(frames)
+            voice = engine.get_speaker("vivian")
+            for fn in fns.values():
+                fn.launches = 0
+            talker_step_fused.launches_by_mode = dict.fromkeys(MODES, 0)
+            codes = []
+            for rep in range(2):
+                engine.set_sampler_config(SamplerConfig(seed=5, **GREEDY))
+                t0 = time.perf_counter()
+                audio = engine.generate_with_voice(WEIGHTS_TEXT, voice)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1000.0
+                m, x = engine.last_metrics, audio.samples
+                ok = (m.frames > 0 and len(x) == m.frames * spf
+                      and bool(np.isfinite(x).all())
+                      and float(np.abs(x).max()) > 1e-4)
+                codes.append(engine.last_codes)
+                print(f"[weights] {path} request {rep + 1}: frames="
+                      f"{m.frames} samples={len(x)} (= frames x {spf}: "
+                      f"{len(x) == m.frames * spf}) finite="
+                      f"{bool(np.isfinite(x).all())} peak="
+                      f"{float(np.abs(x).max()) if len(x) else 0.0:.4f} "
+                      f"prefill_ms={m.prefill_ms:.2f} wall_ms={wall:.2f} "
+                      f"ms/frame={wall / max(m.frames, 1):.2f}")
+                if not ok:
+                    failures.append(f"weights {path}: bad audio")
+            same_codes = np.array_equal(codes[0], codes[1])
+            c = {name: fn.launches for name, fn in fns.items()}
+            by_mode = dict(talker_step_fused.launches_by_mode)
+            c["talker_step_fused_by_mode"] = by_mode
+            counts[path] = c
+            print(f"[weights] {path}: rerun codes equal={same_codes}; "
+                  f"launches {c}")
+            if not same_codes:
+                failures.append(f"weights {path}: a rerun gave other codes")
+            for name in WEIGHTS_PATH_KERNELS[path]:
+                if c[name] <= 0:
+                    failures.append(f"weights {path} never launched {name}")
+            for name in WEIGHTS_FORBIDDEN.get(path, ()):
+                if c[name] != 0:
+                    failures.append(f"weights {path} launched {name}")
+            if path.startswith("weights-step-"):
+                mode = path.rsplit("-", 1)[1]
+                if (by_mode[mode] <= 0 or c["gen_chunk_fused"] != 0
+                        or any(by_mode[m_] for m_ in MODES if m_ != mode)):
+                    failures.append(f"weights {path}: talker modes launched "
+                                    f"{by_mode}")
+
+        run("weights-chunk", e1, MAX_STEPS)
+        for mode in MODES:
+            eng = TtsEngine(device=dev, speakers_dir="speakers", fused=True,
+                            chunk=False, talker_mode=mode, weights=weights,
+                            quant="q8_0")
+            run(f"weights-step-{mode}", eng, MAX_STEPS)
+            del eng
+        eng = TtsEngine(device=dev, speakers_dir="speakers", fused=False,
+                        weights=weights, quant="q8_0")
+        run("weights-exact", eng, MAX_STEPS)
+        del eng, e1
+        # int4 layers (ops.quant.quantize_decoder_layers_int4 of the int8
+        # weights' f32 values); heads stay int8
+        with torch.no_grad():
+            w4 = {}
+            for key, src in (("talker", weights["talker"]),
+                             ("predictor", weights["predictor"])):
+                layers = {k: (Q.dequantize(v) if Q.is_quantized(v) else v)
+                          for k, v in src["layers"].items()}
+                w4[key] = dict(src, layers=Q.quantize_decoder_layers_int4(
+                    layers))
+                del layers
+        eng = TtsEngine(device=dev, speakers_dir="speakers", fused=False,
+                        weights=dict(weights, **w4), quant="q8_0")
+        run("weights-int4", eng, 8)
+        del eng, w4
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,chunk,reference,engine,serving,wave",
+                    default="kernels,chunk,reference,engine,serving,wave,"
+                    "weights",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
     import torch
@@ -2104,38 +2959,49 @@ def main() -> int:
         out = check_kernels(dev, failures)
         out["talker_step_fused"] = check_talker_step(dev, failures)
         out["talker_step_fused"].update(check_talker_batched(dev, failures))
+        out["talker_step_fused"]["modes"] = check_talker_modes(dev, failures)
+        out["matmul_int4"] = check_int4(dev, failures)
         out["predict_frame_fused"] = check_predictor_frame(dev, failures)
         out.update(check_lanes(dev, failures))
         return out
 
     phases = (("kernels", kernels), ("chunk", check_chunk),
               ("reference", check_reference), ("engine", drive_engine),
-              ("serving", drive_serving), ("wave", drive_wave))
+              ("serving", drive_serving), ("wave", drive_wave),
+              ("weights", drive_weights))
     results = {}
     for name, fn in phases:
         if name not in phases_wanted:
             continue
+        t_phase = time.perf_counter()
         try:
             results[name] = fn(dev, failures)
         except Exception as e:      # report every phase, then fail
             import traceback
             traceback.print_exc()
             failures.append(f"phase {name} raised {e!r}")
+        print(f"[phase] {name}: {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.synchronize()
 
     kernels = []
     counts = {**(results.get("engine") or {}),
               **(results.get("serving") or {}),
-              **(results.get("wave") or {})}
+              **(results.get("wave") or {}),
+              **(results.get("weights") or {})}
     measured = dict(results.get("kernels") or {})
     if results.get("chunk"):
         measured["gen_chunk_fused"] = results["chunk"]
     # the path whose run gives a kernel's `launches`: the first that needs it
     paths = {**PATH_KERNELS, "serving-b8": SERVING_PATH_KERNELS["step"],
-             "serving-exact": SERVING_PATH_KERNELS["exact"]}
+             "serving-exact": SERVING_PATH_KERNELS["exact"],
+             **WEIGHTS_PATH_KERNELS}
     for name, (src, replaces) in KERNELS.items():
         k = dict(measured.get(name, {}))
         by_path = {p: c.get(name, 0) for p, c in counts.items()}
+        if name == "talker_step_fused":
+            k["launches_by_mode"] = {
+                p: c["talker_step_fused_by_mode"] for p, c in counts.items()
+                if "talker_step_fused_by_mode" in c}
         path = next((p for p in paths if name in paths[p]), "")
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": by_path.get(path, 0),

@@ -5,6 +5,14 @@ preset-voice path (qwen3_tts_tpu/cli.py):
       [--speakers-dir speakers] [--instruction "Happy"] [--max-steps 512]
       [--seed N] [--temperature 0.7] [--top-k 40] [--top-p 0.9]
       [--output output.wav] [--metrics] [--model-dir models] [--device cuda]
+      [--quant none|q5_k_m|q8_0] [--talker-mode w4a8|int8|w8a8|bf16]
+
+--model-dir is read in the published layout (TtsEngine): the GGUF files
+under gguf/ (--quant none) or gguf_<quant>/, the codec decoder under
+codec/decoder.npz; a component without its file runs on random weights,
+with a warning.  --quant other than none gives int8 device weights.
+--talker-mode other than w4a8 runs the per-kernel decode path with that
+talker-step weight mode (the chunk kernel is w4a8).
 
 --stream, --ref-audio, --voice-file and --long are accepted and refused:
 those paths are not ported yet.
@@ -36,6 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--metrics", action="store_true",
                    help="print JSON metrics after generation")
+    p.add_argument("--quant", default="none",
+                   choices=("none", "q5_k_m", "q8_0"),
+                   help="weights dir gguf/ or gguf_<quant>/; not none: int8 "
+                        "device weights")
+    p.add_argument("--talker-mode", default="w4a8",
+                   choices=("w4a8", "int8", "w8a8", "bf16"),
+                   help="talker-step kernel weight mode (not w4a8: the "
+                        "per-kernel decode path)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "attention instead of the CUDA kernels)")
@@ -62,7 +78,8 @@ def main(argv=None) -> int:
     engine = TtsEngine(model_dir=args.model_dir,
                        speakers_dir=(args.speakers_dir
                                      if args.speakers_dir.exists() else None),
-                       device=args.device)
+                       device=args.device, quant=args.quant,
+                       talker_mode=args.talker_mode)
     engine.set_max_steps(args.max_steps)
     engine.set_sampler_config(SamplerConfig(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,

@@ -6,11 +6,13 @@ TalkerConfig/PredictorConfig.flash_decode and layer_scan_unroll, and
 RuntimeConfig.mesh_shape, mesh_axes and donate_cache (on a CUDA tensor the
 port always runs its own attention kernels, on one device);
 RuntimeConfig.first_chunk_frames and batch_size, which belong to paths not
-yet ported (streaming, batched serving); and EngineConfig.int8_weights:
-the port takes bf16 weights only, and its fused decode kernels quantize
-them themselves (talker w4a8, predictor int8; TtsEngine's `fused`
-argument selects that path, not this field).  TtsEngine refuses a config that sets any of them away from its
-default (engine.IGNORED_FIELDS), so that setting one is never a silent no-op.
+yet ported (streaming, batched serving).  TtsEngine refuses a config that
+sets any of them away from its default (engine.IGNORED_FIELDS), so that
+setting one is never a silent no-op.  EngineConfig.int8_weights is read
+as in the JAX package: int8 device weights for the talker and predictor
+(None: when TtsEngine's quant is not "none"); the fused decode kernels
+pack their own weights from bf16 or int8 weights (TtsEngine's `fused`,
+`chunk` and `talker_mode` select the path, not this field).
 
 Configuration dataclasses for the TPU-native Qwen3-TTS framework.
 

@@ -1,9 +1,12 @@
-// Single-token GQA decode attention over a stacked KV cache, for Hopper.
+// Single-token GQA decode attention over one layer's KV cache, for Hopper.
 //
-// Replaces: qwen3_tts_tpu/kernels/flash_decode.py flash_gqa_decode_stacked
-// (the Pallas TPU kernel).  Same contract: q [B, H, Dh] bf16, k/v
-// [L, B, Hkv, C, Dh] bf16, lengths [B] and write_idx [B] int32, one layer
-// index; output [B, H, Dh] bf16.  Slot c is visible iff c <= write_idx and
+// Replaces: qwen3_tts_tpu/kernels/flash_decode.py flash_gqa_decode (the
+// one-layer Pallas TPU kernel) and, through it, flash_gqa_decode_stacked
+// (the stacked one), whose wrapper (kernels/flash_decode.py) passes layer
+// l's view of a stacked cache [L, B, Hkv, C, Dh], a pointer offset.
+// Contract: q [B, H, Dh] bf16, k/v [B, Hkv, C, Dh] bf16, lengths [B] and
+// write_idx [B] int32 (the current token already written at write_idx);
+// output [B, H, Dh] bf16.  Slot c is visible iff c <= write_idx and
 // (c < length or c >= prompt_cap or c == write_idx), which is
 // ops.attention.history_mask for one query row.
 //
@@ -39,8 +42,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out,
                     const int* __restrict__ lengths,
                     const int* __restrict__ write_idx,
-                    int layer, int B, int H, int Hkv, int C, int prompt_cap,
-                    float scale) {
+                    int H, int Hkv, int C, int prompt_cap, float scale) {
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
   const int t = threadIdx.x;
@@ -54,7 +56,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int cursor = write_idx[b];
   const int end = min(cursor + 1, C);  // live prefix [0, cursor]
 
-  const size_t head = ((size_t)layer * B + b) * Hkv + kvh;
+  const size_t head = (size_t)b * Hkv + kvh;
   const __nv_bfloat16* kp = k + head * (size_t)C * DH;
   const __nv_bfloat16* vp = v + head * (size_t)C * DH;
 
@@ -85,7 +87,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" int qtts_flash_decode(const void* q, const void* k, const void* v,
                                  void* out, const int* lengths,
-                                 const int* write_idx, int layer, int B,
+                                 const int* write_idx, int B,
                                  int H, int Hkv, int C, int head_dim,
                                  int prompt_cap, float scale, void* stream) {
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_G || B <= 0 || C <= 0)
@@ -99,12 +101,12 @@ extern "C" int qtts_flash_decode(const void* q, const void* k, const void* v,
   switch (head_dim) {
     case 64:
       flash_decode_kernel<64><<<grid, 64, 0, st>>>(
-          qb, kb, vb, ob, lengths, write_idx, layer, B, H, Hkv, C,
+          qb, kb, vb, ob, lengths, write_idx, H, Hkv, C,
           prompt_cap, scale);
       break;
     case 128:
       flash_decode_kernel<128><<<grid, 128, 0, st>>>(
-          qb, kb, vb, ob, lengths, write_idx, layer, B, H, Hkv, C,
+          qb, kb, vb, ob, lengths, write_idx, H, Hkv, C,
           prompt_cap, scale);
       break;
     default:

@@ -1,7 +1,7 @@
 """TtsEngine: the top-level facade.  Counterpart of qwen3_tts_tpu/engine.py,
 for the preset-voice synthesis path:
 
-    engine = TtsEngine(device="cuda")
+    engine = TtsEngine("models", quant="q8_0", device="cuda")
     engine.set_max_steps(512); engine.set_sampler_config(SamplerConfig(...))
     audio = engine.generate_with_voice(text, engine.get_speaker("vivian"))
 
@@ -9,33 +9,50 @@ A request is one prompt plan, assembled and prefilled on the device, then
 the bulk loop (runtime/generate._gen_bulk) over 4-frame chunks, each
 decoded to audio by the native codec, with an early exit at EOS.
 
+Weights, in the JAX engine's order (qwen3_tts_tpu/engine.py), from
+`model_dir` in the published layout: the assets
+(`<weights dir>/qwen3_assets.gguf`, io/assets), the tokenizer, the talker
+and predictor (`qwen3_tts_talker.gguf`, `qwen3_tts_predictor.gguf`,
+io/weights: dims from the GGUF metadata), the codec decoder
+(`codec/decoder.npz`).  The weights dir is `gguf/` for quant="none",
+`gguf_q5_k_m/` / `gguf_q8_0/` for "q5_k_m" / "q8_0" (QUANT_DIRS).  A
+component without its file runs on deterministic random weights
+(development mode) at the configured widths, and the engine says so
+loudly.  EngineConfig.int8_weights (None: quant != "none") quantizes the
+talker's and predictor's layers and heads to int8 device weights
+(ops.quant).  With weight_cache=True (the JAX package's QTTS_WEIGHT_CACHE)
+the converted talker and predictor are saved under `model_dir/cache/`
+(io/checkpoint) and read back by later engines.  `weights=` hands the
+components in directly (io/from_jax builds them from the JAX package's
+arrays) and reads no file.
+
 Decode paths: `TtsEngine(fused=None, chunk=None)` (the defaults) resolve
 once, at construction, as the JAX package resolves its own defaults.
 fused=None is True on a CUDA device (or when chunk=True is asked for),
-False on the CPU; chunk=None is True when fused is and the chunk kernel's
-gate holds at batch 1 and cfg.runtime.frames_per_chunk.  So the card runs
-the chunk path and the CPU the exact path by default:
+False on the CPU; chunk=None is True when fused is, talker_mode is "w4a8"
+and the chunk kernel's gate holds at batch 1 and
+cfg.runtime.frames_per_chunk.  So the card runs the chunk path and the
+CPU the exact path by default:
 
 - chunk (fused=True, chunk=True; the JAX package's default on its
   accelerator): each 4-frame chunk is ONE launch of the chunk kernel
   (kernels/chunk_step: sampler, projection, w4a8 predictor, feedback,
   w4a8 talker step and codec head for every frame);
 - per-kernel (fused=True, chunk=False; QTTS_FUSED_CHUNK=0 in the JAX
-  package): one w4a8 talker-step kernel and one int8 predictor-frame
-  kernel per frame;
-- exact (fused=False; QTTS_FUSED_*=0): plain weights, op by op.
+  package): one talker-step kernel in `talker_mode` ("w4a8", "int8",
+  "w8a8" or "bf16": the JAX package's QTTS_FUSED_TALKER) and one int8
+  predictor-frame kernel per frame;
+- exact (fused=False; QTTS_FUSED_*=0): the engine's weights (bf16 or
+  int8) op by op.
 
-The kernels quantize the bf16 weights once.  fused=True or chunk=True on a
-config their kernels do not take, and chunk=True with fused=False, raise
-ValueError naming the failed gate; nothing falls back.  On the CPU the
-kernels' plain versions run.
-
-No weight files are read yet: without `weights`, every model runs on
-deterministic random weights (development mode) at the configured widths,
-and the engine says so loudly.  The engine does not take pre-quantized
-weights (EngineConfig.int8_weights, q8_0 sources): the kernels quantize
-bf16 weights themselves.  Streaming, voice cloning from audio, the ONNX
-codec and the prompt-prefix KV cache are not ported yet and raise
+The kernels pack their weights once, from bf16 or int8 weights.
+fused=True or chunk=True on a config their kernels do not take,
+chunk=True with fused=False, and chunk=True with a talker_mode other
+than "w4a8" raise ValueError naming the failed gate; nothing falls back.
+On the CPU the kernels' plain versions run.  The talker's prompt prefill
+multiplies int8 weights a8w8 unless a8_prefill=False (the JAX package's
+QTTS_A8_PREFILL).  Streaming, voice cloning from audio, the ONNX codec
+and the prompt-prefix KV cache are not ported yet and raise
 NotImplementedError.
 """
 
@@ -50,6 +67,8 @@ import torch
 
 from .core import protocol as P
 from .core.config import EngineConfig, SamplerConfig
+from .io import checkpoint as ckpt_io
+from .io import weights as weights_io
 from .io.assets import Assets
 from .io.audio import AudioSample
 from .io.voice_file import VoiceFile
@@ -57,6 +76,7 @@ from .models import predictor as predictor_lib
 from .models import talker as talker_lib
 from .models.codec import decoder as codec_decoder
 from .models.transformer import dtype_of
+from .ops import quant as quant_ops
 from .prompt import PromptBuilder, PromptPlan, assemble
 from .runtime.generate import (Generator, SamplerParams,
                                chunk_unsupported, fused_unsupported)
@@ -69,6 +89,8 @@ class PromptTooLongError(ValueError):
     """Prompt exceeds the static prefill capacity."""
 
 
+QUANT_DIRS = {"q5_k_m": "gguf_q5_k_m", "q8_0": "gguf_q8_0"}
+
 # EngineConfig fields the port does not read (see core/config.py), by
 # sub-config ("" = EngineConfig itself)
 IGNORED_FIELDS = {
@@ -76,7 +98,6 @@ IGNORED_FIELDS = {
     "predictor": ("flash_decode", "layer_scan_unroll"),
     "runtime": ("first_chunk_frames", "batch_size", "mesh_shape",
                 "mesh_axes", "donate_cache"),
-    "": ("int8_weights",),
 }
 
 
@@ -109,17 +130,23 @@ class TtsEngine:
                  init_seed: int = 0, speakers_dir=None, device="cuda",
                  weights: Optional[Dict] = None,
                  fused: Optional[bool] = None,
-                 chunk: Optional[bool] = None):
-        """weights: optional {"assets": Assets, "talker", "predictor",
-        "codec_decoder": param dicts} already on `device` (io/from_jax
-        builds them from the JAX package's arrays); None draws random
-        development weights from `init_seed`.  fused, chunk: the decode
-        path (module docstring); None, None = the chunk path on a CUDA
-        device, the exact path on the CPU."""
+                 chunk: Optional[bool] = None, quant: str = "none",
+                 talker_mode: str = "w4a8", a8_prefill: bool = True,
+                 weight_cache: bool = True):
+        """model_dir, quant: where the weights are read (module docstring);
+        weights: optional {"assets": Assets, "talker", "predictor",
+        "codec_decoder": param dicts} already on `device`, read instead of
+        any file; init_seed: the seed of development weights.  fused,
+        chunk, talker_mode: the decode path (module docstring); None,
+        None = the chunk path on a CUDA device, the exact path on the CPU.
+        a8_prefill: a8w8 prompt prefill on int8 weights.  weight_cache:
+        save and read the converted talker and predictor under
+        model_dir/cache/."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             set_cuda_precision()
         self.model_dir = Path(model_dir)
+        self.quant = quant
         self.config = config or EngineConfig()
         check_config(self.config)
         self.max_steps = self.config.runtime.max_steps
@@ -131,34 +158,56 @@ class TtsEngine:
         self.speakers: Dict[str, VoiceFile] = {}
         self.last_metrics: Optional[GenerationMetrics] = None
         self.last_codes: Optional[np.ndarray] = None
+        self.dev_mode_components: list = []
+        self.load_seconds: Dict[str, float] = {}   # build time by part
+        self.weight_sources: Dict[str, str] = {}   # LM: "gguf" or "cache"
 
-        self.fused = (self.device.type == "cuda" or chunk is True) \
-            if fused is None else bool(fused)
-        if chunk and not self.fused:
-            raise ValueError("chunk decode path: needs fused=True")
-        why = fused_unsupported(self.config) if self.fused else None
-        if why:
-            raise ValueError(f"fused decode path: {why}")
-        why = chunk_unsupported(self.config) if self.fused else "fused off"
-        if chunk and why:
-            raise ValueError(f"chunk decode path: {why}")
-        self.chunk = why is None if chunk is None else bool(chunk)
-        log_event("decode_path", fused=self.fused, chunk=self.chunk,
-                  requested_fused=fused, requested_chunk=chunk,
-                  device=str(self.device))
-
+        use_int8 = self.config.int8_weights
+        if use_int8 is None:
+            use_int8 = quant != "none"
         if weights is None:
-            weights = self._random_weights(init_seed)
-            self._warn_dev_mode()
+            weights = self._load_weights(init_seed, use_int8, weight_cache)
+        elif use_int8:
+            weights = dict(weights,
+                           talker=self._int8_lm(weights["talker"],
+                                                "codec_head"),
+                           predictor=self._int8_lm(weights["predictor"],
+                                                   "lm_head"))
         self.assets: Assets = weights["assets"]
         self.talker_params = weights["talker"]
         self.predictor_params = weights["predictor"]
         self.codec_decoder_params = weights["codec_decoder"]
         self.tokenizer = Tokenizer.load(self.model_dir)
+
+        self.talker_mode = talker_mode
+        self.fused = (self.device.type == "cuda" or chunk is True) \
+            if fused is None else bool(fused)
+        if chunk and not self.fused:
+            raise ValueError("chunk decode path: needs fused=True")
+        if chunk and talker_mode != "w4a8":
+            raise ValueError("chunk decode path: runs the w4a8 talker step, "
+                             f"not talker_mode={talker_mode!r}")
+        why = (fused_unsupported(self.config, 1, talker_mode)
+               if self.fused else None)
+        if why:
+            raise ValueError(f"fused decode path: {why}")
+        why = chunk_unsupported(self.config) if self.fused else "fused off"
+        if chunk and why:
+            raise ValueError(f"chunk decode path: {why}")
+        self.chunk = (why is None and talker_mode == "w4a8"
+                      if chunk is None else bool(chunk))
+        log_event("decode_path", fused=self.fused, chunk=self.chunk,
+                  talker_mode=talker_mode, a8_prefill=a8_prefill,
+                  int8_weights=bool(use_int8), requested_fused=fused,
+                  requested_chunk=chunk, device=str(self.device))
+        t0 = time.perf_counter()
         self.generator = Generator(self.config, self.talker_params,
                                    self.predictor_params, self.assets.pack(),
                                    codec_params=self.codec_decoder_params,
-                                   fused=self.fused, chunk=self.chunk)
+                                   fused=self.fused, chunk=self.chunk,
+                                   talker_mode=talker_mode,
+                                   a8_prefill=a8_prefill)
+        self.load_seconds["kernel_pack"] = time.perf_counter() - t0
 
         for cand in ([Path(speakers_dir)] if speakers_dir else
                      [self.model_dir / "preset_speakers", Path("speakers")]):
@@ -166,27 +215,101 @@ class TtsEngine:
                 self.load_speakers(cand)
                 break
 
-    def _random_weights(self, seed: int) -> Dict:
-        cfg = self.config
+    def _load_weights(self, seed: int, use_int8: bool,
+                      weight_cache: bool) -> Dict:
+        """Every component from its file under model_dir, or random
+        (module docstring), in the JAX engine's order; self.config takes
+        the GGUF metadata's dims."""
+        from .core.config import PredictorConfig, TalkerConfig
+        cfg, dev = self.config, self.device
+        weights_dir = self.model_dir / QUANT_DIRS.get(self.quant, "gguf")
+        t0 = time.perf_counter()
+        try:
+            assets = Assets.load(weights_dir, dtype=dtype_of(cfg.talker.dtype),
+                                 device=dev)
+        except FileNotFoundError:
+            assets = self._random_component("assets", seed)
+        self.load_seconds["assets"] = time.perf_counter() - t0
+
+        out = {"assets": assets}
+        for name, fname, cfg_cls, loader, head in (
+                ("talker", "qwen3_tts_talker.gguf", TalkerConfig,
+                 weights_io.load_talker_gguf, "codec_head"),
+                ("predictor", "qwen3_tts_predictor.gguf", PredictorConfig,
+                 weights_io.load_predictor_gguf, "lm_head")):
+            t0 = time.perf_counter()
+            path = weights_dir / fname
+            cache_name = f"{name}_{self.quant}"
+            fp = ckpt_io.fingerprint(path, use_int8) if path.exists() else None
+            hit = (ckpt_io.load_lm(self.model_dir, cache_name, fp, cfg_cls,
+                                   dev) if fp and weight_cache else None)
+            if hit is not None:
+                params, sub_cfg = hit
+                self.weight_sources[name] = "cache"
+            else:
+                if fp is None:
+                    params = self._random_component(name, seed)
+                    sub_cfg = getattr(self.config, name)
+                else:
+                    with torch.no_grad():
+                        sub_cfg, params = loader(
+                            path, getattr(self.config, name), dev)
+                    self.weight_sources[name] = "gguf"
+                if use_int8:
+                    params = self._int8_lm(params, head)
+                if fp is not None and weight_cache:
+                    ckpt_io.save_lm(self.model_dir, cache_name, params,
+                                    sub_cfg, fp)
+            self.config = self.config.replace(**{name: sub_cfg})
+            out[name] = params
+            self.load_seconds[name] = time.perf_counter() - t0
+
+        path = self.model_dir / "codec" / "decoder.npz"
+        out["codec_decoder"] = (
+            load_npz(path, dev, dtype_of(cfg.codec_decoder.dtype))
+            if path.exists() else
+            self._random_component("codec_decoder", seed))
+        self._warn_dev_mode()
+        return out
+
+    @staticmethod
+    def _int8_lm(params: Dict, head: str) -> Dict:
+        """int8 device weights of an LM (the JAX engine's step 4.5): the
+        layers' matrices and the head; norms stay.  Already int8: as is."""
+        if quant_ops.is_quantized(params[head]):
+            return params
         with torch.no_grad():
-            gens = [torch.Generator(device=self.device).manual_seed(seed + i)
-                    for i in range(4)]
-            return {
-                "assets": Assets.random_init(
-                    gens[0], dtype=dtype_of(cfg.talker.dtype)),
-                "talker": talker_lib.init_talker_params(cfg.talker, gens[1]),
-                "predictor": predictor_lib.init_predictor_params(
-                    cfg.predictor, gens[2]),
-                "codec_decoder": codec_decoder.init_decoder_params(
-                    cfg.codec_decoder, gens[3]),
-            }
+            return dict(params,
+                        layers=quant_ops.quantize_decoder_layers(
+                            params["layers"]),
+                        **{head: quant_ops.quantize_head(params[head])})
+
+    def _random_component(self, name: str, seed: int):
+        """Deterministic random weights of one component (development
+        mode): the JAX init's shapes, scales and dtypes, other draws."""
+        self.dev_mode_components.append(name)
+        cfg = self.config
+        i = ("assets", "talker", "predictor", "codec_decoder").index(name)
+        g = torch.Generator(device=self.device).manual_seed(seed + i)
+        with torch.no_grad():
+            if name == "assets":
+                return Assets.random_init(g, dtype=dtype_of(cfg.talker.dtype))
+            if name == "talker":
+                return talker_lib.init_talker_params(cfg.talker, g)
+            if name == "predictor":
+                return predictor_lib.init_predictor_params(cfg.predictor, g)
+            return codec_decoder.init_decoder_params(cfg.codec_decoder, g)
 
     def _warn_dev_mode(self) -> None:
-        """Loudly flag random weights: synthesis is noise, not speech."""
+        """Loudly flag components on random weights: synthesis is noise."""
+        if not self.dev_mode_components:
+            return
         get_logger().warning(
-            "DEV MODE: qwen3_tts_tpu_torch does not load weight files yet; "
-            "assets, talker, predictor and codec decoder run on random "
-            "weights — synthesis will be NOISE, not speech.")
+            f"DEV MODE: no trained weights found for "
+            f"[{', '.join(self.dev_mode_components)}] under "
+            f"{self.model_dir} (quant={self.quant!r}) — synthesis will be "
+            "NOISE, not speech.  Place the model files (gguf*/*.gguf, "
+            "codec/decoder.npz) in the model dir.")
 
     # ------------------------------------------------------------------ API
     def set_max_steps(self, steps: int) -> None:
@@ -374,3 +497,30 @@ class TtsEngine:
         log_event("generation", **metrics.as_dict())
         return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
                            channels=1)
+
+
+def load_npz(path, device="cpu", dtype=None):
+    """A nested dict / list of tensors on `device` from an npz whose keys
+    are 'a/b/0/c' paths (the JAX engine's `_unflatten_npz`); floating
+    arrays in `dtype` when given (the codec decoder holds every parameter
+    in its config's dtype)."""
+    tree: Dict = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            parts = key.split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            t = torch.from_numpy(np.array(data[key])).to(device)
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            node[parts[-1]] = t
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [fix(node[str(i)]) for i in range(len(node))]
+        return {k: fix(v) for k, v in node.items()}
+
+    return fix(tree)

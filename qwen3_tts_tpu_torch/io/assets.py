@@ -1,11 +1,14 @@
 """Embedding-table assets: text table, 16 codec codebook tables, the
 2048->1024 projection.  Counterpart of qwen3_tts_tpu/io/assets.py.
 
-Only the development-mode source is ported: deterministic random tables
-(`random_init`) or arrays handed in (`from_arrays`, and io/from_jax for
-the tests).  Loading `qwen3_assets.gguf` waits for a GGUF reader in the
-port.  Token ids are folded modulo the table rows, so the 4096-row dev
-table exercises the whole pipeline.  Prompts are assembled on the device
+Sources: a model directory's `qwen3_assets.gguf` (`load` / `from_gguf`:
+`proj.weight`, `proj.bias`, `text_embd`, `codec_embd.<i>`, read with
+io.gguf), deterministic random tables for development (`random_init`), or
+arrays handed in (`from_arrays`, and io/from_jax for the tests).  The
+tables live in the dtype the caller gives (the engine: the talker's
+compute dtype), the projection in f32, as in the JAX package.  Token ids
+are folded modulo the table rows, so the 4096-row dev table exercises the
+whole pipeline.  Prompts are assembled on the device
 (prompt.assemble), so the JAX package's host (numpy) table mirrors, which
 only its materialized prompt builders use, are not ported.
 """
@@ -13,6 +16,7 @@ only its materialized prompt builders use, are not ported.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -42,6 +46,26 @@ class Assets:
         }
 
     # -- constructors ------------------------------------------------------
+    @staticmethod
+    def load(model_dir, dtype=torch.float32, device="cpu") -> "Assets":
+        """The tables of `<model_dir>/qwen3_assets.gguf`; FileNotFoundError
+        without one."""
+        path = Path(model_dir) / "qwen3_assets.gguf"
+        if not path.exists():
+            raise FileNotFoundError(f"no qwen3_assets.gguf under {model_dir}")
+        return Assets.from_gguf(path, dtype, device)
+
+    @staticmethod
+    def from_gguf(path, dtype=torch.float32, device="cpu") -> "Assets":
+        from .gguf import read_gguf
+        g = read_gguf(path)
+        codecs = [g.read_tensor(f"codec_embd.{i}")
+                  for i in range(P.NUM_CODEBOOKS)
+                  if f"codec_embd.{i}" in g.tensors]
+        return Assets.from_arrays(
+            g.read_tensor("proj.weight"), g.read_tensor("proj.bias"),
+            g.read_tensor("text_embd"), np.stack(codecs), dtype, device)
+
     @staticmethod
     def from_arrays(proj_w, proj_b, text, codecs, dtype=torch.float32,
                     device="cpu") -> "Assets":

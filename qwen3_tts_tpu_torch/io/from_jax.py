@@ -82,6 +82,23 @@ def talker_w4a8_from_jax(layer_w: Dict[str, Any], device="cpu"
     return out
 
 
+def int4_from_jax(w4: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
+    """The port's int4 dict (ops.quant: {"q4": uint8 [..., N, K/2]
+    output-major, "s": f32 [..., N, K/G]}) from the JAX package's
+    `quantize_weight_int4` dict: interleaved q4 int8 [..., K/2, N], byte i
+    = K-row 2i in the low nibble and 2i + 1 in the high one, both
+    sign-extended; s f32 [..., K/G, N]."""
+    u = np.asarray(w4["q4"]).astype(np.uint8).astype(np.int16)
+    lo, hi = u & 0xF, (u >> 4) & 0xF
+    q = np.stack([lo, hi], axis=-2)                     # [..., K/2, 2, N]
+    q = q.reshape(*u.shape[:-2], 2 * u.shape[-2], u.shape[-1])
+    q = np.where(q >= 8, q - 16, q).astype(np.int8)
+    s = np.asarray(w4["s"], np.float32)
+    return {"q4": pack_int4(torch.from_numpy(q)).to(device),
+            "s": torch.from_numpy(np.ascontiguousarray(
+                np.swapaxes(s, -1, -2))).to(device)}
+
+
 def _int4_from_half_split(a) -> torch.Tensor:
     """The JAX half-split int4 bytes [L, K/2, N] (byte row r = K-row r in
     the low nibble, K-row r + K/2 in the high one) as int8 values

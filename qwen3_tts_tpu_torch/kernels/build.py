@@ -28,7 +28,8 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_ROOT = PKG / "build"
 SOURCES = ("flash_decode.cu", "flash_prefill.cu", "talker_step.cu",
-           "predictor_frame.cu", "chunk_step.cu", "kv_lanes.cu")
+           "predictor_frame.cu", "chunk_step.cu", "kv_lanes.cu",
+           "int4_matmul.cu")
 HEADERS = ("common.cuh", "w4a8.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -40,13 +41,13 @@ _F = ctypes.c_float
 # not cut them to 32 bits)
 SIGNATURES = {
     "qtts_flash_decode": [_P, _P, _P, _P, _P, _P,          # q k v out len wi
-                          _I, _I, _I, _I, _I, _I, _I,      # layer B H Hkv C dh pc
+                          _I, _I, _I, _I, _I, _I,          # B H Hkv C dh pc
                           _F, _P],                         # scale stream
     "qtts_flash_prefill": [_P, _P, _P, _P, _P, _P,         # q k v out len start
                            _I, _I, _I, _I, _I, _I, _I,     # layer B S H Hkv C dh
                            _I, _I, _F, _P],                # pc window scale st
     "qtts_talker_step": [_P] * 25                          # see talker_step.cu
-                        + [_I] * 9 + [_F, _F, _P],         # L..pc eps scale st
+                        + [_I] * 10 + [_F, _F, _P],        # L..mode eps sc st
     "qtts_predictor_frame": [_P] * 27                      # predictor_frame.cu
                             + [_I] * 9 + [_F, _F, _P],     # L..V eps scale st
     "qtts_chunk_step": [_P, _I, _P, _I, _P, _I, _P, _P],   # chunk_step.cu
@@ -59,6 +60,8 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _I, _I, _P],  # L R B Hkv C S dh st
     "qtts_append_lanes": [_P, _P, _P, _P, _P,              # kb vb kt vt starts
                           _I, _I, _I, _I, _I, _P],         # L B Hkv C dh stream
+    "qtts_int4_matmul": [_P, _P, _P, _P,                   # x q4 s y
+                         _I, _I, _I, _I, _P],              # M N K G stream
 }
 
 

@@ -62,13 +62,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.quant import (INT4_GROUP, pack_int4, quantize_head,
-                         quantize_int4_grouped)
+from ..ops.quant import (INT4_GROUP, dequantize, is_quantized, pack_int4,
+                         quantize_head, quantize_int4_grouped, take)
 from ..ops.rope import inv_frequencies
 from ..ops.sampling import sample_threshold
 from . import predictor_frame as predictor_kernel
 from . import talker_step as talker_kernel
-from .talker_step import _rms, _rotate_half, qmm4_plain
+from .talker_step import _rms, _rotate_half, qmm4_plain, qmm_plain
 
 N_TOKENS = 16
 WINDOW = 2048
@@ -128,20 +128,25 @@ def _c_major(h: int, hkv: int) -> List[int]:
 
 
 def prep_predictor_w4(pcfg, params) -> Dict[str, Any]:
-    """The predictor in the chunk kernel's form, made once: f32 norms
-    (q/k norms [L, head_dim]) and per matrix `<m>_q` uint8 [L, N, K/2]
-    (ops.quant.pack_int4) with `<m>_s` f32 [L, N, K/128].  wo's input
-    rows are in the c-major head order (module docstring)."""
+    """The predictor in the chunk kernel's form, made once from plain or
+    int8-dict weights (dequantized in f32 first, as JAX `_pack_w4` does):
+    f32 norms (q/k norms [L, head_dim]) and per matrix `<m>_q` uint8
+    [L, N, K/2] (ops.quant.pack_int4) with `<m>_s` f32 [L, N, K/128].
+    wo's input rows are in the c-major head order (module docstring),
+    permuted before the grouping, as in JAX."""
     lw = params["layers"]
     h, hkv, dh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
     rows = torch.tensor(np.concatenate(
         [np.arange(dh) + head * dh for head in _c_major(h, hkv)]),
-        device=lw["wo"].device)
+        device=lw["ln1"].device)
 
-    def q4(w):
+    def q4(w, perm=None):
         packed, scales = [], []
-        for layer in range(w.shape[0]):
-            q, s = quantize_int4_grouped(w[layer], scale_dtype=torch.float32)
+        for layer in range(pcfg.n_layers):
+            wf = dequantize(take(w, layer))
+            if perm is not None:
+                wf = wf[perm]
+            q, s = quantize_int4_grouped(wf, scale_dtype=torch.float32)
             packed.append(pack_int4(q))
             scales.append(s.t().contiguous())
         return torch.stack(packed), torch.stack(scales)
@@ -150,10 +155,20 @@ def prep_predictor_w4(pcfg, params) -> Dict[str, Any]:
            "ln2": lw["ln2"].float().contiguous(),
            "qn": lw["q_norm"].float().contiguous(),
            "kn": lw["k_norm"].float().contiguous()}
-    for name, w in (("wqkv", lw["wqkv"]), ("wo", lw["wo"][:, rows]),
-                    ("gu", lw["w_gate_up"]), ("dn", lw["w_down"])):
-        out[name + "_q"], out[name + "_s"] = q4(w)
+    for name, key, perm in (("wqkv", "wqkv", None), ("wo", "wo", rows),
+                            ("gu", "w_gate_up", None),
+                            ("dn", "w_down", None)):
+        out[name + "_q"], out[name + "_s"] = q4(lw[key], perm)
     return out
+
+
+def _head_int8(head, rows: Optional[int] = None):
+    """(int8 [rows, d], f32 [rows]) of an LM head: its own integers when
+    it is an int8 dict (engine weights), else quantize_head."""
+    if is_quantized(head):
+        return head["q"][:rows], head["s"][:rows].float()
+    qt = quantize_head(head[:rows])
+    return qt["q"], qt["s"]
 
 
 def prep_chunk_extras(tcfg, pcfg, talker_params, predictor_params,
@@ -163,9 +178,10 @@ def prep_chunk_extras(tcfg, pcfg, talker_params, predictor_params,
     proj_w [1024, 2048] and proj_b in f32; tts_pad; the predictor's final
     norm; its lm-head as int8 with f32 row scales; its rope rows
     pcos/psin [16, head_dim]; the feedback tables as stored; tables
-    0..14 of codec_tables_1024 in bf16."""
-    hq, hs = quantize_head(talker_params["codec_head"][:V_CODEC])
-    pq, ps = quantize_head(predictor_params["lm_head"])
+    0..14 of codec_tables_1024 in bf16.  Plain or int8-dict heads (JAX
+    `prep_chunk_extras`)."""
+    hq, hs = _head_int8(talker_params["codec_head"], V_CODEC)
+    pq, ps = _head_int8(predictor_params["lm_head"])
     dev = hq.device
     inv = inv_frequencies(pcfg.head_dim, pcfg.rope_theta)
     ang = np.arange(N_TOKENS, dtype=np.float32)[:, None] * inv[None, :]
@@ -287,17 +303,21 @@ def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
 
 
 def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
-                        lengths, start, f, prompt_cap, tile):
+                        lengths, start, f, prompt_cap, tile, mode="w4a8"):
     """Talker layer `layer` of frame f from the residual x [B, d] bf16:
     its k/v row written at slot start + f, the attention in
-    _chunk_attend_plain's order.  Returns the next residual (bf16)."""
+    _chunk_attend_plain's order, the weight matmuls of talker_step's
+    `mode` (w: talker_step.prep_layer_weights of that mode), the int8 and
+    bf16 modes' f32 dots in the talker-step kernel's order
+    (talker_step.qmm8_lanes_plain).  Returns the next residual (bf16)."""
     b = x.shape[0]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dq, dkv, eps = h * dh, hkv * dh, cfg.rms_eps
     cos, sin = cos.float()[:, None, :], sin.float()[:, None, :]
 
     def mm(v, name):
-        return qmm4_plain(v, w[name + "_q"][layer], w[name + "_s"][layer])
+        return qmm_plain(v, w[name + "_q"][layer], w[name + "_s"][layer],
+                         mode, kernel_order=True)
 
     hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
     qkv = mm(hn, "wqkv")
@@ -321,14 +341,14 @@ def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
 
 
 def _talker_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths, start, f,
-                  prompt_cap, tile, xs=None):
+                  prompt_cap, tile, xs=None, mode="w4a8"):
     """The talker's layers for frame f: k/v written at slot start + f.
     xs, when given, gets the residual entering each layer and the last."""
     for layer in range(cfg.n_layers):
         if xs is not None:
             xs.append(x)
         x = _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
-                                lengths, start, f, prompt_cap, tile)
+                                lengths, start, f, prompt_cap, tile, mode)
     if xs is not None:
         xs.append(x)
     return x

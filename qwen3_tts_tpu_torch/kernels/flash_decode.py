@@ -1,15 +1,18 @@
 """Decode attention over the stacked KV cache, and the per-lane cache
 writes of continuous batching.
 
-Ports of four Pallas kernels of qwen3_tts_tpu/kernels/flash_decode.py, each
+Ports of five Pallas kernels of qwen3_tts_tpu/kernels/flash_decode.py, each
 with a plain PyTorch version in this module.  On a CUDA tensor a wrapper
 launches its hand-written kernel; on a CPU tensor it runs the plain
 version.  There is no other route: a CUDA input a kernel does not take
 raises.  Each wrapper counts its launches in `<wrapper>.launches`.
 
-- `flash_gqa_decode_stacked` (`csrc/flash_decode.cu`): one query row per
-  lane against the live prefix [0, write_idx] of one layer, the current
-  token already written;
+- `flash_gqa_decode` (`csrc/flash_decode.cu`): one query row per lane
+  against the live prefix [0, write_idx] of ONE layer's cache
+  [B, Hkv, C, Dh], the current token already written;
+- `flash_gqa_decode_stacked`: the same on layer `layer` of a stacked cache
+  [L, B, Hkv, C, Dh]: it calls `flash_gqa_decode` on the view
+  k_all[layer] (a pointer offset, no copy), so both count that launch;
 - `flash_gqa_decode_append` (`csrc/kv_lanes.cu`): the same attention over
   slots below each lane's own cursor plus the current token, whose k/v row
   the kernel writes into the cache at that cursor (the exact path under
@@ -42,25 +45,37 @@ def decode_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
     """f32 masked-softmax attention of one query row per lane against
     layer `layer` of the cache (ops.attention.history_mask +
     gqa_attend).  Returns [B, H, Dh] in q.dtype."""
-    cap = k_all.shape[3]
-    mask = history_mask(lengths, prompt_cap, write_idx, 1, cap)
-    return gqa_attend(q[:, None], k_all[layer], v_all[layer], mask)[:, 0]
+    return decode_layer_plain(q, k_all[layer], v_all[layer], lengths,
+                              write_idx, prompt_cap)
 
 
-def _check(q, k_all, v_all, lengths, write_idx, layer):
+def decode_layer_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, lengths: torch.Tensor,
+                       write_idx, prompt_cap: int) -> torch.Tensor:
+    """`flash_gqa_decode` in plain PyTorch: f32 masked-softmax attention
+    of one query row per lane against one layer's cache [B, Hkv, C, Dh]
+    (ops.attention.history_mask + gqa_attend).  Returns [B, H, Dh] in
+    q.dtype."""
+    mask = history_mask(lengths, prompt_cap, write_idx, 1, k_cache.shape[2])
+    return gqa_attend(q[:, None], k_cache, v_cache, mask)[:, 0]
+
+
+def _check(q, k_cache, v_cache, lengths, write_idx):
     b, h, dh = q.shape
-    n_layers, kb, hkv, cap, kdh = k_all.shape
+    if k_cache.dim() != 4:
+        raise ValueError(f"flash decode takes one layer's cache [B, Hkv, C, "
+                         f"Dh], got {tuple(k_cache.shape)}")
+    kb, hkv, cap, kdh = k_cache.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash decode takes head_dim {HEAD_DIMS}, got {dh}")
-    if (kb, kdh) != (b, dh) or v_all.shape != k_all.shape:
-        raise ValueError(f"cache {tuple(k_all.shape)} / {tuple(v_all.shape)} "
-                         f"does not match q {tuple(q.shape)}")
+    if (kb, kdh) != (b, dh) or v_cache.shape != k_cache.shape:
+        raise ValueError(f"cache {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} does not match q "
+                         f"{tuple(q.shape)}")
     if h % hkv or h // hkv > MAX_GROUP:
         raise ValueError(f"heads {h} / kv heads {hkv}: group must divide "
                          f"and be <= {MAX_GROUP}")
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"layer {layer} outside [0, {n_layers})")
-    for name, t in (("q", q), ("k_all", k_all), ("v_all", v_all)):
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous bfloat16, got "
                              f"{t.dtype} contiguous={t.is_contiguous()}")
@@ -70,9 +85,59 @@ def _check(q, k_all, v_all, lengths, write_idx, layer):
         if (t.dtype != torch.int32 or t.shape != (b,)
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 [{b}]")
-    for t in (k_all, v_all, lengths, write_idx):
+    for t in (k_cache, v_cache, lengths, write_idx):
         if t.device != q.device:
             raise ValueError("all inputs must be on the same device")
+
+
+def _check_stacked(k_all, v_all, layer):
+    if k_all.dim() != 5 or v_all.shape != k_all.shape:
+        raise ValueError(f"stacked caches [L, B, Hkv, C, Dh], got "
+                         f"{tuple(k_all.shape)} / {tuple(v_all.shape)}")
+    if not 0 <= layer < k_all.shape[0]:
+        raise ValueError(f"layer {layer} outside [0, {k_all.shape[0]})")
+    if not (k_all.is_contiguous() and v_all.is_contiguous()):
+        raise ValueError("stacked caches must be contiguous")
+
+
+def flash_gqa_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor,
+                     write_idx, prompt_cap: int) -> torch.Tensor:
+    """Single-token GQA decode attention over one layer's cache, the
+    current token already written at write_idx (JAX `flash_gqa_decode`).
+
+    q: [B, H, Dh] bf16; k_cache/v_cache: [B, Hkv, C, Dh] bf16 (any C);
+    lengths: [B] int32; write_idx: [B] int32 or one int for every lane.
+    Returns [B, H, Dh].  Each launch adds one to
+    `flash_gqa_decode.launches`.
+    """
+    b = q.shape[0]
+    if not torch.is_tensor(write_idx) or write_idx.dim() == 0:
+        write_idx = torch.full((b,), int(write_idx), dtype=torch.int32,
+                               device=q.device)
+    if q.device.type == "cpu":
+        return decode_layer_plain(q, k_cache, v_cache, lengths, write_idx,
+                                  prompt_cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash decode runs on cuda or cpu, not {q.device}")
+    _check(q, k_cache, v_cache, lengths, write_idx)
+    from .build import LIBRARY, check
+    _, h, dh = q.shape
+    hkv, cap = k_cache.shape[1], k_cache.shape[2]
+    out = torch.empty_like(q)
+    # the library launches on the current device
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = LIBRARY.get().qtts_flash_decode(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            out.data_ptr(), lengths.data_ptr(), write_idx.data_ptr(), b, h,
+            hkv, cap, dh, int(prompt_cap), dh ** -0.5, stream)
+    check(rc, "flash_gqa_decode")
+    flash_gqa_decode.launches += 1
+    return out
+
+
+flash_gqa_decode.launches = 0
 
 
 def flash_gqa_decode_stacked(q: torch.Tensor, k_all: torch.Tensor,
@@ -80,30 +145,20 @@ def flash_gqa_decode_stacked(q: torch.Tensor, k_all: torch.Tensor,
                              write_idx: torch.Tensor, layer: int,
                              prompt_cap: int) -> torch.Tensor:
     """Decode attention for the current token (already written at
-    write_idx) against layer `layer` of a stacked cache.
+    write_idx) against layer `layer` of a stacked cache: `flash_gqa_decode`
+    on the view k_all[layer].
 
     q: [B, H, Dh] bf16; k_all/v_all: [L, B, Hkv, C, Dh] bf16 (any C);
     lengths, write_idx: [B] int32.  Returns [B, H, Dh].  Each launch adds
-    one to `flash_gqa_decode_stacked.launches`.
+    one to `flash_gqa_decode_stacked.launches` (and, in
+    `flash_gqa_decode`, to its count).
     """
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_all, v_all, lengths, write_idx,
                                       layer, prompt_cap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash decode runs on cuda or cpu, not {q.device}")
-    _check(q, k_all, v_all, lengths, write_idx, layer)
-    from .build import LIBRARY, check
-    b, h, dh = q.shape
-    hkv, cap = k_all.shape[2], k_all.shape[3]
-    out = torch.empty_like(q)
-    # the library launches on the current device
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = LIBRARY.get().qtts_flash_decode(
-            q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(),
-            lengths.data_ptr(), write_idx.data_ptr(), int(layer), b, h, hkv,
-            cap, dh, int(prompt_cap), dh ** -0.5, stream)
-    check(rc, "flash_gqa_decode_stacked")
+    _check_stacked(k_all, v_all, layer)
+    out = flash_gqa_decode(q, k_all[layer], v_all[layer], lengths,
+                           write_idx, prompt_cap)
     flash_gqa_decode_stacked.launches += 1
     return out
 
@@ -147,7 +202,8 @@ def flash_gqa_decode_append(q: torch.Tensor, k_all: torch.Tensor,
                                    write_idx, layer, prompt_cap)
     if q.device.type != "cuda":
         raise ValueError(f"flash decode runs on cuda or cpu, not {q.device}")
-    _check(q, k_all, v_all, lengths, write_idx, layer)
+    _check_stacked(k_all, v_all, layer)
+    _check(q, k_all[layer], v_all[layer], lengths, write_idx)
     b, h, dh = q.shape
     hkv, cap = k_all.shape[2], k_all.shape[3]
     for name, t in (("k_new", k_new), ("v_new", v_new)):

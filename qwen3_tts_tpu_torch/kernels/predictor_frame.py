@@ -31,9 +31,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.quant import quantize_weight
+from ..ops.quant import is_quantized, quantize_weight
 from ..ops.rope import inv_frequencies
-from .talker_step import MAX_GROUP, _rms, _rotate_half
+from .talker_step import MAX_GROUP, _rms, _rotate_half, qmm8_plain
 
 N_TOKENS = 16          # [hidden, emb(code0), emb(code_1..14)]
 WINDOW = 2048          # lm-head rows per codebook window
@@ -70,15 +70,21 @@ def supported(cfg, batch: int) -> bool:
     return unsupported(cfg, batch) is None
 
 
+def int8_of(w, axis: int):
+    """An int8 dict of w: w itself when it is one (int8 engine weights:
+    the JAX prep passes them through), else quantize_weight(w, axis)."""
+    return w if is_quantized(w) else quantize_weight(w, axis=axis)
+
+
 def prep_predictor_weights(cfg, params) -> Dict[str, Any]:
-    """Kernel-ready int8 form of the predictor, made once on the weights'
-    device: per matrix `<m>_q` int8 [L, N, K] (output-major) with `<m>_s`
+    """Kernel-ready int8 form of the predictor from plain or int8-dict
+    weights, made once on the weights' device: per matrix `<m>_q` int8 [L, N, K] (output-major) with `<m>_s`
     f32 [L, N]; the lm-head `head_q` int8 [15 * 2048, D] with per-row
     `head_s` f32; f32 norms (q/k norms [L, head_dim], not tiled); and the
     rope rows of the 16 token positions, `cos`/`sin` f32 [16, head_dim],
     computed as the JAX kernel computes them."""
     lw = params["layers"]
-    dev = lw["wqkv"].device
+    dev = lw["ln1"].device
     out = {"ln1": lw["ln1"].float().contiguous(),
            "ln2": lw["ln2"].float().contiguous(),
            "qn": lw["q_norm"].float().contiguous(),
@@ -86,10 +92,11 @@ def prep_predictor_weights(cfg, params) -> Dict[str, Any]:
            "fn": params["final_norm"].float().contiguous()}
     for name, key in (("wqkv", "wqkv"), ("wo", "wo"), ("gu", "w_gate_up"),
                       ("dn", "w_down")):
-        q, s = quantize_weight(lw[key], axis=-2)
-        out[name + "_q"] = q.transpose(-1, -2).contiguous()
-        out[name + "_s"] = s.contiguous()
-    out["head_q"], out["head_s"] = quantize_weight(params["lm_head"], axis=-1)
+        qt = int8_of(lw[key], axis=-2)
+        out[name + "_q"] = qt["q"].transpose(-1, -2).contiguous()
+        out[name + "_s"] = qt["s"].float().contiguous()
+    qt = int8_of(params["lm_head"], axis=-1)
+    out["head_q"], out["head_s"] = qt["q"], qt["s"].float()
     inv = inv_frequencies(cfg.head_dim, cfg.rope_theta)
     ang = np.arange(N_TOKENS, dtype=np.float32)[:, None] * inv[None, :]
     out["cos"] = torch.from_numpy(
@@ -100,14 +107,6 @@ def prep_predictor_weights(cfg, params) -> Dict[str, Any]:
 
 
 # ------------------------------------------------------------- plain version
-def qmm8_plain(x: torch.Tensor, wq: torch.Tensor,
-               ws: torch.Tensor) -> torch.Tensor:
-    """JAX `_qmm`: x bf16 [B, K] by int8 wq [N, K] with f32 scales ws [N]
-    -> bf16 [B, N]."""
-    y = (x.float() @ wq.float().t()).to(torch.bfloat16)
-    return y * ws.to(torch.bfloat16)
-
-
 def predict_frame_plain(cfg, w, h1024, code0, tables_1024,
                         taps: Optional[List[torch.Tensor]] = None
                         ) -> torch.Tensor:

@@ -1,27 +1,41 @@
-"""One talker decode step over all layers, with w4a8 weights.
+"""One talker decode step over all layers, in four weight modes.
 
 `talker_step_fused` is the port of the Pallas kernel of the same name
-(qwen3_tts_tpu/kernels/talker_step.py) in its default weight mode, w4a8:
-grouped int4 weights (prepared once by `prep_layer_weights`) times int8
-activations quantized per row on the fly.  On a CUDA tensor it makes ONE
+(qwen3_tts_tpu/kernels/talker_step.py).  On a CUDA tensor it makes ONE
 call into `csrc/talker_step.cu`, which launches the layers' kernels on the
 current stream; on a CPU tensor it runs `talker_step_plain`, the same
 function in plain PyTorch.  There is no other route: a CUDA input the
 kernel does not take raises.
 
-Numerics follow the JAX kernel op for op (`_qmm4`, `_rms`, `_blk_rms`,
-the B <= 4 attention loop):
-- each matmul quantizes its input row over the whole K (sx = max(amax,
-  1e-8) * f32(1/127), xq = round_half_even(x / sx)), takes one exact
-  integer dot per group of 128 K rows, and sums the groups in f32 in the
-  JAX order (group i, then group nb + i, for i < nb = K / 256), times the
-  bf16 scales; the result is bf16(acc * sx);
+Weight modes (`MODES`, the JAX kernel's `weights=`; `prep_layer_weights`
+makes each mode's weights once, from bf16 or int8-dict layers, with the
+JAX prep's integers):
+- "w4a8" (the default): grouped int4 weights (bf16 group scales) times
+  int8 activations quantized per row on the fly (JAX `_qmm4`);
+- "int8": int8 weights with f32 per-column scales; the matmul is
+  bf16(sum bf16(x) * bf16(q) in f32) * bf16(s), a bf16 multiply (JAX
+  `_qmm`, exact `ops.quant.matmul` numerics);
+- "w8a8": the same int8 weights times int8 activations (sx = max(amax,
+  1e-8) * f32(1/127), xq = round_half_even(x / sx)), an exact int32 dot,
+  then bf16(f32(acc) * sx * s) (JAX `_qmm(w8a8=True)`);
+- "bf16": pre-dequantized bf16(q * s) weights with unit scales, the int8
+  mode's dot (JAX `_qmm` on bf16 weights).
+
+Numerics follow the JAX kernel op for op (`_qmm4`, `_qmm`, `_rms`,
+`_blk_rms`, the B <= 4 attention loop):
+- w4a8: each matmul quantizes its input row over the whole K, takes one
+  exact integer dot per group of 128 K rows, and sums the groups in f32
+  in the JAX order (group i, then group nb + i, for i < nb = K / 256),
+  times the bf16 scales; the result is bf16(acc * sx);
 - RMSNorm in f32 then bf16; per-head q/k RMSNorm then bf16; rope in f32
   then bf16; bf16 residual adds; SwiGLU as bf16(silu_f32(gate)) * up;
 - attention: q pre-scaled by head_dim**-0.5 in f32, f32 scores and
   softmax; cache slot c is visible iff c < lengths[b] or
   prompt_cap <= c < write_idx[b]; the current token is one more column,
   always visible.
+The int8 and bf16 modes' f32 dot sums in another order than XLA's, so
+they agree with the JAX kernel to rounding; w4a8 and w8a8 take exact
+integer dots and agree bit for bit (with XLA's excess precision off).
 The step writes each layer's k/v row into the cache at write_idx IN PLACE
 and returns the hidden state BEFORE the final norm.  Every lane has its own
 cursor write_idx[b].  With uniform_cursor=True (one request, all cursors
@@ -38,9 +52,8 @@ kernel runs the batch rows of each matmul in tiles of at most 8; each
 lane's arithmetic is that of batch 1, so a lane's outputs equal the
 1-lane kernel's bit for bit.  Attention scores stay f32 at every batch
 (the JAX batched loop's bf16 score inputs are a TPU matrix-unit artefact).
-
-The JAX kernel's other weight modes (int8, w8a8, bf16) and its tuning
-switches are not ported.
+The JAX kernel's tuning switches (lps, sfold, its DMA schedule) are TPU
+workarounds and are not ported.
 """
 
 from __future__ import annotations
@@ -50,22 +63,29 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..ops.quant import (INT4_GROUP, pack_int4, quantize_int4_grouped,
+from ..ops.quant import (INT4_GROUP, dequantize, is_quantized, pack_int4,
+                         quantize_int4_grouped, quantize_weight, take,
                          unpack_int4)
 from ..ops.attention import update_cache
 from .flash_decode import append_kv_lanes
 
 MAX_BATCH = 96        # 1-4 lanes, or a multiple of 8 up to this
 MAX_GROUP = 8          # query heads per kv head the attention kernel takes
+MAX_K = 8192           # contraction dims the GEMVs' shared memory takes
 INV127 = 1.0 / 127.0   # a Python float: becomes f32(1/127), as in JAX
+MODES = ("w4a8", "int8", "w8a8", "bf16")   # index = the C entry's `mode`
 
 
-def unsupported(cfg, batch: int) -> Optional[str]:
-    """The first gate `cfg` at `batch` fails, or None.  The JAX gate
-    (talker_step.supported, w4a8: decode batches 1-4, or a multiple of 8
-    up to 96) plus what the port's attention kernel needs (at most
-    MAX_GROUP query heads per kv head)."""
-    g2 = 2 * INT4_GROUP
+def unsupported(cfg, batch: int, mode: str = "w4a8") -> Optional[str]:
+    """The first gate `cfg` at `batch` fails in weight mode `mode`, or
+    None.  The JAX gate (talker_step.supported: decode batches 1-4, or a
+    multiple of 8 up to 96; w4a8 needs whole 256-row nibble groups) plus
+    what the port's kernels need (at most MAX_GROUP query heads per kv
+    head; contraction dims of whole 16-byte int8 vectors, up to MAX_K)."""
+    if mode not in MODES:
+        return f"talker_step: mode {mode!r} is not one of {MODES}"
+    g = 2 * INT4_GROUP if mode == "w4a8" else 16
+    dq = cfg.n_heads * cfg.head_dim
     gates = (
         (1 <= batch <= 4 or (batch % 8 == 0 and 8 <= batch <= MAX_BATCH),
          f"batch {batch} is not 1-4 or a multiple of 8 up to {MAX_BATCH}"),
@@ -75,10 +95,11 @@ def unsupported(cfg, batch: int) -> Optional[str]:
          f"n_heads {cfg.n_heads} % n_kv_heads {cfg.n_kv_heads} != 0"),
         (cfg.n_heads // cfg.n_kv_heads <= MAX_GROUP,
          f"more than {MAX_GROUP} query heads per kv head"),
-        (cfg.d_model % g2 == 0, f"d_model {cfg.d_model} % {g2} != 0"),
-        (cfg.n_heads * cfg.head_dim % g2 == 0,
-         f"n_heads * head_dim {cfg.n_heads * cfg.head_dim} % {g2} != 0"),
-        (cfg.d_ff % g2 == 0, f"d_ff {cfg.d_ff} % {g2} != 0"),
+        (cfg.d_model % g == 0, f"d_model {cfg.d_model} % {g} != 0"),
+        (dq % g == 0, f"n_heads * head_dim {dq} % {g} != 0"),
+        (cfg.d_ff % g == 0, f"d_ff {cfg.d_ff} % {g} != 0"),
+        (max(cfg.d_model, dq, cfg.d_ff) <= MAX_K,
+         f"a contraction dim above {MAX_K}"),
     )
     for ok, why in gates:
         if not ok:
@@ -86,25 +107,54 @@ def unsupported(cfg, batch: int) -> Optional[str]:
     return None
 
 
-def supported(cfg, batch: int) -> bool:
-    return unsupported(cfg, batch) is None
+def supported(cfg, batch: int, mode: str = "w4a8") -> bool:
+    return unsupported(cfg, batch, mode) is None
 
 
-def prep_layer_weights(cfg, params) -> Dict[str, Any]:
-    """Kernel-ready w4a8 form of the stacked talker layers, made once:
-    f32 norms [L, D] and [L, head_dim] (not tiled), and per matrix
-    `<m>_q` uint8 [L, N, K/2] (ops.quant.pack_int4 layout) with `<m>_s`
-    bf16 [L, N, K/128] (scales of each output column's K groups).
-    Quantized one layer at a time, on the weights' device."""
+def packed_mode(params) -> Optional[str]:
+    """The talker-step mode whose packed weights `params` carries under
+    "fused_<mode>", named by params["talker_step_mode"]
+    (runtime/generate.Generator), or None.  A bare "fused_w4a8" is w4a8.
+    (The predictor's own kernel weights sit under "fused_int8", which is
+    not a talker-step pack.)"""
+    return params.get("talker_step_mode",
+                      "w4a8" if "fused_w4a8" in params else None)
+
+
+def prep_layer_weights(cfg, params, mode: str = "w4a8") -> Dict[str, Any]:
+    """Kernel-ready form of the stacked talker layers in weight mode
+    `mode`, made once, one layer at a time, on the weights' device, from
+    bf16 layers or int8 dicts (ops.quant), with the integers of JAX
+    `prep_layer_weights`: f32 norms [L, D] and [L, head_dim] (not tiled),
+    and per matrix (output-major: one output column's K values
+    contiguous)
+    - w4a8: `<m>_q` uint8 [L, N, K/2] (ops.quant.pack_int4) with `<m>_s`
+      bf16 [L, N, K/128]; an int8 weight is dequantized in f32 (q * s)
+      and quantized again (JAX `qs4`);
+    - int8, w8a8: `<m>_q` int8 [L, N, K] with `<m>_s` f32 [L, N]: the
+      weight's own integers, or quantize_weight of a bf16 weight;
+    - bf16: `<m>_q` bf16(q * s) [L, N, K] with unit `<m>_s` f32 [L, N]."""
+    if mode not in MODES:
+        raise ValueError(f"talker_step: mode {mode!r} is not one of {MODES}")
     lw = params["layers"]
 
-    def q4(w):
-        packed, scales = [], []
-        for layer in range(w.shape[0]):
-            q, s = quantize_int4_grouped(w[layer])
-            packed.append(pack_int4(q))
-            scales.append(s.t().contiguous())
-        return torch.stack(packed), torch.stack(scales)
+    def pack(w):
+        qs, ss = [], []
+        for layer in range(cfg.n_layers):
+            wl = take(w, layer)
+            if mode == "w4a8":
+                q, s = quantize_int4_grouped(dequantize(wl))
+                qs.append(pack_int4(q))
+                ss.append(s.t().contiguous())
+                continue
+            qt = wl if is_quantized(wl) else quantize_weight(wl)
+            q, s = qt["q"], qt["s"].float()
+            if mode == "bf16":
+                q = (q.float() * s[None, :]).to(torch.bfloat16)
+                s = torch.ones_like(s)
+            qs.append(q.t().contiguous())
+            ss.append(s.contiguous())
+        return torch.stack(qs), torch.stack(ss)
 
     out = {"ln1": lw["ln1"].float().contiguous(),
            "ln2": lw["ln2"].float().contiguous(),
@@ -112,7 +162,7 @@ def prep_layer_weights(cfg, params) -> Dict[str, Any]:
            "kn": lw["k_norm"].float().contiguous()}
     for name, key in (("wqkv", "wqkv"), ("wo", "wo"), ("gu", "w_gate_up"),
                       ("dn", "w_down")):
-        out[name + "_q"], out[name + "_s"] = q4(lw[key])
+        out[name + "_q"], out[name + "_s"] = pack(lw[key])
     return out
 
 
@@ -152,6 +202,66 @@ def qmm4_plain(x: torch.Tensor, wq: torch.Tensor,
     return (acc * sx).to(torch.bfloat16)
 
 
+def qmm8_plain(x: torch.Tensor, wq: torch.Tensor,
+               ws: torch.Tensor) -> torch.Tensor:
+    """JAX `_qmm` (int8 and bf16 modes): x bf16 [B, K] by wq (int8 or
+    bf16) [N, K] with f32 scales ws [N] -> bf16(bf16(x . w in f32) *
+    bf16(s)) [B, N]."""
+    y = (x.float() @ wq.float().t()).to(torch.bfloat16)
+    return y * ws.to(torch.bfloat16)
+
+
+def qmm8_lanes_plain(x: torch.Tensor, wq: torch.Tensor,
+                     ws: torch.Tensor) -> torch.Tensor:
+    """qmm8_plain with its f32 dot summed in the CUDA kernel's order
+    (csrc/talker_step.cu q8_gemv_kernel): lane l of the warp that owns a
+    column adds, in K order, the 16 products [512 s + 16 l, 512 s + 16 l
+    + 16) of each 512-value sweep s; the warp then adds its lanes by a
+    butterfly (xor 16, 8, 4, 2, 1).  The products are exact in f32, so
+    this is the kernel's arithmetic bit for bit."""
+    b, k = x.shape
+    n = wq.shape[0]
+    prod = x.float()[:, None, :] * wq.float()[None]        # [B, N, K]
+    sweeps = -(-k // 512)
+    prod = F.pad(prod, (0, sweeps * 512 - k))              # adds exact 0s
+    prod = prod.reshape(b, n, sweeps, 32, 16)
+    acc = torch.zeros(b, n, 32, dtype=torch.float32, device=x.device)
+    for sw in range(sweeps):
+        for j in range(16):
+            acc = acc + prod[:, :, sw, :, j]
+    lanes = torch.arange(32, device=x.device)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    return acc[..., 0].to(torch.bfloat16) * ws.to(torch.bfloat16)
+
+
+def qmm_a8_plain(x: torch.Tensor, wq: torch.Tensor,
+                 ws: torch.Tensor) -> torch.Tensor:
+    """JAX `_qmm(w8a8=True)`: x bf16 [B, K] quantized per row, int8
+    wq [N, K], f32 ws [N] -> bf16(f32(xq . wq) * sx * s) [B, N].  The
+    integer dot is exact in f64 (|sum| < 2^53)."""
+    xf = x.float()
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) * INV127
+    xq = torch.round(xf / sx)
+    acc = (xq.double() @ wq.double().t()).float()
+    return (acc * sx * ws.float()).to(torch.bfloat16)
+
+
+def qmm_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+              mode: str, kernel_order: bool = False) -> torch.Tensor:
+    """The weight matmul of mode `mode` (module docstring).  w4a8 and
+    w8a8 take exact integer dots, summed as the kernel sums them; the int8
+    and bf16 modes' f32 dot is torch's (the JAX `_qmm` reference), or with
+    kernel_order=True the CUDA kernel's (qmm8_lanes_plain)."""
+    if mode == "w4a8":
+        return qmm4_plain(x, wq, ws)
+    if mode == "w8a8":
+        return qmm_a8_plain(x, wq, ws)
+    if kernel_order:
+        return qmm8_lanes_plain(x, wq, ws)
+    return qmm8_plain(x, wq, ws)
+
+
 def _attend_plain(q, kc, vc, lengths, write_idx, prompt_cap):
     """q [B, H, Dh] bf16 against one layer's cache [B, Hkv, C, Dh], in
     which the current token is already written at write_idx."""
@@ -170,7 +280,8 @@ def _attend_plain(q, kc, vc, lengths, write_idx, prompt_cap):
 
 
 def talker_step_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
-                      write_idx, prompt_cap: int) -> torch.Tensor:
+                      write_idx, prompt_cap: int,
+                      mode: str = "w4a8") -> torch.Tensor:
     """`talker_step_fused` in plain PyTorch (same arguments and effects,
     but for uniform_cursor: that changes only where the kernel stages its
     k/v rows, so the plain version writes each layer's rows at once)."""
@@ -182,7 +293,8 @@ def talker_step_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
     x = x.to(torch.bfloat16)
     for layer in range(cfg.n_layers):
         def mm(v, name):
-            return qmm4_plain(v, w[name + "_q"][layer], w[name + "_s"][layer])
+            return qmm_plain(v, w[name + "_q"][layer], w[name + "_s"][layer],
+                             mode)
 
         hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
         qkv = mm(hn, "wqkv")
@@ -211,25 +323,27 @@ _WEIGHTS = ("ln1", "ln2", "qn", "kn", "wqkv_q", "wqkv_s", "wo_q", "wo_s",
             "gu_q", "gu_s", "dn_q", "dn_s")
 
 
-def _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx):
+def _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx,
+           mode):
     b, d = x.shape
-    why = unsupported(cfg, b)
+    why = unsupported(cfg, b, mode)
     if why:
         raise ValueError(why)
     L, dh, hkv = cfg.n_layers, cfg.head_dim, cfg.n_kv_heads
     dq, f = cfg.n_heads * dh, cfg.d_ff
     nqkv = dq + 2 * hkv * dh
-    g = INT4_GROUP
+    mats = {"wqkv": (nqkv, d), "wo": (d, dq), "gu": (2 * f, d),
+            "dn": (d, f)}
     want = {"ln1": ((L, d), torch.float32), "ln2": ((L, d), torch.float32),
-            "qn": ((L, dh), torch.float32), "kn": ((L, dh), torch.float32),
-            "wqkv_q": ((L, nqkv, d // 2), torch.uint8),
-            "wqkv_s": ((L, nqkv, d // g), torch.bfloat16),
-            "wo_q": ((L, d, dq // 2), torch.uint8),
-            "wo_s": ((L, d, dq // g), torch.bfloat16),
-            "gu_q": ((L, 2 * f, d // 2), torch.uint8),
-            "gu_s": ((L, 2 * f, d // g), torch.bfloat16),
-            "dn_q": ((L, d, f // 2), torch.uint8),
-            "dn_s": ((L, d, f // g), torch.bfloat16)}
+            "qn": ((L, dh), torch.float32), "kn": ((L, dh), torch.float32)}
+    for name, (n, k) in mats.items():
+        if mode == "w4a8":
+            want[name + "_q"] = ((L, n, k // 2), torch.uint8)
+            want[name + "_s"] = ((L, n, k // INT4_GROUP), torch.bfloat16)
+        else:
+            qdt = torch.bfloat16 if mode == "bf16" else torch.int8
+            want[name + "_q"] = ((L, n, k), qdt)
+            want[name + "_s"] = ((L, n), torch.float32)
     tensors = {k: w[k] for k in _WEIGHTS}
     tensors.update(x=x, cos=cos, sin=sin, cache_k=cache_k, cache_v=cache_v,
                    lengths=lengths, write_idx=write_idx)
@@ -242,7 +356,7 @@ def _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx):
     for name, t in tensors.items():
         shape, dtype = want[name]
         if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"talker_step: {name} must be {dtype} "
+            raise ValueError(f"talker_step ({mode}): {name} must be {dtype} "
                              f"{shape}, got {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"talker_step: {name} must be contiguous and "
@@ -253,23 +367,25 @@ def _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx):
 
 def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
                       write_idx, prompt_cap: int,
-                      uniform_cursor: bool = True) -> torch.Tensor:
+                      uniform_cursor: bool = True,
+                      mode: str = "w4a8") -> torch.Tensor:
     """One decode step over all layers.
 
-    w: `prep_layer_weights(cfg, params)`; x [B, D] bf16 input embedding;
-    cos/sin [B, head_dim] f32 rope rows of each lane's position; cache_k/v
-    [L, B, Hkv, C, Dh] bf16, written IN PLACE at write_idx; lengths and
-    write_idx [B] int32.  uniform_cursor=False stages the k/v rows and
-    appends them with one append_kv_lanes launch (module docstring).
-    Returns the hidden state [B, D] bf16 BEFORE the final norm.  Each
-    kernel call adds one to `talker_step_fused.launches`.
+    w: `prep_layer_weights(cfg, params, mode)`; x [B, D] bf16 input
+    embedding; cos/sin [B, head_dim] f32 rope rows of each lane's
+    position; cache_k/v [L, B, Hkv, C, Dh] bf16, written IN PLACE at
+    write_idx; lengths and write_idx [B] int32.  uniform_cursor=False
+    stages the k/v rows and appends them with one append_kv_lanes launch
+    (module docstring).  Returns the hidden state [B, D] bf16 BEFORE the
+    final norm.  Each kernel call adds one to `talker_step_fused.launches`
+    and to `talker_step_fused.launches_by_mode[mode]`.
     """
     if x.device.type == "cpu":
         return talker_step_plain(cfg, w, x, cos, sin, cache_k, cache_v,
-                                 lengths, write_idx, prompt_cap)
+                                 lengths, write_idx, prompt_cap, mode)
     if x.device.type != "cuda":
         raise ValueError(f"talker_step runs on cuda or cpu, not {x.device}")
-    _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx)
+    _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx, mode)
     from .build import LIBRARY, check
     b, d = x.shape
     h, hkv, dh, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
@@ -290,13 +406,15 @@ def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
             write_idx.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
             ff.data_ptr(), *[0 if t is None else t.data_ptr() for t in tok],
             cfg.n_layers, b, d, h, hkv, dh, f,
-            cache_k.shape[3], int(prompt_cap), float(cfg.rms_eps),
-            dh ** -0.5, stream)
-    check(rc, "talker_step_fused")
+            cache_k.shape[3], int(prompt_cap), MODES.index(mode),
+            float(cfg.rms_eps), dh ** -0.5, stream)
+    check(rc, f"talker_step_fused ({mode})")
     talker_step_fused.launches += 1
+    talker_step_fused.launches_by_mode[mode] += 1
     if not uniform_cursor:
         append_kv_lanes(cache_k, cache_v, *tok, write_idx)
     return out
 
 
 talker_step_fused.launches = 0
+talker_step_fused.launches_by_mode = dict.fromkeys(MODES, 0)

@@ -45,11 +45,13 @@ def _pos4(pos: torch.Tensor) -> torch.Tensor:
 
 
 def talker_prefill(cfg: TalkerConfig, params, embeds: torch.Tensor,
-                   lengths: torch.Tensor, cache: KVCache,
+                   lengths: torch.Tensor, cache: KVCache, a8: bool = True,
                    ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Prefill the padded prompt.
 
-    embeds: [B, S_max, 2048]; lengths: [B] int32 true lengths (<= S_max).
+    embeds: [B, S_max, 2048]; lengths: [B] int32 true lengths (<= S_max);
+    a8: int8 weights multiply a8w8 (transformer.decoder_forward; the JAX
+    package's default).
     Returns (codec_logits [B, V_codec] f32, hidden [B, D] at each lane's
     last real token, cache advanced to write_idx = S_max, written in
     place, with lengths recorded).
@@ -60,7 +62,7 @@ def talker_prefill(cfg: TalkerConfig, params, embeds: torch.Tensor,
     cache.lengths = lengths.to(torch.int32)
     hidden_all, cache = transformer.decoder_forward(
         cfg, params, embeds.to(transformer.dtype_of(cfg.dtype)), cos, sin,
-        cache, prompt_cap=s_max)
+        cache, prompt_cap=s_max, a8=a8)
     last = torch.clamp(lengths.long() - 1, 0, s_max - 1)
     hidden = hidden_all[torch.arange(b, device=embeds.device), last]
     return _codec_logits(params, hidden), hidden, cache

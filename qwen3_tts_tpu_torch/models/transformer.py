@@ -9,10 +9,19 @@ tables supplied by the caller, SwiGLU MLP.  The KV cache is a stacked
 padding is handled by the attention masks.  Attention runs through the
 port's kernels (kernels/flash_prefill, kernels/flash_decode): the CUDA
 kernels for tensors on the card, their plain versions on the CPU.  When
-`params` carries the talker's packed w4a8 weights under "fused_w4a8"
-(runtime/generate.Generator adds them for `TtsEngine(fused=True)`) and the
-talker-step kernel takes the batch, a decode step (S == 1) is one call of
+`params` carries the talker's packed weights of one talker-step mode under
+"fused_<mode>" (runtime/generate.Generator adds them for
+`TtsEngine(fused=True)`, in its `talker_mode`) and the talker-step kernel
+takes the batch, a decode step (S == 1) is one call of
 kernels/talker_step.talker_step_fused instead, followed by the final norm.
+
+Weights: plain [in, out] tensors or the quantized dicts of ops.quant (int8
+`{"q", "s"}`, int4 `{"q4", "s"}`), multiplied by ops.quant.matmul.
+a8=True (the talker's prompt and suffix prefill, on by default through
+`TtsEngine(a8_prefill=True)`, as the JAX package's QTTS_A8_PREFILL) runs
+the S > 1 matmuls of int8 weights a8w8 (ops.quant.matmul_a8); decode
+steps never do, and the predictor's S = 2 prefill passes a8=False, as in
+the JAX package.
 
 Cursors: every lane has its own write_idx.  uniform_cursor=True (one
 request, or lanes that started together) writes all lanes at write_idx[0];
@@ -32,11 +41,12 @@ import torch.nn.functional as F
 from ..kernels.flash_decode import (flash_gqa_decode_append,
                                     flash_gqa_decode_stacked)
 from ..kernels.flash_prefill import flash_gqa_prefill_stacked
+from ..kernels.talker_step import packed_mode
 from ..kernels.talker_step import supported as talker_step_supported
 from ..kernels.talker_step import talker_step_fused
 from ..ops.attention import update_cache
 from ..ops.norms import rms_norm
-from ..ops.quant import matmul
+from ..ops.quant import matmul, matmul_a8, take
 from ..ops.rope import apply_rope
 
 
@@ -109,24 +119,26 @@ def init_decoder_params(cfg, generator: torch.Generator) -> Dict[str, Any]:
 def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
                     prompt_cap: int, uniform_cursor: bool = True,
-                    ) -> Tuple[torch.Tensor, KVCache]:
+                    a8: bool = False) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder over S new tokens written at the cache cursor.
 
     x: [B, S, D]; cos/sin: [B, S, Dh] rotary tables of the new positions.
     S > 1 is a prefill: its rows attend slots [0, min(max(prompt_cap, S),
     C)).  S == 1 is a decode step over the live prefix.  uniform_cursor:
     all lanes write at write_idx[0]; False: each lane at its own
-    write_idx[b] (module docstring).  k/v of the new rows are written into
-    the cache IN PLACE.  Returns (hidden [B, S, D] after the final norm,
-    the same cache with write_idx advanced by S).
+    write_idx[b] (module docstring).  a8: S > 1 matmuls of int8 weights
+    a8w8 (module docstring).  k/v of the new rows are written into the
+    cache IN PLACE.  Returns (hidden [B, S, D] after the final norm, the
+    same cache with write_idx advanced by S).
     """
     b, s, _ = x.shape
-    if (s == 1 and "fused_w4a8" in params
-            and talker_step_supported(cfg, b)):
+    mode = packed_mode(params)
+    if (s == 1 and mode is not None
+            and talker_step_supported(cfg, b, mode)):
         hidden1 = talker_step_fused(
-            cfg, params["fused_w4a8"], x[:, 0], cos[:, 0], sin[:, 0],
+            cfg, params["fused_" + mode], x[:, 0], cos[:, 0], sin[:, 0],
             cache.k, cache.v, cache.lengths, cache.write_idx, prompt_cap,
-            uniform_cursor=uniform_cursor)
+            uniform_cursor=uniform_cursor, mode=mode)
         hidden = rms_norm(hidden1[:, None, :], params["final_norm"],
                           cfg.rms_eps)
         cache.write_idx = cache.write_idx + 1
@@ -136,9 +148,10 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
     start = cache.write_idx
     write_at = start[:1] if uniform_cursor else start
     window = min(max(prompt_cap, s), cache.capacity)
+    mm = matmul_a8 if s > 1 and a8 else matmul
     for layer in range(cfg.n_layers):
         hn = rms_norm(x, layers["ln1"][layer], cfg.rms_eps)
-        qkv = matmul(hn, layers["wqkv"][layer])
+        qkv = mm(hn, take(layers["wqkv"], layer))
         q = qkv[..., : h * dh].reshape(b, s, h, dh)
         kk = qkv[..., h * dh: (h + hkv) * dh].reshape(b, s, hkv, dh)
         vv = qkv[..., (h + hkv) * dh:].reshape(b, s, hkv, dh)
@@ -165,12 +178,12 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
                 attn = flash_gqa_prefill_stacked(
                     q, cache.k, cache.v, cache.lengths, start, layer,
                     prompt_cap, window)
-        x = x + matmul(attn.reshape(b, s, h * dh), layers["wo"][layer])
+        x = x + mm(attn.reshape(b, s, h * dh), take(layers["wo"], layer))
         hn = rms_norm(x, layers["ln2"][layer], cfg.rms_eps)
-        gu = matmul(hn, layers["w_gate_up"][layer])
+        gu = mm(hn, take(layers["w_gate_up"], layer))
         f_half = gu.shape[-1] // 2
-        x = x + matmul(F.silu(gu[..., :f_half]) * gu[..., f_half:],
-                       layers["w_down"][layer])
+        x = x + mm(F.silu(gu[..., :f_half]) * gu[..., f_half:],
+                   take(layers["w_down"], layer))
     hidden = rms_norm(x, params["final_norm"], cfg.rms_eps)
     cache.write_idx = cache.write_idx + s
     return hidden, cache

@@ -11,17 +11,23 @@ reads `done` from the device once per chunk: the one host sync of the
 loop.  The talker KV cache and the codec ring are updated in place.
 
 Three decode paths share this loop.  The exact path
-(`Generator(fused=False)`) multiplies the plain weights op by op.  The
-per-kernel path (`fused=True, chunk=False`) is the JAX package's
-per-kernel schedule: each talker step is one kernels/talker_step call
-(w4a8) and each predictor frame one kernels/predictor_frame call (int8);
-`fused=True` packs both models' weights once, under talker_params
-["fused_w4a8"] and predictor_params["fused_int8"].  The chunk path
-(`fused=True, chunk=True`; `TtsEngine`'s default on a CUDA device) runs
-each chunk of frames as ONE kernels/chunk_step launch
+(`Generator(fused=False)`) multiplies the engine's weights op by op (bf16,
+or the int8 / int4 dicts of ops.quant).  The per-kernel path
+(`fused=True, chunk=False`) is the JAX package's per-kernel schedule:
+each talker step is one kernels/talker_step call in the Generator's
+`talker_mode` (w4a8, int8, w8a8 or bf16: the JAX package's
+QTTS_FUSED_TALKER) and each predictor frame one kernels/predictor_frame
+call (int8); `fused=True` packs both models' weights once, under
+talker_params["fused_<talker_mode>"] (with "talker_step_mode" naming the
+mode) and predictor_params["fused_int8"].
+The chunk path (`fused=True, chunk=True`; `TtsEngine`'s default on a CUDA
+device) runs each chunk of frames as ONE kernels/chunk_step launch
 (`_gen_frames_chunk`), for which the Generator also packs the chunk
 kernel's predictor and extras under talker_params["chunk"], with the
-kernel's scratch made at the first chunk of each batch size.
+kernel's scratch made at the first chunk of each batch size.  The chunk
+kernel's talker is w4a8, so it runs only with talker_mode="w4a8" (the JAX
+rule `_mode == "w4a8" and chunk_mode()`).  The talker's prompt prefill
+multiplies int8 weights a8w8 unless `a8_prefill=False`.
 
 Which kernel runs is decided per call by the kernels' gates, as in the JAX
 package: the chunk kernel where its pack is present, the cursor is uniform
@@ -87,14 +93,16 @@ def cache_capacity(cfg: EngineConfig, s_max: int) -> int:
 
 
 def prefill(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
-            lengths: torch.Tensor, generator: torch.Generator) -> GenState:
+            lengths: torch.Tensor, generator: torch.Generator,
+            a8: bool = True) -> GenState:
     """Initial GenState from a right-padded prompt batch.
-    embeds: [B, S_max, 2048]; lengths: [B] int32 true lengths."""
+    embeds: [B, S_max, 2048]; lengths: [B] int32 true lengths; a8: int8
+    weights multiply a8w8 (talker.talker_prefill)."""
     b, s_max, _ = embeds.shape
     cache = talker_lib.init_talker_cache(
         cfg.talker, b, cache_capacity(cfg, s_max), embeds.device)
     logits, hidden, cache = talker_lib.talker_prefill(
-        cfg.talker, talker_params, embeds, lengths, cache)
+        cfg.talker, talker_params, embeds, lengths, cache, a8=a8)
     return GenState(cache=cache, logits=logits, hidden=hidden,
                     pos=lengths.to(torch.int32), step=0,
                     done=torch.zeros(b, dtype=torch.bool,
@@ -274,7 +282,7 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
 
 def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
                   lengths: torch.Tensor, lanes: torch.Tensor,
-                  state: GenState) -> GenState:
+                  state: GenState, a8: bool = True) -> GenState:
     """Refill R lanes of a running batch with new prompts (continuous
     batching), in place.  embeds: [R, S, 2048] right-padded prompts of one
     bucket S; lengths, lanes: [R] int32 on the state's device, lanes
@@ -291,7 +299,7 @@ def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
     compact = talker_lib.init_talker_cache(cfg.talker, r, s_max,
                                            embeds.device)
     logits, hidden, compact = talker_lib.talker_prefill(
-        cfg.talker, talker_params, embeds, lengths, compact)
+        cfg.talker, talker_params, embeds, lengths, compact, a8=a8)
     cache = state.cache
     inject_prompt_lanes(cache.k, cache.v, compact.k, compact.v, lanes)
     idx = lanes.long()
@@ -311,10 +319,11 @@ def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
     return state
 
 
-def fused_unsupported(cfg: EngineConfig, batch: int = 1):
+def fused_unsupported(cfg: EngineConfig, batch: int = 1,
+                      talker_mode: str = "w4a8"):
     """The first gate of the fused decode kernels that `cfg` fails at
-    `batch`, or None."""
-    return (talker_kernel.unsupported(cfg.talker, batch)
+    `batch` (the talker step in `talker_mode`), or None."""
+    return (talker_kernel.unsupported(cfg.talker, batch, talker_mode)
             or predictor_kernel.unsupported(cfg.predictor, batch))
 
 
@@ -328,33 +337,46 @@ def chunk_unsupported(cfg: EngineConfig, batch: int = 1):
 class Generator:
     """Holds the weights of one engine and runs the generation steps.
 
-    fused=True packs the talker's w4a8 and the predictor's int8 kernel
-    weights once, here, and decodes through the talker-step and
+    fused=True packs the talker's weights for the talker-step kernel in
+    `talker_mode` and the predictor's int8 kernel weights once, here, from
+    bf16 or int8-dict weights, and decodes through the talker-step and
     predictor-frame kernels; chunk=True also packs the chunk kernel's
-    predictor and extras and decodes each chunk through
-    kernels/chunk_step where its gate holds (gen_frames).  chunk=True
-    without fused=True, or for a config the chunk kernel does not take,
-    raises ValueError (the kernels' wrappers raise for inputs they do not
-    take; TtsEngine checks the gates before it builds anything)."""
+    predictor and extras and decodes each chunk through kernels/chunk_step
+    where its gate holds (gen_frames).  chunk=True without fused=True, or
+    with a talker_mode other than "w4a8", or for a config the chunk kernel
+    does not take, raises ValueError (the kernels' wrappers raise for
+    inputs they do not take; TtsEngine checks the gates before it builds
+    anything).  a8_prefill: the talker's prompt prefill multiplies int8
+    weights a8w8 (the JAX package's QTTS_A8_PREFILL, on by default)."""
 
     def __init__(self, cfg: EngineConfig, talker_params, predictor_params,
                  assets_pack, codec_params=None, fused: bool = False,
-                 chunk: bool = False):
+                 chunk: bool = False, talker_mode: str = "w4a8",
+                 a8_prefill: bool = True):
         self.cfg = cfg
         self.talker_params = talker_params
         self.predictor_params = predictor_params
         self.assets_pack = assets_pack
         self.codec_params = codec_params
+        self.talker_mode = talker_mode
+        self.a8_prefill = a8_prefill
+        if talker_mode not in talker_kernel.MODES:
+            raise ValueError(f"talker_mode {talker_mode!r} is not one of "
+                             f"{talker_kernel.MODES}")
         if chunk and not fused:
             raise ValueError("the chunk decode path needs fused=True")
+        if chunk and talker_mode != "w4a8":
+            raise ValueError("the chunk decode path runs the w4a8 talker "
+                             f"step, not talker_mode={talker_mode!r}")
         why = chunk_unsupported(cfg) if chunk else None
         if why:
             raise ValueError(why)
         with torch.no_grad():
             if fused:
-                self.talker_params = dict(
-                    talker_params, fused_w4a8=talker_kernel.prep_layer_weights(
-                        cfg.talker, talker_params))
+                self.talker_params = dict(talker_params, **{
+                    "fused_" + talker_mode: talker_kernel.prep_layer_weights(
+                        cfg.talker, talker_params, talker_mode),
+                    "talker_step_mode": talker_mode})
                 self.predictor_params = dict(
                     predictor_params,
                     fused_int8=predictor_kernel.prep_predictor_weights(
@@ -371,7 +393,7 @@ class Generator:
     def start(self, embeds: torch.Tensor, lengths: torch.Tensor,
               generator: torch.Generator) -> GenState:
         return prefill(self.cfg, self.talker_params, embeds, lengths,
-                       generator)
+                       generator, a8=self.a8_prefill)
 
     def start_from_plans(self, text_table, codec_tables, text_idx,
                          codec_idx, frame_slot, spk_flag, frames, spk_emb,
@@ -401,7 +423,8 @@ class Generator:
             return prefill_lanes(
                 self.cfg, self.talker_params, embeds_r,
                 torch.tensor(list(lengths), dtype=torch.int32, device=dev),
-                torch.tensor(lanes, dtype=torch.int32, device=dev), state)
+                torch.tensor(lanes, dtype=torch.int32, device=dev), state,
+                a8=self.a8_prefill)
 
     def run_bulk(self, state: GenState, dec_state, sampler: SamplerParams,
                  prompt_cap: int, max_frames: int, budgets=None,

@@ -165,6 +165,57 @@ def test_prep_matches_jax(case):
     assert case["port"]["layer_w"]["wqkv_s"].dtype == torch.bfloat16
 
 
+def test_preps_from_int8_weights_match_jax(case):
+    """From int8-dict engine weights (ops.quant.quantize_decoder_layers and
+    quantize_head on both models): the chunk kernel's predictor (q * s in
+    f32, then grouped int4, as JAX `_pack_w4`), its extras (the heads'
+    own integers) and the talker's w4a8 layers equal the JAX preps'."""
+    from qwen3_tts_tpu.ops import quant as JQ
+    c = case
+
+    def q8(p, head):
+        return dict(p, layers=JQ.quantize_decoder_layers(p["layers"]),
+                    **{head: JQ.quantize_head(p[head])})
+
+    jt, jp = q8(c["tparams"], "codec_head"), q8(c["pparams"], "lm_head")
+    jpack = {k: jnp.asarray(v) for k, v in c["pack"].items()}
+    np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)
+    conv = chunk_pack_from_jax(
+        np_tree(jcs.prep_predictor_w4(c["pcfg"], jp)),
+        np_tree(jcs.prep_chunk_extras(c["tcfg"], c["pcfg"], jt, jp, jpack)))
+    tt, tp = tree_to_torch(np_tree(jt)), tree_to_torch(np_tree(jp))
+    got = {"pred_w": tcs.prep_predictor_w4(c["tpc"], tp),
+           "extras": tcs.prep_chunk_extras(c["ttc"], c["tpc"], tt, tp,
+                                           c["tpack"])}
+    for part in ("pred_w", "extras"):
+        assert set(got[part]) == set(conv[part]), part
+        for name, t in got[part].items():
+            want = conv[part][name]
+            assert t.dtype == want.dtype and torch.equal(t, want), name
+    # the int8 heads pass through: the int8 weights' own integers
+    assert torch.equal(got["extras"]["chead_q"],
+                       tt["codec_head"]["q"][:tcs.V_CODEC])
+    lw = tts.prep_layer_weights(c["ttc"], tt, "w4a8")
+    from qwen3_tts_tpu_torch.io.from_jax import talker_w4a8_from_jax
+    want = talker_w4a8_from_jax(np_tree(jprep(c["tcfg"], jt,
+                                              weights="w4a8")))
+    for name, t in lw.items():
+        assert torch.equal(t, want[name]), name
+
+
+def test_chunk_path_refuses_other_talker_modes(case):
+    from qwen3_tts_tpu_torch.core.config import EngineConfig
+    from qwen3_tts_tpu_torch.runtime import generate as tg
+    cfg = EngineConfig(talker=case["ttc"], predictor=case["tpc"])
+    for mode in ("int8", "w8a8", "bf16"):
+        with pytest.raises(ValueError, match="w4a8"):
+            tg.Generator(cfg, case["tp"], case["pp"], case["tpack"],
+                         fused=True, chunk=True, talker_mode=mode)
+    with pytest.raises(ValueError, match="talker_mode"):
+        tg.Generator(cfg, case["tp"], case["pp"], case["tpack"],
+                     fused=True, talker_mode="int4")
+
+
 # -------------------------------------------------------------- sampler
 def test_sampler_greedy_is_argmax_lowest_index_on_ties():
     rng = np.random.default_rng(0)

@@ -28,6 +28,16 @@ cuBLAS's, so its window logits drift by a few hundredths over 16 tokens x
 only where the plain top-2 gap is below 0.1 (nothing compared after).
 Duplicated lanes must agree bit for bit (lane isolation).
 
+The talker step's int8, w8a8 and bf16 weight modes (two layers at full
+width): one layer within 1e-2 of the plain talker in the kernel's orders
+(chunk_step._talker_plain: the int8 and bf16 dots in the kernel's lane
+order), every lane of B = 8 bit-equal to the one-lane kernel.
+matmul_int4 (the talker's weight shapes, M = 1 and 128) within 1e-4 of
+max |y| of its plain version: the same bf16 dequantized weights, f32 sums
+in another order.  flash_gqa_decode (one layer's cache, scalar and
+per-lane write_idx) at the decode bound above, and equal to the stacked
+entry on that layer.
+
 Chunk kernel (one cooperative launch per chunk of frames) against its
 plain version, at a small width and at full width, one frame and four: the
 same w4a8 integer dots and group order as the talker step, so the same
@@ -816,3 +826,89 @@ def test_talker_step_batched_lanes_equal_single_lane(dev, talker, n):
         assert torch.equal(many[i], one[0])
         assert torch.equal(kn[:, i], k1[:, 0]) and torch.equal(vn[:, i],
                                                                v1[:, 0])
+
+
+# ------------------------------------------------ weight formats (PR 6)
+@pytest.fixture(scope="module")
+def talker_params2(dev_module):
+    import dataclasses
+    from qwen3_tts_tpu_torch.core.config import TalkerConfig
+    from qwen3_tts_tpu_torch.models.transformer import init_decoder_params
+    cfg = dataclasses.replace(TalkerConfig(), n_layers=2)
+    g = torch.Generator(device=dev_module).manual_seed(9)
+    with torch.no_grad():
+        return cfg, init_decoder_params(cfg, g)
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8", "bf16"])
+def test_talker_step_modes_match_plain(dev, talker_params2, mode):
+    import dataclasses
+    cfg, params = talker_params2
+    w = tts.prep_layer_weights(cfg, params, mode)
+    c1 = dataclasses.replace(cfg, n_layers=1)
+    w1 = {k: t[:1] for k, t in w.items()}
+    b, cursor = 8, 300
+    k, v, x, cos, sin = _step_inputs(c1, b, 1024, cursor, dev, 21)
+    lens = _i32([31 + 11 * i for i in range(b)], dev)
+    wi = _i32([cursor] * b, dev)
+    kk, vk = k.clone(), v.clone()
+    got = tts.talker_step_fused(c1, w1, x, cos.contiguous(),
+                                sin.contiguous(), kk, vk, lens, wi, 128,
+                                mode=mode)
+    torch.cuda.synchronize()
+    for i in range(b):
+        args = [t[i:i + 1].clone() for t in (x, cos, sin)]
+        mine = [k[:, i:i + 1].clone(), v[:, i:i + 1].clone()]
+        tiled = [k[:, i:i + 1].clone(), v[:, i:i + 1].clone()]
+        li, wl = lens[i:i + 1].clone(), wi[i:i + 1].clone()
+        one = tts.talker_step_fused(c1, w1, *args, *mine, li, wl, 128,
+                                    mode=mode)
+        assert torch.equal(one[0], got[i]), (mode, i)
+        alt = tcs._talker_plain(c1, w1, *args, *tiled, li, cursor, 0, 128,
+                                128, mode=mode)
+        assert _rel(got[i:i + 1], alt) <= 1e-2, (mode, i)
+        for a, p in zip((kk, vk), tiled):
+            assert _rel(a[:, i, :, cursor], p[:, 0, :, cursor]) <= 1e-2
+    with pytest.raises(ValueError, match=mode):
+        tts.talker_step_fused(c1, tts.prep_layer_weights(c1, params, "w4a8"),
+                              x, cos.contiguous(), sin.contiguous(), kk, vk,
+                              lens, wi, 128, mode=mode)
+
+
+@pytest.mark.parametrize("k,n", [(2048, 4096), (2048, 2048), (2048, 12288),
+                                 (6144, 2048)])
+def test_matmul_int4_matches_plain(dev, k, n):
+    from qwen3_tts_tpu_torch.kernels import int4_matmul as ti
+    from qwen3_tts_tpu_torch.ops.quant import quantize_weight_int4
+    g = torch.Generator(device=dev).manual_seed(k + n)
+    w = quantize_weight_int4(torch.randn(k, n, generator=g, device=dev)
+                             * k ** -0.5)
+    for m in (1, 3, 128):
+        x = (torch.randn(2, m, k, generator=g, device=dev) * 0.5).to(
+            torch.bfloat16)
+        got = ti.matmul_int4(x, w)
+        torch.cuda.synchronize()
+        want = ti.matmul_int4_plain(x, w)
+        assert got.shape == (2, m, n) and got.dtype == torch.float32
+        assert _rel(got, want) <= 1e-4, m
+    with pytest.raises(ValueError):
+        ti.matmul_int4(torch.zeros(1, k + 32, device=dev,
+                                   dtype=torch.bfloat16), w)
+
+
+def test_flash_gqa_decode_matches_plain_and_stacked(dev):
+    from qwen3_tts_tpu_torch.kernels import flash_decode as fd
+    rng = np.random.default_rng(5)
+    k_all, v_all, t = _cache(rng, 3, 4, 8, 1024, 128, dev)
+    q = t((4, 16, 128))
+    lens = _i32([31, 100, 117, 90], dev)
+    for wi in (159, _i32([128, 159, 600, 1023], dev)):
+        got = fd.flash_gqa_decode(q, k_all[1], v_all[1], lens, wi, 128)
+        torch.cuda.synchronize()
+        wl = wi if torch.is_tensor(wi) else _i32([wi] * 4, dev)
+        want = fd.decode_layer_plain(q.float(), k_all[1].float(),
+                                     v_all[1].float(), lens, wl, 128)
+        diff = (got.float() - want).abs()
+        assert bool((diff <= DECODE_ATOL + DECODE_RTOL * want.abs()).all())
+        st = fd.flash_gqa_decode_stacked(q, k_all, v_all, lens, wl, 1, 128)
+        assert torch.equal(st, got)

@@ -148,7 +148,7 @@ def test_per_lane_budgets_match_jax(pair):
     dict(talker=dict(flash_decode=False)),
     dict(predictor=dict(flash_decode=True)),
     dict(runtime=dict(mesh_shape=(2,))),
-    dict(int8_weights=True),
+    dict(talker=dict(layer_scan_unroll=2)),
 ])
 def test_engine_refuses_fields_it_ignores(field):
     import dataclasses

@@ -97,6 +97,21 @@ def test_prep_matches_jax(setup):
     """int8 weights and f32 scales equal the JAX prep's once its q-head
     permutation is undone; the lm-head equals its per-row quantization."""
     jcfg, tcfg, params, tparams, _ = setup
+    _check_prep(jcfg, tcfg, params, tparams)
+
+
+def test_prep_from_int8_weights_matches_jax(setup):
+    """From int8-dict engine weights (ops.quant.quantize_decoder_layers and
+    quantize_head) both preps pass the integers through unchanged."""
+    from qwen3_tts_tpu.ops import quant as JQ
+    jcfg, tcfg, params, _, _ = setup
+    q8 = dict(params, layers=JQ.quantize_decoder_layers(params["layers"]),
+              lm_head=JQ.quantize_head(params["lm_head"]))
+    _check_prep(jcfg, tcfg, q8,
+                tree_to_torch(jax.tree_util.tree_map(np.asarray, q8)))
+
+
+def _check_prep(jcfg, tcfg, params, tparams):
     jw = jax.tree_util.tree_map(np.asarray,
                                 jpf._prep_layer_weights(jcfg, params))
     tw = tpf.prep_predictor_weights(tcfg, tparams)
@@ -122,7 +137,9 @@ def test_prep_matches_jax(setup):
     for name in ("wo", "gu", "dn"):
         np.testing.assert_array_equal(tw[name + "_s"].numpy(),
                                       jw[name + "_s"][:, 0], err_msg=name)
-    head = jquant(params["lm_head"], axis=-1)
+    head = params["lm_head"]
+    if not isinstance(head, dict):
+        head = jquant(head, axis=-1)
     np.testing.assert_array_equal(tw["head_q"].numpy(),
                                   np.asarray(head["q"]))
     np.testing.assert_array_equal(tw["head_s"].numpy(),

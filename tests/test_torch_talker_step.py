@@ -1,8 +1,13 @@
 """The port's talker-step module (qwen3_tts_tpu_torch/kernels/talker_step.py)
-on the CPU: its w4a8 weight prep and its plain version against the JAX
+on the CPU: its weight prep and its plain version against the JAX
 package's Pallas kernel (qwen3_tts_tpu/kernels/talker_step.py) run in
-interpret mode with weights="w4a8", as tests/test_talker_kernel.py runs it,
-on the same seeded numpy inputs and the same bf16 parameters.
+interpret mode, as tests/test_talker_kernel.py runs it, on the same seeded
+numpy inputs and the same bf16 parameters.  Mostly in the default weight
+mode, w4a8; the int8, w8a8 and bf16 modes at the end: their prep integers
+equal JAX's from bf16 and from int8-dict weights, their plain steps agree
+with the Pallas kernel within the tolerances of JAX
+test_kernel_weight_modes_match_xla, and w8a8, whose dot is exact in
+integers, bit for bit with excess precision off.
 
 Both sides quantize to the same int4 weights (checked exactly) and take
 the same integer group dots.  Under XLA's default
@@ -93,31 +98,31 @@ def _state(cfg, b, seed):
     return k, v, x
 
 
-def _jax_step(setup, x, k, v, lengths, pos):
+def _jax_step(setup, x, k, v, lengths, pos, mode="w4a8"):
     jcfg, _, params, _, _ = setup
     cos, sin = _rope(jcfg, [pos] * x.shape[0])
     h, k2, v2 = jts.talker_step_fused(
         jcfg, params, jnp.asarray(x, jnp.bfloat16), jnp.asarray(cos),
         jnp.asarray(sin), jnp.asarray(k, jnp.bfloat16),
         jnp.asarray(v, jnp.bfloat16), jnp.asarray(lengths, jnp.int32),
-        jnp.int32(pos), PCAP, interpret=True, weights="w4a8")
+        jnp.int32(pos), PCAP, interpret=True, weights=mode)
     return (np.asarray(h, np.float32), np.asarray(k2, np.float32),
             np.asarray(v2, np.float32))
 
 
-def _port_step(setup, w, x, kc, vc, lengths, pos):
+def _port_step(setup, w, x, kc, vc, lengths, pos, mode="w4a8"):
     jcfg, tcfg = setup[0], setup[1]
     b = x.shape[0]
     cos, sin = _rope(jcfg, [pos] * b)
     return tts.talker_step_fused(
         tcfg, w, _t(x), _t(cos, torch.float32), _t(sin, torch.float32), kc,
         vc, torch.tensor(lengths, dtype=torch.int32),
-        torch.full((b,), pos, dtype=torch.int32), PCAP)
+        torch.full((b,), pos, dtype=torch.int32), PCAP, mode=mode)
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, tol=REL_TOL):
     err = np.abs(got - want).max()
-    assert err <= REL_TOL * np.abs(want).max(), (err, np.abs(want).max())
+    assert err <= tol * np.abs(want).max(), (err, np.abs(want).max())
 
 
 def test_prep_matches_jax(setup):
@@ -150,21 +155,22 @@ def test_int4_packing_layout():
     assert qi.abs().max() <= 7 and s.shape == (2, 3) and s.dtype == torch.bfloat16
 
 
-def _check_step(setup, b, decoded, exact):
-    jcfg, _, _, jw, _ = setup
+def _check_step(setup, b, decoded, exact, mode="w4a8", tol=REL_TOL):
+    jcfg, tcfg, _, jw, tparams = setup
     lengths = [200, 512][:b]
     k, v, x = _state(jcfg, b, 10 + decoded)
     pos = PCAP + decoded
-    want_h, want_k, want_v = _jax_step(setup, x, k, v, lengths, pos)
+    want_h, want_k, want_v = _jax_step(setup, x, k, v, lengths, pos, mode)
     kc, vc = _t(k), _t(v)
-    got = _port_step(setup, talker_w4a8_from_jax(jw), x, kc, vc, lengths,
-                     pos)
+    w = (talker_w4a8_from_jax(jw) if mode == "w4a8"
+         else tts.prep_layer_weights(tcfg, tparams, mode))
+    got = _port_step(setup, w, x, kc, vc, lengths, pos, mode)
     assert got.shape == (b, jcfg.d_model) and got.dtype == torch.bfloat16
     got_h = got.float().numpy()
     if exact:
         np.testing.assert_array_equal(got_h, want_h)
     else:
-        _assert_close(got_h, want_h)
+        _assert_close(got_h, want_h, tol)
     keep = np.arange(CAP) != pos
     for cache, want, orig in ((kc, want_k, k), (vc, want_v, v)):
         got_c = cache.float().numpy()
@@ -173,7 +179,7 @@ def _check_step(setup, b, decoded, exact):
             np.testing.assert_array_equal(got_c[:, :, :, pos],
                                           want[:, :, :, pos])
         else:
-            _assert_close(got_c[:, :, :, pos], want[:, :, :, pos])
+            _assert_close(got_c[:, :, :, pos], want[:, :, :, pos], tol)
         np.testing.assert_array_equal(got_c[:, :, :, keep],
                                       orig[:, :, :, keep])
 
@@ -207,11 +213,15 @@ def exact_main():
     params = jtr.init_decoder_params(cfg, jax.random.PRNGKey(0))
     jw = jax.tree_util.tree_map(
         np.asarray, jts.prep_layer_weights(cfg, params, weights="w4a8"))
-    _check_step((cfg, TTC(**CFG), params, jw, None), 2, 3, exact=True)
+    tparams = tree_to_torch(jax.tree_util.tree_map(np.asarray, params))
+    for mode in ("w4a8", "w8a8"):
+        _check_step((cfg, TTC(**CFG), params, jw, tparams), 2, 3,
+                    exact=True, mode=mode)
     print("bit-exact")
 
 
 def test_plain_step_bit_exact_without_excess_precision():
+    """w4a8 and w8a8: both take exact integer dots."""
     here = Path(__file__).resolve().parent
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_allow_excess_precision=false",
@@ -288,3 +298,84 @@ def test_wrapper_routes_cpu_to_plain_and_rejects_other_devices(setup):
     with pytest.raises(ValueError):
         tts.talker_step_fused(tcfg, w, meta, meta, meta, meta, meta, meta,
                               meta, PCAP)
+
+
+# ---------------------------------------------------- int8, w8a8, bf16 modes
+# tests/test_talker_kernel.py: test_kernel_weight_modes_match_xla (bf16,
+# w8a8) and the int8 mode's test_kernel_matches_xla bound
+MODE_TOL = {"int8": 0.05, "w8a8": 0.12, "bf16": 0.06}
+
+
+@pytest.mark.parametrize("source", ["bf16", "int8"])
+def test_prep_all_modes_equal_jax(setup, source):
+    """Every mode's prep from bf16 layers and from int8 dicts
+    (ops.quant.quantize_decoder_layers): the JAX prep's integers and
+    scales, output-major; w4a8 from int8 re-quantizes q * s in f32."""
+    from qwen3_tts_tpu.ops import quant as JQ
+    jcfg, tcfg, params, _, _ = setup
+    if source == "int8":
+        params = dict(params,
+                      layers=JQ.quantize_decoder_layers(params["layers"]))
+    tparams = tree_to_torch(jax.tree_util.tree_map(np.asarray, params))
+    for mode in tts.MODES:
+        jw = jax.tree_util.tree_map(
+            np.asarray, jts.prep_layer_weights(jcfg, params, weights=mode))
+        tw = tts.prep_layer_weights(tcfg, tparams, mode)
+        for name in ("wqkv", "wo", "gu", "dn"):
+            q, sc = tw[name + "_q"], tw[name + "_s"]
+            if mode == "w4a8":
+                np.testing.assert_array_equal(unpack_int4(q).numpy(),
+                                              _jax_int4(jw, name))
+                np.testing.assert_array_equal(
+                    sc.float().numpy(),
+                    np.asarray(jw[name + "_s"], np.float32).transpose(0, 2, 1))
+                continue
+            assert q.dtype == (torch.bfloat16 if mode == "bf16"
+                               else torch.int8), (mode, name)
+            np.testing.assert_array_equal(
+                q.float().numpy().transpose(0, 2, 1),
+                np.asarray(jw[name + "_q"], np.float32), err_msg=mode)
+            np.testing.assert_array_equal(
+                sc.numpy(), np.asarray(jw[name + "_s"], np.float32))
+
+
+@pytest.mark.parametrize("mode", ["int8", "w8a8", "bf16"])
+def test_plain_step_modes_match_pallas(setup, mode):
+    _check_step(setup, 2, 3, exact=False, mode=mode, tol=MODE_TOL[mode])
+
+
+def test_modes_gate_and_dispatch(setup):
+    """The mode gates; decoder_forward runs the packed mode's kernel, and
+    the predictor's own "fused_int8" pack is not taken for a talker
+    step."""
+    assert tts.unsupported(TTC(), 1, "int4") == (
+        "talker_step: mode 'int4' is not one of "
+        "('w4a8', 'int8', 'w8a8', 'bf16')")
+    assert tts.supported(TTC(d_ff=6000 + 16), 8, "int8")
+    assert not tts.supported(TTC(d_ff=6000 + 16), 8, "w4a8")
+    assert "above 8192" in tts.unsupported(TTC(d_ff=8192 + 256), 1, "w8a8")
+    from qwen3_tts_tpu_torch.models import transformer as ttr
+    jcfg, tcfg, _, _, tparams = setup
+    assert tts.packed_mode({"fused_int8": {}}) is None
+    assert tts.packed_mode({"fused_w4a8": {}}) == "w4a8"
+    k, v, x = _state(jcfg, 1, 3)
+    for mode in tts.MODES:
+        p = dict(tparams, talker_step_mode=mode, **{
+            "fused_" + mode: tts.prep_layer_weights(tcfg, tparams, mode)})
+        assert tts.packed_mode(p) == mode
+        cache = ttr.KVCache(_t(k), _t(v),
+                            torch.tensor([PCAP], dtype=torch.int32),
+                            torch.tensor([100], dtype=torch.int32))
+        cos, sin = _rope(jcfg, [PCAP])
+        h, _ = ttr.decoder_forward(tcfg, p, _t(x)[:, None],
+                                   _t(cos, torch.float32)[:, None],
+                                   _t(sin, torch.float32)[:, None], cache,
+                                   PCAP)
+        want = tts.talker_step_plain(
+            tcfg, p["fused_" + mode], _t(x), _t(cos, torch.float32),
+            _t(sin, torch.float32), _t(k), _t(v),
+            torch.tensor([100], dtype=torch.int32),
+            torch.tensor([PCAP], dtype=torch.int32), PCAP, mode)
+        from qwen3_tts_tpu_torch.ops.norms import rms_norm
+        assert torch.equal(h[:, 0], rms_norm(want, p["final_norm"],
+                                             tcfg.rms_eps)), mode
