@@ -30,7 +30,7 @@ BUILD_ROOT = PKG / "build"
 SOURCES = ("flash_decode.cu", "flash_prefill.cu", "talker_step.cu",
            "predictor_frame.cu", "chunk_step.cu", "kv_lanes.cu",
            "int4_matmul.cu")
-HEADERS = ("common.cuh", "w4a8.cuh")
+HEADERS = ("common.cuh", "w4a8.cuh", "cp_async.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,7 +40,7 @@ _F = ctypes.c_float
 # C signatures (every pointer and the stream as c_void_p, so ctypes does
 # not cut them to 32 bits)
 SIGNATURES = {
-    "qtts_flash_decode": [_P, _P, _P, _P, _P, _P,          # q k v out len wi
+    "qtts_flash_decode": [_P, _P, _P, _P, _P, _P, _P,      # q k v out ws len wi
                           _I, _I, _I, _I, _I, _I,          # B H Hkv C dh pc
                           _F, _P],                         # scale stream
     "qtts_flash_prefill": [_P, _P, _P, _P, _P, _P,         # q k v out len start
@@ -62,6 +62,9 @@ SIGNATURES = {
                           _I, _I, _I, _I, _I, _P],         # L B Hkv C dh stream
     "qtts_int4_matmul": [_P, _P, _P, _P,                   # x q4 s y
                          _I, _I, _I, _I, _P],              # M N K G stream
+    "qtts_int4_matmul_tile": [_P, _P, _P, _P, _P,          # x q4 s y ws
+                              _I, _I, _I, _I, _I, _I,      # M N K G mi sp
+                              _P],                         # stream
 }
 
 

@@ -302,14 +302,156 @@ def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
     return ctx.reshape(b, h * dh).to(torch.bfloat16)
 
 
+# ------------------------------------------------- the CUDA kernel's orders
+# The sums of the CUDA chunk kernel's talker layer (csrc/chunk_step.cu on
+# common.cuh's helpers) in its own order, for `_talker_layer_plain(orders=
+# ...)`: "rms" the layer's two RMSNorms (256 threads), "qk" the per-head
+# q/k norms (head_dim threads; "<name>-sum" / "<name>-inv" swap in only
+# the sum of squares / only 1 / sqrt), "softmax" the attention's in-tile
+# sums, "scores-a" / "scores-b" its prefix scores (either contraction of
+# a slot's product pairs).  Every other op of the layer rounds the same
+# on both sides.  KERNEL_ORDERS is the whole set: with it the plain layer
+# reproduces the kernel's residuals bit for bit on the card where torch's
+# orders (cuBLAS's dot, the reduction kernel's tree) move them by an int8
+# unit (ROADMAP Queue C #1).
+ORDERS = ("rms", "rms-sum", "rms-inv", "qk", "qk-sum", "qk-inv", "softmax",
+          "scores-a", "scores-b")
+KERNEL_ORDERS = ("rms", "qk", "softmax", "scores-a")
+
+
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """A warp's xor butterfly (16, 8, 4, 2, 1) over the last axis (32):
+    every lane ends with the same sum, in this order."""
+    lanes = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ o]
+    return v[..., 0]
+
+
+def _warp_sum(v: torch.Tensor) -> torch.Tensor:
+    """common.cuh group_sum over the last axis (a multiple of 32, one
+    element per thread): each warp's butterfly, then the warps in order."""
+    warps = _butterfly(v.reshape(*v.shape[:-1], v.shape[-1] // 32, 32))
+    s = warps[..., 0]
+    for i in range(1, warps.shape[-1]):
+        s = s + warps[..., i]
+    return s
+
+
+def _rms_kernel_order(x, w, eps, threads, kernel_sum=True, kernel_inv=True):
+    """f32 (x * inv) * w, x [..., K], with the kernels' RMSNorm
+    (common.cuh group_sum; w4a8.cuh quantize_rows, norm_rope_heads_g):
+    kernel_sum, the sum of squares as thread t of `threads` adds
+    x[t + threads * i]^2 for i in order, then _warp_sum (else torch's
+    mean); kernel_inv, inv = 1 / sqrt(ss / K + eps) (else torch's rsqrt)."""
+    xf = x.float()
+    k = xf.shape[-1]
+    if kernel_sum:
+        part = torch.zeros(*xf.shape[:-1], threads, device=x.device)
+        for i in range(k // threads):
+            part = part + xf[..., i * threads:(i + 1) * threads] ** 2
+        ms = _warp_sum(part) / k
+    else:
+        ms = (xf * xf).mean(dim=-1)
+    inv = 1.0 / torch.sqrt(ms + eps) if kernel_inv else torch.rsqrt(ms + eps)
+    return (xf * inv[..., None]) * w.float()
+
+
+def _scores_kernel_order(qs, kt, fused_first):
+    """q . k per slot in the kernel's thread order (common.cuh
+    attend_tiles_g): over the head's dims in pairs, s += q[d] k[d] +
+    q[d+1] k[d+1], the pair's two products joined by one fma (the first
+    product fused with fused_first, else the second), emulated in f64
+    (each product is exact there).  qs [..., G, Dh] f32, kt [..., C, Dh]
+    -> [..., G, C] f32."""
+    prod = qs.double()[..., :, None, :] * kt.double()[..., None, :, :]
+    a, c = prod[..., 0::2], prod[..., 1::2]
+    pair = (a + c.float().double() if fused_first
+            else c + a.float().double()).float()          # [..., G, C, Dh/2]
+    s = torch.zeros(pair.shape[:-1], device=qs.device)
+    for d in range(pair.shape[-1]):
+        s = s + pair[..., d]
+    return s
+
+
+def _attend_kernel_order(q, kc, vc, lengths, start, f, prompt_cap, tile,
+                         scores=None):
+    """_chunk_attend_plain with the kernel's in-tile sums (common.cuh
+    attend_tiles_g, chunk_step.cu talker_attn): per tile the max, then l
+    and acc rescaled and P.V and l summed slot by slot in slot order (acc
+    by fma: p * v is exact in f64, one rounding to f32), then the chunk's
+    frames with their scores summed in the 128-thread butterfly order.
+    The prefix scores are torch's dot, or with scores "a" / "b"
+    _scores_kernel_order's (fused_first True / False)."""
+    b, h, dh = q.shape
+    hkv = kc.shape[1]
+    g = h // hkv
+    qs = q.float().reshape(b, hkv, g, dh) * (dh ** -0.5)
+    neg = torch.tensor(NEG_INF, device=q.device)
+    m = torch.full((b, hkv, g), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qs)
+    lens = lengths.long()
+    if start > 0:
+        kp = kc[:, :, :start].float()
+        sc_all = (torch.einsum("bkgd,bkcd->bkgc", qs, kp) if scores is None
+                  else _scores_kernel_order(qs, kp, scores == "a"))
+    for c0 in range(0, start, tile):
+        c1 = min(c0 + tile, start)
+        c = torch.arange(c0, c1, device=q.device)
+        sc = sc_all[..., c0:c1]
+        valid = ((c[None] < lens[:, None]) | (c[None] >= prompt_cap))
+        valid = valid[:, None, None, :]
+        m_new = torch.maximum(m, torch.where(valid, sc, neg).amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(sc - m_new[..., None]),
+                        torch.zeros((), device=q.device))
+        m = m_new
+        # slot by slot on the host (numpy: one add and one rounding per
+        # slot; a device op per slot is mostly launch time): acc and l as
+        # one f32 array [.., dh + 1], p * v exact in f64 and p itself
+        # summed into it, each add rounded once to f32 (as the kernel's
+        # fma and f32 add: both sums are exact in f64)
+        st = torch.cat([acc * alpha[..., None], (l * alpha)[..., None]], -1)
+        pv = torch.cat([p.double()[..., None]
+                        * vc[:, :, None, c0:c1].double(),
+                        p.double()[..., None]], -1)
+        st = st.cpu().numpy()
+        pv = np.ascontiguousarray(np.moveaxis(pv.cpu().numpy(), -2, 0))
+        for j in range(c1 - c0):
+            st = (st + pv[j]).astype(np.float32)
+        st = torch.from_numpy(st).to(q.device)
+        acc, l = st[..., :dh], st[..., dh]
+    kn = kc[:, :, start:start + f + 1].float()
+    vn = vc[:, :, start:start + f + 1]
+    sc = _warp_sum(qs[:, :, :, None, :] * kn[:, :, None])   # [b, k, g, n]
+    mx = torch.maximum(m, sc.amax(-1))
+    alpha = torch.exp(m - mx)
+    ac, ls = acc * alpha[..., None], l * alpha
+    for j in range(f + 1):
+        p = torch.exp(sc[..., j] - mx)
+        ac = (ac.double() + p[..., None].double()
+              * vn[:, :, None, j].double()).float()
+        ls = ls + p
+    return (ac / torch.clamp(ls, min=1e-30)[..., None]).reshape(
+        b, h * dh).to(torch.bfloat16)
+
+
 def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
-                        lengths, start, f, prompt_cap, tile, mode="w4a8"):
+                        lengths, start, f, prompt_cap, tile, mode="w4a8",
+                        orders=()):
     """Talker layer `layer` of frame f from the residual x [B, d] bf16:
     its k/v row written at slot start + f, the attention in
     _chunk_attend_plain's order, the weight matmuls of talker_step's
     `mode` (w: talker_step.prep_layer_weights of that mode), the int8 and
     bf16 modes' f32 dots in the talker-step kernel's order
-    (talker_step.qmm8_lanes_plain).  Returns the next residual (bf16)."""
+    (talker_step.qmm8_lanes_plain).  `orders` (names of ORDERS; () is
+    torch's, KERNEL_ORDERS all of the chunk kernel's) swaps the CUDA
+    kernel's order in for the sums it names.  Returns the next residual
+    (bf16)."""
+    unknown = set(orders) - set(ORDERS)
+    if unknown:
+        raise ValueError(f"unknown orders {sorted(unknown)}; from {ORDERS}")
     b = x.shape[0]
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dq, dkv, eps = h * dh, hkv * dh, cfg.rms_eps
@@ -319,21 +461,34 @@ def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
         return qmm_plain(v, w[name + "_q"][layer], w[name + "_s"][layer],
                          mode, kernel_order=True)
 
-    hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
+    def norm(v, wt, name, threads):
+        ks = name in orders or name + "-sum" in orders
+        ki = name in orders or name + "-inv" in orders
+        if not (ks or ki):
+            return _rms(v, wt, eps)
+        return _rms_kernel_order(v, wt, eps, threads, ks, ki)
+
+    hn = norm(x, w["ln1"][layer], "rms", 256).to(torch.bfloat16)
     qkv = mm(hn, "wqkv")
     q = qkv[:, :dq].reshape(b, h, dh)
     k = qkv[:, dq:dq + dkv].reshape(b, hkv, dh)
     v = qkv[:, dq + dkv:].reshape(b, hkv, dh)
-    q = _rms(q, w["qn"][layer], eps).to(torch.bfloat16).float()
-    k = _rms(k, w["kn"][layer], eps).to(torch.bfloat16).float()
+    q = norm(q, w["qn"][layer], "qk", dh).to(torch.bfloat16).float()
+    k = norm(k, w["kn"][layer], "qk", dh).to(torch.bfloat16).float()
     q = (q * cos + _rotate_half(q) * sin).to(torch.bfloat16)
     k = (k * cos + _rotate_half(k) * sin).to(torch.bfloat16)
     cache_k[layer][:, :, start + f] = k
     cache_v[layer][:, :, start + f] = v
-    ctx = _chunk_attend_plain(q, cache_k[layer], cache_v[layer], lengths,
-                              start, f, prompt_cap, tile)
+    if "softmax" in orders:
+        sc = ("a" if "scores-a" in orders else
+              "b" if "scores-b" in orders else None)
+        ctx = _attend_kernel_order(q, cache_k[layer], cache_v[layer],
+                                   lengths, start, f, prompt_cap, tile, sc)
+    else:
+        ctx = _chunk_attend_plain(q, cache_k[layer], cache_v[layer], lengths,
+                                  start, f, prompt_cap, tile)
     x = x + mm(ctx, "wo")
-    hn2 = _rms(x, w["ln2"][layer], eps).to(torch.bfloat16)
+    hn2 = norm(x, w["ln2"][layer], "rms", 256).to(torch.bfloat16)
     gu = mm(hn2, "gu")
     n = gu.shape[-1] // 2
     ff = F.silu(gu[:, :n].float()).to(torch.bfloat16) * gu[:, n:]
@@ -341,14 +496,15 @@ def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
 
 
 def _talker_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths, start, f,
-                  prompt_cap, tile, xs=None, mode="w4a8"):
+                  prompt_cap, tile, xs=None, mode="w4a8", orders=()):
     """The talker's layers for frame f: k/v written at slot start + f.
     xs, when given, gets the residual entering each layer and the last."""
     for layer in range(cfg.n_layers):
         if xs is not None:
             xs.append(x)
         x = _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
-                                lengths, start, f, prompt_cap, tile, mode)
+                                lengths, start, f, prompt_cap, tile, mode,
+                                orders)
     if xs is not None:
         xs.append(x)
     return x
@@ -369,17 +525,21 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
                     taps: Optional[List[torch.Tensor]] = None,
                     force_codes: Optional[torch.Tensor] = None,
                     prefix_tile: int = PREFIX_TILE,
-                    layer_taps: Optional[List[torch.Tensor]] = None):
+                    layer_taps: Optional[List[torch.Tensor]] = None,
+                    orders=()):
     """`gen_chunk_fused` in plain PyTorch (same arguments and effects,
     layer_taps included).
 
-    Two arguments serve the kernel's checks.  force_codes [B, F, 16]
+    Three arguments serve the kernel's checks.  force_codes [B, F, 16]
     int32: the frames go on with these codes (the predictor's next inputs,
     the feedback) where their own picks differ, and the picks are what it
     returns; it holds the plain version on the kernel's path past a near
     tie of two logits.  prefix_tile: the cache prefix's tile (the JAX
     kernel's 512 by default); another tile is an equally valid order of
-    the same sums, so the two results differ only by the order drift."""
+    the same sums, so the two results differ only by the order drift.
+    orders: the talker layers' sums in the CUDA kernel's order
+    (_talker_layer_plain; KERNEL_ORDERS with prefix_tile=128 is the
+    kernel's whole talker)."""
     n_frames = u.shape[0]
     start = int(write_idx[0])
     if start + n_frames > cache_k.shape[3]:
@@ -397,7 +557,8 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
                       ex["tts_pad"])
         xs = None if layer_taps is None else []
         x = _talker_plain(tcfg, tw, x, cos[f], sin[f], cache_k, cache_v,
-                          lengths, start, f, prompt_cap, prefix_tile, xs)
+                          lengths, start, f, prompt_cap, prefix_tile, xs,
+                          orders=orders)
         if xs is not None:
             layer_taps.append(torch.stack(xs, dim=1))
         hid = _rms(x, ex["tfn"], tcfg.rms_eps)

@@ -9,7 +9,10 @@ raises.  Each wrapper counts its launches in `<wrapper>.launches`.
 
 - `flash_gqa_decode` (`csrc/flash_decode.cu`): one query row per lane
   against the live prefix [0, write_idx] of ONE layer's cache
-  [B, Hkv, C, Dh], the current token already written;
+  [B, Hkv, C, Dh], the current token already written; the kernel splits
+  the prefix into chunks of SPLIT slots, one CTA each, and merges the
+  chunks' softmax partials in chunk order (`decode_split_plain` is that
+  algorithm in plain PyTorch, `split_chunks` its chunk plan);
 - `flash_gqa_decode_stacked`: the same on layer `layer` of a stacked cache
   [L, B, Hkv, C, Dh]: it calls `flash_gqa_decode` on the view
   k_all[layer] (a pointer offset, no copy), so both count that launch;
@@ -36,6 +39,8 @@ from ..ops.attention import gqa_attend, history_mask, update_cache
 
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8      # query heads per kv head the kernel takes
+SPLIT = 64         # slots per chunk of flash_gqa_decode (csrc/flash_decode.cu)
+NEG = -1e30        # the kernels' masked score
 
 
 def decode_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
@@ -58,6 +63,66 @@ def decode_layer_plain(q: torch.Tensor, k_cache: torch.Tensor,
     q.dtype."""
     mask = history_mask(lengths, prompt_cap, write_idx, 1, k_cache.shape[2])
     return gqa_attend(q[:, None], k_cache, v_cache, mask)[:, 0]
+
+
+def split_chunks(write_idx: torch.Tensor, capacity: int,
+                 split: int = SPLIT) -> torch.Tensor:
+    """Chunks of the live prefix [0, min(write_idx + 1, C)) per lane: at
+    least one (its CTA writes the output directly), at most ceil(C /
+    split), the kernel's grid depth."""
+    end = torch.clamp(write_idx.long() + 1, max=capacity)
+    return torch.clamp((end + split - 1) // split, min=1)
+
+
+def decode_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                       v_cache: torch.Tensor, lengths: torch.Tensor,
+                       write_idx: torch.Tensor, prompt_cap: int,
+                       split: int = SPLIT) -> torch.Tensor:
+    """`flash_gqa_decode`'s split-prefix algorithm in plain PyTorch: per
+    chunk of `split` slots the f32 scores (masked: NEG), the chunk's max m,
+    p = exp(s - m) (masked: 0 exactly), l = sum p and acc = p . V; then
+    per head M = max of the chunks' m, and l and acc rescaled by exp(m -
+    M) and added chunk by chunk in chunk order (flash_decode_combine).
+    Chunks past a lane's prefix hold nothing (m = NEG, l = acc = 0) and
+    add nothing.  Returns [B, H, Dh] in q.dtype."""
+    b, h, dh = q.shape
+    hkv, cap = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    ns = -(-cap // split)
+    pad = ns * split - cap
+    qs = q.float().reshape(b, hkv, g, dh) * (dh ** -0.5)
+    kf = torch.nn.functional.pad(k_cache.float(), (0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v_cache.float(), (0, 0, 0, pad))
+    valid = history_mask(lengths, prompt_cap, write_idx, 1, ns * split)
+    valid = valid[:, 0, None, None, :]                      # [B, 1, 1, C']
+    sc = torch.einsum("bkgd,bkcd->bkgc", qs, kf)
+    sc = torch.where(valid, sc, torch.tensor(NEG, device=q.device))
+    sc = sc.reshape(b, hkv, g, ns, split)
+    m = sc.amax(-1)                                         # [B, k, g, ns]
+    p = torch.where(valid.reshape(b, 1, 1, ns, split),
+                    torch.exp(sc - m[..., None]),
+                    torch.zeros((), device=q.device))
+    l = p.sum(-1)
+    acc = torch.einsum("bkgnc,bkncd->bkgnd", p,
+                       vf.reshape(b, hkv, ns, split, dh))
+    mx = m.amax(-1)
+    big_l = torch.zeros_like(mx)
+    big_a = torch.zeros_like(qs)
+    for z in range(ns):
+        w = torch.exp(m[..., z] - mx)
+        big_l = big_l + l[..., z] * w
+        big_a = big_a + acc[..., z, :] * w[..., None]
+    out = big_a / torch.clamp(big_l, min=1e-30)[..., None]
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
+def decode_workspace(b: int, h: int, hkv: int, capacity: int, dh: int,
+                     device) -> torch.Tensor:
+    """The kernel's f32 workspace for the chunks' (acc, max, l), or an
+    empty tensor where one chunk spans the capacity."""
+    ns = -(-capacity // SPLIT)
+    n = b * h * ns * (dh + 2) if ns > 1 else 0
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _check(q, k_cache, v_cache, lengths, write_idx):
@@ -109,7 +174,9 @@ def flash_gqa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     q: [B, H, Dh] bf16; k_cache/v_cache: [B, Hkv, C, Dh] bf16 (any C);
     lengths: [B] int32; write_idx: [B] int32 or one int for every lane.
     Returns [B, H, Dh].  Each launch adds one to
-    `flash_gqa_decode.launches`.
+    `flash_gqa_decode.launches`; one whose capacity spans several chunks,
+    which launches the combine kernel (flash_decode_combine) after the
+    split kernel, also adds one to `flash_gqa_decode.combine_launches`.
     """
     b = q.shape[0]
     if not torch.is_tensor(write_idx) or write_idx.dim() == 0:
@@ -125,19 +192,23 @@ def flash_gqa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     _, h, dh = q.shape
     hkv, cap = k_cache.shape[1], k_cache.shape[2]
     out = torch.empty_like(q)
+    ws = decode_workspace(b, h, hkv, cap, dh, q.device)
     # the library launches on the current device
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = LIBRARY.get().qtts_flash_decode(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), lengths.data_ptr(), write_idx.data_ptr(), b, h,
-            hkv, cap, dh, int(prompt_cap), dh ** -0.5, stream)
+            out.data_ptr(), ws.data_ptr() if ws.numel() else None,
+            lengths.data_ptr(), write_idx.data_ptr(), b, h, hkv, cap, dh,
+            int(prompt_cap), dh ** -0.5, stream)
     check(rc, "flash_gqa_decode")
     flash_gqa_decode.launches += 1
+    flash_gqa_decode.combine_launches += ws.numel() > 0
     return out
 
 
 flash_gqa_decode.launches = 0
+flash_gqa_decode.combine_launches = 0
 
 
 def flash_gqa_decode_stacked(q: torch.Tensor, k_all: torch.Tensor,

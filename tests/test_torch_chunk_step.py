@@ -506,3 +506,97 @@ def test_wrapper_routes_cpu_to_plain_and_rejects_other_devices(case):
                             (0.0, 40, 0.9), PCAP)
     with pytest.raises(ValueError):
         tcs.sample_fused(meta, meta, 0.0, 40, 0.9)
+
+
+# ------------------------------------- the plain layer in the kernel's orders
+# chunk_step._talker_layer_plain(orders=...) swaps the CUDA chunk kernel's
+# sum orders in (its RMSNorm and q/k-norm sums and 1 / sqrt, its softmax's
+# in-tile sums, its prefix score dots): the card's layer check holds the
+# kernel to that (ROADMAP Queue C #1).  Each order is an equally valid f32
+# order of the same sums, so against torch's orders it may only flip a
+# bf16 rounding, and the next w4a8 quantization then moves an output by one
+# int8 unit: ORDER_TOL of max |torch-order residual| (one H100, full width:
+# up to 2.2e-2 per layer, PERF.md Queue C #1).
+ORDER_TOL = 3e-2
+
+
+def _layer_inputs(c, b, seed):
+    """b lanes at START with ragged prompt lengths: the residual entering
+    a layer (bf16), rope tables for frame f = 1, the caches."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.standard_normal((b, 256)) * 0.3).astype(
+        np.float32)).bfloat16()
+    st = c["state"]
+    k = to_tensor(np.repeat(st["k"], b, axis=1)).to(torch.bfloat16)
+    v = to_tensor(np.repeat(st["v"], b, axis=1)).to(torch.bfloat16)
+    lens = torch.tensor([LENGTH - 7 * i for i in range(b)], dtype=torch.int32)
+    p = (START + 1) * torch.ones(1, b, dtype=torch.long)
+    cos, sin = ttalk._rope_tables(c["ttc"], ttalk._pos4(p))
+    return x, cos[0].float(), sin[0].float(), k, v, lens
+
+
+@pytest.mark.parametrize("orders", [("rms",), ("qk",), ("softmax",),
+                                    ("softmax", "scores-a"),
+                                    ("softmax", "scores-b"),
+                                    tcs.KERNEL_ORDERS])
+def test_kernel_order_layer_matches_torch_order(case, orders):
+    x, cos, sin, k, v, lens = _layer_inputs(case, 3, 21)
+    w = case["port"]["layer_w"]
+    for layer in range(2):
+        kt, vt, kk, vk = k.clone(), v.clone(), k.clone(), v.clone()
+        want = tcs._talker_layer_plain(case["ttc"], w, layer, x, cos, sin,
+                                       kt, vt, lens, START, 1, PCAP, 128)
+        got = tcs._talker_layer_plain(case["ttc"], w, layer, x, cos, sin,
+                                      kk, vk, lens, START, 1, PCAP, 128,
+                                      orders=orders)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        err = (got.float() - want.float()).abs().max()
+        assert err <= ORDER_TOL * want.float().abs().max(), (layer, err)
+        # the k/v row of frame 1 is the only slot written
+        keep = torch.ones(CAP, dtype=torch.bool)
+        keep[START + 1] = False
+        assert torch.equal(kk[:, :, :, keep], k[:, :, :, keep])
+        err = (kk[layer, :, :, START + 1].float()
+               - kt[layer, :, :, START + 1].float()).abs().max()
+        assert err <= ORDER_TOL * kt[layer, :, :, START + 1].abs().max()
+    with pytest.raises(ValueError, match="unknown orders"):
+        tcs._talker_layer_plain(case["ttc"], w, 0, x, cos, sin, k, v, lens,
+                                START, 1, PCAP, 128, orders=("rms", "tree"))
+
+
+def test_kernel_order_talker_matches_jax_step(case):
+    """The talker in the kernel's orders at frame 0 (the cache prefix, then
+    the token itself at START) against the JAX package's talker step (the
+    Pallas kernel in interpret mode, as tests/test_torch_talker_step.py
+    runs it), on the same weights: the two layers' increment (the residual
+    after them less x, which the skip connections carry) and the written
+    k/v rows within that file's REL_TOL, 5 % of max |increment| (under
+    XLA's default flags the interpret-mode kernel skips some bf16
+    roundings: 3.1 % here, the same in torch's orders), so that a lost
+    attention or MLP term fails."""
+    from qwen3_tts_tpu.kernels import talker_step as jts
+    x, cos, sin, k, v, lens = _layer_inputs(case, 2, 22)
+    p = START * torch.ones(1, 2, dtype=torch.long)
+    cos, sin = (t[0].float() for t in ttalk._rope_tables(case["ttc"],
+                                                         ttalk._pos4(p)))
+    kk, vk = k.clone(), v.clone()
+    got = tcs._talker_plain(case["ttc"], case["port"]["layer_w"], x, cos,
+                            sin, kk, vk, lens, START, 0, PCAP, 128,
+                            orders=tcs.KERNEL_ORDERS)
+    h, jk, jv = jts.talker_step_fused(
+        case["tcfg"], case["tparams"], jnp.asarray(x.float().numpy(),
+                                                   jnp.bfloat16),
+        jnp.asarray(cos.numpy()), jnp.asarray(sin.numpy()),
+        jnp.asarray(k.float().numpy(), jnp.bfloat16),
+        jnp.asarray(v.float().numpy(), jnp.bfloat16),
+        jnp.asarray(lens.numpy()), jnp.int32(START), PCAP, interpret=True,
+        weights="w4a8")
+    want = np.asarray(h, np.float32)
+    x0 = x.float().numpy()
+    inc, want_inc = got.float().numpy() - x0, want - x0
+    err = np.abs(inc - want_inc).max()
+    assert err <= 0.05 * np.abs(want_inc).max(), err
+    for cache, jc in ((kk, jk), (vk, jv)):
+        a = cache.float().numpy()[:, :, :, START]
+        b = np.asarray(jc, np.float32)[:, :, :, START]
+        assert np.abs(a - b).max() <= 0.05 * np.abs(b).max()

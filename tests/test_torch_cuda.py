@@ -876,39 +876,95 @@ def test_talker_step_modes_match_plain(dev, talker_params2, mode):
 
 
 @pytest.mark.parametrize("k,n", [(2048, 4096), (2048, 2048), (2048, 12288),
-                                 (6144, 2048)])
+                                 (6144, 2048), (2048, 1000)])
 def test_matmul_int4_matches_plain(dev, k, n):
+    """Both kernels within 1e-4 of max |y|: M on both sides of TILE_MIN_M
+    (the small-M kernel's three row instances, the tile kernel's three
+    row tiles), ragged M (3, 17, 129), x with two leading dims, and a
+    ragged edge N tile (N = 1000); each call counts the kernels it
+    launched (the tile kernel, the split-K sum)."""
     from qwen3_tts_tpu_torch.kernels import int4_matmul as ti
     from qwen3_tts_tpu_torch.ops.quant import quantize_weight_int4
     g = torch.Generator(device=dev).manual_seed(k + n)
     w = quantize_weight_int4(torch.randn(k, n, generator=g, device=dev)
                              * k ** -0.5)
-    for m in (1, 3, 128):
-        x = (torch.randn(2, m, k, generator=g, device=dev) * 0.5).to(
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for lead in [(m,) for m in (1, 2, 3, 4, 8, 16, 17, 32, 64, 128, 129)
+                 ] + [(2, 3)]:
+        x = (torch.randn(*lead, k, generator=g, device=dev) * 0.5).to(
             torch.bfloat16)
+        m = x.numel() // k
+        want = ti.matmul_int4_plain(x, w)
+        counts = ("launches", "tile_launches", "splitk_launches")
+        before = [getattr(ti.matmul_int4, c) for c in counts]
         got = ti.matmul_int4(x, w)
         torch.cuda.synchronize()
-        want = ti.matmul_int4_plain(x, w)
-        assert got.shape == (2, m, n) and got.dtype == torch.float32
+        assert got.shape == (*lead, n) and got.dtype == torch.float32
         assert _rel(got, want) <= 1e-4, m
+        mi, splits = ti.plan(m, n, k, sms)
+        assert [getattr(ti.matmul_int4, c) - b for c, b in
+                zip(counts, before)] == [1, mi > 0, splits > 1], m
+        assert (mi > 0) == (m >= ti.TILE_MIN_M)
     with pytest.raises(ValueError):
         ti.matmul_int4(torch.zeros(1, k + 32, device=dev,
                                    dtype=torch.bfloat16), w)
+    big = quantize_weight_int4(torch.randn(ti.MAX_K + 128, 64, device=dev))
+    with pytest.raises(ValueError, match="above"):
+        ti.matmul_int4(torch.zeros(1, ti.MAX_K + 128, device=dev,
+                                   dtype=torch.bfloat16), big)
+    # the tile kernel streams K: past MAX_K from TILE_MIN_M rows on
+    x = (torch.randn(ti.TILE_MIN_M, ti.MAX_K + 128, generator=g,
+                     device=dev) * 0.5).to(torch.bfloat16)
+    assert _rel(ti.matmul_int4(x, big), ti.matmul_int4_plain(x, big)) <= 1e-4
 
 
-def test_flash_gqa_decode_matches_plain_and_stacked(dev):
+@pytest.mark.parametrize("dh,h,hkv", [(128, 16, 8), (128, 8, 8), (64, 16, 2),
+                                      (64, 32, 4)])
+def test_flash_gqa_decode_matches_plain_and_stacked(dev, dh, h, hkv):
+    """The split-prefix kernel within half a bf16 ulp of the plain version
+    (and of its split model, decode_split_plain) at cursors across the
+    64-slot chunk boundaries, B = 1, 4 and 32, G = 1, 2 and 8; the stacked
+    entry gives the same bits."""
     from qwen3_tts_tpu_torch.kernels import flash_decode as fd
-    rng = np.random.default_rng(5)
-    k_all, v_all, t = _cache(rng, 3, 4, 8, 1024, 128, dev)
-    q = t((4, 16, 128))
-    lens = _i32([31, 100, 117, 90], dev)
-    for wi in (159, _i32([128, 159, 600, 1023], dev)):
-        got = fd.flash_gqa_decode(q, k_all[1], v_all[1], lens, wi, 128)
+    rng = np.random.default_rng(5 + dh + h)
+    s = fd.SPLIT
+    cases = [([48], [31], 32), ([1023], [90], 128), ([0], [1], 0),
+             ([s - 1], [20], 32), ([s], [20], 32), ([s + 1], [20], 32),
+             ([128, 159, 600, 1023], [31, 100, 117, 90], 128),
+             ([0, 1, s - 1, s, s + 1, 2 * s, 2 * s + 1, 1023] * 4,
+              [1, 2, 20, 30, 10, 25, 5, 60] * 4, 32)]
+    for cursors, lengths, prompt_cap in cases:
+        b = len(cursors)
+        k_all, v_all, t = _cache(rng, 2, b, hkv, 1024, dh, dev)
+        q = t((b, h, dh))
+        lens, wi = _i32(lengths, dev), _i32(cursors, dev)
+        got = fd.flash_gqa_decode(q, k_all[1], v_all[1], lens, wi,
+                                  prompt_cap)
         torch.cuda.synchronize()
-        wl = wi if torch.is_tensor(wi) else _i32([wi] * 4, dev)
         want = fd.decode_layer_plain(q.float(), k_all[1].float(),
-                                     v_all[1].float(), lens, wl, 128)
-        diff = (got.float() - want).abs()
-        assert bool((diff <= DECODE_ATOL + DECODE_RTOL * want.abs()).all())
-        st = fd.flash_gqa_decode_stacked(q, k_all, v_all, lens, wl, 1, 128)
+                                     v_all[1].float(), lens, wi, prompt_cap)
+        split = fd.decode_split_plain(q.float(), k_all[1].float(),
+                                      v_all[1].float(), lens, wi, prompt_cap)
+        for ref in (want, split):
+            diff = (got.float() - ref).abs()
+            assert bool((diff <= DECODE_ATOL + DECODE_RTOL * ref.abs()
+                         ).all()), (cursors[:8], diff.max().item())
+        n0 = fd.flash_gqa_decode.combine_launches
+        st = fd.flash_gqa_decode_stacked(q, k_all, v_all, lens, wi, 1,
+                                         prompt_cap)
         assert torch.equal(st, got)
+        assert fd.flash_gqa_decode.combine_launches == n0 + 1  # 16 chunks
+        if b == 1:       # a scalar write_idx is every lane's cursor
+            assert torch.equal(fd.flash_gqa_decode(
+                q, k_all[1], v_all[1], lens, cursors[0], prompt_cap), got)
+    # one chunk spans a cache of SPLIT slots: no combine launch
+    k_all, v_all, t = _cache(rng, 1, 2, hkv, s, dh, dev)
+    q = t((2, h, dh))
+    lens, wi = _i32([20, 5], dev), _i32([s - 1, 30], dev)
+    n0 = fd.flash_gqa_decode.combine_launches
+    got = fd.flash_gqa_decode(q, k_all[0], v_all[0], lens, wi, 32)
+    want = fd.decode_layer_plain(q.float(), k_all[0].float(),
+                                 v_all[0].float(), lens, wi, 32)
+    assert bool(((got.float() - want).abs()
+                 <= DECODE_ATOL + DECODE_RTOL * want.abs()).all())
+    assert fd.flash_gqa_decode.combine_launches == n0

@@ -167,3 +167,66 @@ def test_wrappers_route_cpu_to_plain_and_reject_other_devices():
     with pytest.raises(ValueError):
         tp.flash_gqa_prefill_stacked(meta[:, None], k.to("meta"),
                                      k.to("meta"), _i([3]), _i([0]), 0, 0, 1)
+
+
+# ----------------------------------------- flash_gqa_decode's split prefix
+# csrc/flash_decode.cu cuts the live prefix into chunks of td.SPLIT slots
+# (one CTA each) and merges the chunks' (max, l, acc) in chunk order;
+# td.decode_split_plain is that algorithm in plain PyTorch.  Per-lane
+# cursors at the chunk edges (0, 1, S - 1, S, S + 1, C - 1), under a
+# prompt_cap that masks [length, prompt_cap) and under none (0), in the
+# states decode reaches: a prompt ends at or before its lane's cursor, and
+# a cursor below prompt_cap is the prompt's last slot (the Pallas kernel
+# does not cut the prompt clause at the cursor; history_mask does, so the
+# two differ only outside these states).  Against
+# decode_layer_plain (f32 on the same inputs, the order of the sums alone
+# differs): atol/rtol 1e-5; against the Pallas kernels in interpret mode
+# (f32 inputs, as test_decode_plain_matches_pallas): 2e-3.
+S = td.SPLIT
+SPLIT_CURSORS = [0, 1, S - 1, S, S + 1, 8 * S - 1]
+SPLIT_LENGTHS = [1, 2, 20, 30, 10, 25]
+
+
+def test_split_chunks_follow_the_live_prefix():
+    cap = 8 * S
+    got = td.split_chunks(_i(SPLIT_CURSORS), cap).tolist()
+    assert got == [1, 1, 1, 2, 2, 8]
+    assert td.split_chunks(_i([cap + 5, -1]), cap).tolist() == [8, 1]
+    assert td.decode_workspace(2, 16, 8, 64, 128, "cpu").numel() == 0
+    assert td.decode_workspace(2, 16, 8, cap, 128, "cpu").numel() == \
+        2 * 16 * 8 * 130
+
+
+@pytest.mark.parametrize("prompt_cap", [0, S // 2])
+@pytest.mark.parametrize("h,hkv,dh", [(8, 4, 128), (8, 8, 64), (16, 2, 64)])
+def test_split_plain_matches_plain_and_pallas(prompt_cap, h, hkv, dh):
+    b, cap, n_layers = len(SPLIT_CURSORS), 8 * S, 2
+    rng = np.random.default_rng(prompt_cap + h + dh)
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    k = rng.standard_normal((n_layers, b, hkv, cap, dh)).astype(np.float32)
+    v = rng.standard_normal((n_layers, b, hkv, cap, dh)).astype(np.float32)
+    lengths, cursors = _i(SPLIT_LENGTHS), _i(SPLIT_CURSORS)
+    tq, tk, tv = (_t(a, torch.float32) for a in (q, k, v))
+    got = td.decode_split_plain(tq, tk[1], tv[1], lengths, cursors,
+                                prompt_cap)
+    assert got.shape == (b, h, dh) and got.dtype == torch.float32
+    plain = td.decode_layer_plain(tq, tk[1], tv[1], lengths, cursors,
+                                  prompt_cap)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    jargs = (jnp.asarray(lengths.numpy()), jnp.asarray(cursors.numpy()))
+    one = jd.flash_gqa_decode(jnp.asarray(q), jnp.asarray(k[1]),
+                              jnp.asarray(v[1]), *jargs, prompt_cap,
+                              interpret=True)
+    stacked = jd.flash_gqa_decode_stacked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), *jargs, jnp.int32(1),
+        prompt_cap, interpret=True)
+    for want in (one, stacked):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3,
+                                   rtol=2e-3)
+    # a split of one slot per chunk, and one chunk for the whole cache
+    for split in (1, cap):
+        other = td.decode_split_plain(tq, tk[1], tv[1], lengths, cursors,
+                                      prompt_cap, split=split)
+        np.testing.assert_allclose(other.numpy(), plain.numpy(), atol=1e-5,
+                                   rtol=1e-5)

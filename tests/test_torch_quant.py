@@ -197,6 +197,52 @@ def test_matmul_int4_gate():
         TI.matmul_int4(torch.zeros(1, 256, device="meta"), w)
 
 
+@pytest.mark.parametrize("m,n,k,want", [
+    (1, 2048, 2048, (0, 0)),            # decode: the CUDA-core kernel
+    (TI.TILE_MIN_M - 1, 2048, 2048, (0, 0)),
+    (TI.TILE_MIN_M, 2048, 2048, (1, 8)),     # 32 output tiles: K in 8
+    (32, 4096, 2048, (1, 6)),           # the prompt bucket 32
+    (32, 12288, 2048, (1, 2)),          # 192 tiles: K in 2
+    (33, 2048, 6144, (2, 12)),
+    (128, 12288, 2048, (4, 1)),         # 192 tiles fill the card
+    (129, 2048, 2048, (4, 4)),          # two row tiles of 128
+    (16, 2048, 64, (1, 1)),             # one K step: nothing to split
+])
+def test_matmul_int4_dispatch(m, n, k, want):
+    """plan: which kernel takes which M (the small-M kernel below
+    TILE_MIN_M, then the tensor-core tile kernel at BM = 32 * mi rows) and
+    how far K is split so that the CTAs fill an H100's 132 SMs."""
+    assert TI.plan(m, n, k, 132) == want
+    assert TI.tile_plan(m, n, k, 132)[0] == (1 if m <= 32 else
+                                             2 if m <= 64 else 4)
+    # a card of fewer SMs splits K no further
+    assert TI.tile_plan(m, n, k, 66)[1] <= TI.tile_plan(m, n, k, 132)[1]
+
+
+def test_matmul_int4_gates_by_kernel():
+    """K above MAX_K is refused only where the small-M kernel, which keeps
+    x's rows in shared memory, would take it; unsupported() names it."""
+    k = TI.MAX_K + 128
+    w = {"q4": torch.zeros(64, k // 2, dtype=torch.uint8),
+         "s": torch.ones(64, k // 128)}
+    assert "above" in TI.unsupported(torch.zeros(1, k), w)
+    assert "above" in TI.unsupported(torch.zeros(TI.TILE_MIN_M - 1, k), w)
+    assert TI.unsupported(torch.zeros(TI.TILE_MIN_M, k), w) is None
+    assert TI.unsupported(torch.zeros(2, 3, k), w) is None  # 6 rows: tile
+    assert TI.unsupported(torch.zeros(1, TI.MAX_K), {
+        "q4": torch.zeros(64, TI.MAX_K // 2, dtype=torch.uint8),
+        "s": torch.ones(64, TI.MAX_K // 128)}) is None
+    assert "K=100" in TI.unsupported(
+        torch.zeros(1, 100), {"q4": torch.zeros(8, 50, dtype=torch.uint8),
+                              "s": torch.ones(8, 1)})
+    # a CPU tensor takes the plain version whatever the gate
+    counts = ("launches", "tile_launches", "splitk_launches")
+    before = [getattr(TI.matmul_int4, c) for c in counts]
+    y = TI.matmul_int4(torch.zeros(1, k), w)
+    assert y.shape == (1, 64)
+    assert [getattr(TI.matmul_int4, c) for c in counts] == before
+
+
 @pytest.mark.parametrize("b,hq,hkv,dh,cap,prompt_cap,per_lane", [
     (1, 4, 2, 64, 640, 96, False),
     (2, 8, 4, 128, 1024, 512, False),
