@@ -148,7 +148,7 @@ SERVING_TEXTS = ("On the card",                    # bucket 32
 # predictor's w4a8 numerics (exact integer group dots in the plain
 # version's order), so the same drift classes as the talker step: RMSNorm,
 # projection, feedback and softmax sums in another order (the prefix in
-# 128-slot tiles against the plain version's 512) flip single bf16
+# 64-slot splits against the plain version's 512-slot tiles) flip single bf16
 # roundings, which the next int8 quantization and later layers carry on.
 # Carried from frame to frame, that drift grows (one H100: frame 1's
 # window logits 5-10 % of max apart when it starts from the plain
@@ -166,8 +166,9 @@ SERVING_TEXTS = ("On the card",                    # bucket 32
 # STEP_TOL_LAYER; the 15 window logits, the carried logits and hidden
 # state and the written k/v rows within max(CHUNK_TOL, 2 s) of max
 # |plain|, where s is how far the plain version moves from itself with
-# the prefix in the kernel's 128-slot tiles instead of 512 (an equally
-# valid order; it depends on the plain version alone).  Over a long
+# the prefix in tiles of the kernel's split (chunk_step.SPLIT = 64 slots)
+# instead of 512 (an equally valid order; it depends on the plain version
+# alone).  Over a long
 # prefix one frame is that sensitive: at start 1020, frame 3, the plain
 # version moved 1.05e-1 from itself and the kernel 1.66e-1, while 11 other
 # frames stayed within 6.3e-2 (one H100).  Every other cache slot bit for
@@ -183,8 +184,9 @@ CHUNK_TOL, CHUNK_GAP = 1e-1, 1e-1
 # from the kernel's own state, as check_talker_batched holds the talker
 # step: the kernel's residual entering each layer (gen_chunk_fused's
 # layer_taps) through the plain layer in the kernel's orders
-# (chunk_step.KERNEL_ORDERS: its RMSNorm and q/k-norm sums, its softmax's
-# in-tile sums and its prefix scores, the prefix in 128-slot tiles),
+# (chunk_step.KERNEL_ORDERS: its RMSNorm and q/k-norm sums, its
+# attention's split, combine and merge sums and its score dots, the prefix
+# in 64-slot splits),
 # against the kernel's next residual and its written k/v row.  In torch's
 # orders a flipped rounding (one int8 unit of a GEMV input moves every
 # output a little: 1,500-1,900 of 2,048 elements) moved a layer by up to
@@ -300,7 +302,8 @@ def check_kernels(dev, failures):
         err = (got.float() - want.float()).abs().max().item()
         errs.append(err)
         print(f"[kernel] flash_gqa_prefill_stacked S={s} window={s} "
-              f"length={length} Dh=128: max_abs_err={err:.3e} "
+              f"length={length} Dh=128 grid (CTAs, warps each) "
+              f"{flash_gqa_prefill_stacked.grid}: max_abs_err={err:.3e} "
               f"tol={PREFILL_TOL}")
     q = rnd(1, 2, 16, 64)
     args = (q, *pred_kv, i32(0), i32(0))
@@ -309,7 +312,8 @@ def check_kernels(dev, failures):
     err = (got.float() - want.float()).abs().max().item()
     errs.append(err)
     print(f"[kernel] flash_gqa_prefill_stacked S=2 window=2 Dh=64 "
-          f"(predictor): max_abs_err={err:.3e} tol={PREFILL_TOL}")
+          f"(predictor) grid {flash_gqa_prefill_stacked.grid}: "
+          f"max_abs_err={err:.3e} tol={PREFILL_TOL}")
     # lane refill (serving): R prompts of one bucket prefill into a compact
     # cache of capacity S, window S, ragged lengths
     for b in (8, 32):
@@ -325,9 +329,25 @@ def check_kernels(dev, failures):
             errs.append(err)
             print(f"[kernel] flash_gqa_prefill_stacked B={b} S={s} compact "
                   f"C={s} window={s} lengths {min(lens.tolist())}-"
-                  f"{max(lens.tolist())} Dh=128: max_abs_err={err:.3e} "
+                  f"{max(lens.tolist())} Dh=128 grid "
+                  f"{flash_gqa_prefill_stacked.grid}: max_abs_err={err:.3e} "
                   f"tol={PREFILL_TOL}")
             del kv
+    # a long prompt: S = 1024, window 1024, B = 1, where the dot products
+    # are most of the kernel's work
+    s1k = 1024
+    kv1k = (rnd(1, 1, 8, s1k, 128), rnd(1, 1, 8, s1k, 128))
+    q1k = rnd(1, s1k, 16, 128)
+    args1k = (q1k, *kv1k, i32(1000), i32(0))
+    got = flash_gqa_prefill_stacked(*args1k, 0, s1k, s1k)
+    torch.cuda.synchronize()
+    grid1k = flash_gqa_prefill_stacked.grid
+    want = prefill_attention_plain(*args1k, 0, s1k, s1k)
+    err = (got.float() - want.float()).abs().max().item()
+    errs.append(err)
+    print(f"[kernel] flash_gqa_prefill_stacked S={s1k} window={s1k} "
+          f"length=1000 Dh=128 grid {grid1k}: max_abs_err={err:.3e} "
+          f"tol={PREFILL_TOL}")
     if max(errs) > PREFILL_TOL:
         failures.append("flash_gqa_prefill_stacked disagrees with plain")
     q128 = rnd(1, 128, 16, 128)
@@ -355,15 +375,49 @@ def check_kernels(dev, failures):
     pairs = int(mask.sum())
     b_ms, b_by = bound(nbytes((q128, kl, vl)) + q128.numel() * 2,
                        4 * pairs * 16 * 128, "bf16")
-    print(f"[kernel] flash_gqa_prefill_stacked S=128 per layer: "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, torch sdpa {lib:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by}); device time (CUDA graph of 20 "
-          f"calls) kernel {dev_k:.4f} ms, sdpa {dev_l:.4f} ms "
+    flash_gqa_prefill_stacked(q128, *talker_kv, lens, st, 5, 128, 128)
+    grid128 = flash_gqa_prefill_stacked.grid
+    print(f"[kernel] flash_gqa_prefill_stacked S=128 per layer, grid "
+          f"{grid128}: {ms:.4f} ms, plain {plain:.4f} ms, torch sdpa "
+          f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}); device time (CUDA "
+          f"graph of 20 calls) kernel {dev_k:.4f} ms, sdpa {dev_l:.4f} ms "
           f"({dev_k / dev_l:.2f}x)")
+    # S = 1024: the same timings, one layer
+    ms1k = plain1k = 0.0
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            ms1k += cuda_ms(lambda i: flash_gqa_prefill_stacked(
+                *args1k, 0, s1k, s1k)) / 2
+        else:
+            plain1k += cuda_ms(lambda i: prefill_attention_plain(
+                *args1k, 0, s1k, s1k), 4, 1) / 2
+    mask1k = history_mask(args1k[3], s1k, args1k[4], s1k, s1k)
+    qt1k = q1k.transpose(1, 2)
+    kl1k, vl1k = (t[0, :, :, :s1k] for t in kv1k)
+
+    def prefill_lib_1k(i):
+        return sdpa(qt1k, kl1k, vl1k, attn_mask=mask1k[:, None],
+                    enable_gqa=True)
+
+    lib1k = cuda_ms(prefill_lib_1k)
+    dev_k1k = graph_ms(lambda i: flash_gqa_prefill_stacked(
+        *args1k, 0, s1k, s1k))
+    dev_l1k = graph_ms(prefill_lib_1k)
+    b1k, b1k_by = bound(nbytes((q1k, kl1k, vl1k)) + q1k.numel() * 2,
+                        4 * int(mask1k.sum()) * 16 * 128, "bf16")
+    print(f"[kernel] flash_gqa_prefill_stacked S={s1k} window={s1k} one "
+          f"layer, grid {grid1k}: {ms1k:.4f} ms, plain {plain1k:.4f} ms, "
+          f"torch sdpa {lib1k:.4f} ms, bound {b1k:.5f} ms ({b1k_by}); "
+          f"device time (CUDA graph of 20 calls) kernel {dev_k1k:.4f} ms, "
+          f"sdpa {dev_l1k:.4f} ms ({dev_k1k / dev_l1k:.2f}x)")
     out["flash_gqa_prefill_stacked"] = dict(
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib, device_ms=dev_k,
-        library_device_ms=dev_l)
+        library_device_ms=dev_l, grid_s128=list(grid128),
+        s1024=dict(ms=ms1k, plain_ms=plain1k, library_ms=lib1k,
+                   device_ms=dev_k1k, library_device_ms=dev_l1k,
+                   bound_ms=b1k, bound_by=b1k_by, grid=list(grid1k)))
+    del kv1k, q1k, args1k, mask1k
 
     errs = []
     tol = f"{DECODE_ATOL} + 2^-8*|plain f32|"
@@ -1072,7 +1126,8 @@ def check_chunk(dev, failures):
         errs, flips = [], []
         for f in range(n_frames):
             # frame f of the plain version from the kernel's state after
-            # frame f - 1, on the kernel's codes; again with 128-slot tiles
+            # frame f - 1, on the kernel's codes; again with the prefix in
+            # tiles of the kernel's split
             state = None if f == 0 else runs[f - 1][1:]
             tp_, t128 = [], []
             want = run(cs.gen_chunk_plain, 1, prompt_cap, length, start + f,
@@ -1080,7 +1135,7 @@ def check_chunk(dev, failures):
                        force_codes=codes[:, f:f + 1])
             alt = run(cs.gen_chunk_plain, 1, prompt_cap, length, start + f,
                       zeros[:1], greedy, state=state, taps=t128,
-                      force_codes=codes[:, f:f + 1], prefix_tile=128)
+                      force_codes=codes[:, f:f + 1], prefix_tile=cs.SPLIT)
             got, kt = runs[f], tk[f * 15:(f + 1) * 15]
             picks, mine = want[0][0, 0].cpu(), codes[0, f].cpu()
             for t in range(16):
@@ -1152,7 +1207,8 @@ def check_chunk(dev, failures):
     cos, sin = inputs(n_frames, 32)
     args = (logits0, hidden0, k, v, i32(31), i32(32), cos, sin, zeros,
             greedy, 32)
-    scratch = cs.chunk_scratch(tcfg, pcfg, dev)     # kept, as the engine does
+    scratch = cs.chunk_scratch(tcfg, pcfg, dev, 1, cap)   # kept, as the
+                                                           # engine does
     times = {"plain": 0.0, "kernel": 0.0}
     for order in ("plain", "kernel", "kernel", "plain"):
         if order == "plain":
@@ -1215,17 +1271,15 @@ def check_chunk(dev, failures):
 # swapped in at a time (the diagnosis of ROADMAP Queue C #1): it names the
 # sum whose order moves it.
 REPLAY_ORDERS = ((), ("rms",), ("rms-sum",), ("rms-inv",), ("qk",),
-                 ("qk-sum",), ("qk-inv",), ("softmax",),
-                 ("softmax", "scores-a"), ("softmax", "scores-b"),
-                 ("rms", "qk", "softmax", "scores-a"),
-                 ("rms", "qk", "softmax", "scores-b"))
+                 ("qk-sum",), ("qk-inv",), ("softmax",), ("scores",),
+                 ("softmax", "scores"), ("rms", "qk", "softmax", "scores"))
 
 
 def replay_layer(cfg, w, layer, x, cos, sin, cache_k, cache_v, lengths,
                  start, f, prompt_cap, orders):
-    """chunk_step._talker_layer_plain (w4a8, the prefix in the kernel's
-    128-slot tiles) with the kernel's order for the sums named in
-    `orders` (chunk_step.ORDERS)."""
+    """chunk_step._talker_layer_plain (w4a8; the prefix in 128-slot tiles,
+    or with "softmax" in the kernel's 64-slot splits) with the kernel's
+    order for the sums named in `orders` (chunk_step.ORDERS)."""
     from qwen3_tts_tpu_torch.kernels import chunk_step as cs
     return cs._talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k,
                                   cache_v, lengths, start, f, prompt_cap, 128,
@@ -1284,7 +1338,7 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                        codes):
         """Frame f of lanes `rows`, the talker layer by layer from the
         kernel's own state: the plain layer l in the kernel's orders
-        (chunk_step.KERNEL_ORDERS, the prefix in its 128-slot tiles) from
+        (chunk_step.KERNEL_ORDERS, the prefix in its 64-slot splits) from
         the kernel's residual entering it (xk [B, L + 1, d], layer_taps)
         and the kernel's cache, against the kernel's next residual and its
         written k/v row; the same in torch's orders (128-slot tiles, and
@@ -1447,10 +1501,10 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                                taps=tp_, **kw)
                     alt = run(cs.gen_chunk_plain, 1, st, start + f,
                               prompt_cap, u[f:f + 1, i:i + 1], sampler,
-                              taps=t128, prefix_tile=128, **kw)
+                              taps=t128, prefix_tile=cs.SPLIT, **kw)
                     kord = run(cs.gen_chunk_plain, 1, st, start + f,
                                prompt_cap, u[f:f + 1, i:i + 1], sampler,
-                               prefix_tile=128, orders=cs.KERNEL_ORDERS, **kw)
+                               orders=cs.KERNEL_ORDERS, **kw)
                     kt = [t_[i:i + 1] for t_ in taps[f * 15:(f + 1) * 15]]
                     picks, mine = want[0][0, 0].cpu(), codes[i, f].cpu()
                     for t in range(16):
@@ -1526,7 +1580,7 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                 failures.append(f"gen_chunk_fused B={b} {mode} disagrees")
             del runs, full
         # time per 4-frame chunk (greedy), the kernel's scratch kept
-        scratch = cs.chunk_scratch(tcfg, pcfg, dev, b)
+        scratch = cs.chunk_scratch(tcfg, pcfg, dev, b, cap)
         zeros = torch.zeros(n_frames, b, device=dev)
         p = pos.long()[None, :] + torch.arange(n_frames, device=dev)[:, None]
         cos, sin = (t_.float().contiguous() for t_ in talker_lib._rope_tables(

@@ -15,14 +15,16 @@
 // lane), and applies the final norm (kept as the f32 hidden) and the int8
 // codec head over rows [0, 2160) for the next frame's logits.  It rounds to
 // bf16 where the Pallas kernel and kernels/chunk_step.gen_chunk_plain do,
-// but its f32 sums run in its lanes' order, and the cache prefix goes in
-// 128-slot tiles (the plain version and the JAX kernel: 512), so the online
-// softmax rescales at other points; chip_smoke.py holds the result to that
-// drift.  Every lane of a batched launch computes exactly what the one-lane
-// launch computes on that lane's inputs (bit for bit; chip_smoke.py checks
-// it): the JAX kernel's batched loop scores q.k and p.v in bf16, a TPU
-// matrix-unit artefact that is not carried over, nor is its bf16 proj_w at
-// b >= 24.
+// but its f32 sums run in its own order: the talker's cache prefix goes in
+// SPLIT = 64-slot splits combined in split order (the plain version and the
+// JAX kernel: 512-slot tiles), so the online softmax rescales at other
+// points; chip_smoke.py holds the result to that drift, and the talker
+// layer by layer to the plain layer in these orders
+// (chunk_step.KERNEL_ORDERS).  Every lane of a batched launch computes
+// exactly what the one-lane launch computes on that lane's inputs (bit for
+// bit; chip_smoke.py checks it): the JAX kernel's batched loop scores q.k
+// and p.v in bf16, a TPU matrix-unit artefact that is not carried over, nor
+// is its bf16 proj_w at b >= 24.
 //
 // Design.  The TPU kernel runs frames and layer groups as a sequential grid
 // on one core; Hopper runs blocks in parallel and carries nothing between
@@ -42,20 +44,42 @@
 //                     projects rows of h1024 = hidden . proj_w^T + proj_b
 //                     (f32) for its lanes;
 //   predictor         per token t and layer: qkv GEMV (RMSNorm + int8
-//                     prologue recomputed by every block), attention (one
-//                     group of 64 threads per (lane, kv head), named
-//                     barriers), wo + residual, gate_up + SwiGLU, down +
+//                     prologue recomputed by every block); attention + wo
+//                     + residual in ONE phase: every block that has wo rows
+//                     computes its lanes' context of token t itself
+//                     (pred_ctx_block: norms and rope a warp per (lane, kv
+//                     head), scores a thread per (item, slot), softmax a
+//                     thread per (item, head), P.V a thread per (item,
+//                     columns); slots < t from pk/pv, slot t from its own
+//                     shared copy) into the wo GEMV's staged input rows
+//                     (no round trip through memory), and one block per
+//                     lane writes slot t's k/v row to pk/pv, read only from
+//                     token t + 1's phase on; gate_up + SwiGLU, down +
 //                     residual; after token t >= 1 the final norm and the
 //                     2048-row int8 window GEMV, each block writing its
 //                     rows' best (value, lowest index) per lane to scratch;
 //                     the next phase reduces those in every block (no extra
 //                     barrier) and gathers the next input row from ctab_pred;
 //   feedback          code_15 as above, then x = bf16(sum of 16 rows + pad);
-//   talker            per layer: qkv, attention (one group of 128 threads
-//                     per (lane, kv head): q/k norm + rope, the in-place k/v
-//                     write, the cache prefix [0, start) in 128-slot tiles,
-//                     then the chunk's own slots start .. start + f as one
-//                     more merge: the JAX order), wo, gate_up, down;
+//   talker            per layer: qkv; attention split over the whole grid:
+//                     work items (lane, kv head, prefix split of SPLIT
+//                     slots), one warp each, spread over the blocks first;
+//                     each item recomputes its q heads' norm and rope,
+//                     scores its slots with 8 lanes per slot (16 dims a
+//                     lane, then a 3-step butterfly), takes the split's
+//                     softmax and P.V, and writes (max, sum, acc[Dh]) per
+//                     query head to scratch; the last warp to finish a
+//                     (lane, kv head) (an arrival counter after
+//                     __threadfence; it sets the counter back to 0 for the
+//                     next layer) combines the splits in split order,
+//                     writes the frame's k/v row at slot start + f once,
+//                     then merges the chunk's own slots start .. start + f
+//                     as one last merge (the JAX order); wo, gate_up, down.
+//                     The last-arriver combine, not one in the wo phase's
+//                     prologue: that prologue runs in every block, so each
+//                     block would read every split of its lanes (up to
+//                     16 x 8 x 2 x 130 floats a lane) to combine what one
+//                     warp combines here once;
 //   codec head        final norm -> hidden (f32), int8 head -> logits.
 // Data that other blocks wrote during the launch is read with ld.global.cg
 // (L2; L1 is not coherent across SMs); weights with ordinary loads.
@@ -69,18 +93,20 @@
 // tile's 8 rows once per phase and reads each weight column once for all 8
 // (w4a8.cuh's NB-row GEMV, as talker_step.cu runs it); the B / 8 groups
 // read the same columns at about the same time, mostly from L2.  Eight
-// int8 + bf16 rows of K = 6144 and their group dots take 156 KB of dynamic
-// shared memory, so that kernel runs one block per SM.  Attention phases
-// spread (lane, kv head) pairs over all blocks; the argmax scratch holds
-// one slot per (lane, block).
+// int8 + bf16 rows of K = 6144 and their group dots take 156 KB of
+// dynamic shared memory, so that kernel runs one block per SM.  The
+// predictor's attention runs in each block for its tile's 8 lanes (its
+// scratch inside the GEMV region, after the staged rows); the talker's
+// items span every block; the argmax scratch holds one slot per (lane,
+// block).
 //
-// Barriers per frame: 1 + 16 x 6 x 5 + 15 + 1 + 28 x 5 + 1 = 638 at full
-// width, at every B.  Measured on an H100 at B = 1 (chip_smoke.py reads
-// block 0's clock at each barrier through `clocks`): 5.3 ms per frame, the
-// lightest phases (the predictor's wo) ~4 us each, so barrier + prologue
-// cost about 2.5 ms of a frame; the attention phases, which keep only 2-4
-// blocks busy, take 11 us (predictor) and 27 us (talker) each, 1.8 ms.
-// That is the price of right-and-simple here.
+// Barriers per frame: 1 + 16 x 6 x 4 + 15 + 1 + 28 x 5 + 1 = 542 at full
+// width, at every B (638 before the predictor's attention went into its
+// wo phase).  Measured on an H100 at B = 1 before that (chip_smoke.py
+// reads block 0's clock at each barrier through `clocks`): 5.3 ms per
+// frame, the lightest phases (the predictor's wo) ~4 us each; the
+// attention phases, which kept only 2-4 blocks busy, took 11 us
+// (predictor) and 27 us (talker) each.
 //
 // What bounds it on the card: bytes.  Per frame at full width, the
 // talker's 0.70 GB of int4 weights and 22 MB of bf16 scales (0.216 ms at
@@ -88,10 +114,10 @@
 // read once if the 50 MB L2 keeps them over the 16 tokens (0.012 ms) or
 // 16 times if not (0.19 ms), and 31 MB of lm-head windows (0.009 ms):
 // 0.24-0.42 ms per frame, plus barrier latency, plus at B lanes each lane's
-// visible cache prefix.  Later work, not here: wgmma / TMA weight
-// streaming, an L2 access-policy window that pins the predictor, split-K
-// attention over more blocks, fewer barriers (fusing phases whose data a
-// block can recompute).
+// visible cache prefix.  Later work, not here: the GEMV blocks' per-block
+// 8-row prologue, the B / 8 weight re-reads, wgmma / TMA weight streaming,
+// an L2 access-policy window that pins the predictor, fewer barriers in the
+// talker.
 
 #include <algorithm>
 #include <climits>
@@ -104,7 +130,6 @@ using bf16 = __nv_bfloat16;
 using qtts::bf16r;
 using qtts::bf2f;
 using qtts::ld_bf;
-using qtts::MAX_G;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
@@ -118,7 +143,9 @@ constexpr int TDH = 128;           // talker head_dim
 constexpr int PDH = 64;            // predictor head_dim
 constexpr int ROWS = 8;            // lanes per row tile of the batched form
 constexpr int MAX_B = 32;
-constexpr int N_PTRS = 65, N_INTS = 21, N_FLTS = 7;
+constexpr int CG = 2;              // query heads per kv head (both models)
+constexpr int SPLIT = 64;          // talker prefix slots per work item
+constexpr int N_PTRS = 66, N_INTS = 21, N_FLTS = 7;
 constexpr long long BARRIER_TIMEOUT = 1LL << 34;   // SM cycles, ~8 s
 
 enum { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
@@ -150,7 +177,10 @@ struct Args {
   int* codes; float *logits_out, *hidden_out, *taps;
   bf16* xtaps;                     // optional, batched form: [B, F, L + 1, D]
   // scratch
-  bf16 *x, *qkv, *ctx, *ff, *px, *pqkv, *pctx, *pff, *pk, *pv;
+  bf16 *x, *qkv, *ctx, *ff, *px, *pqkv, *pff, *pk, *pv;
+  float* part;                     // talker splits: acc [B*Hkv, NS, CG, Dh]
+                                   //   then (max, sum) [B*Hkv, NS, CG, 2]
+  unsigned* arrive;                // [B * Hkv] splits done, 0 between phases
   float* best_v; int* best_i;      // one lane: [blocks]; B: [B, blocks]
   unsigned* barrier;               // [arrivals, check-outs], 0 at launch
   long long* trace;                // optional: phase clocks of block 0
@@ -160,6 +190,14 @@ struct Args {
   float t_eps, p_eps, temperature, top_k, top_p, t_scale, p_scale;
   // the batched form's shared-memory layout (set by the launcher)
   int kmax, gd_ints;
+};
+
+// Per-warp scratch of the talker's split attention (talker_attn).
+struct TalkWarp {
+  float q[CG][TDH];                // normed, roped q heads times the scale
+  float s[CG][SPLIT];              // a split's scores, then its p
+  float k[TDH];                    // the frame's k row (bf16 values)
+  float v[TDH];                    // and its v row
 };
 
 struct GemvSmem {
@@ -174,11 +212,17 @@ struct RowSmem {
   float bv[WARPS];
   int bi[WARPS];
 };
+// Floats of the predictor attention's shared scratch for ni (lane, kv
+// head) items (pred_ctx_block): q [ni, CG, PDH], k [ni, PDH], v [ni, PDH],
+// scores then p [ni, CG, N_TOKENS], sums [ni, CG].
+__host__ __device__ inline size_t pred_attn_floats(int ni) {
+  return (size_t)ni * (CG * PDH + 2 * PDH + CG * N_TOKENS + CG);
+}
+
 union Smem {
   GemvSmem g;
   RowSmem r;
-  qtts::AttnScratch<TDH> ta[THREADS / TDH];
-  qtts::AttnScratch<PDH> pa[THREADS / PDH];
+  TalkWarp tw[WARPS];
 };
 
 __device__ __forceinline__ bf16* xb(Smem& sm) {
@@ -416,14 +460,19 @@ __device__ int grid_argmax(const Args& a, float* red, int* ired) {
 // ------------------------------------------------------------------ phases
 // dst[n] for n < N (grid-stride over output columns, one warp each): the
 // w4a8 product of the (normed) input row with column n (and n + N for the
-// SwiGLU pair), then the epilogue; the talker_step.cu GEMV body.
+// SwiGLU pair), then the epilogue; the talker_step.cu GEMV body.  in ==
+// nullptr: the input row is already staged in xs_raw (not normed).
 template <int R, bool RMS, int EPI, typename S>
 __device__ void gemv(const bf16* in, const float* norm_w, float eps, int K,
                      const uint8_t* wq, const S* ws, int N, bf16* dst,
                      Smem& sm, float* red) {
-  qtts::quantize_rows<1, RMS, THREADS, true>(
-      in, norm_w, K, eps, reinterpret_cast<bf16*>(sm.g.xs_raw), sm.g.xq,
-      sm.g.sx, red);
+  if (in == nullptr)
+    qtts::quantize_staged<THREADS>(K, reinterpret_cast<bf16*>(sm.g.xs_raw),
+                                   sm.g.xq, sm.g.sx, red);
+  else
+    qtts::quantize_rows<1, RMS, THREADS, true>(
+        in, norm_w, K, eps, reinterpret_cast<bf16*>(sm.g.xs_raw), sm.g.xq,
+        sm.g.sx, red);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int* gw = sm.g.gd + warp * R * (K / qtts::W4_GROUP);
@@ -480,28 +529,590 @@ __device__ void sample_project(const Args& a, int f, Smem& sm, float* red,
   }
 }
 
-// Predictor attention of token `tok`, layer l: one group of PDH threads per
-// kv head; the context goes out in the c-major head order of wo's rows
-// (position c * PHkv + j for head j * G + c).
-__device__ void pred_attn(const Args& a, int tok, int l, Smem& sm) {
-  constexpr int GPB = THREADS / PDH;
-  const int grp = threadIdx.x / PDH;
-  const int t = threadIdx.x % PDH;
-  const int G = a.PH / a.PHkv;
-  for (int kvh = blockIdx.x * GPB + grp; kvh < a.PHkv;
-       kvh += gridDim.x * GPB) {
-    const size_t head = ((size_t)l * a.PHkv + kvh) * N_TOKENS * PDH;
-    float c[MAX_G];
-    qtts::token_attend_g<PDH, true>(
-        a.pqkv, a.PH, a.PHkv, kvh, G, a.p_qn + (size_t)l * PDH,
-        a.p_kn + (size_t)l * PDH, a.pcos + (size_t)tok * PDH,
-        a.psin + (size_t)tok * PDH, a.p_eps, a.pk + head, a.pv + head, tok,
-        a.p_scale, sm.pa[grp], c, t, 1 + grp);
+// ------------------------------------------------------------- attention
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G)
-        a.pctx[((size_t)g * a.PHkv + kvh) * PDH + t] = __float2bfloat16_rn(c[g]);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The predictor's attention of token tok, layer l, for lanes lane0 ..
+// lane0 + NB - 1, on the whole block: the G <= CG query heads' context
+// (bf16) of each (lane, kv head) item into the lane's row of xs (stride
+// PH * PDH) at the c-major positions of wo's input (position c * PHkv +
+// kvh for head kvh * G + c); with `write`, token tok's k/v rows into slot
+// tok of pk/pv (one block per lane writes; every block keeps its own copy
+// in the scratch ps, pred_attn_floats(NB * PHkv) floats, and reads only
+// slots < tok, written in earlier phases).  Four steps, each a loop of
+// independent pieces over the block's threads, a barrier between them:
+// 1. q/k norms and rope, one warp per item (norm_rope_heads_g's
+//    arithmetic; lane holds dims lane and lane + 32, rotate_half's pairs;
+//    the loads of the warp's items first);
+// 2. scores, one thread per (item, slot): q . k by fma in dim order, times
+//    the scale (slots > tok masked);
+// 3. softmax, one thread per (item, head): max, p = exp(s - max), the sum
+//    of p in slot order;
+// 4. P.V, one thread per (item, DC columns): fma over the slots in order.
+// Each item's arithmetic is the same whatever NB, so a batched launch's
+// lanes equal the one-lane launch's.
+template <int NB>
+__device__ void pred_ctx_block(const Args& a, int lane0, int tok, int l,
+                               bool write, float* ps, bf16* xs) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int G = a.PH / a.PHkv;
+  const int NI = NB * a.PHkv;
+  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH, pdq = a.PH * PDH;
+  float* qs = ps;                                   // [NI, CG, PDH]
+  float* ks = qs + (size_t)NI * CG * PDH;           // [NI, PDH]
+  float* vs = ks + (size_t)NI * PDH;                // [NI, PDH]
+  float* ss = vs + (size_t)NI * PDH;                // [NI, CG, N_TOKENS]
+  float* sums = ss + (size_t)NI * CG * N_TOKENS;    // [NI, CG]
+  const float* cs = a.pcos + (size_t)tok * PDH;
+  const float* sn = a.psin + (size_t)tok * PDH;
+  auto kv_head = [&](int it) {                      // item it = b * PHkv + kvh
+    return (((size_t)(lane0 + it / a.PHkv) * a.LP + l) * a.PHkv +
+            it % a.PHkv) * N_TOKENS * PDH;
+  };
+  // ---- 1. norms and rope: IG items of the warp at a time, their rows
+  // loaded first
+  constexpr int IG = NB < 4 ? NB : 4;
+  for (int it0 = warp; it0 < NI; it0 += IG * WARPS) {
+    float raw[IG][CG + 1][2], rv[IG][2];
+#pragma unroll
+    for (int r = 0; r < IG; ++r) {
+      const int it = it0 + r * WARPS;
+      if (it < NI) {
+        const int kvh = it % a.PHkv;
+        const bf16* row = a.pqkv + (size_t)(lane0 + it / a.PHkv) * pnqkv;
+#pragma unroll
+        for (int h = 0; h <= CG; ++h) {          // q heads h < G; k at CG
+          const bool live = h == CG || h < G;
+          const bf16* src =
+              row + (size_t)(h == CG ? a.PH + kvh : kvh * G + h) * PDH;
+          raw[r][h][0] = live ? ld_bf<true>(src + lane) : 0.f;
+          raw[r][h][1] = live ? ld_bf<true>(src + lane + 32) : 0.f;
+        }
+        const bf16* vsrc = row + (size_t)(a.PH + a.PHkv + kvh) * PDH;
+        rv[r][0] = ld_bf<true>(vsrc + lane);
+        rv[r][1] = ld_bf<true>(vsrc + lane + 32);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < IG; ++r) {
+      const int it = it0 + r * WARPS;
+      if (it >= NI) continue;
+#pragma unroll
+      for (int h = 0; h <= CG; ++h) {
+        const float r0 = raw[r][h][0], r1 = raw[r][h][1];
+        const float sq = __fadd_rn(warp_sum(__fmul_rn(r0, r0)),
+                                   warp_sum(__fmul_rn(r1, r1)));
+        const float inv = 1.0f / sqrtf(sq / (float)PDH + a.p_eps);
+        const float* nw = (h == CG ? a.p_kn : a.p_qn) + (size_t)l * PDH;
+        const float x0 = bf16r(__fmul_rn(__fmul_rn(r0, inv), nw[lane]));
+        const float x1 = bf16r(__fmul_rn(__fmul_rn(r1, inv), nw[lane + 32]));
+        float* dst = h == CG ? ks + (size_t)it * PDH
+                             : qs + ((size_t)it * CG + h) * PDH;
+        dst[lane] = bf16r(__fadd_rn(__fmul_rn(x0, cs[lane]),
+                                    __fmul_rn(-x1, sn[lane])));
+        dst[lane + 32] = bf16r(__fadd_rn(__fmul_rn(x1, cs[lane + 32]),
+                                         __fmul_rn(x0, sn[lane + 32])));
+      }
+      vs[(size_t)it * PDH + lane] = rv[r][0];
+      vs[(size_t)it * PDH + lane + 32] = rv[r][1];
+      if (write) {
+        __syncwarp();
+        bf16* kr = a.pk + kv_head(it) + (size_t)tok * PDH;
+        bf16* vr = a.pv + kv_head(it) + (size_t)tok * PDH;
+        kr[lane] = __float2bfloat16_rn(ks[(size_t)it * PDH + lane]);
+        kr[lane + 32] = __float2bfloat16_rn(ks[(size_t)it * PDH + lane + 32]);
+        vr[lane] = __float2bfloat16_rn(rv[r][0]);
+        vr[lane + 32] = __float2bfloat16_rn(rv[r][1]);
+      }
+    }
   }
+  __syncthreads();
+  // ---- 2. scores (the next pair's k row loaded during this pair's dots)
+  auto load_k = [&](int pr, uint4 (&u)[PDH / 8]) {
+    const int it = pr / N_TOKENS, j = pr % N_TOKENS;
+    const bool g_ = pr < NI * N_TOKENS && j < tok;
+    const bf16* kr = a.pk + (g_ ? kv_head(it) + (size_t)j * PDH : 0);
+#pragma unroll
+    for (int i = 0; i < PDH / 8; ++i)
+      u[i] = g_ ? qtts::ld_16<true>(kr + i * 8) : make_uint4(0u, 0u, 0u, 0u);
+  };
+  uint4 un[PDH / 8];
+  load_k(tid, un);
+  for (int pr = tid; pr < NI * N_TOKENS; pr += THREADS) {
+    const int it = pr / N_TOKENS, j = pr % N_TOKENS;
+    uint4 u[PDH / 8];
+#pragma unroll
+    for (int i = 0; i < PDH / 8; ++i) u[i] = un[i];
+    load_k(pr + THREADS, un);
+    float* srow = ss + (size_t)it * CG * N_TOKENS + j;   // head g: g * 16
+    if (j > tok) {
+#pragma unroll
+      for (int g = 0; g < CG; ++g) srow[g * N_TOKENS] = qtts::NEG;
+      continue;
+    }
+    const float* qi = qs + (size_t)it * CG * PDH;
+    const float* ki = ks + (size_t)it * PDH;
+    float acc[CG];
+#pragma unroll
+    for (int g = 0; g < CG; ++g) acc[g] = 0.f;
+#pragma unroll
+    for (int i = 0; i < PDH / 8; ++i) {
+      float kf[8];
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f2 = __bfloat1622float2(h2[e]);
+        kf[2 * e] = j < tok ? f2.x : ki[i * 8 + 2 * e];
+        kf[2 * e + 1] = j < tok ? f2.y : ki[i * 8 + 2 * e + 1];
+      }
+#pragma unroll
+      for (int g = 0; g < CG; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[g] = fmaf(qi[g * PDH + i * 8 + e], kf[e], acc[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < CG; ++g)
+      srow[g * N_TOKENS] = __fmul_rn(acc[g], a.p_scale);
+  }
+  __syncthreads();
+  // ---- 3. softmax
+  for (int rw = tid; rw < NI * CG; rw += THREADS) {
+    if (rw % CG >= G) continue;
+    float* srow = ss + (size_t)rw * N_TOKENS;
+    float mx = qtts::NEG;
+    for (int j = 0; j <= tok; ++j) mx = fmaxf(mx, srow[j]);
+    float sum = 0.f;
+    for (int j = 0; j <= tok; ++j) {
+      const float p = expf(srow[j] - mx);
+      srow[j] = p;
+      sum += p;
+    }
+    sums[rw] = sum;
+  }
+  __syncthreads();
+  // ---- 4. P.V: DC columns a thread, the v rows of JB slots loaded first
+  constexpr int DC = NB == 1 ? 4 : 8;
+  constexpr int JB = NB == 1 ? N_TOKENS : 8;
+  constexpr int NCH = PDH / DC;
+  for (int o = tid; o < NI * NCH; o += THREADS) {
+    const int it = o / NCH, d0 = (o % NCH) * DC;
+    const bf16* vb = a.pv + kv_head(it) + d0;
+    const float* vi = vs + (size_t)it * PDH + d0;
+    const float* pi = ss + (size_t)it * CG * N_TOKENS;
+    float acc[CG][DC];
+#pragma unroll
+    for (int g = 0; g < CG; ++g)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) acc[g][e] = 0.f;
+    for (int j0 = 0; j0 <= tok; j0 += JB) {
+      uint2 u[JB][DC / 4];
+#pragma unroll
+      for (int q = 0; q < JB; ++q)
+#pragma unroll
+        for (int c = 0; c < DC / 4; ++c)
+          u[q][c] = j0 + q < tok
+                        ? __ldcg(reinterpret_cast<const uint2*>(
+                              vb + (size_t)(j0 + q) * PDH + 4 * c))
+                        : make_uint2(0u, 0u);
+#pragma unroll
+      for (int q = 0; q < JB; ++q) {
+        const int j = j0 + q;
+        if (j > tok) break;
+        float vf[DC];
+#pragma unroll
+        for (int c = 0; c < DC / 4; ++c) {
+          const __nv_bfloat162* h2 =
+              reinterpret_cast<const __nv_bfloat162*>(&u[q][c]);
+          const float2 va = __bfloat1622float2(h2[0]);
+          const float2 vb2 = __bfloat1622float2(h2[1]);
+          vf[4 * c] = j < tok ? va.x : vi[4 * c];
+          vf[4 * c + 1] = j < tok ? va.y : vi[4 * c + 1];
+          vf[4 * c + 2] = j < tok ? vb2.x : vi[4 * c + 2];
+          vf[4 * c + 3] = j < tok ? vb2.y : vi[4 * c + 3];
+        }
+#pragma unroll
+        for (int g = 0; g < CG; ++g) {
+          const float p = pi[g * N_TOKENS + j];
+#pragma unroll
+          for (int e = 0; e < DC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+        }
+      }
+    }
+    const int bl = it / a.PHkv, kvh = it % a.PHkv;
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      if (g >= G) break;
+      const float den = fmaxf(sums[(size_t)it * CG + g], 1e-30f);
+      bf16* c = xs + (size_t)bl * pdq + ((size_t)g * a.PHkv + kvh) * PDH + d0;
+#pragma unroll
+      for (int e = 0; e < DC; ++e) c[e] = __float2bfloat16_rn(acc[g][e] / den);
+    }
+  }
+  __syncthreads();
+}
+
+// The talker's q heads and k head of (lane b, kv head kvh) at frame f,
+// layer l, on one warp: norm_rope_heads_g's arithmetic (its sums of
+// squares in the same order: lane holds dims lane + 32 i, each set's
+// butterfly, then the sets in order), q times the score scale, into w.q;
+// the k row (roped) and the v row into w.k and w.v.
+__device__ void talker_qk_warp(const Args& a, int b, int kvh, int f, int l,
+                               TalkWarp& w) {
+  const int lane = threadIdx.x & 31;
+  const int G = a.H / a.Hkv;
+  const int nqkv = (a.H + 2 * a.Hkv) * TDH;
+  const bf16* row = a.qkv + (size_t)b * nqkv;
+  const float* cs = a.cos + ((size_t)f * a.B + b) * TDH;
+  const float* sn = a.sin + ((size_t)f * a.B + b) * TDH;
+  // every head's row loaded first: q heads h < G, the k head at CG
+  float rr[CG + 1][4], vr[4];
+#pragma unroll
+  for (int h = 0; h <= CG; ++h) {
+    const bool live = h == CG || h < G;
+    const bf16* src = row + (size_t)(h == CG ? a.H + kvh : kvh * G + h) * TDH;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rr[h][i] = live ? ld_bf<true>(src + lane + 32 * i) : 0.f;
+  }
+  const bf16* vsrc = row + (size_t)(a.H + a.Hkv + kvh) * TDH;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) vr[i] = ld_bf<true>(vsrc + lane + 32 * i);
+#pragma unroll
+  for (int h = 0; h <= CG; ++h) {
+    if (h < CG && h >= G) continue;
+    const bool is_k = h == CG;
+    const float* nw = (is_k ? a.t_kn : a.t_qn) + (size_t)l * TDH;
+    float x[4];
+    float ss = warp_sum(__fmul_rn(rr[h][0], rr[h][0]));
+#pragma unroll
+    for (int i = 1; i < 4; ++i)
+      ss = __fadd_rn(ss, warp_sum(__fmul_rn(rr[h][i], rr[h][i])));
+    const float inv = 1.0f / sqrtf(ss / (float)TDH + a.t_eps);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = bf16r(__fmul_rn(__fmul_rn(rr[h][i], inv), nw[lane + 32 * i]));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {              // dim d < 64 pairs with d + 64
+      const int d = lane + 32 * i;
+      const float rot = i < 2 ? -x[i + 2] : x[i - 2];
+      const float y =
+          bf16r(__fadd_rn(__fmul_rn(x[i], cs[d]), __fmul_rn(rot, sn[d])));
+      if (is_k)
+        w.k[d] = y;
+      else
+        w.q[h][d] = __fmul_rn(y, a.t_scale);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) w.v[lane + 32 * i] = vr[i];
+  __syncwarp();
+}
+
+// Scores of n <= SPLIT slots, slot j's k row at krow(j) (bf16, or the
+// warp's own w.k where own(j)), into w.s[g][j] (valid(j) ? score : NEG):
+// 8 lanes per slot, 4 slots a pass; lane part p dots dims 16p .. 16p + 15
+// in order (one fma each), then the 8 lanes' butterfly (xor 4, 2, 1).
+// kernels/chunk_step.py _scores_kernel_order.
+// The k rows of SB passes are loaded before their products.
+template <typename RowFn, typename OwnFn, typename ValidFn>
+__device__ __forceinline__ void score_slots(TalkWarp& w, int G, int n,
+                                            RowFn krow, OwnFn own,
+                                            ValidFn valid) {
+  constexpr int SB = 4;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane >> 3, part = lane & 7;
+  for (int j0 = 0; j0 < n; j0 += 4 * SB) {
+    uint4 u[SB][2];
+#pragma unroll
+    for (int q = 0; q < SB; ++q) {
+      const int j = j0 + 4 * q + sub;
+      if (j < n && !own(j)) {
+        const bf16* kr = krow(j) + part * 16;
+        u[q][0] = qtts::ld_16<true>(kr);
+        u[q][1] = qtts::ld_16<true>(kr + 8);
+      } else {
+        u[q][0] = u[q][1] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < SB; ++q) {
+      const int j = j0 + 4 * q + sub;
+      float kf[16];
+      if (j < n && own(j)) {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) kf[e] = w.k[part * 16 + e];
+      } else {
+#pragma unroll
+        for (int hv = 0; hv < 2; ++hv) {
+          const __nv_bfloat162* h2 =
+              reinterpret_cast<const __nv_bfloat162*>(&u[q][hv]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f2 = __bfloat1622float2(h2[e]);
+            kf[hv * 8 + 2 * e] = f2.x;
+            kf[hv * 8 + 2 * e + 1] = f2.y;
+          }
+        }
+      }
+      float sc[CG];
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        sc[g] = 0.f;
+        if (g < G) {
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            sc[g] = fmaf(w.q[g][part * 16 + e], kf[e], sc[g]);
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1)
+          sc[g] = __fadd_rn(sc[g], __shfl_xor_sync(0xffffffffu, sc[g], o));
+        if (part == 0 && j < n && g < G)
+          w.s[g][j] = valid(j) ? sc[g] : qtts::NEG;
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// acc[g][i] = fma(p_g[j], v[j][4 lane + i], acc[g][i]) for slots j < n in
+// order, p from
+// w.s, v row j at vrow(j) (bf16, or the warp's own w.v where own(j)); the
+// rows of 8 slots are loaded before their products.
+template <typename RowFn, typename OwnFn>
+__device__ __forceinline__ void pv_slots(const TalkWarp& w, int n,
+                                         RowFn vrow, OwnFn own,
+                                         float (&acc)[CG][4]) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = 0; j0 < n; j0 += 8) {
+    uint2 u[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + q;
+      u[q] = j < n && !own(j)
+                 ? __ldcg(reinterpret_cast<const uint2*>(vrow(j) + 4 * lane))
+                 : make_uint2(0u, 0u);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + q;
+      if (j >= n) break;
+      float vf[4];
+      if (own(j)) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vf[i] = w.v[4 * lane + i];
+      } else {
+        const __nv_bfloat162* h2 =
+            reinterpret_cast<const __nv_bfloat162*>(&u[q]);
+        const float2 va = __bfloat1622float2(h2[0]);
+        const float2 vb = __bfloat1622float2(h2[1]);
+        vf[0] = va.x;
+        vf[1] = va.y;
+        vf[2] = vb.x;
+        vf[3] = vb.y;
+      }
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        const float p = w.s[g][j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[g][i] = fmaf(p, vf[i], acc[g][i]);
+      }
+    }
+  }
+}
+
+// Talker attention of frame f, layer l, split over the whole grid: items
+// (lane b, kv head, split s of the cache prefix [0, start)), one warp
+// each, items spread over the blocks first.  Per split: its scores
+// (score_slots; slot c visible iff c < length or c >= prompt_cap), its
+// max m, p = exp(s - m) (masked: 0 exactly), l = the 32 lanes' butterfly
+// of p[lane] + p[lane + 32], acc = P.V in slot order by fma (lane: columns
+// 4 lane .. 4 lane + 3).  With more than one split each writes (acc, m, l)
+// to a.part; the warp that finishes last (a.arrive) combines them in split
+// order: M = max m_s, acc = sum_s acc_s exp(m_s - M) by fma, l likewise.
+// That warp then writes the frame's k/v row at slot start + f and merges
+// the chunk's own slots start .. start + f (always visible) as one last
+// online-softmax step, the JAX order.  Context out in head order.
+__device__ void talker_attn(const Args& a, int f, int l, int start,
+                            TalkWarp* tw) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  TalkWarp& w = tw[warp];
+  const int G = a.H / a.Hkv;
+  const int dq = a.H * TDH;
+  const int end = min(start, a.C);             // the cache prefix
+  const int ns = max(1, (end + SPLIT - 1) / SPLIT);
+  const int nsmax = (a.C + SPLIT - 1) / SPLIT;
+  const size_t n_heads = (size_t)a.B * a.Hkv * nsmax * CG;
+  float* part_acc = a.part;
+  float* part_ml = a.part + n_heads * TDH;
+  const int n_items = a.B * a.Hkv * ns;
+  for (int it = blockIdx.x + warp * gridDim.x; it < n_items;
+       it += gridDim.x * WARPS) {
+    const int s = it % ns, bh = it / ns;
+    const int b = bh / a.Hkv, kvh = bh % a.Hkv;
+    const int length = a.lengths[b];
+    const size_t head = ((size_t)l * a.B + b) * a.Hkv + kvh;
+    bf16* kp = a.cache_k + head * a.C * TDH;
+    bf16* vp = a.cache_v + head * a.C * TDH;
+    talker_qk_warp(a, b, kvh, f, l, w);
+    // ---- split s: slots [c0, c0 + n)
+    const int c0 = s * SPLIT;
+    const int n = max(0, min(SPLIT, end - c0));
+    const int pc = a.prompt_cap;
+    score_slots(
+        w, G, n, [&](int j) { return kp + (size_t)(c0 + j) * TDH; },
+        [](int) { return false; },
+        [&](int j) { return c0 + j < length || c0 + j >= pc; });
+    float m[CG], ls[CG], acc[CG][4];
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      const float sa = lane < n ? w.s[g][lane] : qtts::NEG;
+      const float sb = lane + 32 < n ? w.s[g][lane + 32] : qtts::NEG;
+      float mx = fmaxf(sa, sb);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float pa = sa > qtts::NEG ? expf(sa - mx) : 0.f;
+      const float pb = sb > qtts::NEG ? expf(sb - mx) : 0.f;
+      m[g] = mx;
+      ls[g] = warp_sum(__fadd_rn(pa, pb));
+      __syncwarp();
+      if (g < G) {
+        w.s[g][lane] = pa;
+        w.s[g][lane + 32] = pb;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
+    }
+    __syncwarp();
+    pv_slots(w, n, [&](int j) { return vp + (size_t)(c0 + j) * TDH; },
+             [](int) { return false; }, acc);
+    if (ns > 1) {
+      // ---- this split's partials out; the last of the item's splits
+      // combines them
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        if (g >= G) continue;
+        const size_t r = ((size_t)bh * nsmax + s) * CG + g;
+        *reinterpret_cast<float4*>(part_acc + r * TDH + 4 * lane) =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        if (lane == 0) {
+          part_ml[r * 2] = m[g];
+          part_ml[r * 2 + 1] = ls[g];
+        }
+      }
+      __threadfence();
+      __syncwarp();
+      unsigned old = 0;
+      if (lane == 0) old = atomicAdd(a.arrive + bh, 1u);
+      old = __shfl_sync(0xffffffffu, old, 0);
+      if (old != (unsigned)ns - 1) continue;
+      __threadfence();
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        if (g >= G) continue;
+        const size_t r0 = (size_t)bh * nsmax * CG + g;
+        float mm = qtts::NEG;
+#pragma unroll 4
+        for (int z = 0; z < ns; ++z)
+          mm = fmaxf(mm, __ldcg(part_ml + (r0 + (size_t)z * CG) * 2));
+        float l_ = 0.f, ac[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int z = 0; z < ns; ++z) {
+          const size_t r = r0 + (size_t)z * CG;
+          const float wz = expf(__ldcg(part_ml + r * 2) - mm);
+          l_ = fmaf(__ldcg(part_ml + r * 2 + 1), wz, l_);
+          const float4 pz = __ldcg(
+              reinterpret_cast<const float4*>(part_acc + r * TDH + 4 * lane));
+          ac[0] = fmaf(pz.x, wz, ac[0]);
+          ac[1] = fmaf(pz.y, wz, ac[1]);
+          ac[2] = fmaf(pz.z, wz, ac[2]);
+          ac[3] = fmaf(pz.w, wz, ac[3]);
+        }
+        m[g] = mm;
+        ls[g] = l_;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[g][i] = ac[i];
+      }
+      if (lane == 0) a.arrive[bh] = 0u;          // for the next layer
+    }
+    // ---- the merging warp: slot start + f written once, then the chunk's
+    // frames 0..f at slots start .. start + f as one merge
+    const int slot = start + f;
+    if (slot < a.C) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kp[(size_t)slot * TDH + lane + 32 * i] =
+            __float2bfloat16_rn(w.k[lane + 32 * i]);
+        vp[(size_t)slot * TDH + lane + 32 * i] =
+            __float2bfloat16_rn(w.v[lane + 32 * i]);
+      }
+    }
+    const int n_loc = min(f + 1, a.C - start);
+    auto own = [&](int j) { return j == f; };
+    score_slots(
+        w, G, n_loc, [&](int j) { return kp + (size_t)(start + j) * TDH; },
+        own, [](int) { return true; });
+    // rescale the prefix by exp(m - mx), then p = exp(s - mx) of each own
+    // slot into w.s for pv_slots
+    float lsum[CG];
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      float mx = m[g];
+      for (int j = 0; j < n_loc; ++j) mx = fmaxf(mx, w.s[g][j]);
+      const float alpha = expf(m[g] - mx);
+      lsum[g] = __fmul_rn(ls[g], alpha);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][i] = __fmul_rn(acc[g][i], alpha);
+      __syncwarp();
+      float pj = 0.f;
+      for (int j = 0; j < n_loc; ++j) {
+        const float p = expf(w.s[g][j] - mx);
+        lsum[g] = __fadd_rn(lsum[g], p);
+        if (lane == j) pj = p;
+      }
+      __syncwarp();
+      if (lane < n_loc) w.s[g][lane] = pj;
+    }
+    __syncwarp();
+    pv_slots(w, n_loc, [&](int j) { return vp + (size_t)(start + j) * TDH; },
+             own, acc);
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      if (g >= G) continue;
+      float* ac = acc[g];
+      const float den = fmaxf(lsum[g], 1e-30f);
+      __nv_bfloat162 o2[2];
+      o2[0] = __floats2bfloat162_rn(ac[0] / den, ac[1] / den);
+      o2[1] = __floats2bfloat162_rn(ac[2] / den, ac[3] / den);
+      *reinterpret_cast<uint2*>(a.ctx + (size_t)b * dq +
+                                ((size_t)kvh * G + g) * TDH + 4 * lane) =
+          *reinterpret_cast<const uint2*>(o2);
+    }
+    __syncwarp();                  // w is rewritten by the warp's next item
+  }
+}
+
+// The predictor's attention and wo phase of token tok, layer l (one lane):
+// a block with wo rows stages the context in xs_raw (pred_ctx_block, its
+// scratch after the staged row; block 0 writes the k/v rows) and runs the
+// wo GEMV on it.
+__device__ void pred_attn_wo(const Args& a, int tok, int l, Smem& sm,
+                             float* red) {
+  const int pdq = a.PH * PDH;
+  if ((int)blockIdx.x * WARPS >= a.DP) return;   // no wo rows here
+  bf16* xs = reinterpret_cast<bf16*>(sm.g.xs_raw);
+  pred_ctx_block<1>(a, 0, tok, l, blockIdx.x == 0,
+                    reinterpret_cast<float*>(sm.g.xs_raw + pdq), xs);
+  gemv<1, false, EPI_RESID, float>(
+      nullptr, nullptr, a.p_eps, pdq,
+      a.p_wo_q + (size_t)l * a.DP * (pdq / 2),
+      a.p_wo_s + (size_t)l * a.DP * (pdq / qtts::W4_GROUP), a.DP, a.px, sm,
+      red);
 }
 
 // Window tok - 1 of the predictor's lm-head: logits into taps, each
@@ -571,79 +1182,6 @@ __device__ void feedback(const Args& a, int f, int code15) {
   }
 }
 
-// Talker attention of frame f, layer l: one group of TDH threads per kv
-// head (talker_step.cu step_attn_kernel, with the chunk's own slots).
-__device__ void talker_attn(const Args& a, int f, int l, int start,
-                            int length, Smem& sm) {
-  constexpr int GPB = THREADS / TDH;
-  const int grp = threadIdx.x / TDH;
-  const int t = threadIdx.x % TDH;
-  const int bar = 1 + grp;
-  const int G = a.H / a.Hkv;
-  for (int kvh = blockIdx.x * GPB + grp; kvh < a.Hkv;
-       kvh += gridDim.x * GPB) {
-    qtts::AttnScratch<TDH>& s = sm.ta[grp];
-    float kv, vv;
-    qtts::norm_rope_heads_g<TDH, true>(
-        a.qkv, a.H, a.Hkv, kvh, G, a.t_qn + (size_t)l * TDH,
-        a.t_kn + (size_t)l * TDH, a.cos + (size_t)f * TDH,
-        a.sin + (size_t)f * TDH, a.t_eps, s.q, s.x, s.red, &kv, &vv, t, bar);
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G) s.q[g][t] = __fmul_rn(s.q[g][t], a.t_scale);
-    const size_t head = (size_t)l * a.Hkv + kvh;
-    bf16* kp = a.cache_k + head * a.C * TDH;
-    bf16* vp = a.cache_v + head * a.C * TDH;
-    const int slot = start + f;
-    if (slot < a.C) {
-      kp[(size_t)slot * TDH + t] = __float2bfloat16_rn(kv);
-      vp[(size_t)slot * TDH + t] = __float2bfloat16_rn(vv);
-    }
-    qtts::group_sync<TDH>(bar);
-    float m[MAX_G], l_[MAX_G], acc[MAX_G];
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      m[g] = qtts::NEG;
-      l_[g] = 0.f;
-      acc[g] = 0.f;
-    }
-    // the cache prefix [0, start): prompt slots < length, generated slots
-    // >= prompt_cap (no cursor column: -1)
-    qtts::attend_tiles_g<TDH, true>(s.q, G, kp, vp, min(start, a.C), length,
-                                    -1, a.prompt_cap, 1.0f, s.p, s.red_s, m,
-                                    l_, acc, t, bar);
-    // the chunk's frames 0..f at slots start..start+f, one merge
-    const int n_loc = min(f + 1, a.C - start);
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) continue;
-      float sc[MAX_FRAMES];
-      float mx = m[g];
-#pragma unroll
-      for (int j = 0; j < MAX_FRAMES; ++j) {
-        if (j < n_loc) {
-          sc[j] = qtts::group_sum<TDH>(
-              s.q[g][t] * ld_bf<true>(kp + (size_t)(start + j) * TDH + t),
-              s.red, t, bar);
-          mx = fmaxf(mx, sc[j]);
-        }
-      }
-      const float alpha = expf(m[g] - mx);
-      float ac = acc[g] * alpha, ls = l_[g] * alpha;
-#pragma unroll
-      for (int j = 0; j < MAX_FRAMES; ++j) {
-        if (j < n_loc) {
-          const float p = expf(sc[j] - mx);
-          ac += p * ld_bf<true>(vp + (size_t)(start + j) * TDH + t);
-          ls += p;
-        }
-      }
-      a.ctx[((size_t)kvh * G + g) * TDH + t] =
-          __float2bfloat16_rn(ac / fmaxf(ls, 1e-30f));
-    }
-  }
-}
-
 // hidden = RMSNorm(x, tfn) in f32 (block 0 writes it out); logits[n] =
 // (bf16(hidden) . chead_q[n]) * chead_s[n] for n < V.
 __device__ void codec_head(const Args& a, Smem& sm, float* red) {
@@ -671,10 +1209,9 @@ __global__ void __launch_bounds__(THREADS, 2) chunk_kernel(const Args a) {
   if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
     a.trace[0] = clock64();
   const int start = a.write_idx[0];
-  const int length = a.lengths[0];
   const int GRP = qtts::W4_GROUP;
   // predictor and talker matrix sizes
-  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH, pdq = a.PH * PDH;
+  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH;
   const int nqkv = (a.H + 2 * a.Hkv) * TDH, dq = a.H * TDH;
   const int DP = a.DP, D = a.D;
 
@@ -704,12 +1241,7 @@ __global__ void __launch_bounds__(THREADS, 2) chunk_kernel(const Args a) {
             a.p_wqkv_s + (size_t)l * pnqkv * (DP / GRP), pnqkv, a.pqkv, sm,
             red);
         grid_sync(a.barrier, target, a.trace);
-        pred_attn(a, tok, l, sm);
-        grid_sync(a.barrier, target, a.trace);
-        gemv<1, false, EPI_RESID, float>(
-            a.pctx, nullptr, a.p_eps, pdq,
-            a.p_wo_q + (size_t)l * DP * (pdq / 2),
-            a.p_wo_s + (size_t)l * DP * (pdq / GRP), DP, a.px, sm, red);
+        pred_attn_wo(a, tok, l, sm, red);
         grid_sync(a.barrier, target, a.trace);
         gemv<2, true, EPI_SWIGLU, float>(
             a.px, a.p_ln2 + (size_t)l * DP, a.p_eps, DP,
@@ -743,7 +1275,7 @@ __global__ void __launch_bounds__(THREADS, 2) chunk_kernel(const Args a) {
           a.t_wqkv_q + (size_t)l * nqkv * (D / 2),
           a.t_wqkv_s + (size_t)l * nqkv * (D / GRP), nqkv, a.qkv, sm, red);
       grid_sync(a.barrier, target, a.trace);
-      talker_attn(a, f, l, start, length, sm);
+      talker_attn(a, f, l, start, sm.tw);
       grid_sync(a.barrier, target, a.trace);
       gemv<1, false, EPI_RESID, bf16>(
           a.ctx, nullptr, a.t_eps, dq, a.t_wo_q + (size_t)l * D * (dq / 2),
@@ -796,8 +1328,9 @@ struct Views {
   float* sx;                       // [NB] GEMV: row scales
   float* h;                        // [NB, D] projection: f32 hidden rows
   bf16* xb;                        // [NB, K] heads: normed bf16 rows
-  qtts::AttnScratch<TDH>* ta;      // [THREADS / TDH]
-  qtts::AttnScratch<PDH>* pa;      // [THREADS / PDH]
+  TalkWarp* tw;                    // [WARPS] talker attention
+  float* pa;                       // p_wo: predictor attention scratch,
+                                   //   after the staged context rows
 };
 
 // Small per-block state, in static shared memory.
@@ -826,7 +1359,9 @@ __device__ __forceinline__ Part partition(int tiles) {
   return p;
 }
 
-// The input rows of a GEMV: row b is base + (idx ? idx[b] : first + b) * K.
+// The input rows of a GEMV: row b is base + (idx ? idx[b] : first + b) * K;
+// base == nullptr: the rows are already staged in the block's xs (not
+// normed).
 struct Rows {
   const bf16* base;
   const int* idx;
@@ -922,10 +1457,16 @@ __device__ void gemv(const Rows& in, const float* norm_w, float eps, int K,
                      const uint8_t* wq, const S* ws, int N, bf16* dst,
                      const Views<NB>& v, const Part& p, float* red) {
 #pragma unroll 1
-  for (int b = 0; b < NB; ++b)
-    qtts::quantize_rows<1, RMS, THREADS, true>(
-        in.base + (size_t)(in.idx ? in.idx[b] : in.first + b) * K, norm_w,
-        K, eps, v.xs + (size_t)b * K, v.xq + (size_t)b * K, v.sx + b, red);
+  for (int b = 0; b < NB; ++b) {
+    if (in.base == nullptr)
+      qtts::quantize_staged<THREADS>(K, v.xs + (size_t)b * K,
+                                     v.xq + (size_t)b * K, v.sx + b, red);
+    else
+      qtts::quantize_rows<1, RMS, THREADS, true>(
+          in.base + (size_t)(in.idx ? in.idx[b] : in.first + b) * K, norm_w,
+          K, eps, v.xs + (size_t)b * K, v.xq + (size_t)b * K, v.sx + b,
+          red);
+  }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   int* gw = v.gd + (size_t)warp * R * (K / qtts::W4_GROUP) * NB;
@@ -1030,33 +1571,22 @@ __device__ Rows token_rows(const Args& a, int f, int tok, const Part& p,
   return in;
 }
 
-// Predictor attention of token `tok`, layer l: one group of PDH threads per
-// (lane, kv head); the context goes out in the c-major head order of wo's
-// rows (position c * PHkv + j for head j * G + c).
-__device__ void pred_attn(const Args& a, int tok, int l,
-                          qtts::AttnScratch<PDH>* pa) {
-  constexpr int GPB = THREADS / PDH;
-  const int grp = threadIdx.x / PDH;
-  const int t = threadIdx.x % PDH;
-  const int G = a.PH / a.PHkv;
-  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH, pdq = a.PH * PDH;
-  for (int it = blockIdx.x * GPB + grp; it < a.B * a.PHkv;
-       it += gridDim.x * GPB) {
-    const int b = it / a.PHkv, kvh = it % a.PHkv;
-    const size_t head =
-        (((size_t)b * a.LP + l) * a.PHkv + kvh) * N_TOKENS * PDH;
-    float c[MAX_G];
-    qtts::token_attend_g<PDH, true>(
-        a.pqkv + (size_t)b * pnqkv, a.PH, a.PHkv, kvh, G,
-        a.p_qn + (size_t)l * PDH, a.p_kn + (size_t)l * PDH,
-        a.pcos + (size_t)tok * PDH, a.psin + (size_t)tok * PDH, a.p_eps,
-        a.pk + head, a.pv + head, tok, a.p_scale, pa[grp], c, t, 1 + grp);
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G)
-        a.pctx[(size_t)b * pdq + ((size_t)g * a.PHkv + kvh) * PDH + t] =
-            __float2bfloat16_rn(c[g]);
-  }
+// The predictor's attention and wo phase of token tok, layer l, for the
+// block's lanes: a block with wo rows stages its tile's contexts in xs
+// (pred_ctx_block; the tile's first block writes the k/v rows) and runs
+// the wo GEMV on them.
+template <int NB>
+__device__ void pred_attn_wo(const Args& a, int tok, int l,
+                             const Views<NB>& v, const Part& p, float* red) {
+  const int pdq = a.PH * PDH;
+  if (p.rank * WARPS >= a.DP) return;          // no wo rows here
+  const int lane0 = p.tile * NB;
+  pred_ctx_block<NB>(a, lane0, tok, l, p.rank == 0, v.pa, v.xs);
+  gemv<NB, 1, false, EPI_RESID, float>(
+      Rows{nullptr, nullptr, lane0}, nullptr, a.p_eps, pdq,
+      a.p_wo_q + (size_t)l * a.DP * (pdq / 2),
+      a.p_wo_s + (size_t)l * a.DP * (pdq / qtts::W4_GROUP), a.DP, a.px, v,
+      p, red);
 }
 
 // Window tok - 1 of the predictor's lm-head for the block's lanes: logits
@@ -1155,85 +1685,6 @@ __device__ void feedback(const Args& a, int f, const int* code15,
   }
 }
 
-// Talker attention of frame f, layer l: one group of TDH threads per
-// (lane, kv head) (talker_step.cu step_attn_kernel, with the chunk's own
-// slots).
-__device__ void talker_attn(const Args& a, int f, int l, int start,
-                            qtts::AttnScratch<TDH>* ta) {
-  constexpr int GPB = THREADS / TDH;
-  const int grp = threadIdx.x / TDH;
-  const int t = threadIdx.x % TDH;
-  const int bar = 1 + grp;
-  const int G = a.H / a.Hkv;
-  const int nqkv = (a.H + 2 * a.Hkv) * TDH, dq = a.H * TDH;
-  for (int it = blockIdx.x * GPB + grp; it < a.B * a.Hkv;
-       it += gridDim.x * GPB) {
-    const int b = it / a.Hkv, kvh = it % a.Hkv;
-    const int length = a.lengths[b];
-    qtts::AttnScratch<TDH>& s = ta[grp];
-    float kv, vv;
-    qtts::norm_rope_heads_g<TDH, true>(
-        a.qkv + (size_t)b * nqkv, a.H, a.Hkv, kvh, G,
-        a.t_qn + (size_t)l * TDH, a.t_kn + (size_t)l * TDH,
-        a.cos + ((size_t)f * a.B + b) * TDH,
-        a.sin + ((size_t)f * a.B + b) * TDH, a.t_eps, s.q, s.x, s.red, &kv,
-        &vv, t, bar);
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g)
-      if (g < G) s.q[g][t] = __fmul_rn(s.q[g][t], a.t_scale);
-    const size_t head = ((size_t)l * a.B + b) * a.Hkv + kvh;
-    bf16* kp = a.cache_k + head * a.C * TDH;
-    bf16* vp = a.cache_v + head * a.C * TDH;
-    const int slot = start + f;
-    if (slot < a.C) {
-      kp[(size_t)slot * TDH + t] = __float2bfloat16_rn(kv);
-      vp[(size_t)slot * TDH + t] = __float2bfloat16_rn(vv);
-    }
-    qtts::group_sync<TDH>(bar);
-    float m[MAX_G], l_[MAX_G], acc[MAX_G];
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      m[g] = qtts::NEG;
-      l_[g] = 0.f;
-      acc[g] = 0.f;
-    }
-    // the cache prefix [0, start): prompt slots < length, generated slots
-    // >= prompt_cap (no cursor column: -1)
-    qtts::attend_tiles_g<TDH, true>(s.q, G, kp, vp, min(start, a.C), length,
-                                    -1, a.prompt_cap, 1.0f, s.p, s.red_s, m,
-                                    l_, acc, t, bar);
-    // the chunk's frames 0..f at slots start..start+f, one merge
-    const int n_loc = min(f + 1, a.C - start);
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) continue;
-      float sc[MAX_FRAMES];
-      float mx = m[g];
-#pragma unroll
-      for (int j = 0; j < MAX_FRAMES; ++j) {
-        if (j < n_loc) {
-          sc[j] = qtts::group_sum<TDH>(
-              s.q[g][t] * ld_bf<true>(kp + (size_t)(start + j) * TDH + t),
-              s.red, t, bar);
-          mx = fmaxf(mx, sc[j]);
-        }
-      }
-      const float alpha = expf(m[g] - mx);
-      float ac = acc[g] * alpha, ls = l_[g] * alpha;
-#pragma unroll
-      for (int j = 0; j < MAX_FRAMES; ++j) {
-        if (j < n_loc) {
-          const float p = expf(sc[j] - mx);
-          ac += p * ld_bf<true>(vp + (size_t)(start + j) * TDH + t);
-          ls += p;
-        }
-      }
-      a.ctx[(size_t)b * dq + ((size_t)kvh * G + g) * TDH + t] =
-          __float2bfloat16_rn(ac / fmaxf(ls, 1e-30f));
-    }
-  }
-}
-
 // xtaps[lane, f, slot] = x of every lane (the talker's residual entering
 // layer `slot`, or the last layer's output at slot L), when asked for: x
 // is only read in the phase that calls this.
@@ -1287,7 +1738,7 @@ __device__ void run(const Args& a, const Views<NB>& v, Small<NB>& s) {
   const int GRP = qtts::W4_GROUP;
   const int lane0 = p.tile * NB;
   // predictor and talker matrix sizes
-  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH, pdq = a.PH * PDH;
+  const int pnqkv = (a.PH + 2 * a.PHkv) * PDH;
   const int nqkv = (a.H + 2 * a.Hkv) * TDH, dq = a.H * TDH;
   const int DP = a.DP, D = a.D;
 
@@ -1306,12 +1757,7 @@ __device__ void run(const Args& a, const Views<NB>& v, Small<NB>& s) {
             a.p_wqkv_s + (size_t)l * pnqkv * (DP / GRP), pnqkv, a.pqkv, v,
             p, s.red);
         grid_sync(a.barrier, target, a.trace);
-        pred_attn(a, tok, l, v.pa);
-        grid_sync(a.barrier, target, a.trace);
-        gemv<NB, 1, false, EPI_RESID, float>(
-            Rows{a.pctx, nullptr, lane0}, nullptr, a.p_eps, pdq,
-            a.p_wo_q + (size_t)l * DP * (pdq / 2),
-            a.p_wo_s + (size_t)l * DP * (pdq / GRP), DP, a.px, v, p, s.red);
+        pred_attn_wo<NB>(a, tok, l, v, p, s.red);
         grid_sync(a.barrier, target, a.trace);
         gemv<NB, 2, true, EPI_SWIGLU, float>(
             Rows{a.px, nullptr, lane0}, a.p_ln2 + (size_t)l * DP, a.p_eps,
@@ -1349,7 +1795,7 @@ __device__ void run(const Args& a, const Views<NB>& v, Small<NB>& s) {
           a.t_wqkv_s + (size_t)l * nqkv * (D / GRP), nqkv, a.qkv, v, p,
           s.red);
       grid_sync(a.barrier, target, a.trace);
-      talker_attn(a, f, l, start, v.ta);
+      talker_attn(a, f, l, start, v.tw);
       grid_sync(a.barrier, target, a.trace);
       gemv<NB, 1, false, EPI_RESID, bf16>(
           Rows{a.ctx, nullptr, lane0}, nullptr, a.t_eps, dq,
@@ -1375,16 +1821,22 @@ __device__ void run(const Args& a, const Views<NB>& v, Small<NB>& s) {
   grid_exit(a.barrier);
 }
 
+// Byte offset of p_wo's predictor attention scratch in the batched form's
+// dynamic shared memory: after the int8 rows and the staged contexts.
+__host__ __device__ inline size_t pred_attn_offset(const Args& a) {
+  return (size_t)ROWS * a.kmax + (size_t)2 * ROWS * a.PH * PDH;
+}
+
 // Bytes of dynamic shared memory of the batched form: the largest of its
 // phases' regions (Views).
 size_t smem_bytes(const Args& a) {
-  const size_t gemv = (size_t)3 * ROWS * a.kmax + (size_t)4 * a.gd_ints +
-                      4 * ROWS;
+  const size_t gemv = std::max(
+      (size_t)3 * ROWS * a.kmax + (size_t)4 * a.gd_ints + 4 * ROWS,
+      pred_attn_offset(a) + 4 * pred_attn_floats(ROWS * a.PHkv));
   const size_t proj = (size_t)4 * ROWS * a.D;
   const size_t head = (size_t)2 * ROWS * std::max(a.D, a.DP);
-  const size_t ta = (THREADS / TDH) * sizeof(qtts::AttnScratch<TDH>);
-  const size_t pa = (THREADS / PDH) * sizeof(qtts::AttnScratch<PDH>);
-  return std::max({gemv, proj, head, ta, pa});
+  const size_t ta = WARPS * sizeof(TalkWarp);
+  return std::max({gemv, proj, head, ta});
 }
 
 }  // namespace rows
@@ -1401,8 +1853,8 @@ __global__ void __launch_bounds__(THREADS, 1) chunk_kernel_rows(const Args a) {
   v.sx = reinterpret_cast<float*>(v.gd + a.gd_ints);
   v.h = reinterpret_cast<float*>(dyn);
   v.xb = reinterpret_cast<bf16*>(dyn);
-  v.ta = reinterpret_cast<qtts::AttnScratch<TDH>*>(dyn);
-  v.pa = reinterpret_cast<qtts::AttnScratch<PDH>*>(dyn);
+  v.tw = reinterpret_cast<TalkWarp*>(dyn);
+  v.pa = reinterpret_cast<float*>(dyn + rows::pred_attn_offset(a));
   rows::run<ROWS>(a, v, s);
 }
 
@@ -1448,8 +1900,9 @@ extern "C" int qtts_chunk_step(void* const* ptrs, int n_ptrs,
   a.xtaps = (bf16*)P();
   a.x = (bf16*)P(); a.qkv = (bf16*)P(); a.ctx = (bf16*)P();
   a.ff = (bf16*)P(); a.px = (bf16*)P(); a.pqkv = (bf16*)P();
-  a.pctx = (bf16*)P(); a.pff = (bf16*)P(); a.pk = (bf16*)P();
-  a.pv = (bf16*)P(); a.best_v = (float*)P(); a.best_i = (int*)P();
+  a.pff = (bf16*)P(); a.pk = (bf16*)P(); a.pv = (bf16*)P();
+  a.part = (float*)P(); a.arrive = (unsigned*)P();
+  a.best_v = (float*)P(); a.best_i = (int*)P();
   a.barrier = (unsigned*)P(); a.trace = (long long*)P();
   int j = 0;
   a.F = ints[j++]; a.L = ints[j++]; a.D = ints[j++]; a.H = ints[j++];
@@ -1471,13 +1924,15 @@ extern "C" int qtts_chunk_step(void* const* ptrs, int n_ptrs,
   const bool ok =
       batch_ok && a.F >= 1 && a.F <= MAX_FRAMES && a.L >= 1 && a.LP >= 1 &&
       a.t_dh == TDH && a.p_dh == PDH && a.Hkv > 0 && a.H % a.Hkv == 0 &&
-      a.H / a.Hkv <= MAX_G && a.PHkv > 0 && a.PH % a.PHkv == 0 &&
-      a.PH / a.PHkv <= MAX_G && a.D % g2 == 0 && a.D <= MAX_D &&
+      a.H / a.Hkv <= CG && a.PHkv > 0 && a.PH % a.PHkv == 0 &&
+      a.PH / a.PHkv <= CG && a.D % g2 == 0 && a.D <= MAX_D &&
       a.DP % g2 == 0 && a.DP <= MAX_D && a.FF % g2 == 0 && a.FF <= MAX_K &&
       a.PFF % g2 == 0 && a.PFF <= MAX_K && (a.H * TDH) % g2 == 0 &&
       a.H * TDH <= MAX_K && (a.PH * PDH) % g2 == 0 && a.PH * PDH <= MAX_K &&
       a.C > 0 && a.V > 0 && a.V <= MAX_V && a.R_fb > 0 && a.R_pd > 0 &&
-      a.max_blocks_per_sm >= 1;
+      a.max_blocks_per_sm >= 1 &&
+      // one lane: the predictor attention's scratch after the staged row
+      4 * pred_attn_floats(a.PHkv) <= (size_t)2 * (MAX_K - a.PH * PDH);
   if (!ok) return (int)cudaErrorInvalidValue;
 
   // the batched form's shared memory: ROWS rows of the widest GEMV input,

@@ -1,6 +1,6 @@
 // Device code shared by the port's CUDA kernels: the decode-attention tile
-// loop (flash_decode.cu, talker_step.cu, predictor_frame.cu, chunk_step.cu,
-// kv_lanes.cu) and the current token's column after it (talker_step.cu,
+// loop (talker_step.cu, predictor_frame.cu, kv_lanes.cu) and the current
+// token's column after it (talker_step.cu,
 // kv_lanes.cu), the per-head q/k norm + rope, the predictor's 16-slot token
 // attention,
 // block and thread-group reductions, bf16 rounding, and the launch helper

@@ -68,6 +68,25 @@ __device__ __forceinline__ void quantize_rows(
   __syncthreads();
 }
 
+// quantize_rows<1, false, NT, *> for one row that is already in shared
+// memory (xs, bf16; chunk_step.cu stages the predictor's attention context
+// there): the same amax, scale and rounding, without the load.
+template <int NT>
+__device__ __forceinline__ void quantize_staged(int K,
+                                                const __nv_bfloat16* xs,
+                                                int8_t* xq, float* sx_s,
+                                                float* red) {
+  const int tid = threadIdx.x;
+  float am = 0.f;
+  for (int k = tid; k < K; k += NT) am = fmaxf(am, fabsf(bf2f(xs[k])));
+  am = block_max<NT>(am, red);
+  const float sx = __fmul_rn(fmaxf(am, 1e-8f), INV127);
+  if (tid == 0) *sx_s = sx;
+  for (int k = tid; k < K; k += NT)
+    xq[k] = (int8_t)rintf(__fdiv_rn(bf2f(xs[k]), sx));
+  __syncthreads();
+}
+
 __device__ __forceinline__ int sext4(uint32_t nibbles) {
   // four 4-bit two's complement values, one per byte -> four int8
   return (int)__vsub4(nibbles ^ 0x08080808u, 0x08080808u);

@@ -45,7 +45,8 @@ SIGNATURES = {
                           _F, _P],                         # scale stream
     "qtts_flash_prefill": [_P, _P, _P, _P, _P, _P,         # q k v out len start
                            _I, _I, _I, _I, _I, _I, _I,     # layer B S H Hkv C dh
-                           _I, _I, _F, _P],                # pc window scale st
+                           _I, _I, _F, _P, _P],            # pc window scale
+                                                           # info stream
     "qtts_talker_step": [_P] * 25                          # see talker_step.cu
                         + [_I] * 10 + [_F, _F, _P],        # L..mode eps sc st
     "qtts_predictor_frame": [_P] * 27                      # predictor_frame.cu

@@ -32,10 +32,12 @@ visible iff c < length or c >= prompt_cap, in 512-slot tiles with an
 online softmax, then the chunk's own frames write_idx .. write_idx + f as
 one more merge.  The CUDA kernel computes the same function with the
 same roundings to bf16, but its f32 sums run in another order: the
-prefix in talker_step.cu's 128-slot tiles (so the softmax rescales at
-other points), and the dot products, norms and feedback sum in its lanes'
-order.  That is the drift chip_smoke.py and tests/test_torch_cuda.py
-hold it to.
+prefix in SPLIT-slot splits spread over the grid and combined in split
+order (so the softmax rescales at other points), and the dot products,
+norms and feedback sum in its lanes' order.  That is the drift
+chip_smoke.py and tests/test_torch_cuda.py hold it to; the talker layer's
+sums in the kernel's own order are `_talker_layer_plain(orders=
+KERNEL_ORDERS)`.
 
 The JAX kernel packs the predictor's q heads in "c-major" order (q head
 j * rep + c of kv head j at position c * n_kv_heads + j; `_head_perm`) and
@@ -75,8 +77,11 @@ WINDOW = 2048
 V_CODEC = 2160            # sampled logit range [0, 2160), prompt.rs:5-16
 MAX_FRAMES = 8
 PREFIX_TILE = 512         # the JAX kernel's KV_CHUNK
+SPLIT = 64                # the CUDA kernel's talker prefix split
+GROUP = 2                 # query heads per kv head the CUDA kernel takes
 NEG_INF = -1e30
 PRED_HEAD_DIM = 64        # the kernel's predictor attention
+PRED_MAX_KV = 8           # its kv heads: the one-lane form's scratch fits
 
 
 BATCHES = (1, 8, 16, 24, 32)
@@ -106,6 +111,13 @@ def unsupported(tcfg, pcfg, batch: int, n_frames: int) -> Optional[str]:
          f"n_residual_codebooks {pcfg.n_residual_codebooks} != 15"),
         (pcfg.head_dim == PRED_HEAD_DIM,
          f"predictor head_dim {pcfg.head_dim} != {PRED_HEAD_DIM}"),
+        (tcfg.n_heads <= GROUP * tcfg.n_kv_heads
+         and pcfg.n_heads <= GROUP * pcfg.n_kv_heads,
+         f"query heads per kv head (talker {tcfg.n_heads} / "
+         f"{tcfg.n_kv_heads}, predictor {pcfg.n_heads} / "
+         f"{pcfg.n_kv_heads}) above {GROUP}"),
+        (pcfg.n_kv_heads <= PRED_MAX_KV,
+         f"predictor n_kv_heads {pcfg.n_kv_heads} above {PRED_MAX_KV}"),
     )
     why = talker_kernel.unsupported(tcfg, batch) \
         or predictor_kernel.unsupported(pcfg, batch)
@@ -265,13 +277,19 @@ def _predict_plain(pcfg, w, ex, px, code0, taps, force=None):
     return torch.stack(codes, dim=1)
 
 
-def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
+def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile,
+                        kernel_scores=False):
     """q [B, H, Dh] bf16 against one layer's cache [B, Hkv, C, Dh]: the
     prefix [0, start) in `tile`-slot tiles, then the chunk's frames
-    start .. start + f (already written) as one more merge."""
+    start .. start + f (already written) as one more merge.  kernel_scores:
+    the q . k dots in the CUDA kernel's order (_scores_kernel_order)."""
     b, h, dh = q.shape
     hkv, cap = kc.shape[1], kc.shape[2]
     qs = q.float().reshape(b, hkv, h // hkv, dh) * (dh ** -0.5)
+
+    def score(kt):
+        return (_scores_kernel_order(qs, kt) if kernel_scores
+                else torch.einsum("bkgd,bkcd->bkgc", qs, kt.float()))
     m = torch.full((b, hkv, h // hkv, 1), NEG_INF, device=q.device)
     s = torch.zeros_like(m)
     acc = torch.zeros_like(qs)
@@ -279,7 +297,7 @@ def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
     for c0 in range(0, start, tile):
         c1 = min(c0 + tile, cap)
         c = torch.arange(c0, c1, device=q.device)[None, :]
-        sb = torch.einsum("bkgd,bkcd->bkgc", qs, kc[:, :, c0:c1].float())
+        sb = score(kc[:, :, c0:c1])
         valid = (c < lens) | ((c >= prompt_cap) & (c < start))
         sb = torch.where(valid[:, None, None, :], sb,
                          torch.tensor(NEG_INF, device=q.device))
@@ -290,9 +308,8 @@ def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
                                          vc[:, :, c0:c1].float())
         s = s * alpha + pe.sum(dim=-1, keepdim=True)
         m = mb
-    kn = kc[:, :, start:start + f + 1].float()
     vn = vc[:, :, start:start + f + 1].float()
-    sc = torch.einsum("bkgd,bkcd->bkgc", qs, kn)
+    sc = score(kc[:, :, start:start + f + 1])
     m_f = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
     p = torch.exp(sc - m_f)
     alpha = torch.exp(m - m_f)
@@ -304,27 +321,31 @@ def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile):
 
 # ------------------------------------------------- the CUDA kernel's orders
 # The sums of the CUDA chunk kernel's talker layer (csrc/chunk_step.cu on
-# common.cuh's helpers) in its own order, for `_talker_layer_plain(orders=
-# ...)`: "rms" the layer's two RMSNorms (256 threads), "qk" the per-head
-# q/k norms (head_dim threads; "<name>-sum" / "<name>-inv" swap in only
-# the sum of squares / only 1 / sqrt), "softmax" the attention's in-tile
-# sums, "scores-a" / "scores-b" its prefix scores (either contraction of
-# a slot's product pairs).  Every other op of the layer rounds the same
-# on both sides.  KERNEL_ORDERS is the whole set: with it the plain layer
-# reproduces the kernel's residuals bit for bit on the card where torch's
-# orders (cuBLAS's dot, the reduction kernel's tree) move them by an int8
-# unit (ROADMAP Queue C #1).
+# common.cuh's and w4a8.cuh's helpers) in its own order, for
+# `_talker_layer_plain(orders=...)`: "rms" the layer's two RMSNorms (256
+# threads), "qk" the per-head q/k norms (head_dim lanes' order; "<name>-sum"
+# / "<name>-inv" swap in only the sum of squares / only 1 / sqrt),
+# "softmax" the attention's split, combine and merge sums
+# (_attend_kernel_order), "scores" its q . k dots (_scores_kernel_order).
+# Every other op of the layer rounds the same on both sides.
+# KERNEL_ORDERS is the whole set: with it the plain layer reproduces the
+# kernel's residuals bit for bit on the card where torch's orders (cuBLAS's
+# dot, the reduction kernel's tree) move them by an int8 unit (ROADMAP
+# Queue C #1).
 ORDERS = ("rms", "rms-sum", "rms-inv", "qk", "qk-sum", "qk-inv", "softmax",
-          "scores-a", "scores-b")
-KERNEL_ORDERS = ("rms", "qk", "softmax", "scores-a")
+          "scores")
+KERNEL_ORDERS = ("rms", "qk", "softmax", "scores")
 
 
 def _butterfly(v: torch.Tensor) -> torch.Tensor:
-    """A warp's xor butterfly (16, 8, 4, 2, 1) over the last axis (32):
-    every lane ends with the same sum, in this order."""
-    lanes = torch.arange(32, device=v.device)
-    for o in (16, 8, 4, 2, 1):
+    """A warp's xor butterfly over the last axis (n lanes, a power of two:
+    xor n / 2, ..., 1): every lane ends with the same sum, in this order."""
+    n = v.shape[-1]
+    lanes = torch.arange(n, device=v.device)
+    o = n // 2
+    while o:
         v = v + v[..., lanes ^ o]
+        o //= 2
     return v[..., 0]
 
 
@@ -340,7 +361,8 @@ def _warp_sum(v: torch.Tensor) -> torch.Tensor:
 
 def _rms_kernel_order(x, w, eps, threads, kernel_sum=True, kernel_inv=True):
     """f32 (x * inv) * w, x [..., K], with the kernels' RMSNorm
-    (common.cuh group_sum; w4a8.cuh quantize_rows, norm_rope_heads_g):
+    (common.cuh group_sum; w4a8.cuh quantize_rows; chunk_step.cu
+    talker_qk_warp, whose lane holds dims lane + 32 i: the same order):
     kernel_sum, the sum of squares as thread t of `threads` adds
     x[t + threads * i]^2 for i in order, then _warp_sum (else torch's
     mean); kernel_inv, inv = 1 / sqrt(ss / K + eps) (else torch's rsqrt)."""
@@ -357,82 +379,85 @@ def _rms_kernel_order(x, w, eps, threads, kernel_sum=True, kernel_inv=True):
     return (xf * inv[..., None]) * w.float()
 
 
-def _scores_kernel_order(qs, kt, fused_first):
-    """q . k per slot in the kernel's thread order (common.cuh
-    attend_tiles_g): over the head's dims in pairs, s += q[d] k[d] +
-    q[d+1] k[d+1], the pair's two products joined by one fma (the first
-    product fused with fused_first, else the second), emulated in f64
-    (each product is exact there).  qs [..., G, Dh] f32, kt [..., C, Dh]
-    -> [..., G, C] f32."""
-    prod = qs.double()[..., :, None, :] * kt.double()[..., None, :, :]
-    a, c = prod[..., 0::2], prod[..., 1::2]
-    pair = (a + c.float().double() if fused_first
-            else c + a.float().double()).float()          # [..., G, C, Dh/2]
-    s = torch.zeros(pair.shape[:-1], device=qs.device)
-    for d in range(pair.shape[-1]):
-        s = s + pair[..., d]
-    return s
+def _fma(a, b, c):
+    """f32 fma(a, b, c): a * b + c rounded once to f32, emulated in f64,
+    where a * b is exact for the operands here (f32 times bf16 or times a
+    softmax weight: at most 48 significant bits); only the f64 rounding of
+    the sum can differ from a single rounding, at about 2^-28 odds."""
+    return (a.double() * b.double() + c.double()).float()
 
 
-def _attend_kernel_order(q, kc, vc, lengths, start, f, prompt_cap, tile,
-                         scores=None):
-    """_chunk_attend_plain with the kernel's in-tile sums (common.cuh
-    attend_tiles_g, chunk_step.cu talker_attn): per tile the max, then l
-    and acc rescaled and P.V and l summed slot by slot in slot order (acc
-    by fma: p * v is exact in f64, one rounding to f32), then the chunk's
-    frames with their scores summed in the 128-thread butterfly order.
-    The prefix scores are torch's dot, or with scores "a" / "b"
-    _scores_kernel_order's (fused_first True / False)."""
+def _scores_kernel_order(qs, kt):
+    """q . k per slot in the CUDA kernel's order (chunk_step.cu
+    score_slots): 8 lanes per slot, lane p summing dims 16p .. 16p + 15 in
+    order by fma, then the 8 lanes' butterfly (xor 4, 2, 1).  qs [..., G,
+    Dh] f32, kt [..., C, Dh] -> [..., G, C] f32."""
+    q = qs[..., :, None, :].reshape(*qs.shape[:-1], 1, 8, -1)
+    k = kt.float()[..., None, :, :].reshape(*kt.shape[:-2], 1,
+                                             kt.shape[-2], 8, -1)
+    s = torch.zeros(torch.broadcast_shapes(q.shape, k.shape)[:-1],
+                    device=qs.device)
+    for i in range(q.shape[-1]):
+        s = _fma(q[..., i], k[..., i], s)
+    return _butterfly(s)
+
+
+def _attend_kernel_order(q, kc, vc, lengths, start, f, prompt_cap,
+                         kernel_scores=True):
+    """_chunk_attend_plain in the CUDA kernel's order (chunk_step.cu
+    talker_attn): the prefix [0, start) in SPLIT-slot splits, each with
+    its own max m_s, p = exp(s - m_s) (0 where masked), l_s the 32 lanes'
+    butterfly of p[j] + p[j + 32] and acc_s = P.V in slot order by fma;
+    the splits combined in split order (M = max m_s, w_s = exp(m_s - M),
+    l and acc summed term by term by fma); then the chunk's frames
+    start .. start + f as one more merge (slots in order, acc by fma).
+    The scores are _scores_kernel_order's (kernel_scores) or torch's
+    dot."""
     b, h, dh = q.shape
     hkv = kc.shape[1]
     g = h // hkv
+    dev = q.device
     qs = q.float().reshape(b, hkv, g, dh) * (dh ** -0.5)
-    neg = torch.tensor(NEG_INF, device=q.device)
-    m = torch.full((b, hkv, g), NEG_INF, device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros_like(qs)
-    lens = lengths.long()
-    if start > 0:
-        kp = kc[:, :, :start].float()
-        sc_all = (torch.einsum("bkgd,bkcd->bkgc", qs, kp) if scores is None
-                  else _scores_kernel_order(qs, kp, scores == "a"))
-    for c0 in range(0, start, tile):
-        c1 = min(c0 + tile, start)
-        c = torch.arange(c0, c1, device=q.device)
-        sc = sc_all[..., c0:c1]
-        valid = ((c[None] < lens[:, None]) | (c[None] >= prompt_cap))
-        valid = valid[:, None, None, :]
-        m_new = torch.maximum(m, torch.where(valid, sc, neg).amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.where(valid, torch.exp(sc - m_new[..., None]),
-                        torch.zeros((), device=q.device))
-        m = m_new
-        # slot by slot on the host (numpy: one add and one rounding per
-        # slot; a device op per slot is mostly launch time): acc and l as
-        # one f32 array [.., dh + 1], p * v exact in f64 and p itself
-        # summed into it, each add rounded once to f32 (as the kernel's
-        # fma and f32 add: both sums are exact in f64)
-        st = torch.cat([acc * alpha[..., None], (l * alpha)[..., None]], -1)
-        pv = torch.cat([p.double()[..., None]
-                        * vc[:, :, None, c0:c1].double(),
-                        p.double()[..., None]], -1)
-        st = st.cpu().numpy()
-        pv = np.ascontiguousarray(np.moveaxis(pv.cpu().numpy(), -2, 0))
-        for j in range(c1 - c0):
-            st = (st + pv[j]).astype(np.float32)
-        st = torch.from_numpy(st).to(q.device)
-        acc, l = st[..., :dh], st[..., dh]
-    kn = kc[:, :, start:start + f + 1].float()
-    vn = vc[:, :, start:start + f + 1]
-    sc = _warp_sum(qs[:, :, :, None, :] * kn[:, :, None])   # [b, k, g, n]
-    mx = torch.maximum(m, sc.amax(-1))
-    alpha = torch.exp(m - mx)
-    ac, ls = acc * alpha[..., None], l * alpha
+
+    def score(kt):
+        return (_scores_kernel_order(qs, kt) if kernel_scores
+                else torch.einsum("bkgd,bkcd->bkgc", qs, kt.float()))
+
+    ns = max(1, -(-start // SPLIT))
+    n_pad = ns * SPLIT
+    c = torch.arange(n_pad, device=dev)[None]
+    valid = (((c < lengths.long()[:, None]) | (c >= prompt_cap))
+             & (c < start)).reshape(b, 1, 1, ns, SPLIT)
+    kp = torch.zeros(b, hkv, n_pad, dh, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:, :, :start] = kc[:, :, :start].float()
+    vp[:, :, :start] = vc[:, :, :start].float()
+    sc = score(kp).reshape(b, hkv, g, ns, SPLIT)
+    neg = torch.tensor(NEG_INF, device=dev)
+    m = torch.where(valid, sc, neg).amax(-1)                 # [b, k, g, ns]
+    p = torch.where(valid, torch.exp(sc - m[..., None]),
+                    torch.zeros((), device=dev))
+    l = _butterfly(p[..., :SPLIT // 2] + p[..., SPLIT // 2:])
+    vs = vp.reshape(b, hkv, 1, ns, SPLIT, dh)
+    acc = torch.zeros(b, hkv, g, ns, dh, device=dev)
+    for j in range(SPLIT):
+        acc = _fma(p[..., j, None], vs[..., j, :], acc)
+    mm = m.amax(-1)                                          # [b, k, g]
+    wz = torch.exp(m - mm[..., None])
+    ls = torch.zeros_like(mm)
+    ac = torch.zeros(b, hkv, g, dh, device=dev)
+    for z in range(ns):
+        ls = _fma(l[..., z], wz[..., z], ls)
+        ac = _fma(acc[..., z, :], wz[..., z, None], ac)
+    # the chunk's own frames, always visible
+    sn = score(kc[:, :, start:start + f + 1])                # [b, k, g, n]
+    mx = torch.maximum(mm, sn.amax(-1))
+    alpha = torch.exp(mm - mx)
+    ac, ls = ac * alpha[..., None], ls * alpha
     for j in range(f + 1):
-        p = torch.exp(sc[..., j] - mx)
-        ac = (ac.double() + p[..., None].double()
-              * vn[:, :, None, j].double()).float()
-        ls = ls + p
+        pj = torch.exp(sn[..., j] - mx)
+        ac = _fma(pj[..., None], vc[:, :, None, start + j], ac)
+        ls = ls + pj
     return (ac / torch.clamp(ls, min=1e-30)[..., None]).reshape(
         b, h * dh).to(torch.bfloat16)
 
@@ -442,7 +467,9 @@ def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
                         orders=()):
     """Talker layer `layer` of frame f from the residual x [B, d] bf16:
     its k/v row written at slot start + f, the attention in
-    _chunk_attend_plain's order, the weight matmuls of talker_step's
+    _chunk_attend_plain's order (prefix tiles of `tile` slots; with
+    "softmax" in `orders` _attend_kernel_order's splits instead), the
+    weight matmuls of talker_step's
     `mode` (w: talker_step.prep_layer_weights of that mode), the int8 and
     bf16 modes' f32 dots in the talker-step kernel's order
     (talker_step.qmm8_lanes_plain).  `orders` (names of ORDERS; () is
@@ -480,13 +507,13 @@ def _talker_layer_plain(cfg, w, layer, x, cos, sin, cache_k, cache_v,
     cache_k[layer][:, :, start + f] = k
     cache_v[layer][:, :, start + f] = v
     if "softmax" in orders:
-        sc = ("a" if "scores-a" in orders else
-              "b" if "scores-b" in orders else None)
         ctx = _attend_kernel_order(q, cache_k[layer], cache_v[layer],
-                                   lengths, start, f, prompt_cap, tile, sc)
+                                   lengths, start, f, prompt_cap,
+                                   "scores" in orders)
     else:
         ctx = _chunk_attend_plain(q, cache_k[layer], cache_v[layer], lengths,
-                                  start, f, prompt_cap, tile)
+                                  start, f, prompt_cap, tile,
+                                  "scores" in orders)
     x = x + mm(ctx, "wo")
     hn2 = norm(x, w["ln2"][layer], "rms", 256).to(torch.bfloat16)
     gu = mm(hn2, "gu")
@@ -538,8 +565,8 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     kernel's 512 by default); another tile is an equally valid order of
     the same sums, so the two results differ only by the order drift.
     orders: the talker layers' sums in the CUDA kernel's order
-    (_talker_layer_plain; KERNEL_ORDERS with prefix_tile=128 is the
-    kernel's whole talker)."""
+    (_talker_layer_plain; KERNEL_ORDERS is the kernel's whole talker, its
+    prefix in SPLIT-slot splits whatever prefix_tile)."""
     n_frames = u.shape[0]
     start = int(write_idx[0])
     if start + n_frames > cache_k.shape[3]:
@@ -658,8 +685,8 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     the last layer's output, for checks that hold the kernel layer by
     layer from its own state; the one-lane kernel has no such output, so
     it is refused at B = 1 on the card.  `scratch`
-    (chunk_scratch at this B; made for the call when None) is kept by a
-    caller that decodes chunk after chunk.  The cooperative grid holds as
+    (chunk_scratch at this B and cache capacity; made for the call when
+    None) is kept by a caller that decodes chunk after chunk.  The cooperative grid holds as
     many blocks as can be resident (at most MAX_BLOCKS_PER_SM per SM; the
     batched form, 156 KB of shared memory per block at full width, one).
     `clocks`, an int64 CUDA tensor of len(phase_labels(...)) + 1 entries,
@@ -696,9 +723,10 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
         raise ValueError("chunk_step: clocks must be int64 on the inputs' "
                          "device, one entry per phase + 1")
     dev = hidden.device
-    spec = _scratch_spec(tcfg, pcfg, dev, b)
+    cap = cache_k.shape[3]
+    spec = _scratch_spec(tcfg, pcfg, dev, b, cap)
     if scratch is None:
-        scratch = chunk_scratch(tcfg, pcfg, dev, b)
+        scratch = chunk_scratch(tcfg, pcfg, dev, b, cap)
     for name, (shape, dtype) in spec.items():
         t = scratch.get(name)
         if (t is None or tuple(t.shape) != shape or t.dtype != dtype
@@ -757,10 +785,13 @@ gen_chunk_fused.launches = 0
 gen_chunk_fused.grid = (0, 0)
 
 
-def _scratch_spec(tcfg, pcfg, device, batch: int = 1) -> Dict[str, Any]:
-    """{name: (shape, dtype)} of the kernel's scratch at `batch` lanes, in
-    the order of csrc/chunk_step.cu's Args: each lane's rows one after the
-    other (flat, so batch 1 keeps the one-lane shapes)."""
+def _scratch_spec(tcfg, pcfg, device, batch: int, cap: int
+                  ) -> Dict[str, Any]:
+    """{name: (shape, dtype)} of the kernel's scratch at `batch` lanes and
+    cache capacity `cap`, in the order of csrc/chunk_step.cu's Args: each
+    lane's rows one after the other (flat, so batch 1 keeps the one-lane
+    shapes); "part" holds the talker attention's split partials (acc
+    [B * Hkv, ceil(cap / SPLIT), GROUP, Dh], then (max, sum) [..., 2])."""
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     h, hkv, dh = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
     ph, phkv, pdh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
@@ -768,44 +799,50 @@ def _scratch_spec(tcfg, pcfg, device, batch: int = 1) -> Dict[str, Any]:
     slots = (torch.cuda.get_device_properties(device).multi_processor_count
              * MAX_BLOCKS_PER_SM)
     kv = (b * pcfg.n_layers, phkv, N_TOKENS, pdh)
+    splits = b * hkv * -(-int(cap) // SPLIT) * GROUP
     return {"x": ((b * tcfg.d_model,), bf),
             "qkv": ((b * (h + 2 * hkv) * dh,), bf),
             "ctx": ((b * h * dh,), bf), "ff": ((b * tcfg.d_ff,), bf),
             "px": ((b * pcfg.d_model,), bf),
             "pqkv": ((b * (ph + 2 * phkv) * pdh,), bf),
-            "pctx": ((b * ph * pdh,), bf), "pff": ((b * pcfg.d_ff,), bf),
+            "pff": ((b * pcfg.d_ff,), bf),
             "pk": (kv, bf), "pv": (kv, bf),
+            "part": ((splits * (dh + 2),), f32), "arrive": ((b * hkv,), i32),
             "best_v": ((b * slots,), f32), "best_i": ((b * slots,), i32),
             "barrier": ((2,), i32)}
 
 
-def chunk_scratch(tcfg, pcfg, device, batch: int = 1
+def chunk_scratch(tcfg, pcfg, device, batch: int, cap: int
                   ) -> Dict[str, torch.Tensor]:
-    """The kernel's scratch at `batch` lanes on a CUDA device, made once
-    and passed to every `gen_chunk_fused` call of one stream: the
-    activations, the predictor's 16-slot KV, the argmax slots (one per lane
-    and block) and the grid barrier's two counters (made zero here; the
-    last block to leave a launch sets them back to zero)."""
+    """The kernel's scratch at `batch` lanes and cache capacity `cap` on a
+    CUDA device, made once and passed to every `gen_chunk_fused` call of
+    one stream: the activations, the predictor's 16-slot KV, the talker
+    attention's split partials and arrival counters, the argmax slots (one
+    per lane and block) and the grid barrier's two counters (the counters
+    made zero here; the kernel sets them back to zero as it leaves each
+    phase and launch)."""
     device = torch.device(device)
     out = {name: torch.empty(shape, dtype=dtype, device=device)
            for name, (shape, dtype) in _scratch_spec(tcfg, pcfg, device,
-                                                     batch).items()}
+                                                     batch, cap).items()}
     out["barrier"].zero_()
+    out["arrive"].zero_()
     return out
 
 
 def phase_labels(tcfg, pcfg, n_frames: int) -> List[str]:
     """The kernel's phases in launch order (one grid barrier after each):
     per frame "sample+project", per predictor token and layer "p_qkv",
-    "p_attn", "p_wo", "p_gate_up", "p_down" and after tokens 1..15
-    "p_head", then "feedback", per talker layer "t_qkv", "t_attn", "t_wo",
-    "t_gate_up", "t_down", and "codec_head"."""
-    layer = ("qkv", "attn", "wo", "gate_up", "down")
+    "p_wo" (the attention and wo in one phase), "p_gate_up", "p_down" and
+    after tokens 1..15 "p_head", then "feedback", per talker layer "t_qkv",
+    "t_attn", "t_wo", "t_gate_up", "t_down", and "codec_head": 542 per
+    frame at EngineConfig()'s depths."""
     frame = ["sample+project"]
     for tok in range(N_TOKENS):
-        frame += [f"p_{n}" for n in layer] * pcfg.n_layers
+        frame += ["p_qkv", "p_wo", "p_gate_up", "p_down"] * pcfg.n_layers
         frame += ["p_head"] if tok else []
-    frame += ["feedback"] + [f"t_{n}" for n in layer] * tcfg.n_layers
+    frame += ["feedback"] + ["t_qkv", "t_attn", "t_wo", "t_gate_up",
+                             "t_down"] * tcfg.n_layers
     return (frame + ["codec_head"]) * n_frames
 
 

@@ -5,18 +5,21 @@ name (qwen3_tts_tpu/kernels/flash_prefill.py): on a CUDA tensor it launches
 the hand-written kernel in `csrc/flash_prefill.cu`; on a CPU tensor it runs
 `prefill_attention_plain`, the same function in plain PyTorch.  There is
 no other route: a CUDA input the kernel does not take raises.  Unlike the
-TPU kernel it takes any S and any window <= C (ragged tiles are masked in
-the kernel).
+TPU kernel it takes any S, any window <= C and any group H / Hkv (ragged
+tiles are masked in the kernel).  The kernel computes both products on the
+tensor cores (mma.sync bf16 -> f32); each launch leaves its grid (CTAs,
+warps per CTA) in `flash_gqa_prefill_stacked.grid`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..ops.attention import gqa_attend, history_mask
 
 HEAD_DIMS = (64, 128)
-TILE_ROWS = 128    # query rows (positions x group heads) per block
 
 
 def prefill_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
@@ -39,9 +42,8 @@ def _check(q, k_all, v_all, lengths, start, layer, window):
     if (kb, kdh) != (b, dh) or v_all.shape != k_all.shape:
         raise ValueError(f"cache {tuple(k_all.shape)} / {tuple(v_all.shape)} "
                          f"does not match q {tuple(q.shape)}")
-    if h % hkv or TILE_ROWS % (h // hkv):
-        raise ValueError(f"heads {h} / kv heads {hkv}: the group must "
-                         f"divide {TILE_ROWS}")
+    if hkv < 1 or h % hkv:
+        raise ValueError(f"heads {h} / kv heads {hkv}: not a whole group")
     if not 0 < window <= cap:
         raise ValueError(f"window {window} outside (0, {cap}]")
     if not 0 <= layer < n_layers:
@@ -71,7 +73,8 @@ def flash_gqa_prefill_stacked(q: torch.Tensor, k_all: torch.Tensor,
     Dh] bf16 with the S new rows already written; lengths, start: [B]
     int32 (start = absolute slot of query row 0); window: slots [0,
     window) are readable.  Returns [B, S, H, Dh].  Each launch adds one to
-    `flash_gqa_prefill_stacked.launches`.
+    `flash_gqa_prefill_stacked.launches` and leaves its grid (CTAs, warps
+    per CTA) in `flash_gqa_prefill_stacked.grid`.
     """
     if q.device.type == "cpu":
         return prefill_attention_plain(q, k_all, v_all, lengths, start,
@@ -83,16 +86,19 @@ def flash_gqa_prefill_stacked(q: torch.Tensor, k_all: torch.Tensor,
     b, s, h, dh = q.shape
     hkv, cap = k_all.shape[2], k_all.shape[3]
     out = torch.empty_like(q)
+    grid = (ctypes.c_int * 2)()
     # the library launches on (and sets attributes of) the current device
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = LIBRARY.get().qtts_flash_prefill(
             q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(),
             lengths.data_ptr(), start.data_ptr(), int(layer), b, s, h, hkv,
-            cap, dh, int(prompt_cap), int(window), dh ** -0.5, stream)
+            cap, dh, int(prompt_cap), int(window), dh ** -0.5, grid, stream)
     check(rc, "flash_gqa_prefill_stacked")
     flash_gqa_prefill_stacked.launches += 1
+    flash_gqa_prefill_stacked.grid = (grid[0], grid[1])
     return out
 
 
 flash_gqa_prefill_stacked.launches = 0
+flash_gqa_prefill_stacked.grid = (0, 0)

@@ -24,7 +24,8 @@ The chunk path (`fused=True, chunk=True`; `TtsEngine`'s default on a CUDA
 device) runs each chunk of frames as ONE kernels/chunk_step launch
 (`_gen_frames_chunk`), for which the Generator also packs the chunk
 kernel's predictor and extras under talker_params["chunk"], with the
-kernel's scratch made at the first chunk of each batch size.  The chunk
+kernel's scratch made at the first chunk of each batch size and cache
+capacity.  The chunk
 kernel's talker is w4a8, so it runs only with talker_mode="w4a8" (the JAX
 rule `_mode == "w4a8" and chunk_mode()`).  The talker's prompt prefill
 multiplies int8 weights a8w8 unless `a8_prefill=False`.
@@ -189,17 +190,20 @@ def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
     """gen_frames through the chunk kernel: one uniform per frame and lane
     from state.generator (drawn once per chunk), each lane's talker rope
     rows of positions pos .. pos + n_frames - 1, one gen_chunk_fused call
-    (cache written in place; the kernel's scratch for this batch size is
-    made at its first chunk and kept in chunk_pack["scratch"]), then the
+    (cache written in place; the kernel's scratch for this batch size and
+    cache capacity is made at its first chunk and kept in
+    chunk_pack["scratch"]), then the
     EOS bookkeeping of gen_frames, lane by lane."""
     dev = state.hidden.device
     b = state.hidden.shape[0]
     scratch = None
     if dev.type == "cuda":
-        scratch = chunk_pack["scratch"].get(b)
+        cap = state.cache.k.shape[3]
+        scratch = chunk_pack["scratch"].get((b, cap))
         if scratch is None:
-            scratch = chunk_pack["scratch"][b] = chunk_kernel.chunk_scratch(
-                cfg.talker, cfg.predictor, dev, b)
+            scratch = chunk_pack["scratch"][(b, cap)] = \
+                chunk_kernel.chunk_scratch(cfg.talker, cfg.predictor, dev, b,
+                                           cap)
     u = torch.rand((n_frames, b), generator=state.generator, device=dev)
     p = (state.pos.long()[None, :]
          + torch.arange(n_frames, device=dev)[:, None])          # [F, B]
@@ -388,7 +392,7 @@ class Generator:
                     "extras": chunk_kernel.prep_chunk_extras(
                         cfg.talker, cfg.predictor, talker_params,
                         predictor_params, assets_pack)}
-                self.talker_params["chunk"]["scratch"] = {}   # per batch
+                self.talker_params["chunk"]["scratch"] = {}   # (batch, cap)
 
     def start(self, embeds: torch.Tensor, lengths: torch.Tensor,
               generator: torch.Generator) -> GenState:

@@ -510,9 +510,9 @@ def test_wrapper_routes_cpu_to_plain_and_rejects_other_devices(case):
 
 # ------------------------------------- the plain layer in the kernel's orders
 # chunk_step._talker_layer_plain(orders=...) swaps the CUDA chunk kernel's
-# sum orders in (its RMSNorm and q/k-norm sums and 1 / sqrt, its softmax's
-# in-tile sums, its prefix score dots): the card's layer check holds the
-# kernel to that (ROADMAP Queue C #1).  Each order is an equally valid f32
+# sum orders in (its RMSNorm and q/k-norm sums and 1 / sqrt, its
+# attention's split, combine and merge sums, its score dots): the card's
+# layer check holds the kernel to that (ROADMAP Queue C #1).  Each order is an equally valid f32
 # order of the same sums, so against torch's orders it may only flip a
 # bf16 rounding, and the next w4a8 quantization then moves an output by one
 # int8 unit: ORDER_TOL of max |torch-order residual| (one H100, full width:
@@ -536,8 +536,7 @@ def _layer_inputs(c, b, seed):
 
 
 @pytest.mark.parametrize("orders", [("rms",), ("qk",), ("softmax",),
-                                    ("softmax", "scores-a"),
-                                    ("softmax", "scores-b"),
+                                    ("scores",), ("softmax", "scores"),
                                     tcs.KERNEL_ORDERS])
 def test_kernel_order_layer_matches_torch_order(case, orders):
     x, cos, sin, k, v, lens = _layer_inputs(case, 3, 21)
@@ -600,3 +599,51 @@ def test_kernel_order_talker_matches_jax_step(case):
         a = cache.float().numpy()[:, :, :, START]
         b = np.asarray(jc, np.float32)[:, :, :, START]
         assert np.abs(a - b).max() <= 0.05 * np.abs(b).max()
+
+
+# The kernel-order attention (_attend_kernel_order: SPLIT-slot splits of
+# the prefix combined in split order, 8-lane score dots) against the
+# torch-order plain attention (512-slot tiles, einsum dots), both from the
+# same bf16 q and cache: the same f32 function summed in other orders, so
+# the bf16 context agrees to about one bf16 rounding: ATTN_RTOL = 2^-6 of
+# |plain| (a bf16 ulp is 2^-8 to 2^-7 of the value) plus ATTN_ATOL for
+# outputs near zero.
+ATTN_RTOL, ATTN_ATOL = 2.0 ** -6, 1e-4
+
+
+@pytest.mark.parametrize("start", [0, 1, tcs.SPLIT - 1, tcs.SPLIT,
+                                   tcs.SPLIT + 1, 3 * tcs.SPLIT + 5])
+def test_kernel_order_attention_across_split_bounds(start):
+    """Prefixes on both sides of a split bound, prompt_cap inside the
+    prefix (generated slots [prompt_cap, start) visible), per-lane prompt
+    lengths (prompt_cap, half of it, none), frames f = 0..3 (the chunk's
+    own slots)."""
+    rng = np.random.default_rng(100 + start)
+    b, hkv, g, dh, cap = 3, 2, 2, 128, 4 * tcs.SPLIT + 16
+    bf = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16()
+    kc, vc = bf(b, hkv, cap, dh), bf(b, hkv, cap, dh)
+    prompt_cap = start - start // 3
+    lengths = torch.tensor([prompt_cap, prompt_cap // 2, 0],
+                           dtype=torch.int32)
+    for f in range(4):
+        q = bf(b, hkv * g, dh)
+        want = tcs._chunk_attend_plain(q, kc, vc, lengths, start, f,
+                                       prompt_cap, tcs.PREFIX_TILE)
+        for kernel_scores in (True, False):
+            got = tcs._attend_kernel_order(q, kc, vc, lengths, start, f,
+                                           prompt_cap, kernel_scores)
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=ATTN_RTOL, atol=ATTN_ATOL)
+
+
+def test_phase_labels_count_542_barriers_per_frame():
+    """The chunk kernel at EngineConfig()'s depths: 1 + 16 x 6 x 4 + 15 +
+    1 + 28 x 5 + 1 grid barriers per frame, no "p_attn" phase."""
+    from qwen3_tts_tpu_torch import EngineConfig
+    cfg = EngineConfig()
+    labels = tcs.phase_labels(cfg.talker, cfg.predictor, 2)
+    assert len(labels) == 2 * 542
+    assert "p_attn" not in labels and labels.count("t_attn") == 2 * 28
+    assert labels.count("p_wo") == 2 * 16 * 6

@@ -100,6 +100,9 @@ def _i32(x, dev):
     (64, 384, 128, 16, 8, 128, 128, [128, 70]),     # generated region
     (2, 2, 64, 16, 8, 0, 0, [0, 0]),                # predictor prefill
     (200, 256, 64, 8, 2, 0, 200, [200, 150]),       # G=4, dh 64
+    (1024, 1024, 128, 16, 8, 0, 1024, [1024, 700]),  # long prompt, window C
+    (100, 160, 128, 16, 2, 60, 100, [100, 40]),     # G=8, suffix
+    (17, 17, 128, 8, 8, 0, 17, [17, 9]),            # G=1, ragged
 ])
 def test_prefill_kernel_matches_plain(dev, s, window, dh, h, hkv, start,
                                       prompt_cap, lengths):
@@ -431,55 +434,60 @@ def test_chunk_kernel_matches_plain(dev, full):
     difference explains, layer 0's written k/v row within 1e-2 of max
     |plain|, the window logits, carried logits, hidden state and written
     k/v rows within max(1e-1, 2 s), s being how far the plain version moves
-    from itself with its prefix in the kernel's 128-slot tiles (chip_smoke.py
-    says why), other slots untouched."""
+    from itself with its prefix in tiles of the kernel's split
+    (chunk_step.SPLIT; chip_smoke.py says why), other slots untouched."""
     case = _chunk_case(dev, full, seed=5)
-    greedy = (0.0, 40, 0.9)
     for prompt_cap, length, start in ((32, 31, 32), (128, 117, 159),
                                       (128, 90, 1020)):
-        tk = []
-        before = tcs.gen_chunk_fused.launches
-        runs = [_run_chunk(tcs.gen_chunk_fused, case, n, prompt_cap, length,
-                           start, _zeros_u(n, dev), greedy,
-                           taps=tk if n == 4 else None)
-                for n in range(1, 5)]
-        assert tcs.gen_chunk_fused.launches == before + 4
-        codes = runs[-1][0]
-        assert codes.shape == (1, 4, 16) and codes.dtype == torch.int32
-        assert len(tk) == 60
-        for f in range(1, 4):
-            keep = _all_but(start + f).to(dev)
-            assert torch.equal(runs[f][0][:, :f], runs[f - 1][0])
-            for a, b in zip(runs[f][3:], runs[f - 1][3:]):
-                assert torch.equal(a[:, :, :, keep], b[:, :, :, keep])
-        keep = _all_but(slice(start, start + 4)).to(dev)
-        for a, orig in zip(runs[-1][3:], (case[5]["k"], case[5]["v"])):
-            assert torch.equal(a[:, :, :, keep], orig[:, :, :, keep])
-        for f in range(4):
-            state = None if f == 0 else runs[f - 1][1:]
-            tp, t128 = [], []
-            want = _run_chunk(tcs.gen_chunk_plain, case, 1, prompt_cap,
-                              length, start + f, _zeros_u(1, dev), greedy,
-                              state=state, taps=tp,
-                              force_codes=codes[:, f:f + 1])
-            alt = _run_chunk(tcs.gen_chunk_plain, case, 1, prompt_cap,
-                             length, start + f, _zeros_u(1, dev), greedy,
-                             state=state, taps=t128,
-                             force_codes=codes[:, f:f + 1], prefix_tile=128)
-            got, kt = runs[f], tk[f * 15:(f + 1) * 15]
-            assert all(bool(torch.isfinite(x).all()) for x in got[1:3])
-            assert want[0][0, 0, 0] == codes[0, f, 0], f
-            for t in range(1, 16):
-                if want[0][0, 0, t] != codes[0, f, t]:
-                    top2 = tp[t - 1][0].topk(2).values
-                    gap = (top2[0] - top2[1]).item()
-                    seen = (kt[t - 1][0] - tp[t - 1][0]).abs().max().item()
-                    assert gap <= 0.1 and gap <= 2 * seen, (f, t, gap, seen)
-            row = start + f
-            tol = max(1e-1, 2 * max(_chunk_errs(alt, want, t128, tp, row)))
-            assert max(_chunk_errs(got, want, kt, tp, row)) <= tol, f
-            for a, b in zip(got[3:], want[3:]):
-                assert _rel(a[0, :, :, row], b[0, :, :, row]) <= 1e-2, f
+        _hold_chunk_to_plain(dev, case, prompt_cap, length, start)
+
+
+def _hold_chunk_to_plain(dev, case, prompt_cap, length, start):
+    """test_chunk_kernel_matches_plain's policy at one cursor."""
+    greedy = (0.0, 40, 0.9)
+    tk = []
+    before = tcs.gen_chunk_fused.launches
+    runs = [_run_chunk(tcs.gen_chunk_fused, case, n, prompt_cap, length,
+                       start, _zeros_u(n, dev), greedy,
+                       taps=tk if n == 4 else None)
+            for n in range(1, 5)]
+    assert tcs.gen_chunk_fused.launches == before + 4
+    codes = runs[-1][0]
+    assert codes.shape == (1, 4, 16) and codes.dtype == torch.int32
+    assert len(tk) == 60
+    for f in range(1, 4):
+        keep = _all_but(start + f).to(dev)
+        assert torch.equal(runs[f][0][:, :f], runs[f - 1][0])
+        for a, b in zip(runs[f][3:], runs[f - 1][3:]):
+            assert torch.equal(a[:, :, :, keep], b[:, :, :, keep])
+    keep = _all_but(slice(start, start + 4)).to(dev)
+    for a, orig in zip(runs[-1][3:], (case[5]["k"], case[5]["v"])):
+        assert torch.equal(a[:, :, :, keep], orig[:, :, :, keep])
+    for f in range(4):
+        state = None if f == 0 else runs[f - 1][1:]
+        tp, t128 = [], []
+        want = _run_chunk(tcs.gen_chunk_plain, case, 1, prompt_cap,
+                          length, start + f, _zeros_u(1, dev), greedy,
+                          state=state, taps=tp,
+                          force_codes=codes[:, f:f + 1])
+        alt = _run_chunk(tcs.gen_chunk_plain, case, 1, prompt_cap,
+                         length, start + f, _zeros_u(1, dev), greedy,
+                         state=state, taps=t128,
+                         force_codes=codes[:, f:f + 1], prefix_tile=tcs.SPLIT)
+        got, kt = runs[f], tk[f * 15:(f + 1) * 15]
+        assert all(bool(torch.isfinite(x).all()) for x in got[1:3])
+        assert want[0][0, 0, 0] == codes[0, f, 0], f
+        for t in range(1, 16):
+            if want[0][0, 0, t] != codes[0, f, t]:
+                top2 = tp[t - 1][0].topk(2).values
+                gap = (top2[0] - top2[1]).item()
+                seen = (kt[t - 1][0] - tp[t - 1][0]).abs().max().item()
+                assert gap <= 0.1 and gap <= 2 * seen, (f, t, gap, seen)
+        row = start + f
+        tol = max(1e-1, 2 * max(_chunk_errs(alt, want, t128, tp, row)))
+        assert max(_chunk_errs(got, want, kt, tp, row)) <= tol, f
+        for a, b in zip(got[3:], want[3:]):
+            assert _rel(a[0, :, :, row], b[0, :, :, row]) <= 1e-2, f
 
 
 def _chunk_errs(a, b, ta, tb, row):
@@ -498,20 +506,24 @@ def test_chunk_kernel_kept_scratch_and_no_taps_repeat_a_launch(dev):
     case = _chunk_case(dev, False, seed=9)
     args = (case, 4, 32, 31, 32, _zeros_u(4, dev), (0.0, 40, 0.9))
     ref = _run_chunk(tcs.gen_chunk_fused, *args, taps=[])
-    scratch = tcs.chunk_scratch(case[0], case[1], dev)
+    scratch = tcs.chunk_scratch(case[0], case[1], dev, 1, 1024)
     for _ in range(3):
         got = _run_chunk(tcs.gen_chunk_fused, *args, scratch=scratch)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert scratch["barrier"].tolist() == [0, 0]
+    assert not bool(scratch["arrive"].any())
     with pytest.raises(ValueError, match="scratch"):
         _run_chunk(tcs.gen_chunk_fused, *args,
                    scratch=dict(scratch, px=scratch["px"][:8]))
 
 
 def test_chunk_kernel_sampled_codes_in_range_and_phase_clocks(dev):
-    case = _chunk_case(dev, False, seed=6)
+    """Full width and depth: 542 phases per frame (no predictor attention
+    phase of its own), each with a clock that advanced."""
+    case = _chunk_case(dev, True, seed=6)
     u = torch.tensor([[0.3], [0.7], [0.1], [0.9]], device=dev)
     n_phases = len(tcs.phase_labels(case[0], case[1], 4))
+    assert n_phases == 4 * 542
     clocks = torch.zeros(n_phases + 1, dtype=torch.int64, device=dev)
     codes = _run_chunk(tcs.gen_chunk_fused, case, 4, 32, 31, 32, u,
                        (0.7, 40, 0.9), clocks=clocks)[0]
@@ -661,6 +673,77 @@ def test_chunk_kernel_layer_taps_hold_layer_by_layer(dev):
             lens[:1].clone(), _i32([start], dev), cos[:, :1].contiguous(),
             sin[:, :1].contiguous(), torch.zeros(n, 1, device=dev),
             (0.0, 40, 0.9), pcap, layer_taps=[])
+
+
+@pytest.mark.parametrize("start", [tcs.SPLIT - 1, tcs.SPLIT, tcs.SPLIT + 1,
+                                   3 * tcs.SPLIT + 5])
+def test_chunk_kernel_across_split_bounds(dev, start):
+    """Cursors on both sides of a bound of the talker's prefix splits
+    (chunk_step.SPLIT slots per work item).  B = 1 (the small width): each
+    frame against the plain version, test_chunk_kernel_matches_plain's
+    policy.  B = 8 (two layers at full width, ragged prompt lengths,
+    sampled): every lane bit-equal to the one-lane kernel, and every
+    talker layer of lanes 0 and 7 from the kernel's own state
+    (layer_taps) within 1e-2 of max of the plain layer in the kernel's
+    sum orders (chunk_step.KERNEL_ORDERS), at least 99 % of the (frame,
+    layer, lane) residuals exact, as chip_smoke.py holds them."""
+    from qwen3_tts_tpu_torch.models import talker as ttalk
+    small = _chunk_case(dev, False, seed=60 + start)
+    pcap = min(32, start)
+    _hold_chunk_to_plain(dev, small, pcap, pcap - 1, start)
+    tcfg, pcfg, tw, pw, ex, _ = _chunk_case(dev, True, seed=61, n_layers=2)
+    g = torch.Generator(device=dev).manual_seed(start)
+    b, cap, n = 8, 1024, 4
+    lens = _i32([pcap - (5 * i) % pcap for i in range(b)], dev)
+    pos = lens + (start - pcap)
+    shape = (tcfg.n_layers, b, tcfg.n_kv_heads, cap, tcfg.head_dim)
+    k, v = ((torch.randn(shape, generator=g, device=dev) * 0.5).to(
+        torch.bfloat16) for _ in range(2))
+    lg = torch.randn(b, 2160, generator=g, device=dev) * 2.0
+    hd = torch.randn(b, tcfg.d_model, generator=g, device=dev)
+    u = torch.rand(n, b, generator=g, device=dev)
+    p = pos.long()[None, :] + torch.arange(n, device=dev)[:, None]
+    cos, sin = (t.float().contiguous() for t in ttalk._rope_tables(
+        tcfg, ttalk._pos4(p)))
+
+    def run(i=None, xt=None):
+        sel = slice(None) if i is None else slice(i, i + 1)
+        kk, vv = k[:, sel].clone(), v[:, sel].clone()
+        out = tcs.gen_chunk_fused(
+            tcfg, pcfg, tw, pw, ex, lg[sel].clone(), hd[sel].clone(), kk, vv,
+            lens[sel].clone(), _i32([start] * (b if i is None else 1), dev),
+            cos[:, sel].contiguous(), sin[:, sel].contiguous(),
+            u[:, sel].contiguous(), (0.7, 40, 0.9), pcap, layer_taps=xt)
+        torch.cuda.synchronize()
+        return (*out, kk, vv)
+
+    xt = []
+    many = run(xt=xt)
+    for i in (0, b - 1):
+        one = run(i)
+        for x, y in zip(one[:3], many[:3]):
+            assert torch.equal(x[0], y[i]), i
+        for x, y in zip(one[3:], many[3:]):
+            assert torch.equal(x[:, 0], y[:, i]), i
+    rel = lambda a, b_: ((a.float() - b_.float()).abs().max()
+                         / b_.float().abs().max()).item()
+    rows = torch.tensor([0, b - 1], device=dev)
+    exact, pairs = 0, 0
+    for f in range(n):
+        # the kernel's cache: frame f reads slots up to start + f, which the
+        # plain layer writes again
+        kc, vc = many[3][:, rows].clone(), many[4][:, rows].clone()
+        for layer in range(tcfg.n_layers):
+            y = tcs._talker_layer_plain(
+                tcfg, tw, layer, xt[f][rows, layer], cos[f][rows],
+                sin[f][rows], kc, vc, lens[rows], start, f, pcap, 128,
+                orders=tcs.KERNEL_ORDERS)
+            for j in range(2):
+                e = rel(xt[f][rows[j], layer + 1], y[j])
+                assert e <= 1e-2, (f, layer, j, e)
+                exact += e == 0.0
+                pairs += 1
+    assert exact >= 0.99 * pairs, (exact, pairs)
 
 
 def test_chunk_kernel_refuses_a_batch_outside_its_gate(dev):
