@@ -656,11 +656,16 @@ def check_talker_step(dev, failures):
                        + nbytes((cos, sin))
                        + cfg.n_layers * 2 * 49 * 8 * 128 * 2,
                        2 * n_w, "int8")
+    g_ms = graph_ms(lambda i: talker_step_fused(cfg, w, x, cos, sin, *kv,
+                                                lens, wi, 32), n=10)
     print(f"[kernel] talker_step_fused 28 layers C=1024 cursor=48: "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), no single PyTorch call")
-    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+          f"{ms:.4f} ms (events), {g_ms:.4f} ms (graph), one launch of "
+          f"{talker_step_fused.grid} blocks; plain {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}, {b_ms / g_ms:.1%} of it reached), no "
+          f"single PyTorch call")
+    return dict(max_abs_err=max(errs.values()), ms=ms, graph_ms=g_ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
 
 
 INT4_SHAPES = ((2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048))
@@ -764,11 +769,12 @@ def check_int4(dev, failures):
 
 
 # The talker step's int8, w8a8 and bf16 modes against chunk_step's plain
-# talker in the kernel's orders (its softmax in 128-slot tiles; the int8
-# and bf16 f32 dots in the kernel's lane order, qmm8_lanes_plain), layer
-# by layer from the kernel's own state.  What is left to differ: the
-# RMSNorm and q/k-norm sums (1/sqrt against rsqrt) and the softmax's
-# in-tile sums, which flip a bf16 rounding now and then.  w8a8 quantizes
+# talker in the kernel's orders (KERNEL_ORDERS: the norms' sums, the
+# attention's 64-slot splits and its q . k dots; the int8 and bf16 f32
+# dots in the kernel's lane order, qmm8_lanes_plain), layer by layer from
+# the kernel's own state.  What is left to differ: sums the replay takes in
+# f64 or in torch's order (an fma, a softmax's exp), which flip a bf16
+# rounding now and then.  w8a8 quantizes
 # each row as w4a8 does, so a flip moves an int8 unit (as in w4a8, PR 5:
 # 94.6-98.2 % of pairs exact); int8 and bf16 carry a flip as a small
 # bf16 difference into later GEMVs, whose products then all differ a
@@ -782,7 +788,8 @@ def check_talker_modes(dev, failures):
     width (28 layers, C = 1024): B = 1 (uniform cursor 48, bucket 32) and
     B = 8 and 32 (ragged per-lane cursors, uniform_cursor=False).  Each
     lane of B > 1 bit-equal to the one-lane kernel; each lane alone against
-    chunk_step._talker_plain (MODE_EXACT_SHARE's comment) within
+    chunk_step._talker_plain in the kernel's orders (KERNEL_ORDERS, the
+    int8 and bf16 dots in its lane order; MODE_EXACT_SHARE's comment) within
     STEP_TOL_LAYER at one layer and layer by layer over 28; the end-to-end
     difference printed.  Each B timed beside talker_step_plain (the JAX
     `_qmm` numerics) and the bound of the bytes it must move."""
@@ -860,7 +867,8 @@ def check_talker_modes(dev, failures):
                                         mode=mode)
                 c = cursors[i]
                 alt = cs._talker_plain(c1, w1, *args, *tiled, li, c, 0, pcap,
-                                       128, mode=mode)
+                                       128, mode=mode,
+                                       orders=cs.KERNEL_ORDERS)
                 one_lane = (one_lane and torch.equal(got[i], one[0])
                             and all(torch.equal(a[:, i, :, c], m_[:, 0, :, c])
                                     for a, m_ in zip(cache, mine)))
@@ -885,7 +893,8 @@ def check_talker_modes(dev, failures):
                     tiled = [t[layer:layer + 1, i:i + 1].clone() for t in kv]
                     (args, li, _) = lane_args(i, outs[layer])
                     alt = cs._talker_plain(c1, wl_, *args, *tiled, li, c, 0,
-                                           pcap, 128, mode=mode)
+                                           pcap, 128, mode=mode,
+                                           orders=cs.KERNEL_ORDERS)
                     per_layer.append(max(
                         rel(outs[layer + 1][i:i + 1], alt),
                         *(rel(r[i], p_[0, 0, :, c])
@@ -894,6 +903,8 @@ def check_talker_modes(dev, failures):
             for i, c in enumerate(cursors):
                 tiled = [t[:, i:i + 1].clone() for t in kv]
                 (args, li, _) = lane_args(i, x)
+                # printed only: torch's orders (the replay of the kernel's
+                # is held layer by layer above)
                 alt = cs._talker_plain(cfg, w, *args, *tiled, li, c, 0, pcap,
                                        128, mode=mode)
                 e2e.append(rel(outs[-1][i:i + 1], alt))
@@ -918,6 +929,9 @@ def check_talker_modes(dev, failures):
                     pl += cuda_ms(lambda i: talker_step_plain(
                         cfg, w, x, cos, sin, *kv, lens, wi, pcap, mode),
                         1, 1) / 2
+            g_ms = graph_ms(lambda i: talker_step_fused(
+                cfg, w, x, cos, sin, *kv, lens, wi, pcap,
+                uniform_cursor=uniform, mode=mode), n=10)
             visible = sum(min(ln, c) + max(0, c - pcap) + 1
                           for ln, c in zip(lengths, cursors))
             n_w = sum(w[k].numel() for k in ("wqkv_q", "wo_q", "gu_q",
@@ -927,7 +941,8 @@ def check_talker_modes(dev, failures):
                                * cfg.n_kv_heads * cfg.head_dim * 2,
                                2 * n_w * b,
                                "int8" if mode == "w8a8" else "bf16")
-            res[b] = dict(ms=ms, plain_ms=pl, bound_ms=b_ms, bound_by=b_by,
+            res[b] = dict(ms=ms, graph_ms=g_ms, plain_ms=pl, bound_ms=b_ms,
+                          bound_by=b_by,
                           exact_pairs=f"{n_exact}/{n_pairs}",
                           max_layer_err=max(per_layer), end_to_end=max(e2e))
             print(f"[kernel] talker_step_fused mode={mode} B={b} "
@@ -940,9 +955,11 @@ def check_talker_modes(dev, failures):
                   f"{n_exact} of {n_pairs} (layer, lane) exact (at least "
                   f"{MODE_EXACT_SHARE[mode]}), max {max(per_layer):.3e}, the "
                   f"others {sorted(f'{e:.1e}' for e in per_layer if e)[-6:]} "
-                  f"(largest 6); end to end (printed) max {max(e2e):.3e}; "
-                  f"{ms:.4f} ms per step, plain {pl:.2f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
+                  f"(largest 6); end to end against torch's orders "
+                  f"(printed) max {max(e2e):.3e}; "
+                  f"{ms:.4f} ms per step (events), {g_ms:.4f} ms (graph), "
+                  f"plain {pl:.2f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                  f"{b_ms / g_ms:.1%} of it reached)")
             del kv, outs, rows
         out[mode] = res
         del w
@@ -951,8 +968,8 @@ def check_talker_modes(dev, failures):
 
 def check_predictor_frame(dev, failures):
     """predict_frame_fused against predict_frame_plain at full width, at
-    B = 1 (three draws) and at the serving batches 8 and 32 (lane chunks
-    of 4), lane by lane."""
+    B = 1 (three draws) and at the serving batches 8 and 32 (one launch
+    for all lanes), lane by lane; timed at B = 1, 8 and 32."""
     import torch
     from qwen3_tts_tpu_torch import EngineConfig
     from qwen3_tts_tpu_torch.kernels.predictor_frame import (
@@ -1010,27 +1027,60 @@ def check_predictor_frame(dev, failures):
                         "codes compared equal")
     print(f"[kernel] predict_frame_fused: {equal} of {compared} codes "
           f"compared equal over B = 1, 1, 1, 8, 32")
-    h = torch.randn(1, cfg.d_model, generator=g, device=dev)
-    c0 = torch.tensor([7], dtype=torch.int32, device=dev)
-    ms = plain = 0.0
-    for order in ("plain", "kernel", "kernel", "plain"):
-        fn = predict_frame_fused if order == "kernel" else predict_frame_plain
-        t = cuda_ms(lambda i: fn(cfg, w, h, c0, tables), iters=10)
-        if order == "kernel":
-            ms += t / 2
-        else:
-            plain += t / 2
-    # weights and lm-head read once, 15 table rows, h in, codes out; 16
-    # tokens of bf16 x int8 products over the layers, 15 head windows
+    # one frame at B = 1 (events: the kernel and the plain version in
+    # turns), and the kernel at B = 1, 8 and 32 in events and in a CUDA
+    # graph, with its launches per frame (one for all B lanes)
     n_w = sum(w[k].numel() for k in ("wqkv_q", "wo_q", "gu_q", "dn_q"))
-    b_ms, b_by = bound(nbytes(w.values()) + 15 * cfg.d_model * 2
-                       + h.numel() * 4 + 16 * 4,
-                       2 * (16 * n_w + 15 * 2048 * cfg.d_model), "bf16")
-    print(f"[kernel] predict_frame_fused one frame (16 tokens x 6 layers): "
-          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), no single PyTorch call")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+    w_bytes = nbytes(w.values())
+    # the layers streamed once per token, 15 head windows: the floor of a
+    # design that cannot keep 75.5 MB of layers in a 50 MB L2
+    floor_ms = (16 * nbytes([w[k] for k in w if k.endswith(("_q", "_s"))
+                             and not k.startswith("head")])
+                + nbytes((w["head_q"], w["head_s"])) * 15 / 15) \
+        / HBM_BPS * 1e3
+    res = {}
+    for b in (1, 8, 32):
+        h = torch.randn(b, cfg.d_model, generator=g, device=dev)
+        c0 = ((torch.arange(b, device=dev) * 131 + 7) % 2048).to(torch.int32)
+        before = predict_frame_fused.launches
+        ms = plain = 0.0
+        for order in (("plain", "kernel", "kernel", "plain") if b == 1
+                      else ("kernel",)):
+            if order == "kernel":
+                ms += cuda_ms(lambda i: predict_frame_fused(
+                    cfg, w, h, c0, tables), iters=10) / (2 if b == 1 else 1)
+            else:
+                plain += cuda_ms(lambda i: predict_frame_plain(
+                    cfg, w, h, c0, tables), iters=10) / 2
+        calls = predict_frame_fused.launches - before
+        g_ms = graph_ms(lambda i: predict_frame_fused(cfg, w, h, c0, tables),
+                        n=10)
+        # weights and lm-head read once, 15 table rows, h in, codes out;
+        # 16 tokens of bf16 x int8 products over the layers, 15 windows
+        b_ms, b_by = bound(w_bytes + 15 * cfg.d_model * 2 * b
+                           + h.numel() * 4 + 16 * 4 * b,
+                           2 * b * (16 * n_w + 15 * 2048 * cfg.d_model),
+                           "bf16")
+        res[b] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain if b == 1 else None,
+                      bound_ms=b_ms, bound_by=b_by)
+        print(f"[kernel] predict_frame_fused one frame (16 tokens x "
+              f"{cfg.n_layers} layers) B={b}: {ms:.4f} ms (events), "
+              f"{g_ms:.4f} ms (graph); {calls} calls, one launch each for "
+              f"all {b} lanes ({predict_frame_fused.grid} blocks)"
+              f"{f', plain {plain:.4f} ms' if b == 1 else ''}; bound "
+              f"{b_ms:.4f} ms ({b_by}, the weights read once; "
+              f"{b_ms / g_ms:.1%} of it reached), streamed floor "
+              f"{floor_ms:.4f} ms ({floor_ms / g_ms:.1%}), no single "
+              f"PyTorch call")
+        frames = (10 + 3) * (2 if b == 1 else 1)   # cuda_ms: 3 + 10 each
+        if calls != frames:
+            failures.append(f"predict_frame_fused: {calls} launches for "
+                            f"{frames} frames at B={b}")
+    return dict(max_abs_err=worst, ms=res[1]["ms"], graph_ms=res[1]["graph_ms"],
+                plain_ms=res[1]["plain_ms"], bound_ms=res[1]["bound_ms"],
+                bound_by=res[1]["bound_by"], library_ms=None,
+                streamed_floor_ms=floor_ms,
+                batched={f"b{b}": r for b, r in res.items() if b > 1})
 
 
 def check_chunk(dev, failures):
@@ -1828,9 +1878,10 @@ def check_talker_batched(dev, failures):
     (uniform_cursor=False: the rows staged and appended by
     append_kv_lanes), one layer and 28.  Each lane must equal the one-lane
     kernel on that lane's inputs bit for bit (its arithmetic is B = 1's),
-    and the plain version with its softmax in the kernel's order
-    (chunk_step._talker_plain: the prefix in 128-slot tiles, then the
-    current token), run on that lane alone (on the card torch orders its
+    and the plain version in the kernel's orders
+    (chunk_step._talker_plain(orders=KERNEL_ORDERS): the prefix in 64-slot
+    splits combined in split order, then the current token; B = 8 also at
+    cursors across the split bounds), run on that lane alone (on the card torch orders its
     sums by shape, so one batched plain call is not the B = 1 plain
     version lane for lane): hidden state and appended k/v rows within
     STEP_TOL_LAYER at one layer, and at each of the 28 layers from the
@@ -1873,14 +1924,21 @@ def check_talker_batched(dev, failures):
                 / b.float().abs().max().clamp_min(1e-30)).item()
 
     worst, timing = 0.0, {}
+    # ragged: buckets 32 and 128, cursors from the bucket to the cap end;
+    # then B = 8 in bucket 32 at cursors on both sides of the attention's
+    # 64-slot split bounds
+    cases = []
     for b in (8, 32):
+        pcaps = [32 if i % 2 else 128 for i in range(b)]
+        cases.append((b, 128, [pc + (97 * i) % (cap - pc)
+                               for i, pc in enumerate(pcaps)],
+                      [pc - 1 - (7 * i) % 20 for i, pc in enumerate(pcaps)]))
+    cases.append((8, 32, [47, 48, 63, 64, 65, 1023, 33, 500],
+                  [31 - (7 * i) % 20 for i in range(8)]))
+    for case, (b, pcap, cursors, lengths) in enumerate(cases):
         kv = [rnd(cfg.n_layers, b, cfg.n_kv_heads, cap, cfg.head_dim)
               for _ in range(2)]
         x = rnd(b, cfg.d_model)
-        # ragged: buckets 32 and 128, cursors from the bucket to the cap end
-        pcaps = [32 if i % 2 else 128 for i in range(b)]
-        cursors = [pc + (97 * i) % (cap - pc) for i, pc in enumerate(pcaps)]
-        lengths = [pc - 1 - (7 * i) % 20 for i, pc in enumerate(pcaps)]
         cos, sin = rope(cursors)
         lens, wi = i32(lengths), i32(cursors)
         lanes, st = torch.arange(b, device=dev), wi.long()
@@ -1889,24 +1947,27 @@ def check_talker_batched(dev, failures):
             wd = {n_: t[:depth] for n_, t in w.items()}
             cache = [t[:depth].clone() for t in kv]
             got = talker_step_fused(cd, wd, x, cos, sin, *cache, lens, wi,
-                                    128, uniform_cursor=False)
+                                    pcap, uniform_cursor=False)
             torch.cuda.synchronize()
             one_lane, ts, es, ss = True, [], [], []
             for i in range(b):
                 # lane i alone, each on its own cache copy: the one-lane
-                # kernel, the plain version, and the plain version with the
-                # kernel's order (prefix in 128-slot tiles, the current
-                # token merged last)
+                # kernel, the plain version, and the plain version in the
+                # kernel's orders (KERNEL_ORDERS: 64-slot prefix splits
+                # combined in split order, the current token merged last)
                 mine, plain, tiled = ([t[:depth, i:i + 1].clone() for t in kv]
                                       for _ in range(3))
                 # copies: the kernel takes 16-byte aligned tensors
                 args = tuple(t[i:i + 1].clone() for t in (x, cos, sin))
                 li, wl = lens[i:i + 1].clone(), wi[i:i + 1].clone()
-                one = talker_step_fused(cd, wd, *args, *mine, li, wl, 128)
-                want = talker_step_plain(cd, wd, *args, *plain, li, wl, 128)
+                one = talker_step_fused(cd, wd, *args, *mine, li, wl, pcap)
+                want = talker_step_plain(cd, wd, *args, *plain, li, wl, pcap)
                 c = cursors[i]
-                alt = cs._talker_plain(cd, wd, *args, *tiled, li, c, 0, 128,
-                                       128)
+                # one layer in the kernel's orders (held); 28 layers in
+                # torch's (a diagnostic: held layer by layer below)
+                alt = cs._talker_plain(cd, wd, *args, *tiled, li, c, 0, pcap,
+                                       128, orders=(cs.KERNEL_ORDERS
+                                                    if depth == 1 else ()))
                 one_lane = (one_lane and torch.equal(got[i], one[0])
                             and all(torch.equal(a[:, i, :, c], m[:, 0, :, c])
                                     for a, m in zip(cache, mine)))
@@ -1932,9 +1993,11 @@ def check_talker_batched(dev, failures):
                 ref[:, lanes, :, st] = 0
                 same = same and torch.equal(a, ref)
             print(f"[kernel] talker_step_fused B={b} per-lane L={depth} "
-                  f"C={cap} cursors {min(cursors)}-{max(cursors)}: each lane "
+                  f"C={cap} prompt_cap={pcap} cursors {sorted(cursors)[:8]}"
+                  f"{'...' if b > 8 else ''}: each lane "
                   f"bit-equal to the 1-lane kernel={one_lane}; against the "
-                  f"plain version in the kernel's softmax order, each lane "
+                  f"plain version in the "
+                  f"{'kernel' if depth == 1 else 'torch'}'s orders, each lane "
                   f"alone (hidden and appended k/v rel_err): max "
                   f"{max(ts):.3e}, {sum(e == 0 for e in ts)} of {b} exact "
                   f"(the others: {sorted(f'{e:.2e}' for e in ts if e)})"
@@ -1942,7 +2005,7 @@ def check_talker_batched(dev, failures):
                   f"; (diagnostic) against "
                   f"talker_step_plain: max {max(es):.3e}, "
                   f"{sum(e == 0 for e in es)} exact; the plain version's "
-                  f"own difference between the two softmax orders: max s "
+                  f"own difference between the two orders: max s "
                   f"{max(ss):.3e}, {sum(s > 0 for s in ss)} lanes moved; "
                   f"other slots untouched={same}")
             if not (one_lane and lanes_ok and same
@@ -1959,7 +2022,7 @@ def check_talker_batched(dev, failures):
             outs.append(talker_step_fused(
                 dataclasses.replace(cfg, n_layers=d),
                 {n_: t[:d] for n_, t in w.items()}, x, cos, sin,
-                *(a[:d] for a in cache), lens, wi, 128,
+                *(a[:d] for a in cache), lens, wi, pcap,
                 uniform_cursor=False))
             rows.append([a[d - 1][lanes, :, st].clone() for a in cache])
         del cache
@@ -1972,7 +2035,8 @@ def check_talker_batched(dev, failures):
                 args = tuple(t[i:i + 1].clone() for t in (outs[layer], cos,
                                                           sin))
                 alt = cs._talker_plain(c1, w1, *args, *tiled,
-                                       lens[i:i + 1].clone(), c, 0, 128, 128)
+                                       lens[i:i + 1].clone(), c, 0, pcap,
+                                       128, orders=cs.KERNEL_ORDERS)
                 per_layer.append(max(
                     rel(outs[layer + 1][i:i + 1], alt),
                     *(rel(r[i], p_[0, 0, :, c])
@@ -1982,9 +2046,10 @@ def check_talker_batched(dev, failures):
                      and 2 * n_exact >= n_pairs
                      and all(bool(torch.isfinite(o.float()).all())
                              for o in outs))
-        print(f"[kernel] talker_step_fused B={b} per-lane, {cfg.n_layers} "
+        print(f"[kernel] talker_step_fused B={b} per-lane prompt_cap={pcap}"
+              f", {cfg.n_layers} "
               f"layers held one by one (the kernel at depth d against layer "
-              f"d - 1 of the plain version in the kernel's order from the "
+              f"d - 1 of the plain version in the kernel's orders from the "
               f"kernel's state at depth d - 1, each lane alone; hidden and "
               f"appended k/v rel_err): {n_exact} of {n_pairs} (layer, lane) "
               f"exact, max {max(per_layer):.3e}, the others "
@@ -1994,6 +2059,10 @@ def check_talker_batched(dev, failures):
         if not layers_ok:
             failures.append(f"talker_step_fused B={b} per-lane disagrees "
                             "layer by layer")
+        timing.setdefault("exact_pairs", []).append(f"{n_exact}/{n_pairs}")
+        if case == 2:                  # the split-bounds case: held only
+            del kv
+            continue
         ms = pl = 0.0
         for order in ("plain", "kernel", "kernel", "plain"):
             if order == "kernel":
@@ -2003,6 +2072,9 @@ def check_talker_batched(dev, failures):
             else:
                 pl += cuda_ms(lambda i: talker_step_plain(
                     cfg, w, x, cos, sin, *kv, lens, wi, 128), 1, 1) / 2
+        g_ms = graph_ms(lambda i: talker_step_fused(
+            cfg, w, x, cos, sin, *kv, lens, wi, 128, uniform_cursor=False),
+            n=10)
         # prompt slots < length, generated slots [128, cursor), the new one
         visible = sum(min(ln, c) + max(0, c - 128) + 1
                       for ln, c in zip(lengths, cursors))
@@ -2012,11 +2084,12 @@ def check_talker_batched(dev, failures):
                            + nbytes((cos, sin)) + cfg.n_layers * 2 * visible
                            * cfg.n_kv_heads * cfg.head_dim * 2,
                            2 * n_w * b, "int8")
-        timing[b] = (ms, pl, b_ms, b_by)
+        timing[b] = (ms, pl, b_ms, b_by, g_ms)
         print(f"[kernel] talker_step_fused B={b} per-lane {cfg.n_layers} "
-              f"layers C={cap}: {ms:.4f} ms per step ({ms / b:.4f} ms per "
-              f"lane), plain {pl:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no "
-              f"single PyTorch call")
+              f"layers C={cap}: {ms:.4f} ms per step (events; {ms / b:.4f} "
+              f"ms per lane), {g_ms:.4f} ms (graph), one launch; plain "
+              f"{pl:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {b_ms / g_ms:.1%} "
+              f"of it reached), no single PyTorch call")
         # where the step's device time goes, by CUDA kernel (one profiled
         # step)
         from torch.profiler import ProfilerActivity, profile
@@ -2059,9 +2132,11 @@ def check_talker_batched(dev, failures):
                             "from the 1-lane kernel")
         del kn_, vn_
     return dict(max_abs_err_batched=worst, ms_b8=timing[8][0],
-                plain_ms_b8=timing[8][1], bound_ms_b8=timing[8][2],
-                ms_b32=timing[32][0], plain_ms_b32=timing[32][1],
-                bound_ms_b32=timing[32][2])
+                graph_ms_b8=timing[8][4], plain_ms_b8=timing[8][1],
+                bound_ms_b8=timing[8][2], ms_b32=timing[32][0],
+                graph_ms_b32=timing[32][4], plain_ms_b32=timing[32][1],
+                bound_ms_b32=timing[32][2],
+                exact_pairs_b8_b32_split_bounds=timing["exact_pairs"])
 
 
 def check_reference(dev, failures):

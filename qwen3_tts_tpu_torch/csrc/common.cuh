@@ -72,6 +72,14 @@ __device__ __forceinline__ float group_sum(float v, float* red, int tid,
   return s;
 }
 
+// Sum over a warp by the xor butterfly (16, 8, 4, 2, 1): every lane gets
+// the same sum, in this order.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 template <int NT>
 __device__ __forceinline__ float block_sum(float v, float* red) {
   return group_sum<NT>(v, red, threadIdx.x, 0);

@@ -13,197 +13,417 @@
 // as the JAX kernel does.  Either way attention reads only slots below
 // write_idx[b] and takes the current token from registers, so the two
 // modes compute the same numbers.  Numerics follow the Pallas kernel op
-// for op (see kernels/talker_step.py).  Every lane's arithmetic is that of
-// B = 1, so a lane's outputs are bit-equal to the one-lane kernel's on its
-// inputs, in every mode.
+// for op (see kernels/talker_step.py); the f32 sums of the norms and of
+// attention run in the orders of kernels/chunk_step.py KERNEL_ORDERS.
+// Every lane's arithmetic is that of B = 1, so a lane's outputs are
+// bit-equal to the one-lane kernel's on its inputs, in every mode.
 //
 // Weights (kernels/talker_step.prep_layer_weights), output-major (output
 // column n's K values contiguous):
-//   w4a8  uint8 [L, N, K/2] (ops/quant.py pack_int4: each 4-byte word
-//         holds K rows 8m..8m+3 in its low nibbles and 8m+4..8m+7 in its
-//         high nibbles), bf16 scales [L, N, K/128]: per-row int8
-//         activations, exact integer dots per 128-row group, groups summed
-//         in f32 in the JAX order with the bf16 scales;
+//   w4a8  uint8 [L, N, K/2] (ops/quant.py pack_int4), bf16 scales
+//         [L, N, K/128]: per-row int8 activations, exact integer dots per
+//         128-row group, groups summed in f32 in the JAX order;
 //   int8  int8 [L, N, K], f32 scales [L, N]: y = bf16(bf16(sum x*q in f32)
-//         * bf16(s)), the bf16 activations read from shared memory;
-//   w8a8  the int8 weights, per-row int8 activations (the w4a8 prologue):
-//         one exact __dp4a int32 dot, y = bf16(f32(acc) * sx * s);
+//         * bf16(s)), lane l of a warp adding the 16 products
+//         [512 s + 16 l, +16) of each sweep s in K order, then the warp's
+//         butterfly (talker_step.qmm8_lanes_plain);
+//   w8a8  the int8 weights, per-row int8 activations: one exact int32 dot,
+//         y = bf16(f32(acc) * sx * s);
 //   bf16  bf16(q * s) [L, N, K] with unit f32 scales: the int8 mode's dot.
 //
 // What bounds it on the card: bytes.  At full width (28 layers, d 2048,
-// d_ff 6144: 1.41 G weights) a step reads 0.70 GB of int4 weights and
-// 22 MB of scales in w4a8 (about 0.22 ms at 3.35 TB/s), 1.41 GB in int8
-// and w8a8 (0.42 ms), 2.82 GB in bf16 (0.84 ms), against ~1.4 G
-// multiply-adds per lane, far below the card's rates; attention adds the
-// live KV prefix.
+// d_ff 6144) a step reads 0.70 GB of int4 weights and 22 MB of scales in
+// w4a8 (0.22 ms at 3.35 TB/s), 1.41 GB in int8 and w8a8 (0.42 ms), 2.82 GB
+// in bf16 (0.84 ms); attention adds each lane's live KV prefix.  At B
+// lanes every block also reads each GEMV input row (B x K bytes) from L2.
 //
-// What the design does about it: weights are read once, as 16-byte vectors
-// along each output column; int4 nibbles are unpacked in registers
-// (__vsub4 sign extension) into __dp4a dot products against int8
-// activations in shared memory, int8 weights go to __dp4a (w8a8) or to
-// f32 multiply-adds against the bf16 rows (int8, bf16); no weight is
-// dequantized to memory.  Batch rows run in tiles of NB <= 8 (NB = B for
-// B <= 4, else 8): a GEMV block normalises (and in w4a8 / w8a8 quantizes)
-// its tile's rows into shared memory (w4a8 159 KB at K = 6144, NB = 8;
-// w8a8 147 KB; int8 and bf16 96 KB), and grid.x runs over the B / NB
-// tiles, so the tiles that read one block of weight columns are neighbours
-// in launch order and mostly meet those weights in L2.  Per layer there
-// are five launches on the caller's stream:
-//   qkv     GEMV whose prologue recomputes RMSNorm(x) (and the int8
-//           quantization of the row) in every block (2048 values: cheaper
-//           than a launch) -> qkv [B, Nqkv] bf16;
-//   attn    one block per (kv head, lane), serving its G query heads from
-//           one K/V read: q/k RMSNorm, rope, the k/v write, the
-//           live-prefix loop of flash_decode.cu (common.cuh attend_tiles)
-//           and the current token as one more column from registers;
-//   wo      GEMV + residual add into out;
-//   gate_up GEMV with RMSNorm prologue, a warp owning columns j and
-//           j + d_ff, SwiGLU epilogue -> ff [B, d_ff] bf16;
-//   down    GEMV + residual add into out.
-// A warp owns one output column (or pair).  w4a8: its lanes cover 8 groups
-// per 512-byte sweep, four lanes per group, and the group dots (exact
-// int32) are summed in f32 by one lane per batch row in the JAX order.
-// int8 / w8a8 / bf16: each lane takes 16 K values per 512-value sweep and
-// the warp adds its lanes' sums by a butterfly.  This is simple first: the
-// serial group sum, the 2048-row prologue repeated by every block, and 140
-// launches per step are what a faster version removes (a persistent
-// kernel with TMA weight streaming).
+// The design: ONE cooperative launch per step, a persistent grid (one
+// 256-thread block per SM, ~200 KB of dynamic shared memory) that runs
+// seven phases per layer separated by grid barriers (gemv_stream.cuh):
+//   norm1   block b (< B) RMS-normalises lane b's residual row (256
+//           threads: w4a8.cuh quantize_rows, the order of KERNEL_ORDERS
+//           "rms") and writes it once, as int8 + scale (w4a8, w8a8) or bf16
+//           (int8, bf16): no GEMV block repeats it;
+//   qkv     GEMV -> qkv [B, Nqkv] bf16;
+//   attn    split-prefix attention: work items (lane, kv head, 64-slot
+//           split of the lane's prefix [0, write_idx)), one warp each over
+//           the whole grid (split_attn.cuh, as chunk_step.cu talker_attn):
+//           q/k norm and rope, scores, the split's softmax and P.V; the
+//           warp that finishes an item's last split (an arrival counter)
+//           combines the splits in split order, writes the token's k/v row,
+//           merges the current token from registers, writes the context
+//           row and raises the lane's running max |ctx| (atomicMax);
+//   wo      GEMV (input quantized as it is staged, from that max) +
+//           residual;
+//   norm2   as norm1;
+//   gate_up GEMV, a warp owning the gate tile and its up tile, SwiGLU ->
+//           ff [B, d_ff] bf16, raising the lane's max |ff|;
+//   down    GEMV + residual.
+// A GEMV phase gives each block a contiguous range of 8-column output
+// tiles.  The block stages the lanes' input rows in shared memory (16 at a
+// time, 32 above 16 lanes), and its warps run the tiles on the tensor
+// cores (w4a8 / w8a8: mma.sync m16n8k32 s8, the int4 nibbles unpacked in
+// registers; gemv_stream.cuh), the lanes as the M rows, so every lane
+// shares one read of each weight byte; with fewer tiles than warps (up to
+// 16 lanes) each tile's K range is split over warps, the w4a8 group dots
+// kept exact in shared memory and summed in the JAX order by one warp.  The
+// int8 and bf16 modes keep a warp per output column with the lane order
+// above, 8 rows a pass.  196 barriers per step at full depth; no host sync.
+// Measured (PERF.md): a phase is a chain of dependent memory round trips
+// (~1 us each) plus a ~1 us barrier; a bulk L2 prefetch of the next phase's
+// weights, issued a phase ahead, gained nothing and cost 2-4 us to issue,
+// so there is none.
 
-#include "w4a8.cuh"
+#include "gemv_stream.cuh"
+#include "split_attn.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
 using qtts::bf16r;
 using qtts::bf2f;
+using qtts::SPLIT;
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int GROUP = qtts::W4_GROUP;
+constexpr int DH = 128;
+constexpr int MAX_B = 96;
+constexpr int KINDS = 7;                  // phases per layer
+constexpr size_t SMEM_A = 200 * 1024;     // staged GEMV rows
+constexpr int N_PTRS = 33, N_INTS = 10, N_FLTS = 2;
 
+enum { K_NORM1, K_QKV, K_ATTN, K_WO, K_NORM2, K_GU, K_DN };
+enum { M_QKV, M_WO, M_GU, M_DN };
 enum { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
 // kernels/talker_step.MODES
 enum { MODE_W4A8 = 0, MODE_INT8 = 1, MODE_W8A8 = 2, MODE_BF16 = 3 };
 
-// Write one output element o from its GEMV value(s) y[R].
+struct Args {
+  const bf16* x;
+  bf16* out;                       // the residual stream, then the result
+  const float *cos, *sin, *ln1, *ln2, *qn, *kn;
+  const char *wq[4], *ws[4];       // qkv, wo, gate_up, down
+  bf16 *kc, *vc, *k_tok, *v_tok;
+  const int *lengths, *write_idx;
+  // scratch (kernels/talker_step.step_scratch)
+  bf16 *qkv, *ctx, *ff, *hn;       // hn: normed rows [B, D] (int8, bf16)
+  int8_t* xq;                      // normed rows quantized [B, D]
+  float* sx;                       // their scales [B]
+  unsigned* amax;                  // [L, 2, B] max |ctx|, max |ff| (f32 bits)
+  float* part;                     // split partials (attn_phase)
+  unsigned* arrive;                // [B * Hkv], 0 between phases
+  unsigned* barrier;               // [2], 0 between launches
+  long long* trace;                // optional: block 0's phase clocks
+  int L, B, D, H, Hkv, F, C, prompt_cap, mode, max_blocks;
+  float eps, scale;
+};
+
+struct Small {
+  float sx[32];                    // the staged rows' scales
+  unsigned amax[32];               // the staged rows' running max |ff|
+  float red[WARPS];
+  int cum[MAX_B + 1];              // attention items before lane b
+};
+
+template <int MODE>
+__host__ __device__ inline size_t w_bytes(size_t n, size_t k) {
+  return MODE == MODE_W4A8 ? n * k / 2 : MODE == MODE_BF16 ? n * k * 2 : n * k;
+}
+template <int MODE>
+__host__ __device__ inline size_t s_bytes(size_t n, size_t k) {
+  return MODE == MODE_W4A8 ? n * (k / GROUP) * 2 : n * 4;
+}
+
+// (N, K, R) of matrix m: N output columns (per half of the SwiGLU pair)
+__device__ inline void mat_shape(const Args& a, int m, int& n, int& k,
+                                 int& r) {
+  const int nqkv = (a.H + 2 * a.Hkv) * DH, dq = a.H * DH;
+  n = m == M_QKV ? nqkv : m == M_GU ? a.F : a.D;
+  k = m == M_WO ? dq : m == M_DN ? a.F : a.D;
+  r = m == M_GU ? 2 : 1;
+}
+
+// This block's slice of matrix m of layer l into L2.
+// ------------------------------------------------------------------- norms
+// norm1 / norm2 of layer l: lane b's row on block b (grid-stride) through
+// quantize_rows (256 threads: KERNEL_ORDERS "rms"), into xq / sx and, for
+// the int8 and bf16 modes, hn.  Layer 0's norm1 also copies x into out.
+template <int MODE>
+__device__ void norm_phase(const Args& a, int l, bool first,
+                           unsigned char* smem, Small& sm) {
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  const float* w = (first ? a.ln1 : a.ln2) + (size_t)l * a.D;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const bool in = l == 0 && first;
+    const bf16* src = (in ? a.x : a.out) + (size_t)b * a.D;
+    if (in)
+      for (int k = threadIdx.x; k < a.D; k += THREADS)
+        a.out[(size_t)b * a.D + k] = src[k];
+    qtts::quantize_rows<1, true, THREADS, true>(
+        src, w, a.D, a.eps, xs, a.xq + (size_t)b * a.D, a.sx + b, sm.red);
+    if (MODE == MODE_INT8 || MODE == MODE_BF16)
+      for (int k = threadIdx.x; k < a.D; k += THREADS)
+        a.hn[(size_t)b * a.D + k] = xs[k];
+    __syncthreads();                // xs is rewritten by the next lane
+  }
+}
+
+// ------------------------------------------------------------------- GEMVs
+// Stage rows [r0, r0 + nr) of the phase's input into A.
+// w4a8 / w8a8: int8 rows (stride lda), their scales in sm.sx: the norm's
+// xq / sx by cp.async, or (wo, down) bf16 rows quantized as they are
+// loaded with sx = max(amax, 1e-8) * f32(1/127) (quantize_rows' numbers).
+// int8 / bf16: bf16 rows by cp.async.
+template <int MODE>
+__device__ void stage_rows(const Args& a, int l, int m, int K, int r0, int nr,
+                           unsigned char* A, int lda, Small& sm) {
+  const int tid = threadIdx.x;
+  const bool quant = MODE == MODE_W4A8 || MODE == MODE_W8A8;
+  const bf16* src = m == M_WO ? a.ctx : m == M_DN ? a.ff : a.hn;
+  if (quant && (m == M_QKV || m == M_GU)) {
+    const int per = K / 16;
+    for (int i = tid; i < nr * per; i += THREADS) {
+      const int row = i / per, c = i % per;
+      qtts::cp_async16(A + (size_t)row * lda + 16 * c,
+                       a.xq + (size_t)(r0 + row) * K + 16 * c, 16);
+    }
+    qtts::cp_async_commit();
+    if (tid < nr) sm.sx[tid] = __ldcg(a.sx + r0 + tid);
+    qtts::cp_async_wait<0>();
+  } else if (quant) {
+    const unsigned* am = a.amax + ((size_t)l * 2 + (m == M_DN)) * a.B;
+    if (tid < nr)
+      sm.sx[tid] = __fmul_rn(fmaxf(__uint_as_float(__ldcg(am + r0 + tid)),
+                                   1e-8f), qtts::INV127);
+    __syncthreads();
+    // UQ 16-byte loads of each thread in flight, then their quantization
+    constexpr int UQ = 8;
+    const int per = K / 8, total = nr * per;
+    for (int i0 = tid; i0 < total; i0 += UQ * THREADS) {
+      uint4 u[UQ];
+#pragma unroll
+      for (int q = 0; q < UQ; ++q) {
+        const int i = i0 + q * THREADS;
+        u[q] = i < total ? __ldcg(reinterpret_cast<const uint4*>(
+                               src + (size_t)(r0 + i / per) * K +
+                               8 * (i % per)))
+                         : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int q = 0; q < UQ; ++q) {
+        const int i = i0 + q * THREADS;
+        if (i >= total) break;
+        const int row = i / per, c = i % per;
+        const __nv_bfloat162* h =
+            reinterpret_cast<const __nv_bfloat162*>(&u[q]);
+        const float s = sm.sx[row];
+        uint32_t w2[2] = {0u, 0u};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 f = __bfloat1622float2(h[j]);
+          const uint32_t lo = (uint8_t)(int8_t)rintf(__fdiv_rn(f.x, s));
+          const uint32_t hi = (uint8_t)(int8_t)rintf(__fdiv_rn(f.y, s));
+          w2[j >> 1] |= (lo | hi << 8) << (16 * (j & 1));
+        }
+        *reinterpret_cast<uint2*>(A + (size_t)row * lda + 8 * c) =
+            make_uint2(w2[0], w2[1]);
+      }
+    }
+  } else {
+    const int per = K / 8;
+    for (int i = tid; i < nr * per; i += THREADS) {
+      const int row = i / per, c = i % per;
+      qtts::cp_async16(A + (size_t)row * lda + 16 * c,
+                       src + (size_t)(r0 + row) * K + 8 * c, 16);
+    }
+    qtts::cp_async_commit();
+    qtts::cp_async_wait<0>();
+  }
+}
+
+// One output element (row b of the batch, column n) from its value(s) y.
 template <int EPI, int R>
-__device__ __forceinline__ void epilogue(__nv_bfloat16* o, const float* y) {
+__device__ __forceinline__ void epilogue(const Args& a, int l, int b, int n,
+                                         const float* y, Small& sm,
+                                         int row) {
   if (EPI == EPI_STORE) {
-    *o = __float2bfloat16_rn(y[0]);
+    const int nqkv = (a.H + 2 * a.Hkv) * DH;
+    a.qkv[(size_t)b * nqkv + n] = __float2bfloat16_rn(y[0]);
   } else if (EPI == EPI_RESID) {
-    *o = __float2bfloat16_rn(__fadd_rn(bf2f(*o), y[0]));
+    bf16* o = a.out + (size_t)b * a.D + n;
+    const float r = qtts::ld_bf<true>(o);
+    *o = __float2bfloat16_rn(__fadd_rn(r, y[0]));
   } else {
     const float gate = y[0];
     const float act = bf16r(__fdiv_rn(gate, 1.0f + expf(-gate)));
-    *o = __float2bfloat16_rn(__fmul_rn(act, y[R - 1]));
+    const bf16 v = __float2bfloat16_rn(__fmul_rn(act, y[R - 1]));
+    a.ff[(size_t)b * a.F + n] = v;
+    atomicMax(&sm.amax[row], __float_as_uint(fabsf(bf2f(v))));
   }
 }
 
-// The int8 / bf16 modes' prologue: rows in [NB, K] bf16 to xs [NB, K] bf16
-// in shared memory, RMS-normed with weights norm_w when RMS, with the
-// arithmetic of qtts::quantize_rows (w4a8.cuh) up to its quantization.
-template <int NB, bool RMS>
-__device__ __forceinline__ void norm_rows(
-    const __nv_bfloat16* __restrict__ in, const float* __restrict__ norm_w,
-    int K, float eps, __nv_bfloat16* xs, float* red) {
-  const int tid = threadIdx.x;
-  for (int b = 0; b < NB; ++b) {
-    const __nv_bfloat16* xr = in + (size_t)b * K;
-    __nv_bfloat16* sr = xs + (size_t)b * K;
-    if (!RMS) {
-      for (int k = tid; k < K; k += THREADS) sr[k] = xr[k];
-      continue;
+// The w4a8 / w8a8 tiles [t0, t1) of this block on the staged rows.  With
+// fewer tiles than warps (and MT = 1) each tile's K range is split over
+// ks warps: w4a8 keeps each group's exact int32 dot in shared memory
+// (`dots`) and the tile's first warp adds them in the JAX order (the
+// bits of the unsplit sum); w8a8 adds the warps' int32 partial dots.
+template <int MODE, int MT, int R, int EPI>
+__device__ void mma_tiles(const Args& a, int l, int m, int N, int K, int t0,
+                          int t1, int r0, int nr, const unsigned char* A,
+                          int lda, int* dots, Small& sm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const char* wq = a.wq[m] + l * w_bytes<MODE>((size_t)N * R, K);
+  const char* ws = a.ws[m] + l * s_bytes<MODE>((size_t)N * R, K);
+  const int nt = t1 - t0;
+  const int span = MODE == MODE_W4A8 ? K / (2 * GROUP) : K / 64;
+  const int ks = (MT == 1 && dots != nullptr) ? qtts::k_split(nt, WARPS, span)
+                                              : 1;
+  // ks > 1: warp w takes tile t0 + w / ks, K share w % ks, one unit each
+  const int units = ks > 1 ? nt * ks : nt;
+  float y[R][MT][4];
+  int dsum[R][MT][4];
+  for (int u = warp; u < (ks > 1 ? WARPS : units); u += WARPS) {
+    const bool live = u < units;
+    const int tile = t0 + (ks > 1 ? u / ks : u), part = ks > 1 ? u % ks : 0;
+    const int n0 = 8 * tile;
+    // the residual's values, loaded before the products
+    float res[MT][4];
+    if (EPI == EPI_RESID && live && part == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * mt + g + 8 * (e >> 1);
+          res[mt][e] = row < nr ? qtts::ld_bf<true>(
+                                      a.out + (size_t)(r0 + row) * a.D + n0 +
+                                      2 * t + (e & 1))
+                                : 0.f;
+        }
     }
-    float ss = 0.f;
-    for (int k = tid; k < K; k += THREADS) {
-      const float v = bf2f(xr[k]);
-      sr[k] = xr[k];
-      ss += v * v;
-    }
-    ss = qtts::block_sum<THREADS>(ss, red);
-    const float inv = 1.0f / sqrtf(ss / (float)K + eps);
-    for (int k = tid; k < K; k += THREADS)
-      sr[k] = __float2bfloat16_rn(
-          __fmul_rn(__fmul_rn(bf2f(sr[k]), inv), norm_w[k]));
-  }
-  __syncthreads();
-}
-
-// dst[b, n] for n < N in the int8, w8a8 and bf16 modes: output column n
-// (and n + N for the SwiGLU pair) of the (normed) input rows, then the
-// epilogue.  wq: int8 [N(*R), K] (int8, w8a8) or bf16 (bf16), ws: f32.
-template <int NB, bool RMS, int EPI, int MODE>
-__global__ void __launch_bounds__(THREADS)
-q8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
-               const float* __restrict__ norm_w, float eps, int K,
-               const void* __restrict__ wq, const float* __restrict__ ws,
-               int N, __nv_bfloat16* __restrict__ dst) {
-  constexpr int R = EPI == EPI_SWIGLU ? 2 : 1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // [NB, K]
-  int8_t* xq = reinterpret_cast<int8_t*>(                     // [NB, K]
-      smem + (size_t)NB * K * sizeof(__nv_bfloat16));
-  __shared__ float red[WARPS];
-  __shared__ float sx_s[NB];
-
-  const int tile = blockIdx.x;      // batch rows [tile * NB, tile * NB + NB)
-  in += (size_t)tile * NB * K;
-  dst += (size_t)tile * NB * N;
-  if (MODE == MODE_W8A8)
-    qtts::quantize_rows<NB, RMS, THREADS, false>(in, norm_w, K, eps, xs, xq,
-                                                 sx_s, red);
-  else
-    norm_rows<NB, RMS>(in, norm_w, K, eps, xs, red);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.y * WARPS + warp;
-  if (row >= N) return;  // warp-uniform; no block barrier follows
-  float y[NB][R];
+    const int p0 = part * span / ks, p1 = (part + 1) * span / ks;
+    int* tdots = dots != nullptr && ks > 1
+                     ? dots + (size_t)(u / ks) * R * (MODE == MODE_W4A8
+                                                          ? K / GROUP * 128
+                                                          : ks * 128)
+                     : nullptr;
+    if (live) {
+      if constexpr (MODE == MODE_W4A8) {
+        qtts::w4a8_tile<MT, R>(A, lda, nr,
+                               reinterpret_cast<const uint8_t*>(wq),
+                               reinterpret_cast<const bf16*>(ws), N, K, n0,
+                               p0, p1, y, tdots);
+      } else {
+        qtts::w8a8_tile<MT, R>(A, lda, nr, reinterpret_cast<const int8_t*>(wq),
+                               N, K, n0, p0, p1, dsum);
+        if (tdots != nullptr) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const size_t col = (size_t)(row + r * N) * K;
-    if (MODE == MODE_W8A8) {
-      const int8_t* wrow = static_cast<const int8_t*>(wq) + col;
-      int acc[NB];
+          for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = 0;
-      for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
-        const int4 wv = *reinterpret_cast<const int4*>(wrow + k0);
-#pragma unroll
-        for (int b = 0; b < NB; ++b) {
-          const int4 xv =
-              *reinterpret_cast<const int4*>(xq + (size_t)b * K + k0);
-          acc[b] = __dp4a(wv.x, xv.x, acc[b]);
-          acc[b] = __dp4a(wv.y, xv.y, acc[b]);
-          acc[b] = __dp4a(wv.z, xv.z, acc[b]);
-          acc[b] = __dp4a(wv.w, xv.w, acc[b]);
+            for (int e = 0; e < 4; ++e)
+              tdots[((r * ks + part) * 4 + e) * 32 + lane] = dsum[r][0][e];
         }
       }
+    }
+    if (ks > 1) {
+      __syncthreads();                    // every share of every tile
+      if (!live || part != 0) continue;
+      if constexpr (MODE == MODE_W4A8) {
+        float acc1[R][1][4];
+        qtts::w4a8_sum_dots<R>(tdots, reinterpret_cast<const bf16*>(ws), N,
+                               K, n0, acc1);
 #pragma unroll
-      for (int b = 0; b < NB; ++b) {
+        for (int r = 0; r < R; ++r)
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], o);
-        // JAX: (f32(acc) * sx) * s, then bf16
-        y[b][r] = bf16r(__fmul_rn(__fmul_rn((float)acc[b], sx_s[b]),
-                                  ws[row + r * N]));
+          for (int e = 0; e < 4; ++e) y[r][0][e] = acc1[r][0][e];
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            int v = 0;
+            for (int j = 0; j < ks; ++j)
+              v += tdots[((r * ks + j) * 4 + e) * 32 + lane];
+            dsum[r][0][e] = v;
+          }
       }
+    }
+    if constexpr (MODE == MODE_W4A8) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * mt + g + 8 * (e >> 1);
+          const float sx = row < nr ? sm.sx[row] : 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            y[r][mt][e] = bf16r(__fmul_rn(y[r][mt][e], sx));
+        }
     } else {
+      const float* s = reinterpret_cast<const float*>(ws);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * mt + g + 8 * (e >> 1);
+          const float sx = row < nr ? sm.sx[row] : 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            // JAX: (f32(acc) * sx) * s, then bf16
+            y[r][mt][e] = bf16r(__fmul_rn(
+                __fmul_rn((float)dsum[r][mt][e], sx),
+                s[n0 + r * N + 2 * t + (e & 1)]));
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * mt + g + 8 * (e >> 1);
+        if (row >= nr) continue;
+        if (EPI == EPI_RESID) {
+          a.out[(size_t)(r0 + row) * a.D + n0 + 2 * t + (e & 1)] =
+              __float2bfloat16_rn(__fadd_rn(res[mt][e], y[0][mt][e]));
+          continue;
+        }
+        float v[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[r] = y[r][mt][e];
+        epilogue<EPI, R>(a, l, r0 + row, n0 + 2 * t + (e & 1), v, sm, row);
+      }
+  }
+}
+
+// The int8 and bf16 modes: a warp per output column (and its SwiGLU
+// partner), the rows of the pass (<= 8) from A (bf16, stride lda bytes).
+template <int MODE, int R, int EPI>
+__device__ void lane_cols(const Args& a, int l, int m, int N, int K, int t0,
+                          int t1, int r0, int nr, const unsigned char* A,
+                          int lda, Small& sm) {
+  constexpr int NB = 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const char* wq = a.wq[m] + l * w_bytes<MODE>((size_t)N * R, K);
+  const float* ws = reinterpret_cast<const float*>(
+      a.ws[m] + l * s_bytes<MODE>((size_t)N * R, K));
+  for (int col = 8 * t0 + warp; col < 8 * t1; col += WARPS) {
+    float y[NB][R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const size_t c = (size_t)(col + r * N);
       float acc[NB];
 #pragma unroll
       for (int b = 0; b < NB; ++b) acc[b] = 0.f;
       for (int k0 = lane * 16; k0 < K; k0 += 32 * 16) {
         float wf[16];
-        if (MODE == MODE_INT8) {
-          const uint4 wv = *reinterpret_cast<const uint4*>(
-              static_cast<const int8_t*>(wq) + col + k0);
+        if constexpr (MODE == MODE_INT8) {
+          const uint4 wv = qtts::ld_w(wq + c * K + k0);
           const int8_t* w8 = reinterpret_cast<const int8_t*>(&wv);
 #pragma unroll
           for (int j = 0; j < 16; ++j) wf[j] = (float)w8[j];
         } else {
-          const uint4* wp = reinterpret_cast<const uint4*>(
-              static_cast<const __nv_bfloat16*>(wq) + col + k0);
-          const uint4 wa = wp[0], wb = wp[1];
+          const bf16* wp = reinterpret_cast<const bf16*>(wq) + c * K + k0;
+          const uint4 wa = qtts::ld_w(wp), wb = qtts::ld_w(wp + 8);
           const __nv_bfloat162* h0 = reinterpret_cast<const __nv_bfloat162*>(&wa);
           const __nv_bfloat162* h1 = reinterpret_cast<const __nv_bfloat162*>(&wb);
 #pragma unroll
@@ -218,11 +438,11 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
         }
 #pragma unroll
         for (int b = 0; b < NB; ++b) {
-          const uint4* xv =
-              reinterpret_cast<const uint4*>(xs + (size_t)b * K + k0);
-          // the lane's 16 values in K order into one f32 sum (the order
-          // kernels/talker_step.qmm8_lanes_plain repeats); bf16 x int8 and
-          // bf16 x bf16 products are exact in f32
+          if (b >= nr) break;
+          const uint4* xv = reinterpret_cast<const uint4*>(
+              A + (size_t)b * lda + (size_t)k0 * 2);
+          // the lane's 16 values in K order into one f32 sum; bf16 x int8
+          // and bf16 x bf16 products are exact in f32
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const uint4 xa = xv[h];
@@ -243,258 +463,438 @@ q8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
         for (int o = 16; o > 0; o >>= 1)
           acc[b] += __shfl_xor_sync(0xffffffffu, acc[b], o);
         // JAX `_qmm`: bf16(dot) * bf16(s), a bf16 multiply
-        y[b][r] = bf16r(__fmul_rn(bf16r(acc[b]), bf16r(ws[row + r * N])));
+        y[b][r] = bf16r(__fmul_rn(bf16r(acc[b]), bf16r(ws[c])));
       }
     }
+    if (lane != 0) continue;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+      if (b < nr) epilogue<EPI, R>(a, l, r0 + b, col, y[b], sm, b);
   }
-  if (lane != 0) return;
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-    epilogue<EPI, R>(dst + (size_t)b * N + row, y[b]);
 }
 
-// dst[b, n] for n < N: the w4a8 product of the (normed) input rows with
-// output columns n (and n + N for the SwiGLU pair), then the epilogue
-// (w4a8.cuh: quantize_rows, w4a8_warp_row).
-template <int NB, bool RMS, int EPI>
-__global__ void __launch_bounds__(THREADS)
-w4a8_gemv_kernel(const __nv_bfloat16* __restrict__ in,
-                 const float* __restrict__ norm_w, float eps, int K,
-                 const uint8_t* __restrict__ wq,
-                 const __nv_bfloat16* __restrict__ ws, int N,
-                 __nv_bfloat16* __restrict__ dst) {
-  constexpr int R = EPI == EPI_SWIGLU ? 2 : 1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* xq = reinterpret_cast<int8_t*>(smem);             // [NB, K]
-  int* gd = reinterpret_cast<int*>(smem + (size_t)NB * K);  // [W, R, ng, NB]
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(      // [NB, K]
-      gd + (size_t)WARPS * R * (K / GROUP) * NB);
-  __shared__ float red[WARPS];
-  __shared__ float sx_s[NB];
-
-  const int tile = blockIdx.x;      // batch rows [tile * NB, tile * NB + NB)
-  in += (size_t)tile * NB * K;
-  dst += (size_t)tile * NB * N;
-  qtts::quantize_rows<NB, RMS, THREADS, false>(in, norm_w, K, eps, xs, xq,
-                                               sx_s, red);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.y * WARPS + warp;
-  if (row >= N) return;  // warp-uniform; no block barrier follows
-  const int ng = K / GROUP;
-  float y[R];
-  qtts::w4a8_warp_row<NB, R>(xq, sx_s, K, wq, ws, N, row,
-                             gd + (size_t)warp * R * ng * NB, y);
-  if (lane >= NB) return;
-  epilogue<EPI, R>(dst + (size_t)lane * N + row, y);
+template <int MODE, int R, int EPI>
+__device__ void gemv_phase(const Args& a, int l, int m, unsigned char* A,
+                           Small& sm) {
+  int N, K, r;
+  mat_shape(a, m, N, K, r);
+  int t0, t1;
+  qtts::tile_range(N / 8, t0, t1);
+  if (t0 >= t1) return;
+  constexpr bool quant = MODE == MODE_W4A8 || MODE == MODE_W8A8;
+  const int lda = quant ? K + (MODE == MODE_W4A8 ? 16 : 64) : 2 * K + 16;
+  // up to 16 lanes one m16 tile, with room for the K split's dots; more
+  // lanes in passes of two m16 tiles (32 rows) when they fit
+  const int rp = quant ? (a.B > 16 && (size_t)32 * lda <= SMEM_A ? 32 : 16)
+                       : 8;
+  const size_t dot_bytes =
+      (size_t)(t1 - t0) * r * 512 * (MODE == MODE_W4A8 ? K / GROUP : WARPS);
+  int* dots = quant && rp == 16 && (size_t)16 * lda + dot_bytes <= SMEM_A
+                  ? reinterpret_cast<int*>(A + (size_t)16 * lda)
+                  : nullptr;
+  for (int r0 = 0; r0 < a.B; r0 += rp) {
+    const int nr = min(rp, a.B - r0);
+    if (EPI == EPI_SWIGLU && threadIdx.x < 32) sm.amax[threadIdx.x] = 0u;
+    stage_rows<MODE>(a, l, m, K, r0, nr, A, lda, sm);
+    __syncthreads();
+    if constexpr (!quant)
+      lane_cols<MODE, R, EPI>(a, l, m, N, K, t0, t1, r0, nr, A, lda, sm);
+    else if (nr > 16)
+      mma_tiles<MODE, 2, R, EPI>(a, l, m, N, K, t0, t1, r0, nr, A, lda,
+                                 nullptr, sm);
+    else
+      mma_tiles<MODE, 1, R, EPI>(a, l, m, N, K, t0, t1, r0, nr, A, lda, dots,
+                                 sm);
+    __syncthreads();                  // A is restaged by the next pass
+    if (EPI == EPI_SWIGLU && quant && threadIdx.x < nr)
+      atomicMax(a.amax + ((size_t)l * 2 + 1) * a.B + r0 + threadIdx.x,
+                sm.amax[threadIdx.x]);
+  }
 }
 
-// Attention of one (kv head, lane) for the current token; see the header.
-template <int DH>
-__global__ void __launch_bounds__(DH)
-step_attn_kernel(const __nv_bfloat16* __restrict__ qkv,
-                 __nv_bfloat16* __restrict__ ctx, __nv_bfloat16* kc,
-                 __nv_bfloat16* vc, __nv_bfloat16* __restrict__ k_tok,
-                 __nv_bfloat16* __restrict__ v_tok,
-                 const float* __restrict__ cos,
-                 const float* __restrict__ sin, const float* __restrict__ qn,
-                 const float* __restrict__ kn, const int* __restrict__ lengths,
-                 const int* __restrict__ write_idx, int layer, int B, int H,
-                 int Hkv, int C, int prompt_cap, float eps, float scale) {
-  using qtts::MAX_G;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int G = H / Hkv;
-
-  __shared__ float q_s[MAX_G][DH];
-  __shared__ float x_s[MAX_G + 1][DH];
-  __shared__ float p_s[MAX_G][DH];
-  __shared__ float red_s[MAX_G][DH / 32];
-  __shared__ float red[DH / 32];
-
-  float kv, vv;
-  qtts::norm_rope_heads<DH>(qkv + (size_t)b * (H + 2 * Hkv) * DH, H, Hkv,
-                            kvh, G, qn, kn, cos + (size_t)b * DH,
-                            sin + (size_t)b * DH, eps, q_s, x_s, red, &kv,
-                            &vv);
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g)
-    if (g < G) q_s[g][t] = __fmul_rn(q_s[g][t], scale);
-
-  const int length = lengths[b];
-  const int cursor = write_idx[b];
-  const size_t head = ((size_t)layer * B + b) * Hkv + kvh;
-  __nv_bfloat16* kp = kc + head * (size_t)C * DH;
-  __nv_bfloat16* vp = vc + head * (size_t)C * DH;
-  if (k_tok != nullptr) {             // per-lane mode: the token buffer
-    k_tok[head * DH + t] = __float2bfloat16_rn(kv);
-    v_tok[head * DH + t] = __float2bfloat16_rn(vv);
-  } else if (cursor >= 0 && cursor < C) {
-    kp[(size_t)cursor * DH + t] = __float2bfloat16_rn(kv);
-    vp[(size_t)cursor * DH + t] = __float2bfloat16_rn(vv);
+// --------------------------------------------------------------- attention
+// sm.cum[b]: the attention items (kv head, split) of lanes before b.
+__device__ void count_items(const Args& a, Small& sm) {
+  if (threadIdx.x == 0) {
+    sm.cum[0] = 0;
+    for (int b = 0; b < a.B; ++b) {
+      const int end = max(0, min(a.write_idx[b], a.C));
+      sm.cum[b + 1] = sm.cum[b] + a.Hkv * max(1, (end + SPLIT - 1) / SPLIT);
+    }
   }
   __syncthreads();
-
-  float m[MAX_G], l[MAX_G], acc[MAX_G];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = qtts::NEG;
-    l[g] = 0.f;
-    acc[g] = 0.f;
-  }
-  // the live prefix [0, cursor): prompt slots < length, generated slots
-  // >= prompt_cap
-  qtts::attend_tiles<DH>(q_s, G, kp, vp, max(0, min(cursor, C)), length,
-                         cursor, prompt_cap, 1.0f, p_s, red_s, m, l, acc);
-  // the current token: one more column, always visible
-  qtts::attend_current<DH>(q_s, G, kv, vv, m, l, acc, red,
-                           ctx + ((size_t)b * H + kvh * G) * DH);
 }
 
-// One GEMV launch of mode MODE: wq / ws are the mode's weight and scale
-// pointers (see the header).
-template <int NB, bool RMS, int EPI, int MODE>
-cudaError_t gemv(const __nv_bfloat16* in, const float* norm_w, float eps,
-                 int K, const void* wq, const void* ws, int N,
-                 __nv_bfloat16* dst, int tiles, cudaStream_t st) {
-  constexpr int R = EPI == EPI_SWIGLU ? 2 : 1;
-  const dim3 grid(tiles, (N + WARPS - 1) / WARPS);
-  if (MODE == MODE_W4A8) {
-    const size_t smem =
-        (size_t)NB * K * (1 + sizeof(__nv_bfloat16)) +
-        (size_t)WARPS * R * (K / GROUP) * NB * sizeof(int);
-    auto kernel = w4a8_gemv_kernel<NB, RMS, EPI>;
-    cudaError_t e = qtts::allow_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<grid, THREADS, smem, st>>>(
-        in, norm_w, eps, K, static_cast<const uint8_t*>(wq),
-        static_cast<const __nv_bfloat16*>(ws), N, dst);
-  } else {
-    const size_t smem = (size_t)NB * K *
-        (sizeof(__nv_bfloat16) + (MODE == MODE_W8A8 ? 1 : 0));
-    auto kernel = q8_gemv_kernel<NB, RMS, EPI, MODE>;
-    // the 48 KB default covers static + dynamic shared memory: count the
-    // kernel's static red[] and sx_s[] (w8a8 at NB = 8, K = 2048 needs
-    // exactly 48 KB of dynamic memory)
-    cudaError_t e =
-        qtts::allow_smem(kernel, smem + (WARPS + NB) * sizeof(float));
-    if (e != cudaSuccess) return e;
-    kernel<<<grid, THREADS, smem, st>>>(in, norm_w, eps, K, wq,
-                                        static_cast<const float*>(ws), N,
-                                        dst);
+// Items (lane b, kv head, split s of the lane's prefix [0, end_b), end_b =
+// min(write_idx[b], C), ns_b = max(1, ceil(end_b / SPLIT)) splits), one
+// warp each over the grid.  Slot c of the prefix is visible iff c < length
+// or c >= prompt_cap.  Per split (chunk_step.cu talker_attn's arithmetic,
+// the order of chunk_step._attend_kernel_order): scores, m = max, p =
+// exp(s - m) (0 where masked), l = the lanes' butterfly of p[lane] +
+// p[lane + 32], acc = P.V by fma in slot order.  With several splits each
+// writes (acc, m, l) to a.part and the warp that raises the item's arrival
+// counter to ns_b combines them in split order (M = max m_s, l and acc by
+// fma with weights exp(m_s - M)) and sets the counter back to 0.  That
+// warp writes the token's k/v row (cache slot write_idx[b] or the token
+// buffers), merges the current token (from registers, always visible) as
+// one more online-softmax step, writes the context row and raises the
+// lane's max |ctx|.
+template <int CG>
+__device__ void attn_phase(const Args& a, int l, unsigned char* smem,
+                           Small& sm) {
+  using W = qtts::SplitWarp<CG>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  W& w = reinterpret_cast<W*>(smem)[warp];
+  const int G = a.H / a.Hkv;
+  const int nqkv = (a.H + 2 * a.Hkv) * DH, dq = a.H * DH;
+  const int nsmax = (a.C + SPLIT - 1) / SPLIT;
+  count_items(a, sm);
+  const size_t n_rows = (size_t)a.B * a.Hkv * nsmax * G;
+  float* part_acc = a.part;
+  float* part_ml = a.part + n_rows * DH;
+  const int n_items = sm.cum[a.B];
+  for (int it = blockIdx.x + warp * gridDim.x; it < n_items;
+       it += gridDim.x * WARPS) {
+    int b = 0;
+    while (sm.cum[b + 1] <= it) ++b;
+    const int cursor = a.write_idx[b];
+    const int end = max(0, min(cursor, a.C));
+    const int ns = max(1, (end + SPLIT - 1) / SPLIT);
+    const int kvh = (it - sm.cum[b]) / ns, s = (it - sm.cum[b]) % ns;
+    const int bh = b * a.Hkv + kvh;
+    const int length = a.lengths[b];
+    const size_t head = ((size_t)l * a.B + b) * a.Hkv + kvh;
+    bf16* kp = a.kc + head * a.C * DH;
+    bf16* vp = a.vc + head * a.C * DH;
+    qtts::qk_warp(a.qkv + (size_t)b * nqkv, a.H, a.Hkv, kvh, G,
+                  a.qn + (size_t)l * DH, a.kn + (size_t)l * DH,
+                  a.cos + (size_t)b * DH, a.sin + (size_t)b * DH, a.eps,
+                  a.scale, w);
+    // ---- split s: slots [c0, c0 + n)
+    const int c0 = s * SPLIT;
+    const int n = max(0, min(SPLIT, end - c0));
+    const int pc = a.prompt_cap;
+    qtts::score_slots(
+        w, G, n, [&](int j) { return kp + (size_t)(c0 + j) * DH; },
+        [](int) { return false; },
+        [&](int j) { return c0 + j < length || c0 + j >= pc; });
+    float m[CG], ls[CG], acc[CG][4];
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      const float sa = lane < n ? w.s[g][lane] : qtts::NEG;
+      const float sb = lane + 32 < n ? w.s[g][lane + 32] : qtts::NEG;
+      float mx = fmaxf(sa, sb);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float pa = sa > qtts::NEG ? expf(sa - mx) : 0.f;
+      const float pb = sb > qtts::NEG ? expf(sb - mx) : 0.f;
+      m[g] = mx;
+      ls[g] = qtts::warp_sum(__fadd_rn(pa, pb));
+      __syncwarp();
+      if (g < G) {
+        w.s[g][lane] = pa;
+        w.s[g][lane + 32] = pb;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
+    }
+    __syncwarp();
+    qtts::pv_slots(w, n, [&](int j) { return vp + (size_t)(c0 + j) * DH; },
+                   [](int) { return false; }, acc);
+    if (ns > 1) {
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        if (g >= G) continue;
+        const size_t r = ((size_t)bh * nsmax + s) * G + g;
+        *reinterpret_cast<float4*>(part_acc + r * DH + 4 * lane) =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+        if (lane == 0) {
+          part_ml[r * 2] = m[g];
+          part_ml[r * 2 + 1] = ls[g];
+        }
+      }
+      __threadfence();
+      __syncwarp();
+      unsigned old = 0;
+      if (lane == 0) old = atomicAdd(a.arrive + bh, 1u);
+      old = __shfl_sync(0xffffffffu, old, 0);
+      if (old != (unsigned)ns - 1) {
+        __syncwarp();
+        continue;
+      }
+      __threadfence();
+#pragma unroll
+      for (int g = 0; g < CG; ++g) {
+        if (g >= G) continue;
+        const size_t r0 = (size_t)bh * nsmax * G + g;
+        float mm = qtts::NEG;
+#pragma unroll 4
+        for (int z = 0; z < ns; ++z)
+          mm = fmaxf(mm, __ldcg(part_ml + (r0 + (size_t)z * G) * 2));
+        float l_ = 0.f, ac[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int z = 0; z < ns; ++z) {
+          const size_t r = r0 + (size_t)z * G;
+          const float wz = expf(__ldcg(part_ml + r * 2) - mm);
+          l_ = fmaf(__ldcg(part_ml + r * 2 + 1), wz, l_);
+          const float4 pz = __ldcg(
+              reinterpret_cast<const float4*>(part_acc + r * DH + 4 * lane));
+          ac[0] = fmaf(pz.x, wz, ac[0]);
+          ac[1] = fmaf(pz.y, wz, ac[1]);
+          ac[2] = fmaf(pz.z, wz, ac[2]);
+          ac[3] = fmaf(pz.w, wz, ac[3]);
+        }
+        m[g] = mm;
+        ls[g] = l_;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[g][i] = ac[i];
+      }
+      if (lane == 0) a.arrive[bh] = 0u;          // for the next layer
+    }
+    // ---- the merging warp: the token's k/v row, then the current token
+    bf16* kd = a.k_tok != nullptr ? a.k_tok + head * DH
+               : (cursor >= 0 && cursor < a.C) ? kp + (size_t)cursor * DH
+                                                : nullptr;
+    bf16* vd = a.k_tok != nullptr ? a.v_tok + head * DH
+               : (cursor >= 0 && cursor < a.C) ? vp + (size_t)cursor * DH
+                                                : nullptr;
+    if (kd != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        kd[lane + 32 * i] = __float2bfloat16_rn(w.k[lane + 32 * i]);
+        vd[lane + 32 * i] = __float2bfloat16_rn(w.v[lane + 32 * i]);
+      }
+    }
+    auto own = [](int) { return true; };
+    qtts::score_slots(w, G, 1, [&](int) { return kp; }, own,
+                      [](int) { return true; });
+    float lsum[CG];
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      const float mx = fmaxf(m[g], w.s[g][0]);
+      const float alpha = expf(m[g] - mx);
+      lsum[g] = __fmul_rn(ls[g], alpha);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[g][i] = __fmul_rn(acc[g][i], alpha);
+      __syncwarp();
+      const float p = expf(w.s[g][0] - mx);
+      lsum[g] = __fadd_rn(lsum[g], p);
+      __syncwarp();
+      if (lane == 0) w.s[g][0] = p;
+    }
+    __syncwarp();
+    qtts::pv_slots(w, 1, [&](int) { return vp; }, own, acc);
+    float amx = 0.f;
+#pragma unroll
+    for (int g = 0; g < CG; ++g) {
+      if (g >= G) continue;
+      const float den = fmaxf(lsum[g], 1e-30f);
+      __nv_bfloat162 o2[2];
+      o2[0] = __floats2bfloat162_rn(acc[g][0] / den, acc[g][1] / den);
+      o2[1] = __floats2bfloat162_rn(acc[g][2] / den, acc[g][3] / den);
+      *reinterpret_cast<uint2*>(a.ctx + (size_t)b * dq +
+                                ((size_t)kvh * G + g) * DH + 4 * lane) =
+          *reinterpret_cast<const uint2*>(o2);
+      amx = fmaxf(amx, fmaxf(fmaxf(fabsf(__low2float(o2[0])),
+                                   fabsf(__high2float(o2[0]))),
+                             fmaxf(fabsf(__low2float(o2[1])),
+                                   fabsf(__high2float(o2[1])))));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      amx = fmaxf(amx, __shfl_xor_sync(0xffffffffu, amx, o));
+    if (lane == 0)
+      atomicMax(a.amax + (size_t)l * 2 * a.B + b, __float_as_uint(amx));
+    __syncwarp();                  // w is rewritten by the warp's next item
   }
+}
+
+// ------------------------------------------------------------------ kernel
+template <int MODE, int CG>
+__global__ void __launch_bounds__(THREADS, 1) step_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Small& sm = *reinterpret_cast<Small*>(smem + SMEM_A);
+  unsigned target = 0;
+  if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    a.trace[0] = clock64();
+  if (blockIdx.x == 0)               // first read after a barrier
+    for (int i = threadIdx.x; i < a.L * 2 * a.B; i += THREADS) a.amax[i] = 0u;
+  for (int p = 0; p < KINDS * a.L; ++p) {
+    if (p > 0) qtts::grid_sync(a.barrier, target, a.trace);
+    const int l = p / KINDS;
+    switch (p % KINDS) {
+      case K_NORM1:
+        norm_phase<MODE>(a, l, true, smem, sm);
+        break;
+      case K_QKV:
+        gemv_phase<MODE, 1, EPI_STORE>(a, l, M_QKV, smem, sm);
+        break;
+      case K_ATTN:
+        attn_phase<CG>(a, l, smem, sm);
+        break;
+      case K_WO:
+        gemv_phase<MODE, 1, EPI_RESID>(a, l, M_WO, smem, sm);
+        break;
+      case K_NORM2:
+        norm_phase<MODE>(a, l, false, smem, sm);
+        break;
+      case K_GU:
+        gemv_phase<MODE, 2, EPI_SWIGLU>(a, l, M_GU, smem, sm);
+        break;
+      default:
+        gemv_phase<MODE, 1, EPI_RESID>(a, l, M_DN, smem, sm);
+        break;
+    }
+  }
+  if (a.trace != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
+    a.trace[KINDS * a.L] = clock64();
+  qtts::grid_exit(a.barrier);
+}
+
+template <int MODE, int CG>
+cudaError_t launch(const Args& a, int* info, cudaStream_t st) {
+  auto kernel = step_kernel<MODE, CG>;
+  const size_t smem = SMEM_A + sizeof(Small);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess) e = qtts::allow_smem(kernel, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (e != cudaSuccess) return e;
+  if (!coop) return cudaErrorNotSupported;
+  const int blocks = min(per_sm, 1) * sms;
+  if (blocks < 1 || blocks > a.max_blocks)
+    return cudaErrorCooperativeLaunchTooLarge;
+  info[0] = blocks;
+  void* params[] = {(void*)&a};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                  dim3(THREADS), params, smem, st);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// Bytes of one layer's weight matrix [N, K] and of its scales, by mode.
-template <int MODE>
-inline size_t w_bytes(size_t n, size_t k) {
-  return MODE == MODE_W4A8 ? n * k / 2
-         : MODE == MODE_BF16 ? n * k * 2 : n * k;
-}
-template <int MODE>
-inline size_t s_bytes(size_t n, size_t k) {
-  return MODE == MODE_W4A8 ? n * (k / GROUP) * 2 : n * 4;
-}
-
-template <int NB, int MODE>
-cudaError_t run_step(const __nv_bfloat16* x, __nv_bfloat16* out,
-                     const float* cos, const float* sin, const float* ln1,
-                     const float* ln2, const float* qn, const float* kn,
-                     const char* wqkv_q, const char* wqkv_s,
-                     const char* wo_q, const char* wo_s,
-                     const char* gu_q, const char* gu_s,
-                     const char* dn_q, const char* dn_s,
-                     __nv_bfloat16* kc, __nv_bfloat16* vc,
-                     __nv_bfloat16* k_tok, __nv_bfloat16* v_tok,
-                     const int* lengths, const int* write_idx,
-                     __nv_bfloat16* qkv, __nv_bfloat16* ctx,
-                     __nv_bfloat16* ff, int L, int B, int D, int H, int Hkv,
-                     int DH, int F, int C, int prompt_cap, float eps,
-                     float scale, cudaStream_t st) {
-  const int dq = H * DH;
-  const int nqkv = (H + 2 * Hkv) * DH;
-  const int tiles = B / NB;
-  cudaError_t e = cudaMemcpyAsync(out, x, (size_t)B * D * sizeof(*x),
-                                  cudaMemcpyDeviceToDevice, st);
-  for (int l = 0; l < L && e == cudaSuccess; ++l) {
-    e = gemv<NB, true, EPI_STORE, MODE>(
-        out, ln1 + (size_t)l * D, eps, D, wqkv_q + l * w_bytes<MODE>(nqkv, D),
-        wqkv_s + l * s_bytes<MODE>(nqkv, D), nqkv, qkv, tiles, st);
-    if (e != cudaSuccess) break;
-    step_attn_kernel<128><<<dim3(Hkv, B), 128, 0, st>>>(
-        qkv, ctx, kc, vc, k_tok, v_tok, cos, sin, qn + (size_t)l * DH,
-        kn + (size_t)l * DH, lengths, write_idx, l, B, H, Hkv, C, prompt_cap,
-        eps, scale);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) break;
-    e = gemv<NB, false, EPI_RESID, MODE>(
-        ctx, nullptr, eps, dq, wo_q + l * w_bytes<MODE>(D, dq),
-        wo_s + l * s_bytes<MODE>(D, dq), D, out, tiles, st);
-    if (e != cudaSuccess) break;
-    e = gemv<NB, true, EPI_SWIGLU, MODE>(
-        out, ln2 + (size_t)l * D, eps, D, gu_q + l * w_bytes<MODE>(2 * F, D),
-        gu_s + l * s_bytes<MODE>(2 * F, D), F, ff, tiles, st);
-    if (e != cudaSuccess) break;
-    e = gemv<NB, false, EPI_RESID, MODE>(
-        ff, nullptr, eps, F, dn_q + l * w_bytes<MODE>(D, F),
-        dn_s + l * s_bytes<MODE>(D, F), D, out, tiles, st);
+// One w4a8 GEMV phase alone on the step kernel's core, for the checks
+// (kernels/talker_step.w4a8_gemv): rows xq int8 [B, K] with scales sx [B]
+// -> y [B, N] bf16 = bf16(group sum * sx), a warp per 8-column tile, the
+// rows staged in shared memory 32 at a time.
+__global__ void __launch_bounds__(THREADS)
+w4a8_gemv_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+                 const uint8_t* __restrict__ wq, const bf16* __restrict__ ws,
+                 int B, int N, int K, bf16* __restrict__ y) {
+  extern __shared__ __align__(16) unsigned char A[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lda = K + 16;
+  const int tile = blockIdx.x * WARPS + warp;
+  for (int r0 = 0; r0 < B; r0 += 32) {
+    const int nr = min(32, B - r0);
+    const int per = K / 16;
+    for (int i = threadIdx.x; i < nr * per; i += THREADS) {
+      const int row = i / per, c = i % per;
+      qtts::cp_async16(A + (size_t)row * lda + 16 * c,
+                       xq + (size_t)(r0 + row) * K + 16 * c, 16);
+    }
+    qtts::cp_async_commit();
+    qtts::cp_async_wait<0>();
+    __syncthreads();
+    if (tile < N / 8) {
+      float acc[1][2][4];
+      qtts::w4a8_tile<2, 1>(A, lda, nr, wq, ws, N, K, 8 * tile, 0,
+                            K / (2 * GROUP), acc);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * mt + g + 8 * (e >> 1);
+          if (row < nr)
+            y[(size_t)(r0 + row) * N + 8 * tile + 2 * t + (e & 1)] =
+                __float2bfloat16_rn(__fmul_rn(acc[0][mt][e], sx[r0 + row]));
+        }
+    }
+    __syncthreads();
   }
-  return e;
 }
 
 }  // namespace
 
-extern "C" int qtts_talker_step(
-    const void* x, void* out, const float* cos, const float* sin,
-    const float* ln1, const float* ln2, const float* qn, const float* kn,
-    const void* wqkv_q, const void* wqkv_s, const void* wo_q,
-    const void* wo_s, const void* gu_q, const void* gu_s, const void* dn_q,
-    const void* dn_s, void* k_cache, void* v_cache, const int* lengths,
-    const int* write_idx, void* qkv_buf, void* ctx_buf, void* ff_buf,
-    void* k_tok, void* v_tok, int L, int B, int D, int H, int Hkv, int DH,
-    int F, int C, int prompt_cap, int mode, float eps, float scale,
-    void* stream) {
-  // contraction dims: whole 256-row nibble groups (w4a8), whole 16-byte
-  // int8 vectors (the other modes), at most 8192 (shared memory)
-  const int kq = mode == MODE_W4A8 ? 2 * GROUP : 16;
-  const bool batch_ok = (B >= 1 && B <= 4) || (B % 8 == 0 && B <= 96);
-  if (!batch_ok || mode < MODE_W4A8 || mode > MODE_BF16 || DH != 128 ||
-      Hkv <= 0 || H % Hkv != 0 || H / Hkv > qtts::MAX_G || D % kq != 0 ||
-      (H * DH) % kq != 0 || F % kq != 0 || D > 8192 || H * DH > 8192 ||
-      F > 8192 || C <= 0 || L <= 0)
+extern "C" int qtts_w4a8_gemv(const void* xq, const float* sx,
+                              const void* wq, const void* ws, int B, int N,
+                              int K, void* y, void* stream) {
+  if (B < 1 || N % 8 != 0 || K % (2 * GROUP) != 0 || K > 8192)
     return (int)cudaErrorInvalidValue;
-  using bf = __nv_bfloat16;
-  auto bp = [](const void* p) { return static_cast<const bf*>(p); };
-  auto cp = [](const void* p) { return static_cast<const char*>(p); };
+  const size_t smem = (size_t)32 * (K + 16);
+  cudaError_t e = qtts::allow_smem(w4a8_gemv_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  w4a8_gemv_kernel<<<(N / 8 + WARPS - 1) / WARPS, THREADS, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xq), sx, static_cast<const uint8_t*>(wq),
+      static_cast<const bf16*>(ws), B, N, K, static_cast<bf16*>(y));
+  return (int)cudaGetLastError();
+}
+
+// ptrs / ints / flts in the order of kernels/talker_step.talker_step_fused;
+// info (host) gets the grid's block count.
+extern "C" int qtts_talker_step(void* const* ptrs, int n_ptrs,
+                                const int* ints, int n_ints,
+                                const float* flts, int n_flts, int* info,
+                                void* stream) {
+  if (n_ptrs != N_PTRS || n_ints != N_INTS || n_flts != N_FLTS)
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  int i = 0;
+  auto P = [&]() { return ptrs[i++]; };
+  a.x = (const bf16*)P(); a.out = (bf16*)P();
+  a.cos = (const float*)P(); a.sin = (const float*)P();
+  a.ln1 = (const float*)P(); a.ln2 = (const float*)P();
+  a.qn = (const float*)P(); a.kn = (const float*)P();
+  for (int m = 0; m < 4; ++m) {
+    a.wq[m] = (const char*)P();
+    a.ws[m] = (const char*)P();
+  }
+  a.kc = (bf16*)P(); a.vc = (bf16*)P();
+  a.k_tok = (bf16*)P(); a.v_tok = (bf16*)P();
+  a.lengths = (const int*)P(); a.write_idx = (const int*)P();
+  a.qkv = (bf16*)P(); a.ctx = (bf16*)P(); a.ff = (bf16*)P();
+  a.hn = (bf16*)P(); a.xq = (int8_t*)P(); a.sx = (float*)P();
+  a.amax = (unsigned*)P(); a.part = (float*)P();
+  a.arrive = (unsigned*)P(); a.barrier = (unsigned*)P();
+  a.trace = (long long*)P();
+  int j = 0;
+  a.L = ints[j++]; a.B = ints[j++]; a.D = ints[j++]; a.H = ints[j++];
+  a.Hkv = ints[j++]; a.F = ints[j++]; a.C = ints[j++];
+  a.prompt_cap = ints[j++]; a.mode = ints[j++]; a.max_blocks = ints[j++];
+  a.eps = flts[0];
+  a.scale = flts[1];
+  // contraction dims: whole 256-row nibble groups (w4a8), whole 64-byte
+  // blocks (the other modes), at most 8192 (shared memory)
+  const int kq = a.mode == MODE_W4A8 ? 2 * GROUP : 64;
+  const int dq = a.H * DH;
+  const bool batch_ok =
+      (a.B >= 1 && a.B <= 4) || (a.B % 8 == 0 && a.B <= MAX_B);
+  if (!batch_ok || a.mode < MODE_W4A8 || a.mode > MODE_BF16 || a.Hkv <= 0 ||
+      a.H % a.Hkv != 0 || a.H / a.Hkv > qtts::MAX_G || a.D % kq != 0 ||
+      dq % kq != 0 || a.F % kq != 0 || a.D > 8192 || dq > 8192 ||
+      a.F > 8192 || a.C <= 0 || a.L <= 0 || a.max_blocks < 1 ||
+      (a.k_tok == nullptr) != (a.v_tok == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define QTTS_STEP(NB, MODE)                                                  \
-  run_step<NB, MODE>(bp(x), static_cast<bf*>(out), cos, sin, ln1, ln2, qn,   \
-                     kn, cp(wqkv_q), cp(wqkv_s), cp(wo_q), cp(wo_s),          \
-                     cp(gu_q), cp(gu_s), cp(dn_q), cp(dn_s),                  \
-                     static_cast<bf*>(k_cache), static_cast<bf*>(v_cache),    \
-                     static_cast<bf*>(k_tok), static_cast<bf*>(v_tok),        \
-                     lengths, write_idx, static_cast<bf*>(qkv_buf),           \
-                     static_cast<bf*>(ctx_buf), static_cast<bf*>(ff_buf), L,  \
-                     B, D, H, Hkv, DH, F, C, prompt_cap, eps, scale, st)
-#define QTTS_MODES(NB)                                                       \
-  switch (mode) {                                                            \
-    case MODE_W4A8: e = QTTS_STEP(NB, MODE_W4A8); break;                     \
-    case MODE_INT8: e = QTTS_STEP(NB, MODE_INT8); break;                     \
-    case MODE_W8A8: e = QTTS_STEP(NB, MODE_W8A8); break;                     \
-    default: e = QTTS_STEP(NB, MODE_BF16); break;                            \
-  }
+  const bool wide = a.H / a.Hkv > 2;
   cudaError_t e;
-  switch (B) {
-    case 1: QTTS_MODES(1) break;
-    case 2: QTTS_MODES(2) break;
-    case 3: QTTS_MODES(3) break;
-    case 4: QTTS_MODES(4) break;
-    default: QTTS_MODES(8) break;         // B % 8 == 0: B / 8 row tiles
+#define QTTS_STEP(MODE)                                                      \
+  e = wide ? launch<MODE, qtts::MAX_G>(a, info, st)                          \
+           : launch<MODE, 2>(a, info, st);
+  switch (a.mode) {
+    case MODE_W4A8: QTTS_STEP(MODE_W4A8) break;
+    case MODE_INT8: QTTS_STEP(MODE_INT8) break;
+    case MODE_W8A8: QTTS_STEP(MODE_W8A8) break;
+    default: QTTS_STEP(MODE_BF16) break;
   }
-#undef QTTS_MODES
 #undef QTTS_STEP
   return (int)e;
 }

@@ -30,7 +30,8 @@ BUILD_ROOT = PKG / "build"
 SOURCES = ("flash_decode.cu", "flash_prefill.cu", "talker_step.cu",
            "predictor_frame.cu", "chunk_step.cu", "kv_lanes.cu",
            "int4_matmul.cu")
-HEADERS = ("common.cuh", "w4a8.cuh", "cp_async.cuh")
+HEADERS = ("common.cuh", "w4a8.cuh", "cp_async.cuh", "gemv_stream.cuh",
+           "split_attn.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +48,11 @@ SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I,     # layer B S H Hkv C dh
                            _I, _I, _F, _P, _P],            # pc window scale
                                                            # info stream
-    "qtts_talker_step": [_P] * 25                          # see talker_step.cu
-                        + [_I] * 10 + [_F, _F, _P],        # L..mode eps sc st
-    "qtts_predictor_frame": [_P] * 27                      # predictor_frame.cu
-                            + [_I] * 9 + [_F, _F, _P],     # L..V eps scale st
+    "qtts_talker_step": [_P, _I, _P, _I, _P, _I, _P, _P],  # talker_step.cu
+    "qtts_w4a8_gemv": [_P, _P, _P, _P, _I, _I, _I, _P, _P],  # xq sx q s B N K
+                                                             # y stream
+    "qtts_predictor_frame": [_P, _I, _P, _I, _P, _I,       # predictor_frame.cu
+                             _P, _P],
     "qtts_chunk_step": [_P, _I, _P, _I, _P, _I, _P, _P],   # chunk_step.cu
     "qtts_sample_threshold": [_P, _P, _P, _I, _I,          # lg u out B V
                               _F, _F, _F, _P],             # t k p stream

@@ -25,6 +25,7 @@ lane-packing workarounds of the TPU and are not carried over.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -33,7 +34,8 @@ import torch.nn.functional as F
 
 from ..ops.quant import is_quantized, quantize_weight
 from ..ops.rope import inv_frequencies
-from .talker_step import MAX_GROUP, _rms, _rotate_half, qmm8_plain
+from .talker_step import (MAX_GROUP, _rms, _rotate_half, kept_scratch,
+                          qmm8_plain)
 
 N_TOKENS = 16          # [hidden, emb(code0), emb(code_1..14)]
 WINDOW = 2048          # lm-head rows per codebook window
@@ -43,8 +45,8 @@ MAX_BATCH = 32
 def unsupported(cfg, batch: int) -> Optional[str]:
     """The first gate `cfg` at `batch` fails, or None.  The JAX gate
     (predictor_frame.supported) plus what the port's kernel needs: q/k
-    norm on, whole 16-byte weight vectors, at most MAX_GROUP query heads
-    per kv head."""
+    norm on, contraction dims of whole 64-value blocks (its tensor-core
+    tiles), at most MAX_GROUP query heads per kv head."""
     gates = (
         (1 <= batch <= MAX_BATCH, f"batch {batch} outside [1, {MAX_BATCH}]"),
         (cfg.n_residual_codebooks == N_TOKENS - 1,
@@ -58,7 +60,7 @@ def unsupported(cfg, batch: int) -> Optional[str]:
          and cfg.n_heads // cfg.n_kv_heads <= MAX_GROUP,
          f"n_heads {cfg.n_heads} / n_kv_heads {cfg.n_kv_heads}: group must "
          f"divide and be <= {MAX_GROUP}"),
-        (cfg.d_ff % 16 == 0, f"d_ff {cfg.d_ff} % 16 != 0"),
+        (cfg.d_ff % 64 == 0, f"d_ff {cfg.d_ff} % 64 != 0"),
     )
     for ok, why in gates:
         if not ok:
@@ -210,17 +212,72 @@ def _check(cfg, w, h1024, code0, tables):
                              "device")
 
 
+def frame_scratch(cfg, device, batch: int,
+                  blocks: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The kernel's scratch at `batch` lanes, in the order of
+    csrc/predictor_frame.cu's Args: the window logits [B, 15, 2048] f32
+    (kept unless the caller asks for taps), the residual stream, qkv, the
+    attention context, SwiGLU's ff, the 16-slot KV [L, B, Hkv, 16, Dh]
+    (slot t written at token t, read only at later tokens: never zeroed),
+    each block's share of each lane's sum of squares [2, B, blocks], each
+    block's best (value, index) per lane [B, blocks], the per-kv-head
+    arrival counters and the grid barrier's two counters (both made zero
+    here; the kernel sets them back to zero as it goes).  `blocks`: the
+    grid's size, one block per SM (the card's SM count by default)."""
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    b = int(batch)
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if blocks is None:
+        blocks = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    kv = (cfg.n_layers, b, hkv, N_TOKENS, dh)
+    return {"logits": torch.empty(b, N_TOKENS - 1, WINDOW, dtype=f32,
+                                  device=device),
+            "x": torch.empty(b, cfg.d_model, dtype=bf, device=device),
+            "qkv": torch.empty(b, (h + 2 * hkv) * dh, dtype=bf,
+                               device=device),
+            "ctx": torch.empty(b, h * dh, dtype=bf, device=device),
+            "ff": torch.empty(b, cfg.d_ff, dtype=bf, device=device),
+            "kc": torch.empty(kv, dtype=bf, device=device),
+            "vc": torch.empty(kv, dtype=bf, device=device),
+            "ssq": torch.empty(2, b, blocks, dtype=f32, device=device),
+            "best_v": torch.empty(b, blocks, dtype=f32, device=device),
+            "best_i": torch.empty(b, blocks, dtype=i32, device=device),
+            "arrive": torch.zeros(hkv, dtype=i32, device=device),
+            "barrier": torch.zeros(2, dtype=i32, device=device)}
+
+
+def phase_labels(cfg) -> List[str]:
+    """The kernel's phases in order (a grid barrier between two): per token
+    and layer "qkv" (with the attention of each kv head run by the block
+    that finishes its columns), "wo", "gate_up", "down"; after tokens
+    1..15 "head"; then "finish" (code 15): 400 at PredictorConfig()'s 6
+    layers."""
+    out = []
+    for tok in range(N_TOKENS):
+        out += ["qkv", "wo", "gate_up", "down"] * cfg.n_layers
+        out += ["head"] if tok else []
+    return out + ["finish"]
+
+
 def predict_frame_fused(cfg, w, h1024, code0, tables_1024,
-                        taps: Optional[List[torch.Tensor]] = None
+                        taps: Optional[List[torch.Tensor]] = None,
+                        clocks: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Codes of one frame.
 
     w: `prep_predictor_weights(cfg, params)`; h1024 [B, D] f32 projected
-    talker hidden (rounded to bf16 here); code0 [B] int32;
+    talker hidden (rounded to bf16 by the kernel); code0 [B] int32;
     tables_1024 [16, R, D] codec tables (tables 0..14 are read, in bf16).
     Returns codes [B, 16] int32; `taps`, when given, gets the f32 window
-    logits [B, 2048] of tokens 1..15 appended.  Each kernel call adds one
-    to `predict_frame_fused.launches`.
+    logits [B, 2048] of tokens 1..15 appended.  Each kernel call (one
+    cooperative launch for all B lanes) adds one to
+    `predict_frame_fused.launches` and leaves its block count in
+    `predict_frame_fused.grid`.  The kernel's scratch (frame_scratch) is
+    made at the first call of each batch size and kept with the weights
+    `w`.  `clocks`, an int64 CUDA tensor of len(phase_labels(cfg)) + 1
+    entries, gets block 0's SM clock at the kernel's start, as it leaves
+    each grid barrier, and at its end (for measurements).
     """
     if h1024.device.type == "cpu":
         return predict_frame_plain(cfg, w, h1024, code0, tables_1024, taps)
@@ -230,36 +287,45 @@ def predict_frame_fused(cfg, w, h1024, code0, tables_1024,
     code0 = code0.to(torch.int32).contiguous()
     tables = tables_1024[:N_TOKENS - 1].to(torch.bfloat16).contiguous()
     _check(cfg, w, h1024, code0, tables)
+    if clocks is not None and (
+            clocks.dtype != torch.int64 or clocks.device != h1024.device
+            or clocks.numel() != len(phase_labels(cfg)) + 1):
+        raise ValueError("predictor_frame: clocks must be int64 on the "
+                         "inputs' device, one entry per phase + 1")
     from .build import LIBRARY, check
     b, d = h1024.shape
-    h, hkv, dh, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
     dev = h1024.device
-    x = h1024.to(torch.bfloat16, copy=True)          # the residual stream
+    kept = kept_scratch(w["ln1"])
+    sc = kept.get(("frame", b, dev))
+    if sc is None:
+        sc = kept[("frame", b, dev)] = frame_scratch(cfg, dev, b)
+    h = h1024.to(torch.float32).contiguous()
     codes = torch.empty(b, N_TOKENS, dtype=torch.int32, device=dev)
-    # zeroed: unwritten slots must hold finite values (0 * inf = NaN)
-    kc = torch.zeros(cfg.n_layers, b, hkv, N_TOKENS, dh,
-                     dtype=torch.bfloat16, device=dev)
-    vc = torch.zeros_like(kc)
-    qkv = torch.empty(b, (h + 2 * hkv) * dh, dtype=torch.bfloat16,
-                      device=dev)
-    ctx = torch.empty(b, h * dh, dtype=torch.bfloat16, device=dev)
-    ff = torch.empty(b, f, dtype=torch.bfloat16, device=dev)
-    logits = torch.empty(b, N_TOKENS - 1, WINDOW, dtype=torch.float32,
-                         device=dev)
+    logits = sc["logits"] if taps is None else torch.empty_like(sc["logits"])
+    ptrs = [h, code0, codes] + [w[k] for k in _WEIGHTS] + [tables, logits]
+    ptrs += [sc[k] for k in ("x", "qkv", "ctx", "ff", "kc", "vc", "ssq",
+                             "best_v", "best_i", "arrive", "barrier")]
+    ptrs.append(clocks)
+    ints = [cfg.n_layers, b, d, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.d_ff, tables.shape[1], WINDOW, sc["best_v"].shape[1]]
+    flts = [float(cfg.rms_eps), cfg.head_dim ** -0.5]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(
+        *[None if t is None else t.data_ptr() for t in ptrs])
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_flts = (ctypes.c_float * len(flts))(*flts)
+    grid = (ctypes.c_int * 1)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = LIBRARY.get().qtts_predictor_frame(
-            code0.data_ptr(), codes.data_ptr(),
-            *[w[k].data_ptr() for k in _WEIGHTS], tables.data_ptr(),
-            x.data_ptr(), kc.data_ptr(), vc.data_ptr(), qkv.data_ptr(),
-            ctx.data_ptr(), ff.data_ptr(), logits.data_ptr(),
-            cfg.n_layers, b, d, h, hkv, dh, f, tables.shape[1], WINDOW,
-            float(cfg.rms_eps), dh ** -0.5, stream)
+        rc = LIBRARY.get().qtts_predictor_frame(c_ptrs, len(ptrs), c_ints,
+                                                len(ints), c_flts, len(flts),
+                                                grid, stream)
     check(rc, "predict_frame_fused")
     predict_frame_fused.launches += 1
+    predict_frame_fused.grid = grid[0]
     if taps is not None:
         taps.extend(logits.unbind(1))
     return codes
 
 
 predict_frame_fused.launches = 0
+predict_frame_fused.grid = 0

@@ -58,7 +58,9 @@ workarounds and are not ported.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import ctypes
+import weakref
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,11 +82,13 @@ def unsupported(cfg, batch: int, mode: str = "w4a8") -> Optional[str]:
     """The first gate `cfg` at `batch` fails in weight mode `mode`, or
     None.  The JAX gate (talker_step.supported: decode batches 1-4, or a
     multiple of 8 up to 96; w4a8 needs whole 256-row nibble groups) plus
-    what the port's kernels need (at most MAX_GROUP query heads per kv
-    head; contraction dims of whole 16-byte int8 vectors, up to MAX_K)."""
+    what the port's kernel needs (at most MAX_GROUP query heads per kv
+    head; contraction dims of whole 64-byte blocks in w8a8, whose tensor-core
+    dots take them so, and of whole 16-byte vectors in int8 and bf16, up to
+    MAX_K)."""
     if mode not in MODES:
         return f"talker_step: mode {mode!r} is not one of {MODES}"
-    g = 2 * INT4_GROUP if mode == "w4a8" else 16
+    g = {"w4a8": 2 * INT4_GROUP, "w8a8": 64}.get(mode, 16)
     dq = cfg.n_heads * cfg.head_dim
     gates = (
         (1 <= batch <= 4 or (batch % 8 == 0 and 8 <= batch <= MAX_BATCH),
@@ -179,27 +183,80 @@ def _rotate_half(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([-x[..., h:], x[..., :h]], dim=-1)
 
 
+def quantize_rows_plain(x: torch.Tensor):
+    """Per-row int8 activations (w4a8.cuh quantize_rows, JAX `_qmm4`'s and
+    `_qmm(w8a8=True)`'s): x bf16 [B, K] -> (xq [B, K] f32 integers, sx
+    [B, 1] f32) with sx = max(amax, 1e-8) * f32(1/127), xq =
+    round_half_even(x / sx).  The kernel quantizes each GEMV input once
+    (the norm phase, or its producers' running max |x| and the stage):
+    amax is a max, the same in any order, so this is its arithmetic."""
+    xf = x.float()
+    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) * INV127
+    return torch.round(xf / sx), sx
+
+
+def qmm4_rows_plain(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+                    ws: torch.Tensor) -> torch.Tensor:
+    """qmm4_plain from rows already quantized (quantize_rows_plain)."""
+    b, k = xq.shape
+    n = wq.shape[0]
+    ng = k // INT4_GROUP
+    nb = ng // 2
+    q = unpack_int4(wq).float().reshape(ng, INT4_GROUP, n)
+    d = torch.einsum("bgk,gkn->bgn", xq.reshape(b, ng, INT4_GROUP), q)
+    s = ws.float().t()                                   # [ng, N]
+    acc = torch.zeros(b, n, dtype=torch.float32, device=xq.device)
+    for i in range(nb):
+        acc = acc + d[:, i] * s[i]
+        acc = acc + d[:, nb + i] * s[nb + i]
+    return (acc * sx).to(torch.bfloat16)
+
+
 def qmm4_plain(x: torch.Tensor, wq: torch.Tensor,
                ws: torch.Tensor) -> torch.Tensor:
     """w4a8 matmul, JAX `_qmm4`: x bf16 [B, K] by packed wq uint8
     [N, K/2] with scales ws bf16 [N, K/128] -> bf16 [B, N].  The group
     dots are integers below 2^24, so the f32 einsum computes them
     exactly, in any order."""
+    return qmm4_rows_plain(*quantize_rows_plain(x), wq, ws)
+
+
+def w4a8_gemv(x: torch.Tensor, wq: torch.Tensor,
+              ws: torch.Tensor) -> torch.Tensor:
+    """One w4a8 GEMV on the talker step kernel's tensor-core core
+    (csrc/gemv_stream.cuh w4a8_tile: mma.sync s8, the group sums in f32 in
+    the JAX order), for the checks that hold it alone: x bf16 [B, K], wq
+    uint8 [N, K/2], ws bf16 [N, K/128] -> bf16 [B, N], which must equal
+    qmm4_plain bit for bit.  The rows are quantized by quantize_rows_plain
+    (the kernel's norm phase computes the same integers); on a CPU tensor
+    it is qmm4_plain.  Each launch adds one to `w4a8_gemv.launches`."""
+    if x.device.type == "cpu":
+        return qmm4_plain(x, wq, ws)
     b, k = x.shape
     n = wq.shape[0]
-    ng = k // INT4_GROUP
-    nb = ng // 2
-    xf = x.float()
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) * INV127
-    xq = torch.round(xf / sx)
-    q = unpack_int4(wq).float().reshape(ng, INT4_GROUP, n)
-    d = torch.einsum("bgk,gkn->bgn", xq.reshape(b, ng, INT4_GROUP), q)
-    s = ws.float().t()                                   # [ng, N]
-    acc = torch.zeros(b, n, dtype=torch.float32, device=x.device)
-    for i in range(nb):
-        acc = acc + d[:, i] * s[i]
-        acc = acc + d[:, nb + i] * s[nb + i]
-    return (acc * sx).to(torch.bfloat16)
+    if (x.dtype != torch.bfloat16 or wq.dtype != torch.uint8
+            or ws.dtype != torch.bfloat16 or tuple(wq.shape) != (n, k // 2)
+            or tuple(ws.shape) != (n, k // INT4_GROUP) or n % 8
+            or k % (2 * INT4_GROUP) or k > MAX_K
+            or not (wq.is_contiguous() and ws.is_contiguous())):
+        raise ValueError("w4a8_gemv: x bf16 [B, K], wq uint8 [N, K/2], ws "
+                         "bf16 [N, K/128], N % 8 == 0, K % 256 == 0")
+    from .build import LIBRARY, check
+    xq, sx = quantize_rows_plain(x)
+    xq = xq.to(torch.int8).contiguous()
+    sx = sx[:, 0].contiguous()
+    y = torch.empty(b, n, dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = LIBRARY.get().qtts_w4a8_gemv(
+            xq.data_ptr(), sx.data_ptr(), wq.data_ptr(), ws.data_ptr(), b, n,
+            k, y.data_ptr(), stream)
+    check(rc, "w4a8_gemv")
+    w4a8_gemv.launches += 1
+    return y
+
+
+w4a8_gemv.launches = 0
 
 
 def qmm8_plain(x: torch.Tensor, wq: torch.Tensor,
@@ -240,9 +297,7 @@ def qmm_a8_plain(x: torch.Tensor, wq: torch.Tensor,
     """JAX `_qmm(w8a8=True)`: x bf16 [B, K] quantized per row, int8
     wq [N, K], f32 ws [N] -> bf16(f32(xq . wq) * sx * s) [B, N].  The
     integer dot is exact in f64 (|sum| < 2^53)."""
-    xf = x.float()
-    sx = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) * INV127
-    xq = torch.round(xf / sx)
+    xq, sx = quantize_rows_plain(x)
     acc = (xq.double() @ wq.double().t()).float()
     return (acc * sx * ws.float()).to(torch.bfloat16)
 
@@ -365,10 +420,74 @@ def _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx,
             raise ValueError("talker_step: all inputs must be on one device")
 
 
+SPLIT = 64             # prefix slots per attention work item (the kernel's)
+
+# Kernels' kept scratch, per weights dict (so per Generator), under the id
+# of one of its tensors and dropped when that tensor is freed.
+_KEPT: Dict[int, Dict[Tuple, Any]] = {}
+
+
+def kept_scratch(owner: torch.Tensor) -> Dict[Tuple, Any]:
+    """The dict of scratch kept for the weights that `owner` belongs to."""
+    key = id(owner)
+    if key not in _KEPT:
+        _KEPT[key] = {}
+        weakref.finalize(owner, _KEPT.pop, key, None)
+    return _KEPT[key]
+
+
+def step_scratch(cfg, device, batch: int, cap: int,
+                 per_lane: bool) -> Dict[str, torch.Tensor]:
+    """The kernel's scratch at `batch` lanes and cache capacity `cap`, in
+    the order of csrc/talker_step.cu's Args: the activations (qkv, the
+    attention context, SwiGLU's ff, the normed rows as bf16 and as int8 with
+    their scales), each layer's running max |ctx| and max |ff| per lane,
+    the attention's split partials (acc [B * Hkv, ceil(cap / SPLIT), G,
+    Dh], then (max, sum) [..., 2]) and arrival counters, the grid barrier's
+    two counters (both kinds of counter made zero here; the kernel sets
+    them back to zero as it goes) and, per-lane, the k/v token buffers
+    [L, B, Hkv, Dh] that append_kv_lanes writes into the cache."""
+    bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+    h, hkv, dh, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    b, L = int(batch), cfg.n_layers
+    splits = b * hkv * -(-int(cap) // SPLIT) * (h // hkv)
+    out = {"qkv": torch.empty(b, (h + 2 * hkv) * dh, dtype=bf, device=device),
+           "ctx": torch.empty(b, h * dh, dtype=bf, device=device),
+           "ff": torch.empty(b, cfg.d_ff, dtype=bf, device=device),
+           "hn": torch.empty(b, d, dtype=bf, device=device),
+           "xq": torch.empty(b, d, dtype=torch.int8, device=device),
+           "sx": torch.empty(b, dtype=f32, device=device),
+           "amax": torch.empty(L, 2, b, dtype=i32, device=device),
+           "part": torch.empty(splits * (dh + 2), dtype=f32, device=device),
+           "arrive": torch.zeros(b * hkv, dtype=i32, device=device),
+           "barrier": torch.zeros(2, dtype=i32, device=device)}
+    if per_lane:
+        for name in ("k_tok", "v_tok"):
+            out[name] = torch.empty(L, b, hkv, dh, dtype=bf, device=device)
+    return out
+
+
+def _scratch(cfg, w, x, cap, per_lane):
+    kept = kept_scratch(w["ln1"])
+    key = ("step", x.shape[0], cfg.n_layers, int(cap), per_lane, x.device)
+    if key not in kept:
+        kept[key] = step_scratch(cfg, x.device, x.shape[0], cap, per_lane)
+    return kept[key]
+
+
+def phase_labels(cfg) -> List[str]:
+    """The kernel's phases in order (a grid barrier between two): per layer
+    "norm1", "qkv", "attn", "wo", "norm2", "gate_up", "down"; 196 at
+    TalkerConfig()'s 28 layers."""
+    return ["norm1", "qkv", "attn", "wo", "norm2", "gate_up",
+            "down"] * cfg.n_layers
+
+
 def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
                       write_idx, prompt_cap: int,
                       uniform_cursor: bool = True,
-                      mode: str = "w4a8") -> torch.Tensor:
+                      mode: str = "w4a8",
+                      clocks: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decode step over all layers.
 
     w: `prep_layer_weights(cfg, params, mode)`; x [B, D] bf16 input
@@ -377,8 +496,14 @@ def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
     write_idx; lengths and write_idx [B] int32.  uniform_cursor=False
     stages the k/v rows and appends them with one append_kv_lanes launch
     (module docstring).  Returns the hidden state [B, D] bf16 BEFORE the
-    final norm.  Each kernel call adds one to `talker_step_fused.launches`
-    and to `talker_step_fused.launches_by_mode[mode]`.
+    final norm.  Each kernel call (one cooperative launch) adds one to
+    `talker_step_fused.launches` and to
+    `talker_step_fused.launches_by_mode[mode]`, and leaves its block count
+    in `talker_step_fused.grid`.  The kernel's scratch (step_scratch) is
+    made at the first call of each shape and kept with the weights `w`.
+    `clocks`, an int64 CUDA tensor of len(phase_labels(cfg)) + 1 entries,
+    gets block 0's SM clock at the kernel's start, as it leaves each grid
+    barrier, and at its end (the phases' lengths, for measurements).
     """
     if x.device.type == "cpu":
         return talker_step_plain(cfg, w, x, cos, sin, cache_k, cache_v,
@@ -386,35 +511,44 @@ def talker_step_fused(cfg, w, x, cos, sin, cache_k, cache_v, lengths,
     if x.device.type != "cuda":
         raise ValueError(f"talker_step runs on cuda or cpu, not {x.device}")
     _check(cfg, w, x, cos, sin, cache_k, cache_v, lengths, write_idx, mode)
+    if clocks is not None and (
+            clocks.dtype != torch.int64 or clocks.device != x.device
+            or clocks.numel() != len(phase_labels(cfg)) + 1):
+        raise ValueError("talker_step: clocks must be int64 on the inputs' "
+                         "device, one entry per phase + 1")
     from .build import LIBRARY, check
     b, d = x.shape
-    h, hkv, dh, f = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    cap = cache_k.shape[3]
+    sc = _scratch(cfg, w, x, cap, not uniform_cursor)
     out = torch.empty_like(x)
-    qkv = torch.empty(b, (h + 2 * hkv) * dh, dtype=torch.bfloat16,
-                      device=x.device)
-    ctx = torch.empty(b, h * dh, dtype=torch.bfloat16, device=x.device)
-    ff = torch.empty(b, f, dtype=torch.bfloat16, device=x.device)
-    tok = [None, None] if uniform_cursor else [
-        torch.empty(cfg.n_layers, b, hkv, dh, dtype=torch.bfloat16,
-                    device=x.device) for _ in range(2)]
+    ptrs = [x, out, cos, sin] + [w[k] for k in _WEIGHTS]
+    ptrs += [cache_k, cache_v, sc.get("k_tok"), sc.get("v_tok"), lengths,
+             write_idx]
+    ptrs += [sc[k] for k in ("qkv", "ctx", "ff", "hn", "xq", "sx", "amax",
+                             "part", "arrive", "barrier")] + [clocks]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ints = [cfg.n_layers, b, d, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cap,
+            int(prompt_cap), MODES.index(mode), sms]
+    flts = [float(cfg.rms_eps), cfg.head_dim ** -0.5]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(
+        *[None if t is None else t.data_ptr() for t in ptrs])
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_flts = (ctypes.c_float * len(flts))(*flts)
+    grid = (ctypes.c_int * 1)()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = LIBRARY.get().qtts_talker_step(
-            x.data_ptr(), out.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            *[w[k].data_ptr() for k in _WEIGHTS],
-            cache_k.data_ptr(), cache_v.data_ptr(), lengths.data_ptr(),
-            write_idx.data_ptr(), qkv.data_ptr(), ctx.data_ptr(),
-            ff.data_ptr(), *[0 if t is None else t.data_ptr() for t in tok],
-            cfg.n_layers, b, d, h, hkv, dh, f,
-            cache_k.shape[3], int(prompt_cap), MODES.index(mode),
-            float(cfg.rms_eps), dh ** -0.5, stream)
+        rc = LIBRARY.get().qtts_talker_step(c_ptrs, len(ptrs), c_ints,
+                                            len(ints), c_flts, len(flts),
+                                            grid, stream)
     check(rc, f"talker_step_fused ({mode})")
     talker_step_fused.launches += 1
     talker_step_fused.launches_by_mode[mode] += 1
+    talker_step_fused.grid = grid[0]
     if not uniform_cursor:
-        append_kv_lanes(cache_k, cache_v, *tok, write_idx)
+        append_kv_lanes(cache_k, cache_v, sc["k_tok"], sc["v_tok"], write_idx)
     return out
 
 
 talker_step_fused.launches = 0
 talker_step_fused.launches_by_mode = dict.fromkeys(MODES, 0)
+talker_step_fused.grid = 0

@@ -323,8 +323,9 @@ def test_predictor_frame_matches_plain(dev, predictor, b):
 
 
 def test_predictor_frame_lane_isolation(dev, predictor):
-    """B = 5 runs as lane chunks of 4 + 1: lanes 1 and 4 (in different
-    chunks) hold the same inputs and give the same codes and logits."""
+    """B = 5 in one launch: lanes 1 and 4 hold the same inputs and give the
+    same codes and logits (each lane's sums run in an order fixed by the
+    grid, not by B)."""
     cfg, w, tables = predictor
     g = torch.Generator(device=dev).manual_seed(11)
     h = torch.randn(5, cfg.d_model, generator=g, device=dev)
@@ -351,6 +352,12 @@ def test_step_kernels_reject_what_they_do_not_take(dev, talker, predictor):
     with pytest.raises(ValueError):          # input of the wrong width
         tpf.predict_frame_fused(pcfg, pw, torch.zeros(1, 1000, device=dev),
                                 _i32([3], dev), tables)
+    with pytest.raises(ValueError, match="batch 33"):
+        tpf.predict_frame_fused(pcfg, pw, torch.zeros(33, pcfg.d_model,
+                                                      device=dev),
+                                _i32([3] * 33, dev), tables)
+    with pytest.raises(ValueError):          # K not whole 256-row groups
+        tts.w4a8_gemv(x[:, :1000], w["wqkv_q"][0], w["wqkv_s"][0])
 
 
 def _chunk_case(dev, full, seed, cap=1024, n_layers=None):
@@ -822,8 +829,9 @@ def test_talker_step_batched_per_lane_matches_plain(dev, talker):
     """B = 8 and 32, ragged per-lane cursors, two layers at full width:
     each lane bit-equal to the one-lane kernel on its inputs; each layer,
     from the kernel's own hidden state at the layer before, within 2e-2 of
-    the plain version with its softmax in the kernel's order
-    (chunk_step._talker_plain, 128-slot prefix tiles) run on that lane
+    the plain version in the kernel's orders
+    (chunk_step._talker_plain(orders=KERNEL_ORDERS): 64-slot prefix splits
+    combined in split order) run on that lane
     alone (on the card the plain version orders its sums by shape, so a
     batched plain call is not lane for lane the B = 1 one), at least half
     of the (layer, lane) pairs bit-equal (an f32 sum in another order
@@ -871,7 +879,8 @@ def test_talker_step_batched_per_lane_matches_plain(dev, talker):
                                                           sin))
                 tiled = [t[layer:layer + 1, i:i + 1].clone() for t in (k, v)]
                 alt = tcs._talker_plain(c1, w1, *lane, *tiled,
-                                        lens[i:i + 1].clone(), c, 0, 128, 128)
+                                        lens[i:i + 1].clone(), c, 0, 128, 128,
+                                        orders=tcs.KERNEL_ORDERS)
                 es.append(max(_rel(outs[layer + 1][i:i + 1], alt),
                               *(_rel(a[layer, i, :, c], p[0, 0, :, c])
                                 for a, p in zip((kk, vk), tiled))))
@@ -883,6 +892,75 @@ def test_talker_step_batched_per_lane_matches_plain(dev, talker):
             orig = orig.clone()
             orig[:, lanes, :, wi.long()] = 0
             assert torch.equal(a, orig)
+
+
+def test_talker_step_batched_across_split_bounds(dev, talker):
+    """B = 8 in bucket 32 at per-lane cursors on both sides of the
+    attention's 64-slot split bounds (47, 48, 63, 64, 65, 1023), two layers
+    at full width: each lane bit-equal to the one-lane kernel; each layer,
+    from the kernel's own state, within 1e-2 of the plain layer in the
+    kernel's orders on that lane alone, at least half of the pairs exact."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    cfg, w = talker
+    cd = dataclasses.replace(cfg, n_layers=2)
+    wd = {name: x[:2] for name, x in w.items()}
+    cursors = [47, 48, 63, 64, 65, 1023, 33, 500]
+    b = len(cursors)
+    k, v, x, _, _ = _step_inputs(cd, b, 1024, 0, dev, 77)
+    pos = torch.tensor(cursors, device=dev)
+    cos, sin = talker_lib._rope_tables(cd, talker_lib._pos4(pos[:, None]))
+    cos, sin = cos[:, 0].contiguous(), sin[:, 0].contiguous()
+    lens, wi = _i32([31 - (7 * i) % 20 for i in range(b)], dev), \
+        _i32(cursors, dev)
+    kk, vk = k.clone(), v.clone()
+    c1 = dataclasses.replace(cfg, n_layers=1)
+    h1 = tts.talker_step_fused(c1, {name: t[:1] for name, t in w.items()},
+                               x, cos, sin, k[:1].clone(), v[:1].clone(),
+                               lens, wi, 32, uniform_cursor=False)
+    got = tts.talker_step_fused(cd, wd, x, cos, sin, kk, vk, lens, wi, 32,
+                                uniform_cursor=False)
+    torch.cuda.synchronize()
+    es = []
+    for i, c in enumerate(cursors):
+        lane = tuple(t[i:i + 1].clone() for t in (x, cos, sin))
+        li, wl = lens[i:i + 1].clone(), wi[i:i + 1].clone()
+        mine = [t[:, i:i + 1].clone() for t in (k, v)]
+        one = tts.talker_step_fused(cd, wd, *lane, *mine, li, wl, 32)
+        assert torch.equal(got[i], one[0]), i
+        for a, m in zip((kk, vk), mine):
+            assert torch.equal(a[:, i, :, c], m[:, 0, :, c]), i
+        for layer, (xin, xout) in enumerate(((x, h1), (h1, got))):
+            w1 = {name: t[layer:layer + 1] for name, t in w.items()}
+            tiled = [t[layer:layer + 1, i:i + 1].clone() for t in (k, v)]
+            args = tuple(t[i:i + 1].clone() for t in (xin, cos, sin))
+            alt = tcs._talker_plain(c1, w1, *args, *tiled, li, c, 0, 32, 128,
+                                    orders=tcs.KERNEL_ORDERS)
+            es.append(max(_rel(xout[i:i + 1], alt),
+                          *(_rel(a[layer, i, :, c], p[0, 0, :, c])
+                            for a, p in zip((kk, vk), tiled))))
+    assert max(es) <= 1e-2, es
+    assert 2 * sum(e == 0 for e in es) >= len(es), es
+
+
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("n,k", [(4096, 2048), (2048, 6144)])
+def test_w4a8_gemv_on_tensor_cores_matches_qmm4_plain(dev, talker, b, n, k):
+    """One GEMV phase of the talker step's w4a8 core alone (mma.sync s8,
+    the rows as M, the group sums in f32 in the JAX order) against
+    qmm4_plain on the same bf16 rows and packed weights: bit-equal (the
+    group dots are exact integers; the f32 sums run in the same order)."""
+    cfg, w = talker
+    name = "wqkv" if k == cfg.d_model else "dn"
+    wq, ws = w[name + "_q"][0], w[name + "_s"][0]
+    assert tuple(wq.shape) == (n, k // 2)
+    g = torch.Generator(device=dev).manual_seed(b + n)
+    x = (torch.randn(b, k, generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    before = tts.w4a8_gemv.launches
+    got = tts.w4a8_gemv(x, wq, ws)
+    torch.cuda.synchronize()
+    assert tts.w4a8_gemv.launches == before + 1
+    assert torch.equal(got, tts.qmm4_plain(x, wq, ws))
 
 
 @pytest.mark.parametrize("n", [8, 32])
@@ -948,7 +1026,7 @@ def test_talker_step_modes_match_plain(dev, talker_params2, mode):
                                     mode=mode)
         assert torch.equal(one[0], got[i]), (mode, i)
         alt = tcs._talker_plain(c1, w1, *args, *tiled, li, cursor, 0, 128,
-                                128, mode=mode)
+                                128, mode=mode, orders=tcs.KERNEL_ORDERS)
         assert _rel(got[i:i + 1], alt) <= 1e-2, (mode, i)
         for a, p in zip((kk, vk), tiled):
             assert _rel(a[:, i, :, cursor], p[:, 0, :, cursor]) <= 1e-2
