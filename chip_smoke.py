@@ -174,6 +174,10 @@ SERVING_TEXTS = ("On the card",                    # bucket 32
 # frames stayed within 6.3e-2 (one H100).  Every other cache slot bit for
 # bit; every output finite.
 CHUNK_TOL, CHUNK_GAP = 1e-1, 1e-1
+# check_chunk_batched traces each frame whose end-to-end error against the
+# plain frame in the kernel's orders passes this (the rest sit at ~1e-6,
+# the heads' order)
+DRIFT_TRACE = 1e-4
 # The batched form's lanes against the plain version.  Each lane is
 # bit-equal to the one-lane launch, so this holds the one-lane kernel on
 # more frames than check_chunk's three greedy cases, and there frame by
@@ -199,12 +203,16 @@ CHUNK_TOL, CHUNK_GAP = 1e-1, 1e-1
 # within STEP_TOL_LAYER; the
 # feedback of the kernel's codes against the kernel's layer-0 input, and
 # the final norm and codec head of the kernel's last residual against its
-# hidden and logits, within STEP_TOL_LAYER too.  The torch-order error and
+# hidden and logits, within STEP_TOL_LAYER too; whether the feedback (in
+# the kernel's q order) and the final norm (its 256-thread order) are
+# exact is printed.  The torch-order error and
 # s (the plain layer's own 128- vs 512-slot-tile difference), which tie
 # the kernel to the JAX package's order, are printed.  The codes and the
 # predictor's window logits keep check_chunk's policy; the frame's
 # end-to-end difference from the plain version, in torch's orders and in
-# the kernel's, is printed, not held.
+# the kernel's whole frame's (chunk_step.CHUNK_ORDERS: the talker's and the
+# projection's, feedback's and norms' orders), is printed, not held.  The
+# one-lane launch is held the same way (B = 1 in the list).
 LAYER_EXACT_SHARE = 0.99
 # the in-kernel sampler against sample_threshold on the same uniforms: f32
 # sums in another order move a threshold across a logit now and then
@@ -1306,7 +1314,7 @@ def check_chunk(dev, failures):
                        ops, "int8")
     print(f"[kernel] gen_chunk_fused F={n_frames} C={cap} start=32: "
           f"{ms:.4f} ms per chunk ({ms / n_frames:.4f} ms per frame) on grid "
-          f"{cs.gen_chunk_fused.grid} (blocks, per SM); plain "
+          f"{cs.gen_chunk_fused.grid} (blocks, warps a block); plain "
           f"{plain:.1f} ms per chunk; bound {b_ms:.4f} ms per chunk "
           f"({b_by}: each input read once); no single PyTorch call")
     out = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -1337,11 +1345,15 @@ def replay_layer(cfg, w, layer, x, cos, sin, cache_k, cache_v, lengths,
 
 
 def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
-    """gen_chunk_fused at B = 8, 16, 24 and 32 lanes (F = 4, C = 1024, ragged
-    prompt lengths and positions, one cursor; at B = 8 the cursor starts at
-    1020), greedy and sampled.  Every lane must be bit-equal to a one-lane
-    launch on that lane's inputs and uniforms: codes, logits, hidden and the
-    lane's whole cache block; the slots being written are poisoned first,
+    """gen_chunk_fused at B = 1, 8, 16, 24 and 32 lanes (F = 4, C = 1024,
+    ragged prompt lengths and positions, one cursor; at B = 8 the cursor
+    starts at 1020), greedy and sampled.  B = 1 runs the one-lane kernel,
+    B = 8-32 the batched body.  Every lane of a batched launch must be
+    bit-equal to that lane's inputs and uniforms alone, copied into all 8
+    lanes of a B = 8 launch (no sum mixes lanes, no order depends on B; the
+    one-lane kernel's heads sum in another order, so it is the reference
+    only for itself, launched again): codes, logits, hidden and the lane's
+    whole cache block; the slots being written are poisoned first,
     every other slot must come back unchanged, and each F-frame launch must
     repeat the shorter ones.  On lanes 0, B - 1 and the first of every row
     tile, greedy and sampled, every frame is held against the plain
@@ -1349,7 +1361,8 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
     check_chunk (the plain frame on that lane alone after the kernel's
     frame before, the kernel's codes forced), the talker layer by layer
     (the note after CHUNK_TOL).  Timed per 4-frame chunk at
-    each B (CUDA events, greedy), beside its bound."""
+    each B > 1 (CUDA events, greedy; check_chunk times B = 1), beside its
+    bound."""
     import torch
     from qwen3_tts_tpu_torch.kernels import chunk_step as cs
     from qwen3_tts_tpu_torch.models import talker as talker_lib
@@ -1383,6 +1396,14 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
         return (lg[i:i + 1].clone(), hd[i:i + 1].clone(),
                 k[:, i:i + 1].clone(), v[:, i:i + 1].clone(),
                 lens[i:i + 1].clone(), pos[i:i + 1].clone())
+
+    def lane8(st, i):
+        """Lane i of a state copied into 8 lanes."""
+        lg, hd, k, v, lens, pos = st
+        return (lg[i:i + 1].repeat(8, 1), hd[i:i + 1].repeat(8, 1),
+                k[:, i:i + 1].repeat(1, 8, 1, 1, 1),
+                v[:, i:i + 1].repeat(1, 8, 1, 1, 1),
+                lens[i:i + 1].repeat(8), pos[i:i + 1].repeat(8))
 
     def layer_by_layer(full, cur, xk, f, rows, lens, pos, start, prompt_cap,
                        codes):
@@ -1461,14 +1482,26 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
               ) * ex["chead_s"]
         e_end = max(rel(x[:, 0], fb), rel(cur[2][idx], hid),
                     rel(cur[1][idx], lg))
+        # the frame's other sums in the kernel's orders: the feedback's q
+        # order, the final norm's 256 threads (exact or not, printed)
+        fb_k = cs._feedback(ex["ctab_fb"], codes[idx, f], ex["tts_pad"],
+                            kernel_order=True)
+        hid_k = cs._rms_kernel_order(x[:, -1], ex["tfn"], tcfg.rms_eps, 256)
+        stages = (bool(torch.equal(x[:, 0], fb_k)),
+                  bool(torch.equal(cur[2][idx], hid_k)),
+                  rel(cur[1][idx], (hid_k.to(torch.bfloat16).float()
+                                    @ ex["chead_q"].float().t())
+                      * ex["chead_s"]))
         ok = (max(e_x) <= STEP_TOL_LAYER and max(e_kv) <= STEP_TOL_LAYER
               and e_end <= STEP_TOL_LAYER)
-        return ok, e_x, e_kv, e_end, exact, wide, (e_t, exact_t, beyond_t)
+        return (ok, e_x, e_kv, e_end, exact, wide, (e_t, exact_t, beyond_t),
+                stages)
 
     res, worst = {}, 0.0
     plain_one_lane = None
-    for b, prompt_cap, start in ((8, 128, 1020), (16, 128, 159),
-                                 (24, 32, 32), (32, 128, 600)):
+    for b, prompt_cap, start in ((1, 32, 32), (8, 128, 1020),
+                                 (16, 128, 159), (24, 32, 32),
+                                 (32, 128, 600)):
         lengths = [prompt_cap - 1 - (7 * i) % (prompt_cap // 2)
                    for i in range(b)]
         lens = i32(lengths)
@@ -1507,11 +1540,17 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
             in_range = bool((codes >= 0).all()
                             and (codes[..., 0] < cs.V_CODEC).all()
                             and (codes[..., 1:] < cs.WINDOW).all())
-            # every lane against a one-lane launch on its inputs
+            # every lane against its inputs alone: at B > 1 in all 8 lanes
+            # of a batched launch, at B = 1 the one-lane launch again
             bad = []
             for i in range(b):
-                one = run(cs.gen_chunk_fused, n_frames, lane(st0, i), start,
-                          prompt_cap, u[:, i:i + 1], sampler)
+                if b == 1:
+                    one = run(cs.gen_chunk_fused, n_frames, lane(st0, i),
+                              start, prompt_cap, u[:, i:i + 1], sampler)
+                else:
+                    one = run(cs.gen_chunk_fused, n_frames, lane8(st0, i),
+                              start, prompt_cap,
+                              u[:, i:i + 1].repeat(1, 8), sampler)
                 if not (torch.equal(one[0][0], codes[i])
                         and torch.equal(one[1][0], full[1][i])
                         and torch.equal(one[2][0], full[2][i])
@@ -1519,14 +1558,19 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                         and torch.equal(one[4][:, 0], full[4][:, i])):
                     bad.append(i)
             ok = repeat and same and finite and in_range and not bad
-            flips, detail, beyond, e2e = [], [], 0, 0.0
+            flips, detail, beyond, e2e, drift = [], [], 0, 0.0, []
             beyond_k, e2e_k = 0, 0.0
             lx, lkv, lend, n_exact, wide = [], [], [], 0, []
             lx_t, n_exact_t, beyond_t = [], 0, []
+            fb_exact = hid_exact = True
+            head_k = 0.0
             for f in range(n_frames):
-                x_ok, e_lx, e_lkv, e_end, exact, w_, torch_order = \
+                x_ok, e_lx, e_lkv, e_end, exact, w_, torch_order, stg = \
                     layer_by_layer(full, runs[f], xt[f], f, rows, lens, pos,
                                    start, prompt_cap, codes)
+                fb_exact = fb_exact and stg[0]
+                hid_exact = hid_exact and stg[1]
+                head_k = max(head_k, stg[2])
                 ok = ok and x_ok
                 wide += w_
                 lx.append(max(e_lx))
@@ -1552,9 +1596,10 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                     alt = run(cs.gen_chunk_plain, 1, st, start + f,
                               prompt_cap, u[f:f + 1, i:i + 1], sampler,
                               taps=t128, prefix_tile=cs.SPLIT, **kw)
+                    lt = []
                     kord = run(cs.gen_chunk_plain, 1, st, start + f,
                                prompt_cap, u[f:f + 1, i:i + 1], sampler,
-                               orders=cs.KERNEL_ORDERS, **kw)
+                               orders=cs.CHUNK_ORDERS, layer_taps=lt, **kw)
                     kt = [t_[i:i + 1] for t_ in taps[f * 15:(f + 1) * 15]]
                     picks, mine = want[0][0, 0].cpu(), codes[i, f].cpu()
                     for t in range(16):
@@ -1582,6 +1627,25 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                                   for x, y in zip(got[2:], ref[3:]))]
 
                     e, e_k = frame_errs(want), frame_errs(kord)
+                    if max(e_k) > DRIFT_TRACE:
+                        # where the kernel-order frame leaves the kernel:
+                        # the first residual (0: the feedback, l: entering
+                        # layer l, L: the last output) that differs from
+                        # the kernel's own (layer_taps of the F-frame
+                        # launch), and whether the (f + 1)-frame launch
+                        # this frame starts from wrote the same rows
+                        first = next(
+                            (j for j in range(tcfg.n_layers + 1)
+                             if not torch.equal(lt[0][0, j], xt[f][i, j])),
+                            None)
+                        drift.append((
+                            i, f, f"{max(e_k):.2e}", first,
+                            None if first is None else
+                            f"{rel(lt[0][0, first], xt[f][i, first]):.2e}",
+                            all(torch.equal(
+                                x[:, i, :, start:start + f + 1],
+                                y[:, i, :, start:start + f + 1])
+                                for x, y in zip(runs[f][3:], full[3:]))))
                     s_e = max(rel(x, y) for x, y in zip(alt[1:3], want[1:3]))
                     ok = ok and e_win <= max(CHUNK_TOL, 2 * sens)
                     beyond += max(e) > max(CHUNK_TOL, 2 * s_e)
@@ -1595,11 +1659,13 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                                                          want[1:3])))
             n_pairs = n_frames * len(rows) * tcfg.n_layers
             ok = ok and n_exact >= LAYER_EXACT_SHARE * n_pairs
+            alone = ("the one-lane launch again" if b == 1
+                     else "in 8 lanes of a batched launch")
             print(f"[kernel] gen_chunk_fused B={b} F={n_frames} C={cap} "
                   f"prompt_cap={prompt_cap} lengths {min(lengths)}-"
                   f"{max(lengths)} start={start} {mode} grid="
-                  f"{cs.gen_chunk_fused.grid}: each lane bit-equal to the "
-                  f"1-lane kernel (codes, logits, hidden, cache)="
+                  f"{cs.gen_chunk_fused.grid}: each lane bit-equal to it "
+                  f"alone ({alone}; codes, logits, hidden, cache)="
                   f"{not bad}{f' (not: lanes {bad})' if bad else ''}; "
                   f"launches repeat={repeat} other slots untouched={same} "
                   f"finite={finite} codes in range={in_range}; lanes {rows}, "
@@ -1616,19 +1682,29 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                   f"{n_exact_t} of {n_pairs} exact, beyond max("
                   f"{STEP_TOL_LAYER}, 2 s) (frame, lane, layer, err, s): "
                   f"{beyond_t}; feedback, final norm and head "
-                  f"{max(lend):.2e} (tol {STEP_TOL_LAYER}); codes equal to "
+                  f"{max(lend):.2e} (tol {STEP_TOL_LAYER}); in the kernel's "
+                  f"orders feedback exact={fb_exact}, final norm exact="
+                  f"{hid_exact}, codec head (tensor-core sums) max rel err "
+                  f"{head_k:.2e}; codes equal to "
                   f"the plain picks but flips (lane, frame, token, gap, "
                   f"seen) {flips}; window logits within max({CHUNK_TOL}, 2 "
                   f"s); end to end from the kernel's frame before (printed, "
                   f"not held): against the plain frame in torch's orders max "
                   f"{e2e:.2e}, {beyond} of {len(detail)} frames beyond "
-                  f"max({CHUNK_TOL}, 2 s); in the kernel's orders max "
+                  f"max({CHUNK_TOL}, 2 s); in the kernel's frame orders "
+                  f"{'+'.join(cs.CHUNK_ORDERS)} max "
                   f"{e2e_k:.2e}, {beyond_k} beyond; by (lane, frame): window "
                   f"logits, end to end (torch's orders, kernel's), s: "
-                  f"{detail}")
+                  f"{detail}; frames off the kernel in its orders beyond "
+                  f"{DRIFT_TRACE} (lane, frame, err, first residual that "
+                  f"differs: 0 the feedback, l entering layer l, its rel "
+                  f"err, the shorter launch wrote the same rows): {drift}")
             if not ok:
                 failures.append(f"gen_chunk_fused B={b} {mode} disagrees")
             del runs, full
+        if b == 1:              # check_chunk times the one-lane launch
+            del kv, st0
+            continue
         # time per 4-frame chunk (greedy), the kernel's scratch kept
         scratch = cs.chunk_scratch(tcfg, pcfg, dev, b, cap)
         zeros = torch.zeros(n_frames, b, device=dev)
@@ -1667,7 +1743,7 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
         print(f"[kernel] gen_chunk_fused B={b} F={n_frames} C={cap} start="
               f"{start}: {ms:.4f} ms per chunk ({ms / n_frames:.4f} ms per "
               f"frame-step, {b * n_frames / ms * 1e3:.1f} frames/s) on grid "
-              f"{cs.gen_chunk_fused.grid} (blocks, per SM); plain "
+              f"{cs.gen_chunk_fused.grid} (blocks, warps a block); plain "
               f"{plain_one_lane:.1f} ms per chunk for one lane alone; bound "
               f"{b_ms:.4f} ms per chunk ({b_by}: each input read once)")
         # where the time goes: block 0's clock at each barrier, scaled to
@@ -2619,9 +2695,11 @@ def drive_serving(dev, failures):
 
 
 WAVE_FRAMES = 48    # bench.py's SFRAMES: a 4 s stream
-# the wave phase's kernels by engine: the default engine's waves (B = 8-32,
+# the wave phase's kernels by engine: a chunk=True engine's waves (B = 8-32,
 # one cursor) decode through the batched chunk kernel and never the
-# per-kernel step; the chunk=False engine takes the step schedule
+# per-kernel step; the card's default engine routes only one lane to the
+# chunk kernel (runtime/generate.CHUNK_BATCHES), so its waves take the step
+# schedule
 WAVE_PATH_KERNELS = {
     "chunk": ("flash_gqa_prefill_stacked", "gen_chunk_fused"),
     "step": ("flash_gqa_prefill_stacked", "talker_step_fused",
@@ -2640,10 +2718,10 @@ def wave_requests(n, budgets):
 
 def drive_wave(dev, failures):
     """Wave batching (serve/batch.py BatchSynthesizer) at full width,
-    greedy: on the card's default engine waves of 8, 16 and 32 streams of
-    WAVE_FRAMES frames and a mixed-budget run of 11 requests at batch 8
-    (the second wave padded); at batch 8 also on a chunk=False engine (the
-    step schedule).  Every result must have frames x spf finite, non-silent
+    greedy: on a chunk=True engine (the batched chunk kernel) waves of 8,
+    16 and 32 streams of WAVE_FRAMES frames and a mixed-budget run of 11
+    requests at batch 8 (the second wave padded); at batch 8 also on the
+    card's default engine, whose waves take the step schedule.  Every result must have frames x spf finite, non-silent
     samples within its budget.  A short wave per engine warms up first.
     Then one profiled wave per batch size.  Returns {run: {kernel:
     launches}}."""
@@ -2666,13 +2744,12 @@ def drive_wave(dev, failures):
         fd.flash_gqa_decode_append, fd.inject_prompt_lanes,
         fd.append_kv_lanes, talker_step_fused, predict_frame_fused,
         gen_chunk_fused)}
-    engine = TtsEngine(device=dev, speakers_dir="speakers")
-    step = TtsEngine(device=dev, speakers_dir="speakers", fused=True,
-                     chunk=False,
-                     weights=dict(assets=engine.assets,
-                                  talker=engine.talker_params,
-                                  predictor=engine.predictor_params,
-                                  codec_decoder=engine.codec_decoder_params))
+    step = TtsEngine(device=dev, speakers_dir="speakers")
+    engine = TtsEngine(device=dev, speakers_dir="speakers", chunk=True,
+                       weights=dict(assets=step.assets,
+                                    talker=step.talker_params,
+                                    predictor=step.predictor_params,
+                                    codec_decoder=step.codec_decoder_params))
     spf = engine.config.codec_decoder.samples_per_frame
     sec_per_frame = spf / 24000.0
     runs = (("wave-b8", engine, 8, wave_requests(8, (WAVE_FRAMES,))),

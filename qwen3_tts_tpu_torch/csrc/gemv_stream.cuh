@@ -1,6 +1,8 @@
-// The GEMV core of the persistent step kernels (talker_step.cu,
-// predictor_frame.cu): a grid barrier, and one warp's n8 output tile on the
-// tensor cores (mma.sync) for up to 32 batch rows staged in shared memory.
+// The GEMV core of the persistent kernels (talker_step.cu,
+// predictor_frame.cu, chunk_step.cu): a grid barrier, and one warp's n8
+// output tile on the tensor cores (mma.sync) for up to 32 batch rows staged
+// in shared memory, its weights read from device memory or (SH, chunk_step.cu's
+// weight ring) from shared memory.
 //
 // Layout.  Weights are output-major (output column n's K values
 // contiguous), so a block that owns the output tiles [t0, t1) of a phase
@@ -109,6 +111,20 @@ __device__ __forceinline__ uint4 ld_w(const void* p) {   // weights: read-only
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// The tile functions' weight and scale loads: read-only device memory, or
+// (SH) shared memory, where chunk_step.cu stages a block's weights
+// (weight_ring.cuh).
+template <bool SH>
+__device__ __forceinline__ uint4 ld_wv(const void* p) {
+  if constexpr (SH) return *reinterpret_cast<const uint4*>(p);
+  return ld_w(p);
+}
+template <bool SH, typename S>
+__device__ __forceinline__ float ld_scale(const S* p) {
+  if constexpr (SH) return scale_f32(*p);
+  return scale_f32(__ldg(p));
+}
+
 // Staged rows: row r of the tile's m16 tile mt, 32 bytes at byte offset
 // `off` (zeros past nrows).
 __device__ __forceinline__ void ld_rows(const unsigned char* A, int lda,
@@ -138,10 +154,15 @@ __device__ __forceinline__ uint32_t word(const uint4& u, int i) {
 // gives the same bits.  A: int8 rows, stride lda bytes (lda % 128 == 16:
 // conflict-free); wq uint8 [*, K / 2]; ws [*, K / 128] (bf16 or f32).
 // D group pairs' weight loads stay in flight (a rotation of registers).
-template <int MT, int R, typename S>
-__device__ __forceinline__ void w4a8_tile(const unsigned char* A, int lda,
-                                          int nrows, const uint8_t* wq,
-                                          const S* ws, int N, int K, int n0,
+// w4a8_cols is the same product with the tile's columns given by address:
+// column n0 + c of half r at wcol[r] + c * wstride bytes, its scales at
+// scol[r] + c * ng; SH: both in shared memory.
+template <int MT, int R, typename S, bool SH = false>
+__device__ __forceinline__ void w4a8_cols(const unsigned char* A, int lda,
+                                          int nrows,
+                                          const uint8_t* const (&wcol)[R],
+                                          int wstride,
+                                          const S* const (&scol)[R], int K,
                                           int i0, int i1,
                                           float (&acc)[R][MT][4],
                                           int* dots = nullptr) {
@@ -159,8 +180,8 @@ __device__ __forceinline__ void w4a8_tile(const unsigned char* A, int lda,
   const S* sc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    wc[r] = wq + (size_t)(n0 + r * N + g) * (K / 2) + 16 * t;
-    sc[r] = ws + (size_t)(n0 + r * N + 2 * t) * ng;
+    wc[r] = wcol[r] + (size_t)g * wstride + 16 * t;
+    sc[r] = scol[r] + (size_t)(2 * t) * ng;
   }
   // a pair's weights and (without dots) its scales of columns 2t, 2t + 1
   auto load = [&](uint4 (&w)[R][2], float (&sv)[R][2][2], int i) {
@@ -169,15 +190,16 @@ __device__ __forceinline__ void w4a8_tile(const unsigned char* A, int lda,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const bool in = i < i1;
-        w[r][h] = in ? ld_w(wc[r] + (size_t)(i + h * nb) * 64)
+        w[r][h] = in ? ld_wv<SH>(wc[r] + (size_t)(i + h * nb) * 64)
                      : make_uint4(0u, 0u, 0u, 0u);
         if (dots == nullptr) {
-          sv[r][h][0] = in ? scale_f32(__ldg(sc[r] + i + h * nb)) : 0.f;
-          sv[r][h][1] = in ? scale_f32(__ldg(sc[r] + ng + i + h * nb)) : 0.f;
+          sv[r][h][0] = in ? ld_scale<SH>(sc[r] + i + h * nb) : 0.f;
+          sv[r][h][1] = in ? ld_scale<SH>(sc[r] + ng + i + h * nb) : 0.f;
         }
       }
   };
-  constexpr int D = R == 1 ? 4 : 2;         // pairs of loads in flight
+  // pairs of loads in flight (one from shared memory: its latency is short)
+  constexpr int D = SH ? 1 : R == 1 ? 4 : 2;
   uint4 wr[D][R][2];
   float sr[D][R][2][2];
 #pragma unroll
@@ -243,18 +265,37 @@ __device__ __forceinline__ void w4a8_tile(const unsigned char* A, int lda,
   }
 }
 
+template <int MT, int R, typename S>
+__device__ __forceinline__ void w4a8_tile(const unsigned char* A, int lda,
+                                          int nrows, const uint8_t* wq,
+                                          const S* ws, int N, int K, int n0,
+                                          int i0, int i1,
+                                          float (&acc)[R][MT][4],
+                                          int* dots = nullptr) {
+  const int ng = K / W4_GROUP;
+  const uint8_t* wcol[R];
+  const S* scol[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    wcol[r] = wq + (size_t)(n0 + r * N) * (K / 2);
+    scol[r] = ws + (size_t)(n0 + r * N) * ng;
+  }
+  w4a8_cols<MT, R, S, false>(A, lda, nrows, wcol, K / 2, scol, K, i0, i1,
+                             acc, dots);
+}
+
 // w4a8_tile's f32 group sum (MT = 1) from the int32 dots its K-split
-// warps left in `dots`, in the JAX order.
-template <int R, typename S>
-__device__ __forceinline__ void w4a8_sum_dots(const int* dots, const S* ws,
-                                              int N, int K, int n0,
-                                              float (&acc)[R][1][4]) {
+// warps left in `dots`, in the JAX order; the scales of column n0 of half r
+// at scol[r] (SH: in shared memory).
+template <int R, typename S, bool SH = false>
+__device__ __forceinline__ void w4a8_sum_dots_cols(
+    const int* dots, const S* const (&scol)[R], int K, float (&acc)[R][1][4]) {
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int ng = K / W4_GROUP, nb = ng / 2;
   constexpr int U = 8;                     // pairs whose scales load at once
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const S* sc = ws + (size_t)(n0 + r * N + 2 * t) * ng;
+    const S* sc = scol[r] + (size_t)(2 * t) * ng;
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[r][0][e] = 0.f;
     for (int i0 = 0; i0 < nb; i0 += U) {
@@ -264,8 +305,8 @@ __device__ __forceinline__ void w4a8_sum_dots(const int* dots, const S* ws,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const bool in = i0 + u < nb;
-          sv[u][h][0] = in ? scale_f32(__ldg(sc + i0 + u + h * nb)) : 0.f;
-          sv[u][h][1] = in ? scale_f32(__ldg(sc + ng + i0 + u + h * nb)) : 0.f;
+          sv[u][h][0] = in ? ld_scale<SH>(sc + i0 + u + h * nb) : 0.f;
+          sv[u][h][1] = in ? ld_scale<SH>(sc + ng + i0 + u + h * nb) : 0.f;
         }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -283,6 +324,17 @@ __device__ __forceinline__ void w4a8_sum_dots(const int* dots, const S* ws,
       }
     }
   }
+}
+
+template <int R, typename S>
+__device__ __forceinline__ void w4a8_sum_dots(const int* dots, const S* ws,
+                                              int N, int K, int n0,
+                                              float (&acc)[R][1][4]) {
+  const S* scol[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    scol[r] = ws + (size_t)(n0 + r * N) * (K / W4_GROUP);
+  w4a8_sum_dots_cols<R, S, false>(dots, scol, K, acc);
 }
 
 // ---------------------------------------------------------------- w8a8
@@ -358,10 +410,13 @@ __device__ __forceinline__ uint32_t i8x2_bf16(uint32_t w, int j) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int MT, int R>
-__device__ __forceinline__ void i8bf_tile(const unsigned char* A, int lda,
-                                          int nrows, const int8_t* wq, int N,
-                                          int K, int n0, int k0, int k1,
+// i8bf_cols: the tile's column n0 + c of half r at wcol[r] + c * wstride
+// bytes (SH: in shared memory).
+template <int MT, int R, bool SH = false>
+__device__ __forceinline__ void i8bf_cols(const unsigned char* A, int lda,
+                                          int nrows,
+                                          const int8_t* const (&wcol)[R],
+                                          int wstride, int k0, int k1,
                                           float (&acc)[R][MT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -373,14 +428,14 @@ __device__ __forceinline__ void i8bf_tile(const unsigned char* A, int lda,
   const int8_t* wc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r)
-    wc[r] = wq + (size_t)(n0 + r * N + g) * K + 16 * t;
+    wc[r] = wcol[r] + (size_t)g * wstride + 16 * t;
   auto load = [&](uint4 (&w)[R], int kb) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
-      w[r] = kb < k1 ? ld_w(wc[r] + (size_t)kb * 64)
+      w[r] = kb < k1 ? ld_wv<SH>(wc[r] + (size_t)kb * 64)
                      : make_uint4(0u, 0u, 0u, 0u);
   };
-  constexpr int D = R == 1 ? 4 : 2;         // blocks of loads in flight
+  constexpr int D = SH ? 1 : R == 1 ? 4 : 2;   // blocks of loads in flight
   uint4 wr[D][R];
 #pragma unroll
   for (int d = 0; d < D; ++d) load(wr[d], k0 + d);
@@ -414,6 +469,17 @@ __device__ __forceinline__ void i8bf_tile(const unsigned char* A, int lda,
     }
     load(wcur, kb + D);
   }
+}
+
+template <int MT, int R>
+__device__ __forceinline__ void i8bf_tile(const unsigned char* A, int lda,
+                                          int nrows, const int8_t* wq, int N,
+                                          int K, int n0, int k0, int k1,
+                                          float (&acc)[R][MT][4]) {
+  const int8_t* wcol[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) wcol[r] = wq + (size_t)(n0 + r * N) * K;
+  i8bf_cols<MT, R, false>(A, lda, nrows, wcol, K, k0, k1, acc);
 }
 
 }  // namespace qtts

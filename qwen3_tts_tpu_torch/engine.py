@@ -37,7 +37,10 @@ CPU the exact path by default:
 - chunk (fused=True, chunk=True; the JAX package's default on its
   accelerator): each 4-frame chunk is ONE launch of the chunk kernel
   (kernels/chunk_step: sampler, projection, w4a8 predictor, feedback,
-  w4a8 talker step and codec head for every frame);
+  w4a8 talker step and codec head for every frame).  chunk=None takes it
+  at the batches where it measured faster than the per-kernel schedule
+  (runtime/generate.CHUNK_BATCHES: one lane) and the per-kernel schedule
+  at the others; chunk=True at every batch its gate takes;
 - per-kernel (fused=True, chunk=False; QTTS_FUSED_CHUNK=0 in the JAX
   package): one talker-step kernel in `talker_mode` ("w4a8", "int8",
   "w8a8" or "bf16": the JAX package's QTTS_FUSED_TALKER) and one int8
@@ -78,7 +81,7 @@ from .models.codec import decoder as codec_decoder
 from .models.transformer import dtype_of
 from .ops import quant as quant_ops
 from .prompt import PromptBuilder, PromptPlan, assemble
-from .runtime.generate import (Generator, SamplerParams,
+from .runtime.generate import (CHUNK_BATCHES, Generator, SamplerParams,
                                chunk_unsupported, fused_unsupported)
 from .utils.logging import get_logger, log_event
 from .utils.metrics import GenerationMetrics, Stopwatch
@@ -206,7 +209,9 @@ class TtsEngine:
                                    codec_params=self.codec_decoder_params,
                                    fused=self.fused, chunk=self.chunk,
                                    talker_mode=talker_mode,
-                                   a8_prefill=a8_prefill)
+                                   a8_prefill=a8_prefill,
+                                   chunk_batches=(CHUNK_BATCHES if chunk is None
+                                                  else None))
         self.load_seconds["kernel_pack"] = time.perf_counter() - t0
 
         for cand in ([Path(speakers_dir)] if speakers_dir else

@@ -31,7 +31,7 @@ SOURCES = ("flash_decode.cu", "flash_prefill.cu", "talker_step.cu",
            "predictor_frame.cu", "chunk_step.cu", "kv_lanes.cu",
            "int4_matmul.cu")
 HEADERS = ("common.cuh", "w4a8.cuh", "cp_async.cuh", "gemv_stream.cuh",
-           "split_attn.cuh")
+           "split_attn.cuh", "weight_ring.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -18,10 +18,12 @@ lane
   hidden) and the int8 codec head, bf16(h) . bf16(q) x row scale in f32,
   over rows [0, 2160).
 
-On a CUDA tensor it makes ONE cooperative launch of `csrc/chunk_step.cu`;
-on a CPU tensor it runs `gen_chunk_plain`, the same function in plain
-PyTorch.  There is no other route: a CUDA input the kernel does not take,
-or a cooperative launch the card refuses, raises.
+On a CUDA tensor it makes ONE cooperative launch of `csrc/chunk_step.cu`:
+one lane runs its one-lane kernel, 8-32 lanes its batched body (grid,
+block size and shared memory from `plan`); on a CPU tensor it
+runs `gen_chunk_plain`, the same function in plain PyTorch.  There is no
+other route: a CUDA input the kernel does not take, a plan that does not
+fit, or a cooperative launch the card refuses, raises.
 
 The plain version follows the JAX kernel op for op: `_qmm4` for every
 predictor and talker matmul (talker_step.qmm4_plain, with the predictor's
@@ -33,11 +35,12 @@ online softmax, then the chunk's own frames write_idx .. write_idx + f as
 one more merge.  The CUDA kernel computes the same function with the
 same roundings to bf16, but its f32 sums run in another order: the
 prefix in SPLIT-slot splits spread over the grid and combined in split
-order (so the softmax rescales at other points), and the dot products,
-norms and feedback sum in its lanes' order.  That is the drift
-chip_smoke.py and tests/test_torch_cuda.py hold it to; the talker layer's
-sums in the kernel's own order are `_talker_layer_plain(orders=
-KERNEL_ORDERS)`.
+order (so the softmax rescales at other points), the heads' dots on the
+tensor cores (the body) or on one warp a row (the one-lane kernel), and
+the other dot products, norms and feedback sum in its lanes' order.  That is the drift chip_smoke.py and tests/test_torch_cuda.py
+hold it to; the talker layer's sums in the kernel's own order are
+`_talker_layer_plain(orders=KERNEL_ORDERS)`, the rest of the frame's
+`gen_chunk_plain(orders=CHUNK_ORDERS)` (all but the heads).
 
 The JAX kernel packs the predictor's q heads in "c-major" order (q head
 j * rep + c of kv head j at position c * n_kv_heads + j; `_head_perm`) and
@@ -48,8 +51,10 @@ so wo's rows and groups are the JAX kernel's; the segment matrices, tiled
 norms and lane rolls of the TPU layout are not carried over.  The codec
 head needs no padding to 2176 rows.
 
-At B > 1 lanes every lane computes what the one-lane kernel computes on
-its inputs, bit for bit: the JAX batched forms' bf16 q.k scores and bf16
+At B > 1 lanes every lane computes what it computes in any other batched
+launch, bit for bit (no sum mixes lanes, no order depends on B); against
+the one-lane kernel its heads differ in the order of their sums.  The
+JAX batched forms' bf16 q.k scores and bf16
 p for the p.v product (matrix-unit artefacts of the TPU loop) and its bf16
 proj_w at b >= 24 (ROADMAP Queue C) are not carried over.  The plain
 version runs row-wise at any batch.
@@ -81,7 +86,7 @@ SPLIT = 64                # the CUDA kernel's talker prefix split
 GROUP = 2                 # query heads per kv head the CUDA kernel takes
 NEG_INF = -1e30
 PRED_HEAD_DIM = 64        # the kernel's predictor attention
-PRED_MAX_KV = 8           # its kv heads: the one-lane form's scratch fits
+PRED_MAX_KV = 8           # its kv heads: the one-lane kernel's scratch fits
 
 
 BATCHES = (1, 8, 16, 24, 32)
@@ -216,10 +221,12 @@ def prep_chunk_extras(tcfg, pcfg, talker_params, predictor_params,
 
 
 # ------------------------------------------------------------- plain version
-def _predict_plain(pcfg, w, ex, px, code0, taps, force=None):
+def _predict_plain(pcfg, w, ex, px, code0, taps, force=None, orders=()):
     """The predictor phase: px [B, D] bf16, code0 [B] -> codes [B, 16].
     With `force` [B, 16], each next input is taken from force's code where
-    the frame's own pick (which it returns) differs."""
+    the frame's own pick (which it returns) differs.  orders: "norms" its
+    RMSNorms and final norm, "qk" its q/k norms, in the CUDA kernel's order
+    (_rms_kernel_order)."""
     b = px.shape[0]
     h, hkv, dh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
     dq, dkv, eps, L = h * dh, hkv * dh, pcfg.rms_eps, pcfg.n_layers
@@ -231,6 +238,11 @@ def _predict_plain(pcfg, w, ex, px, code0, taps, force=None):
     tables = ex["ctab_pred"]
     x = px
     codes = [code0.to(torch.int32)]
+
+    def norm(v, wt, name, threads):
+        if name in orders:
+            return _rms_kernel_order(v, wt, eps, threads)
+        return _rms(v, wt, eps)
     for t in range(N_TOKENS):
         cos, sin = ex["pcos"][t], ex["psin"][t]
         for layer in range(L):
@@ -238,13 +250,13 @@ def _predict_plain(pcfg, w, ex, px, code0, taps, force=None):
                 return qmm4_plain(v, w[name + "_q"][layer],
                                   w[name + "_s"][layer])
 
-            hn = _rms(x, w["ln1"][layer], eps).to(torch.bfloat16)
+            hn = norm(x, w["ln1"][layer], "norms", 256).to(torch.bfloat16)
             qkv = mm(hn, "wqkv")
             q = qkv[:, :dq].reshape(b, h, dh)
             k = qkv[:, dq:dq + dkv].reshape(b, hkv, dh)
             v = qkv[:, dq + dkv:].reshape(b, hkv, dh)
-            q = _rms(q, w["qn"][layer], eps).to(torch.bfloat16).float()
-            k = _rms(k, w["kn"][layer], eps).to(torch.bfloat16).float()
+            q = norm(q, w["qn"][layer], "qk", dh).to(torch.bfloat16).float()
+            k = norm(k, w["kn"][layer], "qk", dh).to(torch.bfloat16).float()
             q = (q * cos + _rotate_half(q) * sin).to(torch.bfloat16)
             k = (k * cos + _rotate_half(k) * sin).to(torch.bfloat16)
             kc[layer, :, :, t] = k
@@ -257,13 +269,13 @@ def _predict_plain(pcfg, w, ex, px, code0, taps, force=None):
             ctx = torch.einsum("bkgs,bksd->bkgd", p, vc[layer].float())
             ctx = ctx.transpose(1, 2).reshape(b, dq)           # c-major
             x = x + mm(ctx.to(torch.bfloat16), "wo")
-            hn2 = _rms(x, w["ln2"][layer], eps).to(torch.bfloat16)
+            hn2 = norm(x, w["ln2"][layer], "norms", 256).to(torch.bfloat16)
             gu = mm(hn2, "gu")
             f = gu.shape[-1] // 2
             ff = F.silu(gu[:, :f].float()).to(torch.bfloat16) * gu[:, f:]
             x = x + mm(ff, "dn")
         if t >= 1:
-            hf = _rms(x, ex["pfn"], eps).to(torch.bfloat16)
+            hf = norm(x, ex["pfn"], "norms", 256).to(torch.bfloat16)
             lo = (t - 1) * WINDOW
             logits = (hf.float() @ ex["phead_q"][lo:lo + WINDOW].float().t()
                       ) * ex["phead_s"][lo:lo + WINDOW]
@@ -335,6 +347,14 @@ def _chunk_attend_plain(q, kc, vc, lengths, start, f, prompt_cap, tile,
 ORDERS = ("rms", "rms-sum", "rms-inv", "qk", "qk-sum", "qk-inv", "softmax",
           "scores")
 KERNEL_ORDERS = ("rms", "qk", "softmax", "scores")
+# The rest of the chunk kernel's frame, for gen_chunk_plain(orders=...):
+# "proj" the projection's f32 dots (_project), "feedback" the feedback's
+# sum (_feedback), "norms" the predictor's RMSNorms and both final norms
+# (256 threads, _rms_kernel_order); "qk" also takes the predictor's q/k
+# norms.  CHUNK_ORDERS is the kernel's whole frame but its heads, whose
+# dots the tensor cores sum in an order of their own.
+FRAME_ORDERS = ("proj", "feedback", "norms")
+CHUNK_ORDERS = KERNEL_ORDERS + FRAME_ORDERS
 
 
 def _butterfly(v: torch.Tensor) -> torch.Tensor:
@@ -537,13 +557,39 @@ def _talker_plain(cfg, w, x, cos, sin, cache_k, cache_v, lengths, start, f,
     return x
 
 
-def _feedback(tables, codes, tts_pad):
-    """bf16(sum_q tables[q][codes[:, q]] (f32) + tts_pad)."""
+def _feedback(tables, codes, tts_pad, kernel_order=False):
+    """bf16(sum_q tables[q][codes[:, q]] (f32) + tts_pad); kernel_order:
+    the rows added one after the other in q order (the CUDA kernel's
+    feedback), else torch's sum."""
     n_q, rows = tables.shape[0], tables.shape[1]
     idx = (torch.arange(n_q, device=codes.device)[None, :] * rows
            + codes.long().clamp(0, rows - 1))
-    fb = tables.reshape(n_q * rows, -1)[idx].float().sum(dim=1)
+    sel = tables.reshape(n_q * rows, -1)[idx].float()
+    if kernel_order:
+        fb = sel[:, 0]
+        for q in range(1, n_q):
+            fb = fb + sel[:, q]
+    else:
+        fb = sel.sum(dim=1)
     return (fb + tts_pad).to(torch.bfloat16)
+
+
+def _project(hid, ex, kernel_order=False):
+    """bf16(hid . proj_w^T + proj_b), hid [B, D] f32.  kernel_order: each
+    dot as the CUDA kernel's warp takes it (lane l adds k = 4 l + 128 j + e
+    for j, then e < 4, in order by fma; then the 32 lanes' butterfly), else
+    torch's matmul."""
+    w = ex["proj_w"]
+    if not kernel_order:
+        return (hid @ w.t() + ex["proj_b"]).to(torch.bfloat16)
+    b, d = hid.shape
+    h = hid.float().reshape(b, 1, d // 128, 32, 4)
+    wr = w.float().reshape(1, w.shape[0], d // 128, 32, 4)
+    part = torch.zeros(b, w.shape[0], 32, device=hid.device)
+    for j in range(d // 128):
+        for e in range(4):
+            part = _fma(h[:, :, j, :, e], wr[:, :, j, :, e], part)
+    return (_butterfly(part) + ex["proj_b"]).to(torch.bfloat16)
 
 
 def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
@@ -564,9 +610,15 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     tie of two logits.  prefix_tile: the cache prefix's tile (the JAX
     kernel's 512 by default); another tile is an equally valid order of
     the same sums, so the two results differ only by the order drift.
-    orders: the talker layers' sums in the CUDA kernel's order
-    (_talker_layer_plain; KERNEL_ORDERS is the kernel's whole talker, its
-    prefix in SPLIT-slot splits whatever prefix_tile)."""
+    orders: sums in the CUDA kernel's order, the talker layers' (ORDERS,
+    _talker_layer_plain; KERNEL_ORDERS is the kernel's whole talker, its
+    prefix in SPLIT-slot splits whatever prefix_tile) and the rest of the
+    frame's (FRAME_ORDERS; CHUNK_ORDERS all of them)."""
+    unknown = set(orders) - set(ORDERS) - set(FRAME_ORDERS)
+    if unknown:
+        raise ValueError(f"unknown orders {sorted(unknown)}; from "
+                         f"{ORDERS + FRAME_ORDERS}")
+    layer_orders = tuple(o for o in orders if o in ORDERS)
     n_frames = u.shape[0]
     start = int(write_idx[0])
     if start + n_frames > cache_k.shape[3]:
@@ -577,18 +629,19 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     codes = []
     for f in range(n_frames):
         code0 = sample_threshold(lg, u[f], temperature, top_k, top_p)
-        px = (hid @ ex["proj_w"].t() + ex["proj_b"]).to(torch.bfloat16)
+        px = _project(hid, ex, "proj" in orders)
         force = None if force_codes is None else force_codes[:, f]
-        fc = _predict_plain(pcfg, pw, ex, px, code0, taps, force)
+        fc = _predict_plain(pcfg, pw, ex, px, code0, taps, force, orders)
         x = _feedback(ex["ctab_fb"], fc if force is None else force,
-                      ex["tts_pad"])
+                      ex["tts_pad"], "feedback" in orders)
         xs = None if layer_taps is None else []
         x = _talker_plain(tcfg, tw, x, cos[f], sin[f], cache_k, cache_v,
                           lengths, start, f, prompt_cap, prefix_tile, xs,
-                          orders=orders)
+                          orders=layer_orders)
         if xs is not None:
             layer_taps.append(torch.stack(xs, dim=1))
-        hid = _rms(x, ex["tfn"], tcfg.rms_eps)
+        hid = (_rms_kernel_order(x, ex["tfn"], tcfg.rms_eps, 256)
+               if "norms" in orders else _rms(x, ex["tfn"], tcfg.rms_eps))
         lg = (hid.to(torch.bfloat16).float() @ ex["chead_q"].float().t()
               ) * ex["chead_s"]
         codes.append(fc)
@@ -602,8 +655,122 @@ _TALKER = ("ln1", "ln2", "qn", "kn", "wqkv_q", "wqkv_s", "wo_q", "wo_s",
 _EXTRAS = ("tfn", "chead_q", "chead_s", "proj_w", "proj_b", "tts_pad",
            "ctab_fb", "ctab_pred", "pfn", "phead_q", "phead_s", "pcos",
            "psin")
-MAX_BLOCKS_PER_SM = 8      # 256-thread blocks: 2048 threads per SM (the
-                           # argmax scratch holds one slot per lane and block)
+MAX_BLOCKS_PER_SM = 8      # the argmax scratch's slots per lane and SM
+
+# The plan of a batched launch (`plan`; B = 1 runs the one-lane kernel,
+# which takes none): csrc/chunk_step.cu's weighted phases in its order, and
+# the shared memory it is sized against.
+PLAN_KINDS = ("proj", "p_qkv", "p_wo", "p_gate_up", "p_down", "p_head",
+              "t_qkv", "t_wo", "t_gate_up", "t_down", "codec_head")
+PLAN_BATCHES = tuple(b for b in BATCHES if b > 1)
+
+
+def block_warps(batch: int) -> int:
+    """Warps of the one block an SM at `batch` lanes, by measurement
+    (PERF.md §6): 8 (255 registers a thread) at 8 lanes, 16 (128) from 16,
+    where more warps share the rows' staging and the predictor's attention
+    items."""
+    return 8 if batch <= 8 else 16
+
+
+SMEM_PER_BLOCK = 232448    # 227 KB a block at most (H100)
+SMALL_BYTES = 6144         # chunk_step.cu Small
+TALK_WARP_BYTES = 2560     # chunk_step.cu TalkWarp (talker attention)
+PRED_WARP_BYTES = 5248     # chunk_step.cu PredWarp (predictor attention)
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _plan_mats(tcfg, pcfg) -> Dict[str, tuple]:
+    """{kind: (N, K, R, qcol, scol, stride, lda)} of csrc/chunk_step.cu
+    mat_of: output columns (a half for R = 2), contraction, the column's
+    bytes in device memory, its scales' bytes, the columns' spacing in the
+    ring (weight_ring.cuh) and the bytes of one staged row (0: the
+    projection keeps its rows in registers)."""
+    d, dp, g = tcfg.d_model, pcfg.d_model, INT4_GROUP
+    pnqkv = (pcfg.n_heads + 2 * pcfg.n_kv_heads) * pcfg.head_dim
+    nqkv = (tcfg.n_heads + 2 * tcfg.n_kv_heads) * tcfg.head_dim
+    pdq, dq = pcfg.n_heads * pcfg.head_dim, tcfg.n_heads * tcfg.head_dim
+
+    def w4(n, k, r, scale_bytes):
+        return (n, k, r, k // 2, k // g * scale_bytes, k // 2 + 64, k + 16)
+
+    def head(n, k):
+        return (n, k, 1, k, 4, k + 64, 2 * k + 16)
+    return {"proj": (dp, d, 1, 4 * d, 0, 4 * d, 0),
+            "p_qkv": w4(pnqkv, dp, 1, 4), "p_wo": w4(dp, pdq, 1, 4),
+            "p_gate_up": w4(pcfg.d_ff, dp, 2, 4),
+            "p_down": w4(dp, pcfg.d_ff, 1, 4), "p_head": head(WINDOW, dp),
+            "t_qkv": w4(nqkv, d, 1, 2), "t_wo": w4(d, dq, 1, 2),
+            "t_gate_up": w4(tcfg.d_ff, d, 2, 2),
+            "t_down": w4(d, tcfg.d_ff, 1, 2), "codec_head": head(V_CODEC, d)}
+
+
+def plan(tcfg, pcfg, batch: int, sms: int) -> Dict[str, Any]:
+    """The launch plan of `gen_chunk_fused` at `batch` lanes (PLAN_BATCHES)
+    on a card with `sms` SMs, one block of block_warps(batch) warps an SM.
+    Each block owns the contiguous tile range
+    [b nt / blocks, (b + 1) nt / blocks) of every weighted phase's nt
+    8-column output tiles (gemv_stream.cuh tile_range); its share of the
+    largest phase sizes the weight ring.  A second region, the rest of the
+    block's shared memory, holds the staged rows of a pass (all lanes,
+    else passes of 16 or 8 rows, the widest phases first), the K split's
+    dots and the attention scratch.  Returns {"blocks", "warps",
+    "mt" (m16 row tiles at full batch), "ring_bytes",
+    "region_bytes", "smem_bytes", "phases": {kind: {"tiles", "ranges",
+    "ring_bytes", "rows", "row_bytes"}}}.  Raises ValueError naming the
+    phase when the ring and the rows cannot fit the shared memory, and for
+    a batch outside PLAN_BATCHES."""
+    if batch not in PLAN_BATCHES:
+        raise ValueError(f"chunk_step: batch {batch} takes no plan: one lane "
+                         "runs the one-lane kernel; the body takes "
+                         f"{PLAN_BATCHES}")
+    warps = block_warps(batch)
+    blocks, budget = sms, SMEM_PER_BLOCK
+    phases = {}
+    for kind, (n, k, r, qcol, scol, stride, lda) in _plan_mats(
+            tcfg, pcfg).items():
+        nt = n // 8
+        ranges = [(i * nt // blocks, (i + 1) * nt // blocks)
+                  for i in range(blocks)]
+        nc = 8 * max(t1 - t0 for t0, t1 in ranges)
+        phases[kind] = {"tiles": nt, "ranges": ranges,
+                        "ring_bytes": _align16(r * nc * (stride + scol)),
+                        "rows": batch, "lda": lda}
+    ring = max(p["ring_bytes"] for p in phases.values())
+    attn = warps * max(TALK_WARP_BYTES, PRED_WARP_BYTES)
+
+    def rows_bytes(p):
+        return _align16(p["rows"] * p["lda"])
+
+    def refuse(kind, region):
+        raise ValueError(
+            f"chunk_step: phase {kind} does not fit in shared memory at "
+            f"batch {batch}, {warps} warps a block: ring {ring} + rows and "
+            f"scratch {region} + {SMALL_BYTES} > {budget} bytes")
+    if ring + attn + SMALL_BYTES > budget:
+        refuse(max(phases, key=lambda k_: phases[k_]["ring_bytes"]), attn)
+    while True:
+        region = max(attn, *(rows_bytes(p) for p in phases.values()))
+        if ring + region + SMALL_BYTES <= budget:
+            break
+        kind = max(phases, key=lambda k_: rows_bytes(phases[k_]))
+        p = phases[kind]
+        if p["rows"] <= 8:
+            refuse(kind, region)
+        p["rows"] = 16 if p["rows"] > 16 else 8
+    for p in phases.values():
+        p["row_bytes"] = rows_bytes(p)
+        del p["lda"]
+    # the rest of the block's shared memory goes to the row region too: the
+    # GEMVs split a tile's K range over idle warps where its exact dots fit
+    # beside the rows
+    region = (budget - ring - SMALL_BYTES) // 16 * 16
+    return {"blocks": blocks, "warps": warps, "mt": -(-batch // 16),
+            "ring_bytes": ring, "region_bytes": region,
+            "smem_bytes": ring + region + SMALL_BYTES, "phases": phases}
 
 
 def _check(tcfg, pcfg, ex, tensors):
@@ -666,7 +833,8 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
                     taps: Optional[List[torch.Tensor]] = None,
                     clocks: Optional[torch.Tensor] = None,
                     scratch: Optional[Dict[str, torch.Tensor]] = None,
-                    layer_taps: Optional[List[torch.Tensor]] = None):
+                    layer_taps: Optional[List[torch.Tensor]] = None,
+                    marks: Optional[torch.Tensor] = None):
     """Run u.shape[0] whole frames of B lanes (B in BATCHES; the gate).
 
     tw: talker_step.prep_layer_weights; pw: prep_predictor_w4; ex:
@@ -683,17 +851,20 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     `layer_taps`, when given, gets per frame the talker's bf16 residual
     [B, L + 1, 2048]: the row entering each layer (the feedback first) and
     the last layer's output, for checks that hold the kernel layer by
-    layer from its own state; the one-lane kernel has no such output, so
-    it is refused at B = 1 on the card.  `scratch`
-    (chunk_scratch at this B and cache capacity; made for the call when
-    None) is kept by a caller that decodes chunk after chunk.  The cooperative grid holds as
-    many blocks as can be resident (at most MAX_BLOCKS_PER_SM per SM; the
-    batched form, 156 KB of shared memory per block at full width, one).
-    `clocks`, an int64 CUDA tensor of len(phase_labels(...)) + 1 entries,
-    gets block 0's SM clock at the kernel's start and as it leaves each
-    grid barrier (the kernel's phases, for measurements).  Each kernel
-    launch adds one to `gen_chunk_fused.launches` and leaves its grid
-    (blocks, blocks per SM) in `gen_chunk_fused.grid`."""
+    layer from its own state.  `scratch` (chunk_scratch at this B and
+    cache capacity; made for the call when None) is kept by a caller that
+    decodes chunk after chunk.  One lane runs the one-lane kernel (as many
+    8-warp blocks as are resident); 8-32 lanes the body, on `plan`'s
+    cooperative grid (one block an SM), and a plan that does not fit
+    raises ValueError.  `clocks`, an int64 CUDA tensor of
+    len(phase_labels(...)) + 1 entries, gets block 0's SM clock at the
+    kernel's start and as it leaves each grid barrier (the kernel's
+    phases, for measurements); `marks` (the body only, B > 1), int64 of 4
+    entries a phase, its clock within each phase (0 where a phase has no
+    such point): the ring's weights landed, warp 0's GEMV tiles done, the
+    work done, the barrier reached.  Each kernel launch
+    adds one to `gen_chunk_fused.launches` and leaves its grid (blocks,
+    warps a block) in `gen_chunk_fused.grid`."""
     if hidden.device.type == "cpu":
         return gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden,
                                cache_k, cache_v, lengths, write_idx, cos,
@@ -707,9 +878,6 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     why = unsupported(tcfg, pcfg, b, n_frames)
     if why:
         raise ValueError(why)
-    if layer_taps is not None and b == 1:
-        raise ValueError("chunk_step: layer_taps is an output of the "
-                         "batched form (B > 1) only")
     tensors = dict(logits=logits, hidden=hidden, cos=cos, sin=sin, u=u,
                    lengths=lengths, write_idx=write_idx, cache_k=cache_k,
                    cache_v=cache_v)
@@ -722,8 +890,18 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
             or clocks.numel() != len(phase_labels(tcfg, pcfg, n_frames)) + 1):
         raise ValueError("chunk_step: clocks must be int64 on the inputs' "
                          "device, one entry per phase + 1")
+    if marks is not None and (
+            marks.dtype != torch.int64 or marks.device != hidden.device
+            or marks.numel() != 4 * len(phase_labels(tcfg, pcfg, n_frames))):
+        raise ValueError("chunk_step: marks must be int64 on the inputs' "
+                         "device, four entries per phase")
+    if marks is not None and b == 1:
+        raise ValueError("chunk_step: marks is an output of the batched "
+                         "body (B > 1), not of the one-lane kernel")
     dev = hidden.device
     cap = cache_k.shape[3]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = plan(tcfg, pcfg, b, sms) if b > 1 else None
     spec = _scratch_spec(tcfg, pcfg, dev, b, cap)
     if scratch is None:
         scratch = chunk_scratch(tcfg, pcfg, dev, b, cap)
@@ -756,13 +934,17 @@ def gen_chunk_fused(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
             int(prompt_cap), pcfg.n_layers, dp, ph, phkv, pdh, pff,
             ex["ctab_fb"].shape[1], ex["ctab_pred"].shape[1], V_CODEC,
             int(ex["ctab_fb"].dtype == torch.bfloat16),
-            MAX_BLOCKS_PER_SM, b]
+            sms * MAX_BLOCKS_PER_SM, b]
+    ints += ([pl["blocks"], pl["warps"], pl["ring_bytes"], pl["region_bytes"]]
+             + [pl["phases"][k]["rows"] for k in PLAN_KINDS]
+             if pl is not None else [0] * (4 + len(PLAN_KINDS)))
     temperature, top_k, top_p = sampler
     flts = [tcfg.rms_eps, pcfg.rms_eps, temperature, top_k, top_p,
             dh ** -0.5, pdh ** -0.5]
-    c_ptrs = (ctypes.c_void_p * (len(ptrs) + 1))(
+    c_ptrs = (ctypes.c_void_p * (len(ptrs) + 2))(
         *[None if t is None else t.data_ptr() for t in ptrs],
-        clocks.data_ptr() if clocks is not None else None)
+        clocks.data_ptr() if clocks is not None else None,
+        marks.data_ptr() if marks is not None else None)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_flts = (ctypes.c_float * len(flts))(*flts)
     grid = (ctypes.c_int * 2)()
@@ -791,7 +973,11 @@ def _scratch_spec(tcfg, pcfg, device, batch: int, cap: int
     cache capacity `cap`, in the order of csrc/chunk_step.cu's Args: each
     lane's rows one after the other (flat, so batch 1 keeps the one-lane
     shapes); "part" holds the talker attention's split partials (acc
-    [B * Hkv, ceil(cap / SPLIT), GROUP, Dh], then (max, sum) [..., 2])."""
+    [B * Hkv, ceil(cap / SPLIT), GROUP, Dh], then (max, sum) [..., 2]);
+    "ctx" the talker's and the predictor's attention context; "amax" the
+    lanes' max |x| of every unnormed GEMV input of a launch (MAX_FRAMES x
+    (32 x predictor layers + 2 x talker layers) x B, zeroed by the
+    kernel); "parrive" the predictor's qkv tiles done per kv head."""
     bf, f32, i32 = torch.bfloat16, torch.float32, torch.int32
     h, hkv, dh = tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim
     ph, phkv, pdh = pcfg.n_heads, pcfg.n_kv_heads, pcfg.head_dim
@@ -800,14 +986,18 @@ def _scratch_spec(tcfg, pcfg, device, batch: int, cap: int
              * MAX_BLOCKS_PER_SM)
     kv = (b * pcfg.n_layers, phkv, N_TOKENS, pdh)
     splits = b * hkv * -(-int(cap) // SPLIT) * GROUP
+    slots_amax = MAX_FRAMES * (2 * N_TOKENS * pcfg.n_layers
+                               + 2 * tcfg.n_layers) * b
     return {"x": ((b * tcfg.d_model,), bf),
             "qkv": ((b * (h + 2 * hkv) * dh,), bf),
-            "ctx": ((b * h * dh,), bf), "ff": ((b * tcfg.d_ff,), bf),
+            "ctx": ((b * max(h * dh, ph * pdh),), bf),
+            "ff": ((b * tcfg.d_ff,), bf),
             "px": ((b * pcfg.d_model,), bf),
             "pqkv": ((b * (ph + 2 * phkv) * pdh,), bf),
             "pff": ((b * pcfg.d_ff,), bf),
             "pk": (kv, bf), "pv": (kv, bf),
             "part": ((splits * (dh + 2),), f32), "arrive": ((b * hkv,), i32),
+            "amax": ((slots_amax,), i32), "parrive": ((phkv,), i32),
             "best_v": ((b * slots,), f32), "best_i": ((b * slots,), i32),
             "barrier": ((2,), i32)}
 
@@ -817,16 +1007,18 @@ def chunk_scratch(tcfg, pcfg, device, batch: int, cap: int
     """The kernel's scratch at `batch` lanes and cache capacity `cap` on a
     CUDA device, made once and passed to every `gen_chunk_fused` call of
     one stream: the activations, the predictor's 16-slot KV, the talker
-    attention's split partials and arrival counters, the argmax slots (one
-    per lane and block) and the grid barrier's two counters (the counters
-    made zero here; the kernel sets them back to zero as it leaves each
-    phase and launch)."""
+    attention's split partials and arrival counters, the lanes' max |x|
+    slots, the predictor's arrival counters, the argmax slots (one per
+    lane and block) and the grid barrier's two counters (the counters made
+    zero here; the kernel sets them back to zero as it leaves each phase
+    and launch)."""
     device = torch.device(device)
     out = {name: torch.empty(shape, dtype=dtype, device=device)
            for name, (shape, dtype) in _scratch_spec(tcfg, pcfg, device,
                                                      batch, cap).items()}
     out["barrier"].zero_()
     out["arrive"].zero_()
+    out["parrive"].zero_()
     return out
 
 

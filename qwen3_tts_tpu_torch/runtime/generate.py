@@ -31,12 +31,14 @@ rule `_mode == "w4a8" and chunk_mode()`).  The talker's prompt prefill
 multiplies int8 weights a8w8 unless `a8_prefill=False`.
 
 Which kernel runs is decided per call by the kernels' gates, as in the JAX
-package: the chunk kernel where its pack is present, the cursor is uniform
-and it takes the batch and frame count (1, 8 or 16 lanes; 24 or 32 at
-<= 4 frames); otherwise frame by frame, with the predictor kernel where it
-takes the batch and the talker-step kernel where it does, and the exact
-modules elsewhere.  Wave batching (serve/batch.py) prefills a whole wave
-to one bucket, so its cursor is uniform and a wave of 8-32 lanes takes the
+package: the chunk kernel where its pack is present, the cursor is uniform,
+it takes the batch and frame count (1, 8 or 16 lanes; 24 or 32 at <= 4
+frames) and the pack routes that batch (`Generator(chunk_batches=...)`:
+TtsEngine's default routes CHUNK_BATCHES, chunk=True every batch);
+otherwise frame by frame, with the predictor kernel where it takes the
+batch and the talker-step kernel where it does, and the exact modules
+elsewhere.  Wave batching (serve/batch.py) prefills a whole wave to one
+bucket, so its cursor is uniform and a wave of 8-32 lanes can take the
 chunk kernel.  Continuous batching (serve/continuous.py) decodes with
 per-lane cursors (uniform_cursor=False) and refills freed lanes with
 `prefill_lanes`.
@@ -45,7 +47,7 @@ per-lane cursors (uniform_cursor=False) and refills freed lanes with
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -146,15 +148,17 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
     Returns (state, codes [B, n_frames, 16] int32, valid [B, n_frames]
     bool).  Frames after a lane's EOS are generated but flagged invalid;
     the EOS frame itself is invalid too.  Where the Generator packed the
-    chunk kernel (talker_params["chunk"]), the cursor is uniform and the
-    kernel's gate takes the batch and frame count, the frames go through
-    it; otherwise they run one by one (JAX generate.py:199-206).
+    chunk kernel (talker_params["chunk"]) for this batch, the cursor is
+    uniform and the kernel's gate takes the batch and frame count, the
+    frames go through it; otherwise they run one by one (JAX generate.py:199-206).
     uniform_cursor=False: each lane writes at its own cursor.
     """
     chunk_pack = talker_params.get("chunk")
+    b = state.hidden.shape[0]
     if (chunk_pack is not None and uniform_cursor
-            and chunk_kernel.supported(cfg.talker, cfg.predictor,
-                                       state.hidden.shape[0], n_frames)):
+            and (chunk_pack["batches"] is None or b in chunk_pack["batches"])
+            and chunk_kernel.supported(cfg.talker, cfg.predictor, b,
+                                       n_frames)):
         return _gen_frames_chunk(cfg, talker_params, chunk_pack, state,
                                  sampler, n_frames, prompt_cap)
     tables_1024 = assets_pack["codec_tables_1024"]
@@ -323,6 +327,14 @@ def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
     return state
 
 
+# The batches at which TtsEngine's default chunk path decodes through the
+# chunk kernel, by measurement (an H100 80GB HBM3 at 700 W; PERF.md §6): at
+# one lane the chunk kernel's 4-frame launch beats four frames of the step
+# schedule (talker_step_fused + predict_frame_fused); at 8-32 lanes the
+# step schedule is faster, so those batches take it.
+CHUNK_BATCHES = (1,)
+
+
 def fused_unsupported(cfg: EngineConfig, batch: int = 1,
                       talker_mode: str = "w4a8"):
     """The first gate of the fused decode kernels that `cfg` fails at
@@ -346,7 +358,8 @@ class Generator:
     bf16 or int8-dict weights, and decodes through the talker-step and
     predictor-frame kernels; chunk=True also packs the chunk kernel's
     predictor and extras and decodes each chunk through kernels/chunk_step
-    where its gate holds (gen_frames).  chunk=True without fused=True, or
+    where its gate holds and `chunk_batches` holds the batch (None: every
+    batch the gate takes; gen_frames).  chunk=True without fused=True, or
     with a talker_mode other than "w4a8", or for a config the chunk kernel
     does not take, raises ValueError (the kernels' wrappers raise for
     inputs they do not take; TtsEngine checks the gates before it builds
@@ -356,7 +369,8 @@ class Generator:
     def __init__(self, cfg: EngineConfig, talker_params, predictor_params,
                  assets_pack, codec_params=None, fused: bool = False,
                  chunk: bool = False, talker_mode: str = "w4a8",
-                 a8_prefill: bool = True):
+                 a8_prefill: bool = True,
+                 chunk_batches: Optional[Tuple[int, ...]] = None):
         self.cfg = cfg
         self.talker_params = talker_params
         self.predictor_params = predictor_params
@@ -391,8 +405,9 @@ class Generator:
                         cfg.predictor, predictor_params),
                     "extras": chunk_kernel.prep_chunk_extras(
                         cfg.talker, cfg.predictor, talker_params,
-                        predictor_params, assets_pack)}
-                self.talker_params["chunk"]["scratch"] = {}   # (batch, cap)
+                        predictor_params, assets_pack),
+                    "batches": chunk_batches,
+                    "scratch": {}}                  # (batch, cap)
 
     def start(self, embeds: torch.Tensor, lengths: torch.Tensor,
               generator: torch.Generator) -> GenState:

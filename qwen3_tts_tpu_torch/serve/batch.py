@@ -4,9 +4,12 @@ Counterpart of qwen3_tts_tpu/serve/batch.py (`BatchRequest`, `BatchResult`,
 
 Requests are grouped into waves of `batch_size` streams; every stream of a
 wave prefills together, right-padded to one prompt bucket (the longest
-prompt's), so the whole wave decodes at one cursor and a wave of 8 or 16
-lanes (24 or 32 at the 4-frame serving chunk) runs each chunk of frames
-as one chunk-kernel launch on the card (runtime/generate.gen_frames).  A
+prompt's), so the whole wave decodes at one cursor.  On a chunk=True
+engine a wave of 8 or 16 lanes (24 or 32 at the 4-frame serving chunk)
+runs each chunk of frames as one chunk-kernel launch on the card; the
+card's default engine runs its waves on the per-kernel step schedule,
+which measured faster at 8-32 lanes (runtime/generate.gen_frames,
+CHUNK_BATCHES).  A
 stream finishes at EOS or its own frame budget; its lane keeps computing
 until the wave drains (static batching; serve/continuous.py refills lanes
 instead).  A short last wave is padded with copies of its first request,

@@ -1,10 +1,16 @@
 """Time the step schedule's two kernels on the card: predict_frame_fused
 (one frame, B = 1, 8, 32) and talker_step_fused in w4a8 (28 layers, C =
 1024; B = 1, 8, 32 at cursor 48, and B = 8 at per-lane cursors up to
-1023), each with CUDA events around eager calls (`cuda_ms`) and as the
-device time of calls captured in one CUDA graph (`graph_ms`), and, where
-the kernel records them, its phases' times by label (`us_per_phase`).  Full
-`EngineConfig()` widths, weights from a seed.  Prints one JSON line.
+1023), and the chunk kernel gen_chunk_fused (F = 4, C = 1024; B = 1 at
+start 32, 8 at 1020, 16 at 159, 24 at 32, 32 at 600, greedy, ragged
+prompt lengths: chip_smoke.py's cases) beside four frames of the step
+schedule (predict_frame_fused + talker_step_fused) at the same B and
+cursors; each chunk entry names the grid it ran on (blocks, warps a
+block).  Each with
+CUDA events around eager calls (`cuda_ms`) and as the device time of calls
+captured in one CUDA graph (`graph_ms`), and, where the kernel records
+them, its phases' times by label (`us_per_phase`).  Full `EngineConfig()`
+widths, weights from a seed.  Prints one JSON line.
 
 The kernels come from whichever `qwen3_tts_tpu_torch` is first on the
 path, so the same script times another checkout of the package:
@@ -82,6 +88,105 @@ def times(fn, labels=None):
     return out
 
 
+def split_marks(fn, labels):
+    """Per phase label, block 0's SM kilocycles (`marks`) from the barrier
+    before to its ring landing (after the rows' staging), to warp 0's
+    tiles done, to the work done, to the barrier reached (after the next
+    fill is issued) and to the barrier left: {label: [stage+ring, tiles,
+    rest of the work, fill, barrier]}."""
+    import torch
+    n = len(labels)
+    clocks = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    marks = torch.zeros(4 * n, dtype=torch.int64, device="cuda")
+    fn(clocks, marks)
+    torch.cuda.synchronize()
+    c, m = clocks.tolist(), marks.view(n, 4).tolist()
+    by = {}
+    for i, lab in enumerate(labels):
+        t0, t4 = c[i], c[i + 1]
+        landed, tiles, done, reached = m[i]
+        reached = reached or t4
+        done = done or reached
+        tiles = tiles or done
+        landed = landed or t0
+        parts = [landed - t0, tiles - landed, done - tiles, reached - done,
+                 t4 - reached]
+        k, acc = by.get(lab, (0, [0] * 5))
+        by[lab] = (k + 1, [x + y for x, y in zip(acc, parts)])
+    return {lab: [round(x / k / 1000, 2) for x in acc]
+            for lab, (k, acc) in by.items()}
+
+
+CHUNK_CASES = ((1, 32, 32), (8, 128, 1020), (16, 128, 159), (24, 32, 32),
+               (32, 128, 600))        # (B, prompt_cap, start): chip_smoke's
+
+
+def chunk_cases(res, cfg, g, tp, pp, tw, pw, tables, n_frames=4):
+    """gen_chunk_fused per 4-frame chunk at CHUNK_CASES, and four frames of
+    the step schedule at the same lanes and cursors (one predictor frame
+    and one talker step a frame, the cursor uniform)."""
+    import inspect
+    import torch
+    from qwen3_tts_tpu_torch.io.assets import Assets
+    from qwen3_tts_tpu_torch.kernels import chunk_step as cs
+    from qwen3_tts_tpu_torch.kernels import predictor_frame as tpf
+    from qwen3_tts_tpu_torch.kernels import talker_step as tts
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    dev = torch.device("cuda")
+    tcfg, pcfg = cfg.talker, cfg.predictor
+    with torch.no_grad():
+        pw4 = cs.prep_predictor_w4(pcfg, pp)
+        pack = Assets.random_init(g, dtype=torch.bfloat16).pack()
+        ex = cs.prep_chunk_extras(tcfg, pcfg, tp, pp, pack)
+    has_marks = "marks" in inspect.signature(cs.gen_chunk_fused).parameters
+    cap, greedy = 1024, (0.0, 40, 0.9)
+    for b, pcap, start in CHUNK_CASES:
+        lens = torch.tensor([pcap - 1 - (7 * i) % (pcap // 2)
+                             for i in range(b)], dtype=torch.int32,
+                            device=dev)
+        pos = lens + (start - pcap)
+        kv = [(torch.randn(tcfg.n_layers, b, tcfg.n_kv_heads, cap,
+                           tcfg.head_dim, generator=g, device=dev) * 0.5
+               ).to(torch.bfloat16) for _ in range(2)]
+        lg = torch.randn(b, cs.V_CODEC, generator=g, device=dev) * 2.0
+        hd = torch.randn(b, tcfg.d_model, generator=g, device=dev)
+        p = pos.long()[None, :] + torch.arange(n_frames, device=dev)[:, None]
+        cos, sin = (t.float().contiguous() for t in talker_lib._rope_tables(
+            tcfg, talker_lib._pos4(p)))
+        zeros = torch.zeros(n_frames, b, device=dev)
+        wi = torch.full_like(lens, start)
+        scratch = cs.chunk_scratch(tcfg, pcfg, dev, b, cap)
+        labels = cs.phase_labels(tcfg, pcfg, n_frames)
+        key = f"chunk_b{b}"
+        res[key] = times(lambda clocks=None: cs.gen_chunk_fused(
+            tcfg, pcfg, tw, pw4, ex, lg, hd, *kv, lens, wi, cos, sin,
+            zeros, greedy, pcap, scratch=scratch, clocks=clocks), labels)
+        res[key].update(grid=list(cs.gen_chunk_fused.grid), start=start)
+        if has_marks and b > 1:           # the batched body's marks
+            res[key]["split_us"] = split_marks(
+                lambda clocks, marks: cs.gen_chunk_fused(
+                    tcfg, pcfg, tw, pw4, ex, lg, hd, *kv, lens, wi, cos,
+                    sin, zeros, greedy, pcap, scratch=scratch,
+                    clocks=clocks, marks=marks), labels)
+        # the step schedule: four frames of one predictor frame and one
+        # talker step, cursors start .. start + 3
+        h = torch.randn(b, pcfg.d_model, generator=g, device=dev)
+        c0 = ((torch.arange(b, device=dev) * 977 + 5) % 2048).to(torch.int32)
+        x = (torch.randn(b, tcfg.d_model, generator=g, device=dev) * 0.5
+             ).to(torch.bfloat16)
+        steps = [(cos[f].contiguous(), sin[f].contiguous(),
+                  torch.full_like(lens, start + f)) for f in range(n_frames)]
+
+        def schedule():
+            for cf, sf, wf in steps:
+                tpf.predict_frame_fused(pcfg, pw, h, c0, tables)
+                tts.talker_step_fused(tcfg, tw, x, cf, sf, *kv, lens, wf,
+                                      pcap, uniform_cursor=True)
+        res[f"step4_b{b}"] = times(schedule)
+        res[f"step4_b{b}"]["start"] = start
+        del kv, scratch
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
@@ -97,7 +202,6 @@ def main() -> int:
     from qwen3_tts_tpu_torch.kernels import talker_step as tts
     from qwen3_tts_tpu_torch.models import talker as talker_lib
     from qwen3_tts_tpu_torch.models.predictor import init_predictor_params
-    from qwen3_tts_tpu_torch.models.transformer import init_decoder_params
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -110,8 +214,8 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(2)
     t0 = time.perf_counter()
     with torch.no_grad():
-        pw = tpf.prep_predictor_weights(
-            cfg.predictor, init_predictor_params(cfg.predictor, g))
+        pp = init_predictor_params(cfg.predictor, g)
+        pw = tpf.prep_predictor_weights(cfg.predictor, pp)
     tables = (torch.randn(16, 2048, cfg.predictor.d_model, generator=g,
                           device=dev) * 0.3).to(torch.bfloat16)
     for b in (1, 8, 32):
@@ -127,10 +231,10 @@ def main() -> int:
         res[f"predict_frame_b{b}"]["grid"] = getattr(
             tpf.predict_frame_fused, "grid", None)
         assert tpf.predict_frame_fused.launches > before
-    del pw
     tcfg = cfg.talker
     with torch.no_grad():
-        tw = tts.prep_layer_weights(tcfg, init_decoder_params(tcfg, g))
+        tp = talker_lib.init_talker_params(tcfg, g)
+        tw = tts.prep_layer_weights(tcfg, tp)
     cap = 1024
 
     def rope(positions):
@@ -158,6 +262,7 @@ def main() -> int:
             **({} if clocks is None else {"clocks": clocks})), labels)
         res[key]["cursors"] = f"{min(cursors)}-{max(cursors)}"
         del kv
+    chunk_cases(res, cfg, g, tp, pp, tw, pw, tables)
     res["seconds"] = round(time.perf_counter() - t0, 1)
     line = json.dumps(res)
     print(line)

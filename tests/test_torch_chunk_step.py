@@ -647,3 +647,111 @@ def test_phase_labels_count_542_barriers_per_frame():
     assert len(labels) == 2 * 542
     assert "p_attn" not in labels and labels.count("t_attn") == 2 * 28
     assert labels.count("p_wo") == 2 * 16 * 6
+
+
+# ------------------------------------------------------- the launch plan
+SMS = 132                       # an H100's SMs
+SMEM_227K = 232448              # the most shared memory a block may have
+
+
+@pytest.mark.parametrize("batch", tcs.PLAN_BATCHES)
+def test_plan_at_full_width_covers_every_tile_once_and_fits(batch):
+    """The wrapper's plan at EngineConfig()'s widths for every batch of the
+    gate that the batched body runs: every weighted phase's tile ranges are
+    contiguous and cover its output tiles exactly once, the ring holds
+    each block's share of every phase, each pass's staged rows and the
+    attention scratch fit the row region, and the whole fits 227 KB."""
+    from qwen3_tts_tpu_torch import EngineConfig
+    cfg = EngineConfig()
+    p = tcs.plan(cfg.talker, cfg.predictor, batch, SMS)
+    warps = tcs.block_warps(batch)
+    assert p["blocks"] == SMS and p["warps"] == warps
+    assert p["mt"] == (1 if batch <= 16 else 2)
+    assert p["smem_bytes"] == (p["ring_bytes"] + p["region_bytes"]
+                               + tcs.SMALL_BYTES) <= SMEM_227K
+    assert p["region_bytes"] >= warps * tcs.PRED_WARP_BYTES
+    assert set(p["phases"]) == set(tcs.PLAN_KINDS)
+    mats = tcs._plan_mats(cfg.talker, cfg.predictor)
+    for kind, ph in p["phases"].items():
+        n, k, r, qcol, scol, stride, lda = mats[kind]
+        assert ph["tiles"] == n // 8 and n % 8 == 0
+        ranges = ph["ranges"]
+        assert len(ranges) == p["blocks"] and ranges[0][0] == 0
+        assert ranges[-1][1] == ph["tiles"]
+        assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+        assert all(t0 <= t1 for t0, t1 in ranges)
+        covered = sorted(t for t0, t1 in ranges for t in range(t0, t1))
+        assert covered == list(range(ph["tiles"]))
+        for t0, t1 in ranges:
+            assert r * 8 * (t1 - t0) * (stride + scol) <= ph["ring_bytes"]
+        assert ph["ring_bytes"] <= p["ring_bytes"]
+        assert ph["rows"] in ((batch, 16, 8) if batch > 16 else (batch, 8))
+        assert ph["rows"] * lda <= ph["row_bytes"] <= p["region_bytes"]
+    # the largest ring: the talker's gate_up, six tiles of a block at 132
+    # blocks
+    assert p["ring_bytes"] == p["phases"]["t_gate_up"]["ring_bytes"]
+    if p["blocks"] == SMS:
+        assert p["ring_bytes"] == 2 * 48 * (1024 + 64 + 32)
+
+
+def test_plan_refuses_what_does_not_fit_naming_the_phase():
+    """A talker too wide for its grid (d_ff 8192 on a 40-SM card: 26
+    gate_up tiles a block) cannot hold its share of gate_up in the ring:
+    the plan names that phase, in either block size (8 lanes: 8 warps, 32:
+    16); both fit the full width."""
+    from qwen3_tts_tpu_torch import EngineConfig
+    cfg = EngineConfig()
+    for batch, warps in ((8, 8), (32, 16)):
+        p = tcs.plan(cfg.talker, cfg.predictor, batch, SMS)
+        assert p["warps"] == warps and p["smem_bytes"] <= SMEM_227K
+        with pytest.raises(ValueError, match="phase t_gate_up does not fit"):
+            tcs.plan(TTC(d_ff=8192), cfg.predictor, batch, 40)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 48])
+def test_plan_is_for_the_batched_body_only(batch):
+    """One lane runs the one-lane kernel, which takes no plan; a batch
+    outside the gate has none either: plan raises ValueError naming the
+    batch, and PLAN_BATCHES is the gate's batches but 1."""
+    from qwen3_tts_tpu_torch import EngineConfig
+    cfg = EngineConfig()
+    assert tcs.PLAN_BATCHES == (8, 16, 24, 32)
+    with pytest.raises(ValueError, match=f"batch {batch} takes no plan"):
+        tcs.plan(cfg.talker, cfg.predictor, batch, SMS)
+
+
+# ------------------------------------ the rest of the frame in kernel order
+# gen_chunk_plain(orders=FRAME_ORDERS) swaps in the chunk kernel's order for
+# the projection's dots, the feedback's sum and the RMSNorms outside the
+# talker layers: each is an equally valid f32 order, so against torch's it
+# moves a bf16 output by at most one rounding, which later layers may
+# carry: ORDER_TOL of max |torch-order output| for the frame's logits and
+# hidden (the talker layer's bound above).
+@pytest.mark.parametrize("orders", [("proj",), ("feedback",), ("norms",),
+                                    ("qk",), tcs.CHUNK_ORDERS])
+def test_frame_orders_change_only_the_order(case, orders):
+    st, pr = case["state"], case["port"]
+    hid = to_tensor(st["hidden"])
+    ex = pr["extras"]
+    if "proj" in orders:
+        want = tcs._project(hid, ex).float()
+        got = tcs._project(hid, ex, kernel_order=True)
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        # one bf16 rounding at most
+        assert ((got.float() - want).abs()
+                <= 2.0 ** -7 * want.abs() + 1e-6).all()
+    if "feedback" in orders:
+        codes = torch.tensor([[(37 * q + 5) % 2048 for q in range(16)]],
+                             dtype=torch.int32)
+        want = tcs._feedback(ex["ctab_fb"], codes, ex["tts_pad"]).float()
+        got = tcs._feedback(ex["ctab_fb"], codes, ex["tts_pad"], True)
+        assert ((got.float() - want).abs()
+                <= 2.0 ** -7 * want.abs() + 1e-6).all()
+    # one frame, its own codes forced: the orders only move the sums
+    base = _port_chunk(case, 1, fn=tcs.gen_chunk_plain)
+    got = _port_chunk(case, 1, fn=tcs.gen_chunk_plain, orders=orders,
+                      force_codes=torch.from_numpy(base[0]))
+    for a, b in zip(got[1:3], base[1:3]):
+        assert np.abs(a - b).max() <= ORDER_TOL * np.abs(b).max()
+    with pytest.raises(ValueError, match="unknown orders"):
+        _port_chunk(case, 1, fn=tcs.gen_chunk_plain, orders=("tree",))

@@ -49,8 +49,9 @@ be a near tie (gap <= 0.1); later frames start from a state that already
 differs by the step's drift; while all codes agree, logits, hidden and the
 written k/v rows within 1e-1 of max |plain|; every other cache slot bit
 for bit (chip_smoke.py states the same policy with its first measurements).
-The batched forms (B = 8 and 32 lanes, two layers at full width): every
-lane bit-equal to the one-lane launch on its inputs; B = 4 refused.  The
+The batched body (B = 8 and 32 lanes, two layers at full width): every
+lane bit-equal to its inputs alone copied into 8 lanes (one lane runs the
+one-lane kernel, whose heads sum in another order); B = 4 refused.  The
 sampler alone
 (the kernel's block 0 code) against ops.sampling.sample_threshold on the
 same uniforms: greedy exact, sampled equal on >= 99 % of draws (f32 sums
@@ -575,10 +576,13 @@ def test_chunk_kernel_rejects_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("b", [8, 32])
 def test_chunk_kernel_lanes_match_the_one_lane_kernel(dev, b):
-    """The batched form (full width, two layers each, B lanes with ragged
+    """The batched body (full width, two layers each, B lanes with ragged
     prompt lengths and positions, one cursor, sampled): every lane
-    bit-equal to a one-lane launch on that lane's inputs and uniforms
-    (codes, logits, hidden, its cache block); the slots being written
+    bit-equal to that lane's inputs and uniforms alone, copied into all 8
+    lanes of a batched launch (codes, logits, hidden, its cache block): no
+    sum mixes lanes and no order depends on B.  B = 1 runs the one-lane
+    kernel, whose heads sum in another order; it is held to the plain
+    version (test_chunk_kernel_matches_plain).  The slots being written
     poisoned first, every other slot untouched; one launch counted."""
     from qwen3_tts_tpu_torch.models import talker as ttalk
     tcfg, pcfg, tw, pw, ex, _ = _chunk_case(dev, True, seed=10 + b,
@@ -614,10 +618,14 @@ def test_chunk_kernel_lanes_match_the_one_lane_kernel(dev, b):
     for got, orig in zip(many[3:], (k, v)):
         assert torch.equal(got[:, :, :, keep], orig[:, :, :, keep])
     for i in range(b):
-        one = run(lg[i:i + 1].clone(), hd[i:i + 1].clone(),
-                  k[:, i:i + 1].clone(), v[:, i:i + 1].clone(),
-                  lens[i:i + 1].clone(), pos[i:i + 1].clone(),
-                  u[:, i:i + 1].clone())
+        def alone(t, dim=0):
+            idx = [slice(None)] * t.dim()
+            idx[dim] = slice(i, i + 1)
+            shape = [-1] * t.dim()
+            shape[dim] = 8
+            return t[tuple(idx)].expand(*shape).contiguous()
+        one = run(alone(lg), alone(hd), alone(k, 1), alone(v, 1),
+                  alone(lens), alone(pos), alone(u, 1))
         assert torch.equal(one[0][0], many[0][i]), i
         assert torch.equal(one[1][0], many[1][i]), i
         assert torch.equal(one[2][0], many[2][i]), i
@@ -632,7 +640,8 @@ def test_chunk_kernel_layer_taps_hold_layer_by_layer(dev):
     within 2e-2 of max of the kernel's next residual and written k/v row
     (this file's layer-by-layer bound of the talker step); the kernel's
     layer-0 input is the feedback of its codes, and the final norm of its
-    last residual its hidden.  At B = 1 layer_taps is refused."""
+    last residual its hidden.  The same holds for a one-lane launch (the
+    one-lane kernel) on lane 0's inputs."""
     from qwen3_tts_tpu_torch.models import talker as ttalk
     tcfg, pcfg, tw, pw, ex, st = _chunk_case(dev, True, seed=44, n_layers=2)
     g = torch.Generator(device=dev).manual_seed(45)
@@ -646,40 +655,49 @@ def test_chunk_kernel_layer_taps_hold_layer_by_layer(dev):
     cos, sin = (t.float().contiguous() for t in ttalk._rope_tables(
         tcfg, ttalk._pos4(p)))
     xt = []
+    lg0 = torch.randn(b, 2160, generator=g, device=dev) * 2.0
+    hd0 = torch.randn(b, tcfg.d_model, generator=g, device=dev)
+    u = torch.rand(n, b, generator=g, device=dev)
+    k0, v0 = k[:, :1].clone(), v[:, :1].clone()
     codes, lg, hd = tcs.gen_chunk_fused(
-        tcfg, pcfg, tw, pw, ex, torch.randn(b, 2160, generator=g,
-                                            device=dev) * 2.0,
-        torch.randn(b, tcfg.d_model, generator=g, device=dev), k, v, lens,
-        torch.full_like(lens, start), cos, sin,
-        torch.rand(n, b, generator=g, device=dev), (0.7, 40, 0.9), pcap,
+        tcfg, pcfg, tw, pw, ex, lg0, hd0, k, v, lens,
+        torch.full_like(lens, start), cos, sin, u, (0.7, 40, 0.9), pcap,
         layer_taps=xt)
     torch.cuda.synchronize()
     assert len(xt) == n and xt[0].shape == (b, tcfg.n_layers + 1,
                                             tcfg.d_model)
     rel = lambda a, b_: ((a.float() - b_.float()).abs().max()
                          / b_.float().abs().max()).item()
-    for f in range(n):
-        fb = tcs._feedback(ex["ctab_fb"], codes[:, f], ex["tts_pad"])
-        assert rel(xt[f][:, 0], fb) <= 1e-2, f
-        kc, vc = k.clone(), v.clone()
-        for layer in range(tcfg.n_layers):
-            y = tcs._talker_layer_plain(tcfg, tw, layer, xt[f][:, layer],
-                                        cos[f], sin[f], kc, vc, lens, start,
-                                        f, pcap, 128)
-            for i in range(b):
-                assert rel(xt[f][i, layer + 1], y[i]) <= 2e-2, (f, layer, i)
-                for got, want in ((k, kc), (v, vc)):
-                    assert rel(got[layer, i, :, start + f],
-                               want[layer, i, :, start + f]) <= 2e-2
-    hid = tcs._rms(xt[-1][:, -1], ex["tfn"], tcfg.rms_eps)
-    assert rel(hd, hid) <= 1e-4
-    one = [t[:, :1].clone() for t in (k, v)]
-    with pytest.raises(ValueError, match="layer_taps"):
-        tcs.gen_chunk_fused(
-            tcfg, pcfg, tw, pw, ex, st["logits"], st["hidden"], *one,
-            lens[:1].clone(), _i32([start], dev), cos[:, :1].contiguous(),
-            sin[:, :1].contiguous(), torch.zeros(n, 1, device=dev),
-            (0.0, 40, 0.9), pcap, layer_taps=[])
+
+    def hold(xt, codes, hd, k, v, lens, cos, sin):
+        for f in range(n):
+            fb = tcs._feedback(ex["ctab_fb"], codes[:, f], ex["tts_pad"])
+            assert rel(xt[f][:, 0], fb) <= 1e-2, f
+            kc, vc = k.clone(), v.clone()
+            for layer in range(tcfg.n_layers):
+                y = tcs._talker_layer_plain(
+                    tcfg, tw, layer, xt[f][:, layer], cos[f], sin[f], kc, vc,
+                    lens, start, f, pcap, 128)
+                for i in range(len(lens)):
+                    assert rel(xt[f][i, layer + 1], y[i]) <= 2e-2, (
+                        f, layer, i)
+                    for got, want in ((k, kc), (v, vc)):
+                        assert rel(got[layer, i, :, start + f],
+                                   want[layer, i, :, start + f]) <= 2e-2
+        hid = tcs._rms(xt[-1][:, -1], ex["tfn"], tcfg.rms_eps)
+        assert rel(hd, hid) <= 1e-4
+
+    hold(xt, codes, hd, k, v, lens, cos, sin)
+    xo = []
+    cos1, sin1 = cos[:, :1].contiguous(), sin[:, :1].contiguous()
+    c1, _, h1 = tcs.gen_chunk_fused(
+        tcfg, pcfg, tw, pw, ex, lg0[:1].clone(), hd0[:1].clone(), k0, v0,
+        lens[:1].clone(), _i32([start], dev), cos1, sin1,
+        u[:, :1].contiguous(), (0.7, 40, 0.9), pcap, layer_taps=xo)
+    torch.cuda.synchronize()
+    assert len(xo) == n and xo[0].shape == (1, tcfg.n_layers + 1,
+                                            tcfg.d_model)
+    hold(xo, c1, h1, k0, v0, lens[:1], cos1, sin1)
 
 
 @pytest.mark.parametrize("start", [tcs.SPLIT - 1, tcs.SPLIT, tcs.SPLIT + 1,
@@ -689,7 +707,8 @@ def test_chunk_kernel_across_split_bounds(dev, start):
     (chunk_step.SPLIT slots per work item).  B = 1 (the small width): each
     frame against the plain version, test_chunk_kernel_matches_plain's
     policy.  B = 8 (two layers at full width, ragged prompt lengths,
-    sampled): every lane bit-equal to the one-lane kernel, and every
+    sampled): lanes 0 and 7 bit-equal to the same lane copied into all 8
+    lanes of a launch (the batched body: no sum mixes lanes), and every
     talker layer of lanes 0 and 7 from the kernel's own state
     (layer_taps) within 1e-2 of max of the plain layer in the kernel's
     sum orders (chunk_step.KERNEL_ORDERS), at least 99 % of the (frame,
@@ -714,11 +733,13 @@ def test_chunk_kernel_across_split_bounds(dev, start):
         tcfg, ttalk._pos4(p)))
 
     def run(i=None, xt=None):
-        sel = slice(None) if i is None else slice(i, i + 1)
+        # every lane, or lane i in all of them
+        sel = (torch.arange(b, device=dev) if i is None
+               else torch.full((b,), i, device=dev))
         kk, vv = k[:, sel].clone(), v[:, sel].clone()
         out = tcs.gen_chunk_fused(
             tcfg, pcfg, tw, pw, ex, lg[sel].clone(), hd[sel].clone(), kk, vv,
-            lens[sel].clone(), _i32([start] * (b if i is None else 1), dev),
+            lens[sel].clone(), _i32([start] * b, dev),
             cos[:, sel].contiguous(), sin[:, sel].contiguous(),
             u[:, sel].contiguous(), (0.7, 40, 0.9), pcap, layer_taps=xt)
         torch.cuda.synchronize()

@@ -499,6 +499,49 @@ def test_chunk_engine_wave_routes_through_the_kernel(chunk_engine,
                                atol=WAV_ATOL)
 
 
+def test_default_engine_routes_by_measured_batch(chunk_engine, monkeypatch):
+    """fused=True with chunk=None (the card's default resolution) packs the
+    chunk kernel but routes only tg.CHUNK_BATCHES (one lane) through it: a
+    wave of 8 takes the per-kernel step schedule (talker_step_fused every
+    frame, no gen_chunk_fused), one lane the chunk kernel, one call a
+    4-frame chunk; chunk=True (chunk_engine) takes every gated batch."""
+    eng0 = chunk_engine
+    eng = TtsEngine(model_dir=eng0.model_dir, config=eng0.config,
+                    device="cpu", fused=True, weights=dict(
+                        assets=eng0.assets, talker=eng0.talker_params,
+                        predictor=eng0.predictor_params,
+                        codec_decoder=eng0.codec_decoder_params))
+    assert eng.chunk and tg.CHUNK_BATCHES == (1,)
+    assert eng.generator.talker_params["chunk"]["batches"] == (1,)
+    assert eng0.generator.talker_params["chunk"]["batches"] is None
+    chunk_calls, step_calls = [], []
+    from qwen3_tts_tpu_torch.models import transformer as ttr
+    real_chunk, real_step = tcs.gen_chunk_fused, ttr.talker_step_fused
+
+    def chunk_counted(*a, **kw):
+        chunk_calls.append(int(a[6].shape[0]))
+        return real_chunk(*a, **kw)
+
+    def step_counted(*a, **kw):
+        step_calls.append(1)
+        return real_step(*a, **kw)
+
+    monkeypatch.setattr(tcs, "gen_chunk_fused", chunk_counted)
+    monkeypatch.setattr(ttr, "talker_step_fused", step_counted)
+    eng.set_max_steps(8)
+    eng.set_sampler_config(TS(temperature=0.0, seed=2))
+    voice = eng.get_speaker("vivian")
+    r8 = TBS(eng, batch_size=8).synthesize([TBR("one request", voice)] * 8)
+    assert chunk_calls == [] and len(step_calls) >= 8
+    n_step = len(step_calls)
+    r1 = TBS(eng, batch_size=1).synthesize([TBR("one request", voice)])
+    assert chunk_calls == [1, 1] and len(step_calls) == n_step
+    spf = eng.config.codec_decoder.samples_per_frame
+    for r in r8 + r1:
+        assert r.frames == 8 and len(r.audio.samples) == 8 * spf
+        assert np.isfinite(r.audio.samples).all()
+
+
 # --------------------------------------------- gates and what is not ported
 @pytest.mark.parametrize("batch,n_frames,why", [
     (2, 4, "chunk_step: batch 2 not in (1, 8, 16, 24, 32)"),
