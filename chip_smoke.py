@@ -34,6 +34,12 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
        torch.matmul on the dequantized bf16 weight (CUDA events and
        graphs); its tile kernel has an entry of its own in the kernels
        line (matmul_int4_tile, M = 32);
+     - flash_gqa_decode_append (per-lane cursors, L=28, C=1024) bit-equal
+       to its plain version in the kernel's sum orders and within the
+       decode bound of the torch-order one, across the 64-slot split
+       bounds, at cursors 0 and C - 1 and past C, B = 4, 6 and 8; timed at
+       the exact queue's shape (B = 4, cursors 36-52), at B = 4 to cursor
+       1023 and at B = 8 per-lane cursors 32-1023;
      Small kernels are also timed in a CUDA graph (device time without the
      wrapper's host enqueue): the attention kernels, matmul_int4 and the
      three lane kernels of continuous batching;
@@ -46,7 +52,9 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      bit-equal to the one-lane launch; lanes 0, B - 1 and the first of
      each row tile against the plain version, the talker layer by layer
      from the kernel's own state against the plain layer in the kernel's
-     sum orders (chunk_step.KERNEL_ORDERS); each B timed;
+     sum orders (chunk_step.KERNEL_ORDERS), each frame end to end against
+     the plain frame in the kernel's frame orders run from the chunk's
+     start (CHUNK_ORDER_TOL); each B timed;
   4. reference: a two-layer model at full width, same weights on the card
      and on the CPU (exact path): prefill logits and the codec's waveform
      agree within the stated tolerance;
@@ -65,7 +73,8 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      device-busy share.
   6. serving: continuous batching (serve/continuous.py) at batch 8 and 32
      on the default engine (per-lane cursors: the step schedule) and at
-     batch 4 on the exact path.
+     batch 4 on the exact path (flash_gqa_decode_append), each queue's
+     audio digest printed.
   7. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
      engine at batch 8, 16 and 32 (the batched chunk kernel), a
      mixed-budget run with a padded last wave, and batch 8 on a chunk=False
@@ -88,6 +97,7 @@ name and power limit, then the result line.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -178,6 +188,17 @@ CHUNK_TOL, CHUNK_GAP = 1e-1, 1e-1
 # plain frame in the kernel's orders passes this (the rest sit at ~1e-6,
 # the heads' order)
 DRIFT_TRACE = 1e-4
+# and holds every sampled frame there: frame f of the launch against the
+# plain frame f run from the chunk's start with offset f (gen_chunk_plain's
+# frame0: the chunk's own slots merged last, as the kernel merges them) in
+# the kernel's frame orders (chunk_step.CHUNK_ORDERS), from the kernel's
+# state after frame f - 1 with its codes forced: logits, hidden and the
+# written k/v rows within this share of max |plain| (one H100: 120 of 120
+# frames within 1.43e-6, the codec head's tensor-core order; a new chunk
+# at start + f would fold the chunk's earlier slots into its 64-slot prefix
+# splits and move a frame by up to 2.5e-1); DRIFT_TRACE <= this, so every
+# frame beyond it is traced
+CHUNK_ORDER_TOL = 1e-4
 # The batched form's lanes against the plain version.  Each lane is
 # bit-equal to the one-lane launch, so this holds the one-lane kernel on
 # more frames than check_chunk's three greedy cases, and there frame by
@@ -211,8 +232,9 @@ DRIFT_TRACE = 1e-4
 # predictor's window logits keep check_chunk's policy; the frame's
 # end-to-end difference from the plain version, in torch's orders and in
 # the kernel's whole frame's (chunk_step.CHUNK_ORDERS: the talker's and the
-# projection's, feedback's and norms' orders), is printed, not held.  The
-# one-lane launch is held the same way (B = 1 in the list).
+# projection's, feedback's and norms' orders), is printed in torch's orders
+# and held in the kernel's (CHUNK_ORDER_TOL).  The one-lane launch is held
+# the same way (B = 1 in the list).
 LAYER_EXACT_SHARE = 0.99
 # the in-kernel sampler against sample_threshold on the same uniforms: f32
 # sums in another order move a threshold across a logit now and then
@@ -1558,7 +1580,7 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                         and torch.equal(one[4][:, 0], full[4][:, i])):
                     bad.append(i)
             ok = repeat and same and finite and in_range and not bad
-            flips, detail, beyond, e2e, drift = [], [], 0, 0.0, []
+            flips, detail, beyond, e2e, drift, off = [], [], 0, 0.0, [], []
             beyond_k, e2e_k = 0, 0.0
             lx, lkv, lend, n_exact, wide = [], [], [], 0, []
             lx_t, n_exact_t, beyond_t = [], 0, []
@@ -1581,23 +1603,24 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                 n_exact_t += torch_order[1]
                 beyond_t += torch_order[2]
                 # codes and window logits: the plain frame on lane i alone
-                # from the kernel's state after frame f - 1, its codes
-                # forced (check_chunk's policy); the frame's end-to-end
-                # difference only printed, against the plain frame in
-                # torch's orders and in the kernel's
+                # from the kernel's state after frame f - 1, run from the
+                # chunk's start with offset f, its codes forced
+                # (check_chunk's policy); the frame's end-to-end difference
+                # printed against the plain frame in torch's orders and
+                # held in the kernel's (CHUNK_ORDER_TOL)
                 for i in rows:
                     src = st0 if f == 0 else (*runs[f - 1][1:], lens, pos + f)
                     st = lane(src, i)
                     tp_, t128 = [], []
-                    kw = dict(force_codes=codes[i:i + 1, f:f + 1])
-                    want = run(cs.gen_chunk_plain, 1, st, start + f,
+                    kw = dict(force_codes=codes[i:i + 1, f:f + 1], frame0=f)
+                    want = run(cs.gen_chunk_plain, 1, st, start,
                                prompt_cap, u[f:f + 1, i:i + 1], sampler,
                                taps=tp_, **kw)
-                    alt = run(cs.gen_chunk_plain, 1, st, start + f,
+                    alt = run(cs.gen_chunk_plain, 1, st, start,
                               prompt_cap, u[f:f + 1, i:i + 1], sampler,
                               taps=t128, prefix_tile=cs.SPLIT, **kw)
                     lt = []
-                    kord = run(cs.gen_chunk_plain, 1, st, start + f,
+                    kord = run(cs.gen_chunk_plain, 1, st, start,
                                prompt_cap, u[f:f + 1, i:i + 1], sampler,
                                orders=cs.CHUNK_ORDERS, layer_taps=lt, **kw)
                     kt = [t_[i:i + 1] for t_ in taps[f * 15:(f + 1) * 15]]
@@ -1646,6 +1669,8 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                                 x[:, i, :, start:start + f + 1],
                                 y[:, i, :, start:start + f + 1])
                                 for x, y in zip(runs[f][3:], full[3:]))))
+                        if max(e_k) > CHUNK_ORDER_TOL:
+                            off.append(drift[-1])
                     s_e = max(rel(x, y) for x, y in zip(alt[1:3], want[1:3]))
                     ok = ok and e_win <= max(CHUNK_TOL, 2 * sens)
                     beyond += max(e) > max(CHUNK_TOL, 2 * s_e)
@@ -1688,17 +1713,26 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                   f"{head_k:.2e}; codes equal to "
                   f"the plain picks but flips (lane, frame, token, gap, "
                   f"seen) {flips}; window logits within max({CHUNK_TOL}, 2 "
-                  f"s); end to end from the kernel's frame before (printed, "
-                  f"not held): against the plain frame in torch's orders max "
+                  f"s); end to end from the kernel's frame before, the plain "
+                  f"frame f run from the chunk's start with offset f: against "
+                  f"the plain frame in torch's orders (printed) max "
                   f"{e2e:.2e}, {beyond} of {len(detail)} frames beyond "
                   f"max({CHUNK_TOL}, 2 s); in the kernel's frame orders "
-                  f"{'+'.join(cs.CHUNK_ORDERS)} max "
-                  f"{e2e_k:.2e}, {beyond_k} beyond; by (lane, frame): window "
+                  f"{'+'.join(cs.CHUNK_ORDERS)} (held) max "
+                  f"{e2e_k:.2e} (tol {CHUNK_ORDER_TOL}), {beyond_k} beyond "
+                  f"max({CHUNK_TOL}, 2 s); by (lane, frame): window "
                   f"logits, end to end (torch's orders, kernel's), s: "
                   f"{detail}; frames off the kernel in its orders beyond "
                   f"{DRIFT_TRACE} (lane, frame, err, first residual that "
                   f"differs: 0 the feedback, l entering layer l, its rel "
                   f"err, the shorter launch wrote the same rows): {drift}")
+            if off:
+                failures.append(
+                    f"gen_chunk_fused B={b} {mode}: frames off the plain "
+                    f"frame in the kernel's orders beyond {CHUNK_ORDER_TOL} "
+                    f"(lane, frame, err, first residual that differs, its "
+                    f"rel err, the shorter launch wrote the same rows): "
+                    f"{off}")
             if not ok:
                 failures.append(f"gen_chunk_fused B={b} {mode} disagrees")
             del runs, full
@@ -1774,9 +1808,12 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
 
 def check_lanes(dev, failures):
     """The per-lane cache kernels of continuous batching against their
-    plain versions at full width: flash_gqa_decode_append (attention within
-    the decode kernel's bound, the written row bit-exact, every other slot
-    untouched), inject_prompt_lanes and append_kv_lanes (bit-exact)."""
+    plain versions at full width: flash_gqa_decode_append (bit-equal to the
+    plain version in its sum orders, within the decode bound of the
+    torch-order one, the written row bit-exact, every other slot
+    untouched; timed at the exact queue's shape, at B = 4 to cursor 1023
+    and at B = 8 per-lane cursors), inject_prompt_lanes and append_kv_lanes
+    (bit-exact)."""
     import torch
     from qwen3_tts_tpu_torch.kernels import flash_decode as fd
     from qwen3_tts_tpu_torch.ops.attention import history_mask
@@ -1811,64 +1848,104 @@ def check_lanes(dev, failures):
                 f"{gr['library_device_ms']:.4f} ms")
 
     out = {}
-    # ---- flash_gqa_decode_append: L=28, C=1024, ragged cursors with a
-    # poisoned stale row at each lane's write slot
+    # ---- flash_gqa_decode_append: L=28, C=1024, H=16, Hkv=8, Dh=128, per
+    # case bit-equal to the plain version in the kernel's orders, within the
+    # decode bound of the torch-order one (cursors in [0, C): at a cursor
+    # >= C that version drops the token, which the kernel attends), the
+    # caches equal to the plain write, with a poisoned stale row (1e3 in k,
+    # NaN in v) at each lane's write slot; then timed at three shapes
     n_layers, hkv, cap, dh, h = 28, 8, 1024, 128, 16
-    cursors = (0, 511, 512, 1023)
-    b = len(cursors)
-    k, v = rnd(n_layers, b, hkv, cap, dh), rnd(n_layers, b, hkv, cap, dh)
-    q, kn, vn = rnd(b, h, dh), rnd(b, hkv, dh), rnd(b, hkv, dh)
-    lengths, wi = i32(0, 100, 128, 37), i32(*cursors)
     layer = n_layers // 4
-    for i, c in enumerate(cursors):
-        k[layer, i, :, c] = 1e3
-        v[layer, i, :, c] = float("nan")
-    kk, vk, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
-    got = fd.flash_gqa_decode_append(q, kk, vk, kn, vn, lengths, wi, layer,
-                                     128)
-    torch.cuda.synchronize()
-    want = fd.decode_append_plain(q.float(), kp, vp, kn, vn, lengths, wi,
-                                  layer, 128)
-    diff = (got.float() - want).abs()
-    within = bool((diff <= DECODE_ATOL + DECODE_RTOL * want.abs()).all())
-    rows = torch.equal(kk, kp) and torch.equal(vk, vp)
-    print(f"[kernel] flash_gqa_decode_append L={n_layers} C={cap} B={b} "
-          f"cursors={cursors} (poisoned self slots): max_abs_err="
-          f"{diff.max().item():.3e} tol={DECODE_ATOL} + 2^-8*|plain f32| "
-          f"within={within}; caches equal to the plain write={rows}")
-    if not (within and rows):
+    cases = (   # (name, cursors, lengths, prompt_cap)
+        ("B=4 cursors 0-1023", (0, 511, 512, 1023), (0, 100, 128, 37), 128),
+        ("B=6 split bounds and >= C", (0, 63, 64, 65, 1023, 1030),
+         (0, 31, 20, 64, 128, 7), 32),
+        ("B=8 per-lane cursors 32-1023",
+         (32, 47, 64, 200, 511, 600, 900, 1023),
+         (31, 20, 25, 31, 28, 17, 30, 9), 32),
+        ("B=4 the exact queue's", (36, 40, 44, 52), (20, 25, 31, 28), 32),
+        ("B=4 cursors 128-1023", (128, 159, 600, 1023), (117, 90, 128, 31),
+         128))
+    errs, all_ok = [], True
+    for name, cursors, lens_, pc in cases:
+        b = len(cursors)
+        k, v = rnd(n_layers, b, hkv, cap, dh), rnd(n_layers, b, hkv, cap, dh)
+        q, kn, vn = rnd(b, h, dh), rnd(b, hkv, dh), rnd(b, hkv, dh)
+        lengths, wi = i32(*lens_), i32(*cursors)
+        for i, c in enumerate(cursors):
+            if c < cap:
+                k[layer, i, :, c] = 1e3
+                v[layer, i, :, c] = float("nan")
+        kk, vk = k.clone(), v.clone()
+        ko, vo, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
+        got = fd.flash_gqa_decode_append(q, kk, vk, kn, vn, lengths, wi,
+                                         layer, pc)
+        torch.cuda.synchronize()
+        kord = fd.decode_append_kernel_order(q, ko, vo, kn, vn, lengths, wi,
+                                             layer, pc)
+        want = fd.decode_append_plain(q.float(), kp, vp, kn, vn, lengths, wi,
+                                      layer, pc)
+        inside = [i for i, c in enumerate(cursors) if c < cap]
+        diff = (got[inside].float() - want[inside]).abs()
+        within = bool((diff <= DECODE_ATOL + DECODE_RTOL
+                       * want[inside].abs()).all())
+        bit = torch.equal(got, kord)
+        rows = (torch.equal(kk, kp) and torch.equal(vk, vp)
+                and torch.equal(kk, ko) and torch.equal(vk, vo))
+        errs.append(diff.max().item())
+        print(f"[kernel] flash_gqa_decode_append L={n_layers} C={cap} {name} "
+              f"{cursors} prompt_cap={pc} (poisoned self slots): equal to "
+              f"the plain version in the kernel's orders={bit} (max abs diff "
+              f"{(got.float() - kord.float()).abs().max().item():.3e}); "
+              f"against the torch-order plain (cursors < C) max_abs_err="
+              f"{diff.max().item():.3e} tol={DECODE_ATOL} + 2^-8*|plain f32| "
+              f"within={within}; caches equal to the plain write={rows}")
+        all_ok = all_ok and bit and within and rows
+        del k, v, kk, vk, ko, vo, kp, vp
+    if not all_ok:
         failures.append("flash_gqa_decode_append disagrees with plain")
-    # timing at the exact serving queue's shape: B=4, bucket 32, ragged
-    lens, wi = i32(20, 25, 31, 28), i32(36, 40, 44, 52)
-    kn32, vn32 = kn, vn
-    flat = torch.arange(b, device=dev)[:, None] * hkv * cap \
-        + torch.arange(hkv, device=dev)[None, :] * cap + wi.long()[:, None]
-    mask = history_mask(lens, 32, wi, 1, cap)
 
-    def library(i):
-        layer = i % n_layers
-        kl, vl = k[layer].view(-1, dh), v[layer].view(-1, dh)
-        kl.index_copy_(0, flat.reshape(-1), kn32.reshape(-1, dh))
-        vl.index_copy_(0, flat.reshape(-1), vn32.reshape(-1, dh))
-        return sdpa(q[:, :, None], k[layer], v[layer],
-                    attn_mask=mask[:, None], enable_gqa=True)
+    def time_append(cursors, lens_, pc):
+        """(events ms, plain ms, library ms, graphs, bound ms, bound by) of
+        one layer per call, the 28 layers in turn."""
+        b = len(cursors)
+        k, v = rnd(n_layers, b, hkv, cap, dh), rnd(n_layers, b, hkv, cap, dh)
+        q, kn, vn = rnd(b, h, dh), rnd(b, hkv, dh), rnd(b, hkv, dh)
+        lens, wi = i32(*lens_), i32(*cursors)
+        flat = (torch.arange(b, device=dev)[:, None] * hkv * cap
+                + torch.arange(hkv, device=dev)[None, :] * cap
+                + wi.long()[:, None])
+        mask = history_mask(lens, pc, wi, 1, cap)
 
-    ms, pl, lib, gr = timed(
-        lambda i: fd.flash_gqa_decode_append(q, k, v, kn32, vn32, lens, wi,
-                                             i % n_layers, 32),
-        lambda i: fd.decode_append_plain(q, k, v, kn32, vn32, lens, wi,
-                                         i % n_layers, 32), library)
-    slots = int(mask.sum())             # visible slots, the new one included
-    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * kn.numel() * 2 * 2
-                       + 2 * (slots - b) * hkv * dh * 2,
-                       4 * slots * h * dh, "bf16")
-    print(f"[kernel] flash_gqa_decode_append B=4 C={cap} cursors 36-52 per "
-          f"layer: {ms:.4f} ms, plain {pl:.4f} ms, index_copy_ + torch sdpa "
-          f"{lib:.4f} ms, bound {b_ms:.5f} ms ({b_by}){graph_note(gr)}")
-    out["flash_gqa_decode_append"] = dict(
-        max_abs_err=diff.max().item(), ms=ms, plain_ms=pl, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib, **gr)
-    del k, v, kk, vk, kp, vp
+        def library(i):
+            layer = i % n_layers
+            kl, vl = k[layer].view(-1, dh), v[layer].view(-1, dh)
+            kl.index_copy_(0, flat.reshape(-1), kn.reshape(-1, dh))
+            vl.index_copy_(0, flat.reshape(-1), vn.reshape(-1, dh))
+            return sdpa(q[:, :, None], k[layer], v[layer],
+                        attn_mask=mask[:, None], enable_gqa=True)
+
+        ms, pl, lib, gr = timed(
+            lambda i: fd.flash_gqa_decode_append(q, k, v, kn, vn, lens, wi,
+                                                 i % n_layers, pc),
+            lambda i: fd.decode_append_plain(q, k, v, kn, vn, lens, wi,
+                                             i % n_layers, pc), library)
+        slots = int(mask.sum())         # visible slots, the new one included
+        b_ms, b_by = bound(2 * q.numel() * 2 + 2 * kn.numel() * 2 * 2
+                           + 2 * (slots - b) * hkv * dh * 2,
+                           4 * slots * h * dh, "bf16")
+        return ms, pl, lib, gr, b_ms, b_by
+
+    for name, cursors, lens_, pc in (cases[3], cases[4], cases[2]):
+        ms, pl, lib, gr, b_ms, b_by = time_append(cursors, lens_, pc)
+        print(f"[kernel] flash_gqa_decode_append {name} {cursors} C={cap} "
+              f"prompt_cap={pc} per layer: {ms:.4f} ms, plain {pl:.4f} ms, "
+              f"index_copy_ + torch sdpa {lib:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}){graph_note(gr)}")
+        if name == cases[3][0]:         # the kernels line: the exact queue's
+            out["flash_gqa_decode_append"] = dict(
+                max_abs_err=max(errs), ms=ms, plain_ms=pl, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, **gr)
 
     # ---- inject_prompt_lanes: R=8 rows of S=128 into a B=32 cache, lane 5
     # twice with the same rows
@@ -2613,7 +2690,11 @@ def drive_serving(dev, failures):
               f"kernel launches per frame-step {n_launch / max(steps, 1):.2f}"
               f"; audio frames x {spf}, finite, non-silent, within budget="
               f"{ok}")
-        print(f"[serving] {name} launch counts: {counts[name]}")
+        digest = hashlib.sha256(b"".join(
+            np.ascontiguousarray(r.audio.samples).tobytes()
+            for r in results)).hexdigest()[:16]
+        print(f"[serving] {name} launch counts: {counts[name]}; audio "
+              f"sha256 {digest} (equal digests: equal greedy codes)")
         if not ok:
             failures.append(f"{name}: a result is not frames x {spf} "
                             "finite samples within its budget")

@@ -21,11 +21,19 @@
 // What bounds them on the card: bytes.
 // - decode_append reads the visible prefix of one layer's K and V once
 //   (2 * write_idx * Dh * 2 bytes per lane and kv head) and does ~4 flops
-//   per byte.  Design: flash_decode.cu's one block per (kv head, lane),
-//   whose G query heads share each K/V row (common.cuh attend_tiles); the
-//   prefix loop stops at write_idx, so the slot being written is never
-//   read and the write needs no ordering against the reads; the current
-//   token joins the online softmax last, as one more column.
+//   per byte.  Design: the talker step's split-prefix attention
+//   (split_attn.cuh split_item), one warp per item (lane b, kv head, split
+//   s of the lane's prefix [0, min(write_idx[b], C)) in 64-slot splits),
+//   4 warps a block.  The grid covers B * Hkv * ceil(C / 64) items, split
+//   fastest, so the host never reads write_idx: a warp whose split lies
+//   past its lane's ns_b = max(1, ceil(min(write_idx[b], C) / 64)) exits,
+//   and at short cursors the live items sit one a block, spread over the
+//   SMs.  A warp scores 4 slots at a time, 8 lanes a slot on 16-byte loads;
+//   the last of an item's splits to arrive combines them in split order and
+//   sets the arrival counter back to 0.  That warp writes the token's row
+//   at write_idx[b] (no split reads that slot, so the write needs no
+//   ordering against the reads) and merges the current token last, from
+//   registers; the output row is the only bf16 rounding.
 // - inject_lanes moves 2 * L * R * Hkv * S * Dh * 2 bytes (read once,
 //   written once).  Design: one block per (kv head, layer, refill row), 16
 //   bytes per thread per step, consecutive threads on consecutive
@@ -38,66 +46,120 @@
 //   k rows and Hkv v rows in 16-byte vectors.
 // A cursor outside [0, C), or a lane outside [0, B), writes nothing.
 
-#include "common.cuh"
+#include "split_attn.cuh"
 
 namespace {
 
-using qtts::MAX_G;
-using qtts::NEG;
+using bf16 = __nv_bfloat16;
+using qtts::SPLIT;
+
+constexpr int DA_WARPS = 4;       // warps (items) a decode_append block
+// k rows of 8 passes (32 slots) and v rows of 16 slots in flight a warp:
+// one item is a chain of dependent loads (the talker step keeps 4 and 8)
+constexpr int APPEND_SB = 8, APPEND_PB = 16;
+
+// One warp per item (b, kv head, split); grid ceil(B * Hkv * nsmax /
+// DA_WARPS), item = blockIdx.x * DA_WARPS + warp, split fastest.
+template <int DH, int CG>
+__global__ void __launch_bounds__(DA_WARPS * 32)
+decode_append_kernel(const bf16* __restrict__ q, bf16* k, bf16* v,
+                     const bf16* __restrict__ k_new,
+                     const bf16* __restrict__ v_new, bf16* __restrict__ out,
+                     const int* __restrict__ lengths,
+                     const int* __restrict__ write_idx, qtts::SplitParts sp,
+                     int layer, int B, int H, int Hkv, int C, int prompt_cap,
+                     float scale) {
+  using W = qtts::SplitWarp<CG, DH>;
+  constexpr int NC = DH / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int item = blockIdx.x * DA_WARPS + warp;
+  const int s = item % sp.nsmax, bh = item / sp.nsmax;
+  if (bh >= B * Hkv) return;
+  const int b = bh / Hkv, kvh = bh % Hkv;
+  // a lane's first split always runs: its loads below go out beside the
+  // cursor's; a later split first learns whether its lane reaches it
+  int cursor = 0;
+  if (s > 0) {
+    cursor = write_idx[b];
+    if (s >= max(1, (max(0, min(cursor, C)) + SPLIT - 1) / SPLIT)) return;
+  }
+  const int G = H / Hkv;
+  W& w = reinterpret_cast<W*>(smem)[warp];
+  // the item's query heads times the score scale, the token's k and v rows
+#pragma unroll
+  for (int g = 0; g < CG; ++g) {
+    if (g >= G) continue;
+    const bf16* qr = q + ((size_t)b * H + kvh * G + g) * DH;
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+      w.q[g][lane + 32 * i] =
+          __fmul_rn(qtts::bf2f(qr[lane + 32 * i]), scale);
+  }
+  const size_t row = ((size_t)b * Hkv + kvh) * DH;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    w.k[lane + 32 * i] = qtts::bf2f(k_new[row + lane + 32 * i]);
+    w.v[lane + 32 * i] = qtts::bf2f(v_new[row + lane + 32 * i]);
+  }
+  if (s == 0) cursor = write_idx[b];
+  const int length = lengths[b];
+  const int end = max(0, min(cursor, C));
+  const int ns = max(1, (end + SPLIT - 1) / SPLIT);
+  __syncwarp();
+  const size_t head = ((size_t)layer * B + b) * Hkv + kvh;
+  bf16* kp = k + head * C * DH;
+  bf16* vp = v + head * C * DH;
+  const bool in = cursor >= 0 && cursor < C;
+  float o[CG][NC];
+  if (!qtts::split_item<APPEND_SB, APPEND_PB>(
+          w, G, kp, vp, end, length, prompt_cap, s, ns, bh, sp,
+          in ? kp + (size_t)cursor * DH : nullptr,
+          in ? vp + (size_t)cursor * DH : nullptr, o))
+    return;
+#pragma unroll
+  for (int g = 0; g < CG; ++g) {
+    if (g >= G) continue;
+    bf16* orow = out + ((size_t)b * H + kvh * G + g) * DH + NC * lane;
+#pragma unroll
+    for (int i = 0; i < NC; i += 2)
+      *reinterpret_cast<__nv_bfloat162*>(orow + i) =
+          __floats2bfloat162_rn(o[g][i], o[g][i + 1]);
+  }
+}
+
+template <int DH, int CG>
+cudaError_t launch_append(const bf16* q, bf16* k, bf16* v, const bf16* kn,
+                          const bf16* vn, bf16* out, const int* lengths,
+                          const int* write_idx, const qtts::SplitParts& sp,
+                          int layer, int B, int H, int Hkv, int C,
+                          int prompt_cap, float scale, cudaStream_t st) {
+  auto kernel = decode_append_kernel<DH, CG>;
+  const size_t smem = DA_WARPS * sizeof(qtts::SplitWarp<CG, DH>);
+  cudaError_t e = qtts::allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const long long items = (long long)B * Hkv * sp.nsmax;
+  kernel<<<(unsigned)((items + DA_WARPS - 1) / DA_WARPS), DA_WARPS * 32,
+           smem, st>>>(q, k, v, kn, vn, out, lengths, write_idx, sp, layer,
+                       B, H, Hkv, C, prompt_cap, scale);
+  return cudaGetLastError();
+}
 
 template <int DH>
-__global__ void __launch_bounds__(DH)
-decode_append_kernel(const __nv_bfloat16* __restrict__ q,
-                     __nv_bfloat16* k, __nv_bfloat16* v,
-                     const __nv_bfloat16* __restrict__ k_new,
-                     const __nv_bfloat16* __restrict__ v_new,
-                     __nv_bfloat16* __restrict__ out,
-                     const int* __restrict__ lengths,
-                     const int* __restrict__ write_idx, int layer, int B,
-                     int H, int Hkv, int C, int prompt_cap, float scale) {
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int t = threadIdx.x;
-  const int G = H / Hkv;
-
-  __shared__ float q_s[MAX_G][DH];
-  __shared__ float p_s[MAX_G][DH];
-  __shared__ float red_s[MAX_G][DH / 32];
-  __shared__ float red[DH / 32];
-
-  const int length = lengths[b];
-  const int cursor = write_idx[b];
-  const size_t head = ((size_t)layer * B + b) * Hkv + kvh;
-  __nv_bfloat16* kp = k + head * (size_t)C * DH;
-  __nv_bfloat16* vp = v + head * (size_t)C * DH;
-  const __nv_bfloat16 kn = k_new[((size_t)b * Hkv + kvh) * DH + t];
-  const __nv_bfloat16 vn = v_new[((size_t)b * Hkv + kvh) * DH + t];
-  // the prefix loop below reads slots < cursor only
-  if (cursor >= 0 && cursor < C) {
-    kp[(size_t)cursor * DH + t] = kn;
-    vp[(size_t)cursor * DH + t] = vn;
-  }
-
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g)
-    if (g < G)
-      q_s[g][t] =
-          __bfloat162float(q[((size_t)b * H + kvh * G + g) * DH + t]) * scale;
-  __syncthreads();
-
-  float m[MAX_G], l[MAX_G], acc[MAX_G];
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
-    acc[g] = 0.f;
-  }
-  // visible prefix: slots c < cursor with c < length or c >= prompt_cap
-  qtts::attend_tiles<DH>(q_s, G, kp, vp, max(0, min(cursor, C)), length,
-                         cursor, prompt_cap, 1.0f, p_s, red_s, m, l, acc);
-  // the current token, always visible, folded in last
-  qtts::attend_current<DH>(q_s, G, __bfloat162float(kn), __bfloat162float(vn),
-                           m, l, acc, red, out + ((size_t)b * H + kvh * G) * DH);
+cudaError_t launch_append_g(int G, const bf16* q, bf16* k, bf16* v,
+                            const bf16* kn, const bf16* vn, bf16* out,
+                            const int* lengths, const int* write_idx,
+                            const qtts::SplitParts& sp, int layer, int B,
+                            int H, int Hkv, int C, int prompt_cap,
+                            float scale, cudaStream_t st) {
+#define QTTS_APPEND(CG)                                                      \
+  return launch_append<DH, CG>(q, k, v, kn, vn, out, lengths, write_idx, sp, \
+                               layer, B, H, Hkv, C, prompt_cap, scale, st)
+  if (G <= 1) QTTS_APPEND(1);
+  if (G <= 2) QTTS_APPEND(2);
+  if (G <= 4) QTTS_APPEND(4);
+  QTTS_APPEND(8);
+#undef QTTS_APPEND
 }
 
 // k/v_small [L, R, Hkv, S, Dh] -> k/v_big [L, B, Hkv, C, Dh] slots [0, S)
@@ -148,38 +210,44 @@ append_lanes_kernel(uint4* k_big, uint4* v_big,
 
 }  // namespace
 
+// part: [B * Hkv * ceil(C / 64) * G * (head_dim + 2)] f32 (null, with
+// part_floats 0, when C <= 64: one split, no partials); arrive: [B * Hkv]
+// uint32, 0 between launches.  The sizes given are checked.
 extern "C" int qtts_decode_append(const void* q, void* k, void* v,
                                   const void* k_new, const void* v_new,
                                   void* out, const int* lengths,
-                                  const int* write_idx, int layer, int B,
-                                  int H, int Hkv, int C, int head_dim,
+                                  const int* write_idx, void* part,
+                                  long long part_floats, void* arrive,
+                                  int arrive_n, int layer, int B, int H,
+                                  int Hkv, int C, int head_dim,
                                   int prompt_cap, float scale, void* stream) {
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_G || B <= 0 || C <= 0)
+  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > qtts::MAX_G || B <= 0 || C <= 0 ||
+      (head_dim != 64 && head_dim != 128))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(Hkv, B);
+  const int G = H / Hkv;
+  const int nsmax = (C + SPLIT - 1) / SPLIT;
+  const long long n_rows = (long long)B * Hkv * nsmax * G;
+  if (arrive == nullptr || arrive_n < B * Hkv ||
+      (nsmax > 1 && (part == nullptr || part_floats < n_rows * (head_dim + 2))))
+    return (int)cudaErrorInvalidValue;
+  float* pa = static_cast<float*>(part);
+  const qtts::SplitParts sp{pa, pa == nullptr ? nullptr
+                                              : pa + n_rows * head_dim,
+                            static_cast<unsigned*>(arrive), nsmax};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  const auto* qb = static_cast<const bf*>(q);
-  auto* kb = static_cast<bf*>(k);
-  auto* vb = static_cast<bf*>(v);
-  const auto* knb = static_cast<const bf*>(k_new);
-  const auto* vnb = static_cast<const bf*>(v_new);
-  auto* ob = static_cast<bf*>(out);
-  switch (head_dim) {
-    case 64:
-      decode_append_kernel<64><<<grid, 64, 0, st>>>(
-          qb, kb, vb, knb, vnb, ob, lengths, write_idx, layer, B, H, Hkv, C,
-          prompt_cap, scale);
-      break;
-    case 128:
-      decode_append_kernel<128><<<grid, 128, 0, st>>>(
-          qb, kb, vb, knb, vnb, ob, lengths, write_idx, layer, B, H, Hkv, C,
-          prompt_cap, scale);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const auto* qb = static_cast<const bf16*>(q);
+  auto* kb = static_cast<bf16*>(k);
+  auto* vb = static_cast<bf16*>(v);
+  const auto* knb = static_cast<const bf16*>(k_new);
+  const auto* vnb = static_cast<const bf16*>(v_new);
+  auto* ob = static_cast<bf16*>(out);
+  return (int)(head_dim == 64
+                   ? launch_append_g<64>(G, qb, kb, vb, knb, vnb, ob, lengths,
+                                         write_idx, sp, layer, B, H, Hkv, C,
+                                         prompt_cap, scale, st)
+                   : launch_append_g<128>(G, qb, kb, vb, knb, vnb, ob,
+                                          lengths, write_idx, sp, layer, B, H,
+                                          Hkv, C, prompt_cap, scale, st));
 }
 
 extern "C" int qtts_inject_lanes(void* k_big, void* v_big,

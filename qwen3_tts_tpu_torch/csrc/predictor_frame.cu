@@ -442,7 +442,8 @@ __device__ __forceinline__ int kv_head_of(const Args& a, int n) {
 // Attention of token tok, layer l, lane b, kv head kvh on one warp, with
 // `ws` its shared scratch (attn_bytes<DH>()): the k/v rows of slots < tok
 // are copied there in one batch (cp.async) while the warp computes the q/k
-// RMSNorm and rope at position tok (norm_rope_heads' arithmetic, lane
+// RMSNorm and rope at position tok (f32 (x * (1 / sqrt(ss / DH + eps))) *
+// w, then bf16; f32 x * cos + rotate_half(x) * sin, then bf16; lane
 // holding dims lane + 32 i) and writes slot tok; then scores (q . k) *
 // scale in f32, one (head, slot) per lane; softmax and P.V per head.
 template <int DH>

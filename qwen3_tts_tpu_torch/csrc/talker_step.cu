@@ -527,17 +527,11 @@ __device__ void count_items(const Args& a, Small& sm) {
 
 // Items (lane b, kv head, split s of the lane's prefix [0, end_b), end_b =
 // min(write_idx[b], C), ns_b = max(1, ceil(end_b / SPLIT)) splits), one
-// warp each over the grid.  Slot c of the prefix is visible iff c < length
-// or c >= prompt_cap.  Per split (chunk_step.cu talker_attn's arithmetic,
-// the order of chunk_step._attend_kernel_order): scores, m = max, p =
-// exp(s - m) (0 where masked), l = the lanes' butterfly of p[lane] +
-// p[lane + 32], acc = P.V by fma in slot order.  With several splits each
-// writes (acc, m, l) to a.part and the warp that raises the item's arrival
-// counter to ns_b combines them in split order (M = max m_s, l and acc by
-// fma with weights exp(m_s - M)) and sets the counter back to 0.  That
-// warp writes the token's k/v row (cache slot write_idx[b] or the token
-// buffers), merges the current token (from registers, always visible) as
-// one more online-softmax step, writes the context row and raises the
+// warp each over the grid: the q/k norms and rope of the item's heads
+// (qk_warp), then split_attn.cuh's split_item (a split's softmax and P.V,
+// the last arriver's combine in split order, the token's k/v row written
+// at cache slot write_idx[b] or into the token buffers, the current token
+// merged last).  The merging warp writes the context row and raises the
 // lane's max |ctx|.
 template <int CG>
 __device__ void attn_phase(const Args& a, int l, unsigned char* smem,
@@ -550,8 +544,7 @@ __device__ void attn_phase(const Args& a, int l, unsigned char* smem,
   const int nsmax = (a.C + SPLIT - 1) / SPLIT;
   count_items(a, sm);
   const size_t n_rows = (size_t)a.B * a.Hkv * nsmax * G;
-  float* part_acc = a.part;
-  float* part_ml = a.part + n_rows * DH;
+  const qtts::SplitParts sp{a.part, a.part + n_rows * DH, a.arrive, nsmax};
   const int n_items = sm.cum[a.B];
   for (int it = blockIdx.x + warp * gridDim.x; it < n_items;
        it += gridDim.x * WARPS) {
@@ -561,8 +554,6 @@ __device__ void attn_phase(const Args& a, int l, unsigned char* smem,
     const int end = max(0, min(cursor, a.C));
     const int ns = max(1, (end + SPLIT - 1) / SPLIT);
     const int kvh = (it - sm.cum[b]) / ns, s = (it - sm.cum[b]) % ns;
-    const int bh = b * a.Hkv + kvh;
-    const int length = a.lengths[b];
     const size_t head = ((size_t)l * a.B + b) * a.Hkv + kvh;
     bf16* kp = a.kc + head * a.C * DH;
     bf16* vp = a.vc + head * a.C * DH;
@@ -570,129 +561,22 @@ __device__ void attn_phase(const Args& a, int l, unsigned char* smem,
                   a.qn + (size_t)l * DH, a.kn + (size_t)l * DH,
                   a.cos + (size_t)b * DH, a.sin + (size_t)b * DH, a.eps,
                   a.scale, w);
-    // ---- split s: slots [c0, c0 + n)
-    const int c0 = s * SPLIT;
-    const int n = max(0, min(SPLIT, end - c0));
-    const int pc = a.prompt_cap;
-    qtts::score_slots(
-        w, G, n, [&](int j) { return kp + (size_t)(c0 + j) * DH; },
-        [](int) { return false; },
-        [&](int j) { return c0 + j < length || c0 + j >= pc; });
-    float m[CG], ls[CG], acc[CG][4];
-#pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      const float sa = lane < n ? w.s[g][lane] : qtts::NEG;
-      const float sb = lane + 32 < n ? w.s[g][lane + 32] : qtts::NEG;
-      float mx = fmaxf(sa, sb);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float pa = sa > qtts::NEG ? expf(sa - mx) : 0.f;
-      const float pb = sb > qtts::NEG ? expf(sb - mx) : 0.f;
-      m[g] = mx;
-      ls[g] = qtts::warp_sum(__fadd_rn(pa, pb));
-      __syncwarp();
-      if (g < G) {
-        w.s[g][lane] = pa;
-        w.s[g][lane + 32] = pb;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
-    }
-    __syncwarp();
-    qtts::pv_slots(w, n, [&](int j) { return vp + (size_t)(c0 + j) * DH; },
-                   [](int) { return false; }, acc);
-    if (ns > 1) {
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        if (g >= G) continue;
-        const size_t r = ((size_t)bh * nsmax + s) * G + g;
-        *reinterpret_cast<float4*>(part_acc + r * DH + 4 * lane) =
-            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-        if (lane == 0) {
-          part_ml[r * 2] = m[g];
-          part_ml[r * 2 + 1] = ls[g];
-        }
-      }
-      __threadfence();
-      __syncwarp();
-      unsigned old = 0;
-      if (lane == 0) old = atomicAdd(a.arrive + bh, 1u);
-      old = __shfl_sync(0xffffffffu, old, 0);
-      if (old != (unsigned)ns - 1) {
-        __syncwarp();
-        continue;
-      }
-      __threadfence();
-#pragma unroll
-      for (int g = 0; g < CG; ++g) {
-        if (g >= G) continue;
-        const size_t r0 = (size_t)bh * nsmax * G + g;
-        float mm = qtts::NEG;
-#pragma unroll 4
-        for (int z = 0; z < ns; ++z)
-          mm = fmaxf(mm, __ldcg(part_ml + (r0 + (size_t)z * G) * 2));
-        float l_ = 0.f, ac[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-        for (int z = 0; z < ns; ++z) {
-          const size_t r = r0 + (size_t)z * G;
-          const float wz = expf(__ldcg(part_ml + r * 2) - mm);
-          l_ = fmaf(__ldcg(part_ml + r * 2 + 1), wz, l_);
-          const float4 pz = __ldcg(
-              reinterpret_cast<const float4*>(part_acc + r * DH + 4 * lane));
-          ac[0] = fmaf(pz.x, wz, ac[0]);
-          ac[1] = fmaf(pz.y, wz, ac[1]);
-          ac[2] = fmaf(pz.z, wz, ac[2]);
-          ac[3] = fmaf(pz.w, wz, ac[3]);
-        }
-        m[g] = mm;
-        ls[g] = l_;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[g][i] = ac[i];
-      }
-      if (lane == 0) a.arrive[bh] = 0u;          // for the next layer
-    }
-    // ---- the merging warp: the token's k/v row, then the current token
+    const bool in = cursor >= 0 && cursor < a.C;
     bf16* kd = a.k_tok != nullptr ? a.k_tok + head * DH
-               : (cursor >= 0 && cursor < a.C) ? kp + (size_t)cursor * DH
-                                                : nullptr;
+               : in ? kp + (size_t)cursor * DH : nullptr;
     bf16* vd = a.k_tok != nullptr ? a.v_tok + head * DH
-               : (cursor >= 0 && cursor < a.C) ? vp + (size_t)cursor * DH
-                                                : nullptr;
-    if (kd != nullptr) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kd[lane + 32 * i] = __float2bfloat16_rn(w.k[lane + 32 * i]);
-        vd[lane + 32 * i] = __float2bfloat16_rn(w.v[lane + 32 * i]);
-      }
-    }
-    auto own = [](int) { return true; };
-    qtts::score_slots(w, G, 1, [&](int) { return kp; }, own,
-                      [](int) { return true; });
-    float lsum[CG];
-#pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      const float mx = fmaxf(m[g], w.s[g][0]);
-      const float alpha = expf(m[g] - mx);
-      lsum[g] = __fmul_rn(ls[g], alpha);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[g][i] = __fmul_rn(acc[g][i], alpha);
-      __syncwarp();
-      const float p = expf(w.s[g][0] - mx);
-      lsum[g] = __fadd_rn(lsum[g], p);
-      __syncwarp();
-      if (lane == 0) w.s[g][0] = p;
-    }
-    __syncwarp();
-    qtts::pv_slots(w, 1, [&](int) { return vp; }, own, acc);
+               : in ? vp + (size_t)cursor * DH : nullptr;
+    float o[CG][4];
+    if (!qtts::split_item(w, G, kp, vp, end, a.lengths[b], a.prompt_cap, s,
+                          ns, b * a.Hkv + kvh, sp, kd, vd, o))
+      continue;
     float amx = 0.f;
 #pragma unroll
     for (int g = 0; g < CG; ++g) {
       if (g >= G) continue;
-      const float den = fmaxf(lsum[g], 1e-30f);
       __nv_bfloat162 o2[2];
-      o2[0] = __floats2bfloat162_rn(acc[g][0] / den, acc[g][1] / den);
-      o2[1] = __floats2bfloat162_rn(acc[g][2] / den, acc[g][3] / den);
+      o2[0] = __floats2bfloat162_rn(o[g][0], o[g][1]);
+      o2[1] = __floats2bfloat162_rn(o[g][2], o[g][3]);
       *reinterpret_cast<uint2*>(a.ctx + (size_t)b * dq +
                                 ((size_t)kvh * G + g) * DH + 4 * lane) =
           *reinterpret_cast<const uint2*>(o2);
@@ -702,8 +586,8 @@ __device__ void attn_phase(const Args& a, int l, unsigned char* smem,
                                    fabsf(__high2float(o2[1])))));
     }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      amx = fmaxf(amx, __shfl_xor_sync(0xffffffffu, amx, o));
+    for (int o_ = 16; o_ > 0; o_ >>= 1)
+      amx = fmaxf(amx, __shfl_xor_sync(0xffffffffu, amx, o_));
     if (lane == 0)
       atomicMax(a.amax + (size_t)l * 2 * a.B + b, __float_as_uint(amx));
     __syncwarp();                  // w is rewritten by the warp's next item

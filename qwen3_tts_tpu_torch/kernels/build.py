@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures (every pointer and the stream as c_void_p, so ctypes does
 # not cut them to 32 bits)
 SIGNATURES = {
@@ -57,6 +58,7 @@ SIGNATURES = {
     "qtts_sample_threshold": [_P, _P, _P, _I, _I,          # lg u out B V
                               _F, _F, _F, _P],             # t k p stream
     "qtts_decode_append": [_P, _P, _P, _P, _P, _P, _P, _P,  # q k v kn vn o len wi
+                           _P, _L, _P, _I,                  # part n arrive n
                            _I, _I, _I, _I, _I, _I, _I,      # layer B H Hkv C dh pc
                            _F, _P],                         # scale stream
     "qtts_inject_lanes": [_P, _P, _P, _P, _P,              # kb vb ks vs lanes

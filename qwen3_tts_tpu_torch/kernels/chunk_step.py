@@ -599,11 +599,11 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
                     force_codes: Optional[torch.Tensor] = None,
                     prefix_tile: int = PREFIX_TILE,
                     layer_taps: Optional[List[torch.Tensor]] = None,
-                    orders=()):
+                    orders=(), frame0: int = 0):
     """`gen_chunk_fused` in plain PyTorch (same arguments and effects,
     layer_taps included).
 
-    Three arguments serve the kernel's checks.  force_codes [B, F, 16]
+    Four arguments serve the kernel's checks.  force_codes [B, F, 16]
     int32: the frames go on with these codes (the predictor's next inputs,
     the feedback) where their own picks differ, and the picks are what it
     returns; it holds the plain version on the kernel's path past a near
@@ -613,7 +613,14 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     orders: sums in the CUDA kernel's order, the talker layers' (ORDERS,
     _talker_layer_plain; KERNEL_ORDERS is the kernel's whole talker, its
     prefix in SPLIT-slot splits whatever prefix_tile) and the rest of the
-    frame's (FRAME_ORDERS; CHUNK_ORDERS all of them)."""
+    frame's (FRAME_ORDERS; CHUNK_ORDERS all of them).  frame0: the frames
+    are frames frame0, frame0 + 1, ... of a chunk that starts at
+    write_idx: frame j is written at slot write_idx + frame0 + j and the
+    talker attends the chunk's slots [write_idx, write_idx + frame0 + j]
+    last, as the kernel's frame frame0 + j does, so one frame of a longer
+    launch runs alone from the state before it in the kernel's order (cos,
+    sin and u are the frames' own); 0, the default, is a chunk of its
+    own."""
     unknown = set(orders) - set(ORDERS) - set(FRAME_ORDERS)
     if unknown:
         raise ValueError(f"unknown orders {sorted(unknown)}; from "
@@ -621,9 +628,10 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
     layer_orders = tuple(o for o in orders if o in ORDERS)
     n_frames = u.shape[0]
     start = int(write_idx[0])
-    if start + n_frames > cache_k.shape[3]:
-        raise ValueError(f"chunk_step: slots {start}..{start + n_frames} "
-                         f"past the cache capacity {cache_k.shape[3]}")
+    if frame0 < 0 or start + frame0 + n_frames > cache_k.shape[3]:
+        raise ValueError(f"chunk_step: slots {start + frame0}.."
+                         f"{start + frame0 + n_frames} past the cache "
+                         f"capacity {cache_k.shape[3]}")
     temperature, top_k, top_p = sampler
     lg, hid = logits.float(), hidden.float()
     codes = []
@@ -636,8 +644,8 @@ def gen_chunk_plain(tcfg, pcfg, tw, pw, ex, logits, hidden, cache_k,
                       ex["tts_pad"], "feedback" in orders)
         xs = None if layer_taps is None else []
         x = _talker_plain(tcfg, tw, x, cos[f], sin[f], cache_k, cache_v,
-                          lengths, start, f, prompt_cap, prefix_tile, xs,
-                          orders=layer_orders)
+                          lengths, start, frame0 + f, prompt_cap,
+                          prefix_tile, xs, orders=layer_orders)
         if xs is not None:
             layer_taps.append(torch.stack(xs, dim=1))
         hid = (_rms_kernel_order(x, ex["tfn"], tcfg.rms_eps, 256)

@@ -19,7 +19,8 @@ raises.  Each wrapper counts its launches in `<wrapper>.launches`.
 - `flash_gqa_decode_append` (`csrc/kv_lanes.cu`): the same attention over
   slots below each lane's own cursor plus the current token, whose k/v row
   the kernel writes into the cache at that cursor (the exact path under
-  per-lane cursors);
+  per-lane cursors); one launch of the talker step's split-prefix items
+  (csrc/split_attn.cuh), whose sums `decode_append_kernel_order` replays;
 - `inject_prompt_lanes` (`csrc/kv_lanes.cu`): compact prefilled lanes into
   slots [0, S) of chosen lanes of the big cache (lane refill);
 - `append_kv_lanes` (`csrc/kv_lanes.cu`): one k/v row per (layer, lane) at
@@ -245,11 +246,71 @@ def decode_append_plain(q: torch.Tensor, k_all: torch.Tensor,
                         prompt_cap: int) -> torch.Tensor:
     """`flash_gqa_decode_append` in plain PyTorch: write each lane's row at
     write_idx[b] of layer `layer`, then `decode_attention_plain` (whose
-    mask keeps the self slot).  Same arguments and effects."""
+    mask keeps the self slot).  Same arguments and effects for cursors in
+    [0, C); a lane at a cursor >= C attends [0, C) without its own token."""
     update_cache(k_all[layer], k_new[:, None], write_idx)
     update_cache(v_all[layer], v_new[:, None], write_idx)
     return decode_attention_plain(q, k_all, v_all, lengths, write_idx, layer,
                                   prompt_cap)
+
+
+def decode_append_kernel_order(q: torch.Tensor, k_all: torch.Tensor,
+                               v_all: torch.Tensor, k_new: torch.Tensor,
+                               v_new: torch.Tensor, lengths: torch.Tensor,
+                               write_idx: torch.Tensor, layer: int,
+                               prompt_cap: int) -> torch.Tensor:
+    """`flash_gqa_decode_append` in the CUDA kernel's sum orders: each
+    lane's row written at write_idx[b] (nothing outside [0, C)), then per
+    lane chunk_step._attend_kernel_order (the prefix [0, min(write_idx[b],
+    C)) in SPLIT-slot splits combined in split order, 8-lane score dots,
+    the current token merged last) with start = that prefix's end and f =
+    0, the token's own rows in the slot after the prefix (so a cursor
+    outside [0, C) still attends its token).  q, k_new, v_new bf16 values;
+    returns [B, H, Dh] bf16.  For the card's checks and the CPU tests: it
+    reads each cursor on the host."""
+    from .chunk_step import _attend_kernel_order
+    b, h, dh = q.shape
+    cap = k_all.shape[3]
+    out = []
+    for i, cursor in enumerate(write_idx.tolist()):
+        if 0 <= cursor < cap:
+            k_all[layer, i, :, cursor] = k_new[i]
+            v_all[layer, i, :, cursor] = v_new[i]
+        end = max(0, min(cursor, cap))
+        kc = torch.cat([k_all[layer, i:i + 1, :, :end],
+                        k_new[i:i + 1, :, None].to(k_all.dtype)], dim=2)
+        vc = torch.cat([v_all[layer, i:i + 1, :, :end],
+                        v_new[i:i + 1, :, None].to(v_all.dtype)], dim=2)
+        out.append(_attend_kernel_order(q[i:i + 1], kc, vc,
+                                        lengths[i:i + 1], end, 0,
+                                        prompt_cap))
+    return torch.cat(out).reshape(b, h, dh)
+
+
+def append_workspace(k_all: torch.Tensor, h: int):
+    """(key, partials, counters) of `flash_gqa_decode_append`'s kernel on
+    the cache k_all [L, B, Hkv, C, Dh] with h query heads, kept with that
+    cache (talker_step.kept_scratch): f32 [B * Hkv * ceil(C / SPLIT) * G *
+    (Dh + 2)] (empty where one split spans the capacity) and int32
+    [B * Hkv] zeros, which the kernel's merging warps set back to 0, so a
+    launch needs no reset of its own.  One stream at a time per cache;
+    made outside CUDA-graph capture (raises inside one if not yet made, as
+    its zeroing would only run at replay)."""
+    from .talker_step import kept_scratch
+    _, b, hkv, cap, dh = k_all.shape
+    ns = -(-cap // SPLIT)
+    key = ("flash_gqa_decode_append", b, hkv, ns, h // hkv, dh)
+    kept = kept_scratch(k_all)
+    if key not in kept:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("flash_gqa_decode_append: call it once on "
+                               "this cache before CUDA-graph capture (its "
+                               "workspace is made and zeroed then)")
+        n = b * hkv * ns * (h // hkv) * (dh + 2) if ns > 1 else 0
+        kept[key] = (torch.empty(n, dtype=torch.float32, device=k_all.device),
+                     torch.zeros(b * hkv, dtype=torch.int32,
+                                 device=k_all.device))
+    return (key, *kept[key])
 
 
 def flash_gqa_decode_append(q: torch.Tensor, k_all: torch.Tensor,
@@ -264,8 +325,10 @@ def flash_gqa_decode_append(q: torch.Tensor, k_all: torch.Tensor,
     [B, Hkv, Dh] bf16, the current token's rows (not yet written);
     lengths, write_idx: [B] int32.  Slots c < write_idx[b] with c <
     lengths[b] or c >= prompt_cap are visible, and the current token.
-    Writes k_new/v_new at (layer, b, :, write_idx[b]) and returns the
-    attention [B, H, Dh].  Each launch adds one to
+    Writes k_new/v_new at (layer, b, :, write_idx[b]) (nothing for a cursor
+    outside [0, C)) and returns the attention [B, H, Dh].  On the card one
+    launch whose workspace (`append_workspace`) is kept with the cache; a
+    failed launch raises and drops it.  Each launch adds one to
     `flash_gqa_decode_append.launches`.
     """
     if q.device.type == "cpu":
@@ -284,13 +347,19 @@ def flash_gqa_decode_append(q: torch.Tensor, k_all: torch.Tensor,
                              f"[{b}, {hkv}, {dh}] on {q.device}")
     from .build import LIBRARY, check
     out = torch.empty_like(q)
+    key, part, arrive = append_workspace(k_all, h)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = LIBRARY.get().qtts_decode_append(
             q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
             k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-            lengths.data_ptr(), write_idx.data_ptr(), int(layer), b, h, hkv,
-            cap, dh, int(prompt_cap), dh ** -0.5, stream)
+            lengths.data_ptr(), write_idx.data_ptr(),
+            part.data_ptr() if part.numel() else None, part.numel(),
+            arrive.data_ptr(), arrive.numel(), int(layer), b, h, hkv, cap,
+            dh, int(prompt_cap), dh ** -0.5, stream)
+    if rc != 0:
+        from .talker_step import kept_scratch
+        kept_scratch(k_all).pop(key, None)
     check(rc, "flash_gqa_decode_append")
     flash_gqa_decode_append.launches += 1
     return out

@@ -132,11 +132,12 @@ def _jax_chunk(c, n_frames, start=START, k=None, v=None, logits=None,
 
 def _port_chunk(c, n_frames, start=START, k=None, v=None, logits=None,
                 hidden=None, taps=None, fn=tcs.gen_chunk_fused, **kw):
-    """Returns (codes, logits, hidden, k cache, v cache) as numpy."""
+    """Returns (codes, logits, hidden, k cache, v cache) as numpy.  A
+    frame0 in kw (gen_chunk_plain's) moves the frames' positions with it."""
     st, pr = c["state"], c["port"]
     kc = to_tensor(st["k"] if k is None else k).to(torch.bfloat16)
     vc = to_tensor(st["v"] if v is None else v).to(torch.bfloat16)
-    p = start + torch.arange(n_frames)[:, None]
+    p = start + kw.get("frame0", 0) + torch.arange(n_frames)[:, None]
     cos, sin = ttalk._rope_tables(c["ttc"], ttalk._pos4(p))
     i32 = lambda x: torch.tensor([x], dtype=torch.int32)
     codes, lg, hd = fn(
@@ -350,6 +351,35 @@ def test_plain_follows_forced_codes(case):
     np.testing.assert_allclose(b[3][:, :, :, START + 1],
                                c2[3][:, :, :, START + 1], atol=0.05,
                                rtol=0.05)
+
+
+@pytest.mark.parametrize("orders", [(), tcs.CHUNK_ORDERS])
+def test_plain_frame_alone_from_the_chunk_start(case, orders):
+    """gen_chunk_plain's frame0: frame f run alone from the chunk's start
+    with offset f, from the state after frame f - 1 and with its codes
+    forced, is frame f of the F-frame run bit for bit (codes, logits,
+    hidden, both caches): the talker merges the chunk's slots [START,
+    START + f] last in both, where a new chunk at START + f would fold
+    them into its prefix tiles.  frame0 = 0 is the default call."""
+    n = 3
+    runs = [_port_chunk(case, f, fn=tcs.gen_chunk_plain, orders=orders)
+            for f in range(1, n + 1)]
+    base = _port_chunk(case, 1, fn=tcs.gen_chunk_plain, orders=orders,
+                       frame0=0)
+    for a, b in zip(base, runs[0]):
+        np.testing.assert_array_equal(a, b)
+    for f in range(1, n):
+        prev, want = runs[f - 1], runs[f]
+        got = _port_chunk(case, 1, k=prev[3], v=prev[4], logits=prev[1],
+                          hidden=prev[2], fn=tcs.gen_chunk_plain,
+                          orders=orders, frame0=f,
+                          force_codes=torch.from_numpy(want[0][:, f:f + 1]))
+        np.testing.assert_array_equal(got[0][:, 0], want[0][:, f])
+        for a, b in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="past the cache capacity"):
+        _port_chunk(case, 2, fn=tcs.gen_chunk_plain,
+                    frame0=CAP - START - 1)
 
 
 @pytest.mark.parametrize("tile", [64, 128])

@@ -794,31 +794,53 @@ def test_chunk_kernel_refuses_a_batch_outside_its_gate(dev):
 
 
 # ---------------------------------------- continuous batching: per-lane caches
-# flash_gqa_decode_append: attention within the decode kernel's bound of its
-# plain version's f32 result; the written row bit-exact, every other slot
-# untouched, a poisoned stale row at the slot being written never read.
+# flash_gqa_decode_append: bit-equal to its plain version in the kernel's
+# sum orders (decode_append_kernel_order: 64-slot splits combined in split
+# order, the current token merged last; expf on both sides), within the
+# decode bound of the torch-order plain version's f32 result at cursors in
+# [0, C) (at a cursor >= C that version drops the token, which the kernel
+# still attends); the written row bit-exact, every other slot untouched, a
+# poisoned stale row at the slot being written never read; a second launch
+# gives the same (the split counters came back to 0).
 # inject_prompt_lanes / append_kv_lanes: copies, so bit-exact.
-def test_decode_append_kernel_matches_plain(dev):
+@pytest.mark.parametrize("cursors,h,hkv,dh", [
+    ([0, 511, 512, 1023], 16, 8, 128),             # the talker's heads
+    ([0, 63, 64, 65, 1023, 1030], 16, 8, 128),     # split bounds, >= C
+    ([32, 47, 64, 200, 511, 600, 900, 1023], 16, 8, 128),   # B = 8
+    ([0, 63, 64, 65, 1023], 8, 8, 64),             # G = 1, head dim 64
+    ([5, 64, 130, 1023], 16, 2, 128),              # G = 8
+])
+def test_decode_append_kernel_matches_plain(dev, cursors, h, hkv, dh):
     from qwen3_tts_tpu_torch.kernels.flash_decode import (
-        decode_append_plain, flash_gqa_decode_append)
-    rng = np.random.default_rng(21)
-    b, h, hkv, dh, cap, prompt_cap = 4, 16, 8, 128, 1024, 128
+        decode_append_kernel_order, decode_append_plain,
+        flash_gqa_decode_append)
+    rng = np.random.default_rng(21 + len(cursors) + h + dh)
+    b, cap, prompt_cap = len(cursors), 1024, 128
     k, v, t = _cache(rng, 2, b, hkv, cap, dh, dev)
     q, kn, vn = t((b, h, dh)), t((b, hkv, dh)), t((b, hkv, dh))
-    cursors = [0, 511, 512, 1023]
-    lengths, wi = _i32([0, 100, 128, 37], dev), _i32(cursors, dev)
+    lengths = _i32([(0, 100, 128, 37)[i % 4] for i in range(b)], dev)
+    wi = _i32(cursors, dev)
     for i, c in enumerate(cursors):
-        k[1, i, :, c] = 1e3
-        v[1, i, :, c] = float("nan")
-    kk, vk, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
+        if c < cap:
+            k[1, i, :, c] = 1e3
+            v[1, i, :, c] = float("nan")
+    kk, vk = k.clone(), v.clone()
+    ko, vo, kp, vp = k.clone(), v.clone(), k.clone(), v.clone()
     got = flash_gqa_decode_append(q, kk, vk, kn, vn, lengths, wi, 1,
                                   prompt_cap)
+    again = flash_gqa_decode_append(q, k.clone(), v.clone(), kn, vn, lengths,
+                                    wi, 1, prompt_cap)
     torch.cuda.synchronize()
+    kord = decode_append_kernel_order(q, ko, vo, kn, vn, lengths, wi, 1,
+                                      prompt_cap)
     want = decode_append_plain(q.float(), kp, vp, kn, vn, lengths, wi, 1,
                                prompt_cap)
-    torch.testing.assert_close(got.float(), want, atol=DECODE_ATOL,
-                               rtol=DECODE_RTOL)
+    assert torch.equal(got, kord) and torch.equal(again, got)
+    inside = [i for i, c in enumerate(cursors) if c < cap]
+    torch.testing.assert_close(got[inside].float(), want[inside],
+                               atol=DECODE_ATOL, rtol=DECODE_RTOL)
     assert torch.equal(kk, kp) and torch.equal(vk, vp)
+    assert torch.equal(kk, ko) and torch.equal(vk, vo)
 
 
 def test_inject_and_append_lanes_match_plain(dev):
