@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-    python3 chip_smoke.py [--phases kernels,chunk,reference,engine,serving,
-                                    wave,weights]
+    python3 chip_smoke.py [--phases kernels,chunk,reference,engine,stream,
+                                    serving,wave,weights]
 
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
@@ -40,6 +40,10 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
        bounds, at cursors 0 and C - 1 and past C, B = 4, 6 and 8; timed at
        the exact queue's shape (B = 4, cursors 36-52), at B = 4 to cursor
        1023 and at B = 8 per-lane cursors 32-1023;
+     - flash_gqa_prefill_stacked continuing a kept prompt prefix: B = 1,
+       start 64 and 192, S 16 and 48, window 128 and 256, the stale rows
+       of an earlier request past the suffix poisoned, two shapes timed
+       beside SDPA;
      Small kernels are also timed in a CUDA graph (device time without the
      wrapper's host enqueue): the attention kernels, matmul_int4 and the
      three lane kernels of continuous batching;
@@ -61,8 +65,9 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   5. engine: a full-width TtsEngine(device="cuda") (28-layer talker,
      6-layer predictor, 8-layer codec, bf16, random weights) serves
      preset-voice requests at prompt buckets 32 and 128, greedy and
-     sampled, max_steps 32, on each decode path: the chunk path (the
-     default on the card: one chunk-kernel launch per 4 frames), the
+     sampled, max_steps 32 (12 on the exact path), on each decode path:
+     the chunk path (the default on the card: one chunk-kernel launch per
+     4 frames), the
      per-kernel path (chunk=False: talker-step and predictor-frame
      kernels) and the exact path (fused=False: the attention kernels).
      For each path the launch counters are reset just before its requests
@@ -71,16 +76,31 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      runs with one seed must give equal codes.  One more greedy request per
      path runs under torch.profiler for launches per frame and the
      device-busy share.
-  6. serving: continuous batching (serve/continuous.py) at batch 8 and 32
+  6. stream: streaming and prompt-prefix KV reuse on the engine phase's
+     model: greedy streams of one lane on the default engine (a first
+     chunk of first_chunk_frames frames through the chunk kernel, then
+     4-frame chunks) at buckets 32 and 128: chunk lengths, audio, the
+     launch counts (the prefill and the chunk kernel only), TTFT, the
+     intervals between chunks, ms/frame beside the same request in bulk,
+     frame 0 equal to bulk (the first frame and token where the codes
+     part printed), a greedy rerun equal; an exact-path stream equal to
+     its bulk run code for code; one profiled stream (device-busy share,
+     the device's idle time at each chunk boundary); stream_batch at 8
+     lanes (the step schedule) and its rerun; a long-instruction
+     preset-voice request twice (a prefix-KV miss, then a hit: prefill
+     ms, greedy codes equal, the entry a copy of its slots, the continued
+     prefill's logits against a full prefill's); generate_long on three
+     sentences.
+  7. serving: continuous batching (serve/continuous.py) at batch 8 and 32
      on the default engine (per-lane cursors: the step schedule) and at
      batch 4 on the exact path (flash_gqa_decode_append), each queue's
      audio digest printed.
-  7. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
+  8. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
      engine at batch 8, 16 and 32 (the batched chunk kernel), a
      mixed-budget run with a padded last wave, and batch 8 on a chunk=False
      engine (the step schedule); launch counts, frames/s, per-stream RTF
      and one profiled wave per batch size.
-  8. weights: the deployed weight path at full width: a synthetic model
+  9. weights: the deployed weight path at full width: a synthetic model
      directory (F16 talker and predictor GGUFs under llama.cpp names,
      the assets GGUF, codec/decoder.npz; written from a seed, ~4.6 GB,
      removed at the end), TtsEngine(model_dir, quant="q8_0") built twice
@@ -106,6 +126,9 @@ import sys
 import time
 
 MAX_STEPS = 32
+# the exact path's requests in the engine phase: it is host-bound (~9,000
+# launches a frame, ~200 ms a frame), so its depth is cut to three chunks
+EXACT_STEPS = 12
 GREEDY = dict(temperature=0.0, top_k=40, top_p=0.9)
 SAMPLED = dict(temperature=0.7, top_k=40, top_p=0.9)
 # (label, text, instruction, sampler, seed); the hashing tokenizer gives one
@@ -448,6 +471,8 @@ def check_kernels(dev, failures):
                    device_ms=dev_k1k, library_device_ms=dev_l1k,
                    bound_ms=b1k, bound_by=b1k_by, grid=list(grid1k)))
     del kv1k, q1k, args1k, mask1k
+    out["flash_gqa_prefill_stacked"]["start_ne_0"] = prefill_continued(
+        dev, failures, rnd, i32)
 
     errs = []
     tol = f"{DECODE_ATOL} + 2^-8*|plain f32|"
@@ -602,6 +627,100 @@ def check_kernels(dev, failures):
     out["flash_gqa_decode"] = dict(max_abs_err=max(errs1), **head,
                                    shapes=shapes)
     return out
+
+
+# the continued prefill's shapes (a prompt's suffix after a kept prefix):
+# B = 1, (start, S, window); start is prefix_len, not a multiple of the
+# kernel's 16-row query tile in general, S the suffix's 16-row cap, window
+# the total bucket > S; the last is the stream phase's long-instruction
+# request (prefix 95 rows, suffix cap 32, bucket 128)
+PREFILL_CONTINUED = [(st, s, w) for st in (64, 192) for s in (16, 48)
+                     for w in (128, 256) if st + s <= w] + [(95, 32, 128)]
+PREFILL_CONTINUED_TIMED = ((64, 48, 128), (192, 48, 256))
+
+
+def prefill_continued(dev, failures, rnd, i32):
+    """flash_gqa_prefill_stacked at a start past 0 against
+    prefill_attention_plain: one talker layer of a 1024-slot cache, the
+    suffix's rows ragged (lengths = start + S - 5), and the stale rows of
+    an earlier request in [start + S, window) poisoned with large values
+    (they must stay masked: the kernel's output equals its output with
+    the random rows there before, bit for bit).  Two shapes timed with CUDA events
+    and in a CUDA graph beside SDPA.  Returns [{start, S, window, ...}]."""
+    import torch
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked, prefill_attention_plain)
+    from qwen3_tts_tpu_torch.ops.attention import history_mask
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    rows = []
+    for start, s, window in PREFILL_CONTINUED:
+        k, v = rnd(28, 1, 8, 1024, 128), rnd(28, 1, 8, 1024, 128)
+        q = rnd(1, s, 16, 128)
+        lens, st = i32(start + s - 5), i32(start)
+        clean = flash_gqa_prefill_stacked(q, k, v, lens, st, 5, window,
+                                          window)
+        for t in (k, v):
+            t[:, :, :, start + s:window] = 300.0
+        got = flash_gqa_prefill_stacked(q, k, v, lens, st, 5, window, window)
+        torch.cuda.synchronize()
+        want = prefill_attention_plain(q, k, v, lens, st, 5, window, window)
+        err = (got.float() - want.float()).abs().max().item()
+        stale_hidden = bool(torch.equal(got, clean))
+        row = dict(start=start, S=s, window=window, max_abs_err=err,
+                   grid=list(flash_gqa_prefill_stacked.grid))
+        timed = (start, s, window) in PREFILL_CONTINUED_TIMED
+        if timed:
+            ms = plain = 0.0
+            for order in ("plain", "kernel", "kernel", "plain"):
+                if order == "kernel":
+                    ms += cuda_ms(lambda i: flash_gqa_prefill_stacked(
+                        q, k, v, lens, st, i % 28, window, window)) / 2
+                else:
+                    plain += cuda_ms(lambda i: prefill_attention_plain(
+                        q, k, v, lens, st, i % 28, window, window)) / 2
+            mask = history_mask(lens, window, st, s, window)
+            qt = q.transpose(1, 2)
+
+            def lib(i):
+                return sdpa(qt, k[i % 28, :, :, :window],
+                            v[i % 28, :, :, :window],
+                            attn_mask=mask[:, None], enable_gqa=True)
+
+            lib_ms = cuda_ms(lib)
+            dev_k = graph_ms(lambda i: flash_gqa_prefill_stacked(
+                q, k, v, lens, st, i % 28, window, window))
+            dev_l = graph_ms(lib)
+            # bytes: q, the output, and each layer's k/v up to the last
+            # row's causal end; operations: q.k and p.v over the live pairs
+            live = start + s
+            b_ms, b_by = bound(2 * q.numel() * 2 + 2 * 8 * live * 128 * 2,
+                               4 * int(mask.sum()) * 16 * 128, "bf16")
+            row.update(ms=ms, plain_ms=plain, library_ms=lib_ms,
+                       device_ms=dev_k, library_device_ms=dev_l,
+                       bound_ms=b_ms, bound_by=b_by)
+        print(f"[kernel] flash_gqa_prefill_stacked continued: start={start} "
+              f"S={s} window={window} length={start + s - 5} grid "
+              f"{row['grid']}: max_abs_err={err:.3e} tol={PREFILL_TOL}; "
+              f"stale rows [{start + s}, {window}) poisoned, output equal "
+              f"to the clean cache's={stale_hidden}" + (
+                  f"; {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"torch sdpa {row['library_ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}); device "
+                  f"time (CUDA graph of 20 calls) kernel "
+                  f"{row['device_ms']:.4f} ms, sdpa "
+                  f"{row['library_device_ms']:.4f} ms "
+                  f"({row['device_ms'] / row['library_device_ms']:.2f}x)"
+                  if timed else ""))
+        if not err <= PREFILL_TOL:
+            failures.append(f"flash_gqa_prefill_stacked disagrees with plain "
+                            f"at start {start}, S {s}, window {window}")
+        if not stale_hidden:
+            failures.append(f"flash_gqa_prefill_stacked read stale rows at "
+                            f"start {start}, S {s}, window {window}")
+        rows.append(row)
+        del k, v
+    return rows
 
 
 def check_talker_step(dev, failures):
@@ -1616,9 +1735,6 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                     want = run(cs.gen_chunk_plain, 1, st, start,
                                prompt_cap, u[f:f + 1, i:i + 1], sampler,
                                taps=tp_, **kw)
-                    alt = run(cs.gen_chunk_plain, 1, st, start,
-                              prompt_cap, u[f:f + 1, i:i + 1], sampler,
-                              taps=t128, prefix_tile=cs.SPLIT, **kw)
                     lt = []
                     kord = run(cs.gen_chunk_plain, 1, st, start,
                                prompt_cap, u[f:f + 1, i:i + 1], sampler,
@@ -1639,7 +1755,6 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                                       round(seen.item(), 5)))
                         ok = ok and gap <= CHUNK_GAP and gap <= 2 * seen
                     e_win = max(rel(x, y) for x, y in zip(kt, tp_))
-                    sens = max(rel(x, y) for x, y in zip(t128, tp_))
                     slot = slice(start + f, start + f + 1)
                     got = (runs[f][1][i:i + 1], runs[f][2][i:i + 1],
                            runs[f][3][:, i:i + 1], runs[f][4][:, i:i + 1])
@@ -1671,14 +1786,26 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                                 for x, y in zip(runs[f][3:], full[3:]))))
                         if max(e_k) > CHUNK_ORDER_TOL:
                             off.append(drift[-1])
-                    s_e = max(rel(x, y) for x, y in zip(alt[1:3], want[1:3]))
+                    # s (the plain frame with its prefix in the kernel's
+                    # 64-slot tiles against 512) only where an error passes
+                    # CHUNK_TOL: below it no bound max(CHUNK_TOL, 2 s) can
+                    # fail (the plain frame is a third of this check's time)
+                    sens = s_e = 0.0
+                    if max(e_win, *e, *e_k) > CHUNK_TOL:
+                        alt = run(cs.gen_chunk_plain, 1, st, start,
+                                  prompt_cap, u[f:f + 1, i:i + 1], sampler,
+                                  taps=t128, prefix_tile=cs.SPLIT, **kw)
+                        sens = max(rel(x, y) for x, y in zip(t128, tp_))
+                        s_e = max(rel(x, y)
+                                  for x, y in zip(alt[1:3], want[1:3]))
                     ok = ok and e_win <= max(CHUNK_TOL, 2 * sens)
                     beyond += max(e) > max(CHUNK_TOL, 2 * s_e)
                     beyond_k += max(e_k) > max(CHUNK_TOL, 2 * s_e)
                     e2e = max(e2e, *e)
                     e2e_k = max(e2e_k, *e_k)
                     detail.append((i, f, f"{e_win:.1e}", f"{max(e):.2e}",
-                                   f"{max(e_k):.2e}", f"s={s_e:.1e}"))
+                                   f"{max(e_k):.2e}",
+                                   f"s={s_e:.1e}" if t128 else "s=-"))
                     worst = max(worst, *((x - y).abs().max().item()
                                          for x, y in zip(got[:2],
                                                          want[1:3])))
@@ -1721,7 +1848,8 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                   f"{'+'.join(cs.CHUNK_ORDERS)} (held) max "
                   f"{e2e_k:.2e} (tol {CHUNK_ORDER_TOL}), {beyond_k} beyond "
                   f"max({CHUNK_TOL}, 2 s); by (lane, frame): window "
-                  f"logits, end to end (torch's orders, kernel's), s: "
+                  f"logits, end to end (torch's orders, kernel's), s (- "
+                  f"where every error is within {CHUNK_TOL}): "
                   f"{detail}; frames off the kernel in its orders beyond "
                   f"{DRIFT_TRACE} (lane, frame, err, first residual that "
                   f"differs: 0 the feedback, l entering layer l, its rel "
@@ -2508,7 +2636,7 @@ def drive_engine(dev, failures):
     counts = {}
     for path, engine in (("chunk", default), ("step", step),
                          ("exact", exact)):
-        engine.set_max_steps(MAX_STEPS)
+        engine.set_max_steps(EXACT_STEPS if path == "exact" else MAX_STEPS)
         voice = engine.get_speaker("vivian")
         codes_by_label = {}
         zero_counts(fns)
@@ -2925,6 +3053,453 @@ def drive_wave(dev, failures):
     return counts
 
 
+# The stream phase.  Its runs and the kernels each must launch (the stream
+# of one lane: the prefill and the chunk kernel only; the exact stream:
+# the attention kernels; stream_batch at 8 lanes: the step schedule, as a
+# default wave), and those it must not
+STREAM_PATH_KERNELS = {
+    "stream": ("flash_gqa_prefill_stacked", "gen_chunk_fused"),
+    "stream-exact": ("flash_gqa_prefill_stacked", "flash_gqa_decode_stacked",
+                     "flash_gqa_decode"),
+    "stream-batch-b8": ("flash_gqa_prefill_stacked", "talker_step_fused",
+                        "predict_frame_fused"),
+    "stream-prefix-hit": ("flash_gqa_prefill_stacked", "gen_chunk_fused"),
+}
+STREAM_FORBIDDEN = {
+    "stream": ("talker_step_fused", "predict_frame_fused"),
+    "stream-exact": ("gen_chunk_fused", "talker_step_fused",
+                     "predict_frame_fused"),
+    "stream-batch-b8": ("gen_chunk_fused",),
+}
+STREAM_EXACT_FRAMES = 9           # 1 + 4 + 4: the exact path is host-bound
+# a preset voice with an instruction long enough for a prefix of 64 rows
+# and more (13 rows + one a character): the prefix-KV route of _start_state
+LONG_INSTRUCT = ("Speak slowly and warmly, like a narrator reading a quiet "
+                 "bedtime story to a child.")
+# the continued prefill (the suffix at start = prefix_len over the kept
+# prefix) against a full prefill of the same prompt: one bf16 model whose
+# suffix rows attend in other tiles (the prefill kernel's query tiles start
+# at prefix_len), so single bf16 roundings flip and 28 layers carry them;
+# held like the two-device comparison, relative to max |full logits|
+PREFIX_LOGIT_TOL = REF_REL_TOL
+
+
+def stream_timeline(prof, wall_ms):
+    """From a profiled stream, on the device's clock: {busy share of the
+    wall, prefill span and busy ms (the first device op to the first
+    chunk-kernel launch), chunk-kernel launches, mean chunk-kernel ms,
+    mean launch-to-launch period from the second chunk on, the device's
+    idle ms before each chunk launch after the first}.  That idle time is
+    the host's share of a chunk boundary: the enqueue of the next chunk
+    not hidden by the chunk running ahead."""
+    ev = sorted(((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events() if e.device_type.name == "CUDA"),
+                key=lambda t: t[0])
+    busy, end, gaps, starts, durs = 0.0, None, [], [], []
+    prefill_busy = None
+    for t0, t1, name in ev:
+        if "chunk_kernel" in name:
+            if not starts:
+                prefill_busy = busy
+            if starts and end is not None:
+                gaps.append(max(0.0, t0 - end) / 1e3)
+            starts.append(t0)
+            durs.append((t1 - t0) / 1e3)
+        lo = t0 if end is None else max(t0, end)
+        busy += max(0.0, t1 - lo)
+        end = t1 if end is None else max(end, t1)
+    periods = [(b - a) / 1e3 for a, b in zip(starts[1:], starts[2:])]
+    return dict(
+        busy=busy / 1e3 / max(wall_ms, 1e-9), chunks=len(starts), gaps=gaps,
+        prefill_span_ms=(starts[0] - ev[0][0]) / 1e3 if starts else 0.0,
+        prefill_busy_ms=(prefill_busy or 0.0) / 1e3,
+        chunk_kernel_ms=sum(durs[1:]) / max(len(durs) - 1, 1),
+        first_chunk_kernel_ms=durs[0] if durs else 0.0,
+        period_ms=sum(periods) / max(len(periods), 1))
+
+
+def first_difference(a, b):
+    """(frame, token) of the first code where a and b differ, or None."""
+    import numpy as np
+    n = min(len(a), len(b))
+    diff = np.argwhere(a[:n] != b[:n]) if n else []
+    if len(diff):
+        return tuple(int(x) for x in diff[0])
+    return None if len(a) == len(b) else (n, 0)
+
+
+def window_logits_by_frame(run):
+    """run() with every chunk-kernel launch asked for the predictor's
+    window logits (gen_chunk_fused's taps: 15 [B, 2048] f32 a frame);
+    returns them as a list over the run's frames of 15 tensors each."""
+    from qwen3_tts_tpu_torch.kernels import chunk_step
+    real = chunk_step.gen_chunk_fused
+    frames = []
+
+    def tapped(*args, **kw):
+        kw["taps"] = taps = []
+        out = real(*args, **kw)
+        n = args[13].shape[0]                     # u: [F, B]
+        frames.extend(taps[f * 15:(f + 1) * 15] for f in range(n))
+        return out
+
+    tapped.launches = 0           # the kernel's wrapper counts on its name
+    chunk_step.gen_chunk_fused = tapped
+    try:
+        run()
+    finally:
+        chunk_step.gen_chunk_fused = real
+    return frames
+
+
+def tie_report(eng, text, voice, diff, codes, b_codes):
+    """The first (frame, token) where a stream's greedy codes part from
+    the bulk run's: how far each side's pick leads the other's in its own
+    window logits, over max |logit| (a near tie when both are small)."""
+    from qwen3_tts_tpu_torch import SamplerConfig
+    f, tok = diff
+    if tok == 0 or f >= min(len(codes), len(b_codes)):
+        return f"frame {f} token {tok}: code_0 or a length, no window logits"
+
+    def run(fn):
+        eng.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+        return lambda: fn(text, voice)
+
+    s_frames = window_logits_by_frame(
+        run(lambda t, v: list(eng.generate_stream(t, v))))
+    b_frames = window_logits_by_frame(run(eng.generate_with_voice))
+    x, y = int(codes[f, tok]), int(b_codes[f, tok])
+    ls = s_frames[f][tok - 1][0].float()
+    lb = b_frames[f][tok - 1][0].float()
+    scale = max(ls.abs().max().item(), lb.abs().max().item())
+    lead_s = (ls[x] - ls[y]).item()
+    lead_b = (lb[y] - lb[x]).item()
+    return (f"frame {f} token {tok}: stream picks {x} (its argmax "
+            f"{int(ls.argmax())}) {lead_s:.4e} above {y}; bulk picks {y} "
+            f"(its argmax {int(lb.argmax())}) {lead_b:.4e} above {x}; max "
+            f"|logit| {scale:.3f}: leads {lead_s / scale:.2e} and "
+            f"{lead_b / scale:.2e} of it; the two frames' window logits "
+            f"{(ls - lb).abs().max().item() / scale:.2e} apart")
+
+
+def drive_stream(dev, failures):
+    """Streaming and prompt-prefix KV reuse at full width (the engine
+    phase's model, random weights from a seed): greedy streams of one lane
+    on the default engine (the chunk kernel: a first chunk of
+    first_chunk_frames frames at cursor = bucket, then 4-frame chunks) at
+    buckets 32 and 128, each beside the same request in bulk and run
+    twice; a stream on the exact path, code for code against its bulk
+    run; one profiled stream (device-busy share, the device's idle gap at
+    each chunk boundary); stream_batch at 8 lanes (the step schedule); a
+    long-instruction preset-voice request twice (a prefix miss, then a
+    hit); generate_long on three sentences.  Returns {run: {kernel:
+    launches}}."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.kernels import flash_decode as fd
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import talker_step_fused
+
+    fns = {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, fd.flash_gqa_decode_stacked,
+        fd.flash_gqa_decode, talker_step_fused, predict_frame_fused,
+        gen_chunk_fused)}
+    default = TtsEngine(device=dev, speakers_dir="speakers")
+    weights = dict(assets=default.assets, talker=default.talker_params,
+                   predictor=default.predictor_params,
+                   codec_decoder=default.codec_decoder_params)
+    exact = TtsEngine(device=dev, speakers_dir="speakers", fused=False,
+                      weights=weights)
+    spf = default.config.codec_decoder.samples_per_frame
+    first_n = default.config.runtime.first_chunk_frames
+    voice = default.get_speaker("vivian")
+    counts = {}
+
+    def check_launches(run):
+        for k_ in STREAM_PATH_KERNELS.get(run, ()):
+            if counts[run][k_] <= 0:
+                failures.append(f"{run} never launched {k_}")
+        for k_ in STREAM_FORBIDDEN.get(run, ()):
+            if counts[run][k_] != 0:
+                failures.append(f"{run} launched {k_}")
+
+    def stream(eng, text, run=None, instruct=None):
+        eng.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+        if run:
+            zero_counts(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunks = list(eng.generate_stream(text, voice, instruct))
+        wall = (time.perf_counter() - t0) * 1e3
+        if run:
+            counts[run] = read_counts(fns)
+        return chunks, eng.last_codes, eng.last_metrics, wall
+
+    def bulk(eng, text, instruct=None):
+        eng.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+        audio = eng.generate_with_voice(text, voice, instruct)
+        return audio.samples, eng.last_codes, eng.last_metrics
+
+    # the default engine: the chunk kernel at one lane
+    default.set_max_steps(MAX_STEPS)
+    stream(default, "Warm up.")
+    for label, text in (("b32", REQUESTS[0][1]), ("b128", REQUESTS[1][1])):
+        run = "stream" if label == "b32" else None
+        bucket = default._bucket(
+            default._build_voice_prompt(text, voice, None).length)
+        chunks, codes, m, wall = stream(default, text, run)
+        again = stream(default, text)
+        x = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+        lens = [len(c) // spf for c in chunks]
+        ok = (m.frames > 0 and lens[0] == first_n and max(lens) <= 4
+              and len(x) == m.frames * spf and bool(np.isfinite(x).all())
+              and float(np.abs(x).max()) > 1e-4 and len(codes) == m.frames)
+        b_x, b_codes, b_m = bulk(default, text)
+        diff = first_difference(codes, b_codes)
+        same = (np.array_equal(codes, again[1])
+                and all(np.array_equal(a, b) for a, b in zip(chunks,
+                                                             again[0])))
+        print(f"[stream] default {label}: bucket {bucket}, frames "
+              f"{m.frames}, chunks (frames) {lens}, samples = frames x "
+              f"{spf}, finite, non-silent={ok}; TTFT {m.ttft_ms:.2f} ms "
+              f"(rerun {again[2].ttft_ms:.2f}), prefill {m.prefill_ms:.2f} "
+              f"ms, chunk intervals ms {[round(c, 2) for c in m.chunk_ms]}, "
+              f"mean after the first "
+              f"{np.mean(m.chunk_ms[1:]) if len(m.chunk_ms) > 1 else 0:.2f}"
+              f"; stream {m.total_ms / max(m.frames, 1):.2f} ms/frame "
+              f"(wall {wall:.1f} ms); bulk {b_m.total_ms / max(b_m.frames, 1):.2f}"
+              f" ms/frame (prefill {b_m.prefill_ms:.2f} ms, frames "
+              f"{b_m.frames}); frame 0 equal to bulk="
+              f"{np.array_equal(codes[:1], b_codes[:1])}, first differing "
+              f"(frame, token) against bulk {diff}; rerun equal={same}")
+        if not ok:
+            failures.append(f"stream {label}: bad chunks or audio")
+        if not np.array_equal(codes[:1], b_codes[:1]):
+            failures.append(f"stream {label}: frame 0 differs from bulk")
+        if not same:
+            failures.append(f"stream {label}: a greedy rerun differs")
+        if diff is not None:
+            # a later frame may part from bulk at a near tie: the chunk
+            # kernel merges a chunk's own slots last, and the stream's
+            # chunks start one frame later than the bulk loop's
+            print(f"[stream] default {label}: tie-aware, where the codes "
+                  f"part from bulk: "
+                  f"{tie_report(default, text, voice, diff, codes, b_codes)}")
+        if run:
+            print(f"[stream] default {label} launch counts: {counts[run]}")
+            check_launches(run)
+            # one launch a chunk, and one more ahead where EOS ended it
+            if not (len(chunks) <= counts[run]["gen_chunk_fused"]
+                    <= len(chunks) + int(m.eos)):
+                failures.append("stream: not one chunk-kernel launch a "
+                                "chunk")
+
+    # the host's time to enqueue one chunk (frames and codec, no sync):
+    # with one chunk ahead, the first audio waits for chunk 0's and
+    # chunk 1's enqueue
+    gen, enq = default.generator, []
+    real_chunk = gen.chunk_with_audio
+
+    def timed_chunk(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_chunk(*args, **kw)
+        enq.append((kw.get("n_frames"), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    gen.chunk_with_audio = timed_chunk
+    try:
+        stream(default, REQUESTS[0][1])
+    finally:
+        del gen.chunk_with_audio
+    by_n = {n: [t for k, t in enq if k == n] for n in sorted({k for k, _ in enq})}
+    print("[stream] host enqueue of one chunk (frames + codec, no sync), ms: "
+          + "; ".join(f"{n} frame(s): mean {np.mean(t):.3f}, max "
+                      f"{max(t):.3f} over {len(t)}" for n, t in by_n.items()))
+
+    # the exact path: stream == bulk, code for code
+    exact.set_max_steps(STREAM_EXACT_FRAMES)
+    chunks, codes, m, wall = stream(exact, REQUESTS[0][1], "stream-exact")
+    b_x, b_codes, b_m = bulk(exact, REQUESTS[0][1])
+    x = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+    eq = np.array_equal(codes, b_codes)
+    err = float(np.abs(x - b_x).max()) if len(x) == len(b_x) else float("inf")
+    print(f"[stream] exact: {m.frames} frames in chunks "
+          f"{[len(c) // spf for c in chunks]}, TTFT {m.ttft_ms:.1f} ms, "
+          f"stream == bulk codes={eq} (first difference "
+          f"{first_difference(codes, b_codes)}), max |wav - bulk wav| "
+          f"{err:.3e}; launch counts {counts['stream-exact']}")
+    check_launches("stream-exact")
+    if not eq:
+        failures.append("exact path: stream codes differ from bulk")
+
+    # one profiled stream: device busy share and the idle gap at each chunk
+    # boundary (the host's enqueue not hidden by the chunk running ahead)
+    default.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chunks = list(default.generate_stream(REQUESTS[0][1], voice))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    tl = stream_timeline(prof, wall)
+    gaps = tl["gaps"]
+    m = default.last_metrics
+    print(f"[stream] profiled default b32: {m.frames} frames, wall "
+          f"{wall:.1f} ms, TTFT {m.ttft_ms:.2f} ms, prefill "
+          f"{m.prefill_ms:.2f} ms; device: busy (profiled) {tl['busy']:.3f}, "
+          f"first op to the first chunk launch {tl['prefill_span_ms']:.2f} ms "
+          f"of which busy {tl['prefill_busy_ms']:.2f} ms, {tl['chunks']} "
+          f"chunk-kernel launches, the first (1 frame) "
+          f"{tl['first_chunk_kernel_ms']:.3f} ms, the others "
+          f"{tl['chunk_kernel_ms']:.3f} ms each, launch to launch "
+          f"{tl['period_ms']:.3f} ms; device idle before each chunk launch "
+          f"after the first (ms) {[round(g, 3) for g in gaps]}, mean "
+          f"{np.mean(gaps) if gaps else 0:.3f}, max "
+          f"{max(gaps) if gaps else 0:.3f}")
+    if tl["chunks"] != len(chunks):
+        failures.append("profiled stream: chunk-kernel launches not seen "
+                        "in the profile")
+    # where the prefill's time goes: host ops and device kernels
+    plan = default._build_voice_prompt(REQUESTS[0][1], voice, None)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        default._start_state(plan, torch.Generator(device=dev))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
+    dev_ms = sum(e.self_device_time_total for e in avg
+                 if e.device_type.name == "CUDA") / 1e3
+    n_dev = sum(e.count for e in avg if e.device_type.name == "CUDA")
+    top = sorted((e for e in avg if e.device_type.name == "CPU"),
+                 key=lambda e: -e.self_cpu_time_total)[:8]
+    print(f"[stream] profiled prefill b32: wall {wall:.2f} ms, device kernel "
+          f"ms {dev_ms:.3f} in {n_dev} launches; top host ops by self time "
+          f"(ms, calls): " + "; ".join(
+              f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ({e.count})"
+              for e in top))
+
+    # stream_batch at 8 lanes: the step schedule; a short wave first (the
+    # first wave of 8 lanes pays the allocator's and the step kernels'
+    # first use at that batch)
+    texts = [SERVING_TEXTS[0] + f" {i}." for i in range(8)]
+    default.set_max_steps(5)
+    list(default.stream_batch(texts, voice))
+    default.set_max_steps(MAX_STEPS)
+    for rep in ("", "-again"):
+        default.set_sampler_config(SamplerConfig(seed=9, **GREEDY))
+        zero_counts(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves, t_first = [], None
+        for w in default.stream_batch(texts, voice):
+            if t_first is None:
+                t_first = (time.perf_counter() - t0) * 1e3
+            waves.append(w)
+        wall = time.perf_counter() - t0
+        run = "stream-batch-b8" + rep
+        counts[run] = read_counts(fns)
+        lanes = [np.concatenate([w[i] for w in waves]) for i in range(8)]
+        frames = sum(len(x) for x in lanes) // spf
+        ok = (all(len(w) == 8 for w in waves)
+              and all(len(p) == first_n * spf for p in waves[0])
+              and all(len(x) % spf == 0 and len(x) > 0
+                      and bool(np.isfinite(x).all()) for x in lanes))
+        if rep:
+            same = all(np.array_equal(a, b) for a, b in zip(lanes, prev))
+            print(f"[stream] stream_batch b8 rerun: audio identical={same}")
+            if not same:
+                failures.append("stream_batch b8: the rerun differs")
+        prev = lanes
+        print(f"[stream] stream_batch b8{rep}: {len(waves)} chunk "
+              f"boundaries, {frames} frames in {wall:.3f} s = "
+              f"{frames / wall:.1f} frames/s, first audio (TTFT) "
+              f"{t_first:.2f} ms; pieces per boundary 8, first pieces "
+              f"{first_n} frame(s), lanes finite={ok}; launch counts "
+              f"{counts[run]}")
+        if not ok:
+            failures.append("stream_batch b8: bad pieces")
+        if not rep:
+            check_launches(run)
+
+    # prefix-KV reuse: a long-instruction preset-voice request twice
+    default._prefix_kv.clear()
+    default.set_max_steps(MAX_STEPS)
+    text = REQUESTS[0][1]
+    plan = default._build_voice_prompt(text, voice, LONG_INSTRUCT)
+    p_cap = ((plan.prefix_len + 63) // 64) * 64
+    res = []
+    for run in ("stream-prefix-miss", "stream-prefix-hit"):
+        zero_counts(fns)
+        res.append(bulk(default, text, LONG_INSTRUCT))
+        counts[run] = read_counts(fns)
+    (_, miss_codes, miss_m), (_, hit_codes, hit_m) = res
+    entry = next(iter(default._prefix_kv.values()), None)
+    own = entry is not None and all(
+        t.is_contiguous() and t.shape[3] == p_cap
+        and t.untyped_storage().nbytes() == t.numel() * t.element_size()
+        for t in entry)
+    eq = np.array_equal(miss_codes, hit_codes)
+    # the continued prefill against a full prefill of the same prompt
+    suffix = plan.suffix_plan()
+    s_cap = ((suffix.length + 15) // 16) * 16
+    bucket = default._bucket(max(plan.length, p_cap, plan.prefix_len + s_cap))
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        full, _, _ = default.start_plans(plan, bucket, g)
+        embeds_s, lens_s = default.prompt_to_device(suffix, s_cap)
+        cont = default.generator.start_with_prefix(
+            entry[0], entry[1], plan.prefix_len, embeds_s,
+            torch.from_numpy(lens_s).to(dev), g, total_bucket=bucket)
+    rel = ((cont.logits.float() - full.logits.float()).abs().max()
+           / full.logits.float().abs().max()).item()
+    same_pick = bool((cont.logits.argmax(-1) == full.logits.argmax(-1)).all())
+    print(f"[stream] prefix KV: instruction of {len(LONG_INSTRUCT)} "
+          f"characters, prompt {plan.length} rows, prefix {plan.prefix_len} "
+          f"(p_cap {p_cap}), suffix {suffix.length} (s_cap {s_cap}), bucket "
+          f"{bucket}; miss prefill {miss_m.prefill_ms:.2f} ms (launches "
+          f"{counts['stream-prefix-miss']['flash_gqa_prefill_stacked']} "
+          f"prefill kernels: full + continued), hit prefill "
+          f"{hit_m.prefill_ms:.2f} ms "
+          f"({counts['stream-prefix-hit']['flash_gqa_prefill_stacked']}); "
+          f"entries {len(default._prefix_kv)}, entry = a copy of p_cap slots="
+          f"{own}; hit == miss greedy codes={eq}; continued vs full prefill "
+          f"logits max |diff| / max |full| {rel:.3e} (tol "
+          f"{PREFIX_LOGIT_TOL}), same argmax={same_pick}")
+    check_launches("stream-prefix-hit")
+    if not (own and len(default._prefix_kv) == 1):
+        failures.append("prefix KV: the entry is not one copy of p_cap slots")
+    if not eq:
+        failures.append("prefix KV: the hit's greedy codes differ from the "
+                        "miss's")
+    if not rel <= PREFIX_LOGIT_TOL:
+        failures.append("prefix KV: continued prefill logits off the full "
+                        "prefill's")
+    del full, cont
+
+    # generate_long on three sentences
+    default.set_max_steps(16)
+    default.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+    t0 = time.perf_counter()
+    audio = default.generate_long("The first sentence. A second one! And "
+                                  "the third?", voice)
+    wall = time.perf_counter() - t0
+    x = audio.samples
+    ok = len(x) > 0 and len(x) % spf == 0 and bool(np.isfinite(x).all())
+    print(f"[stream] generate_long, three sentences: {len(x) // spf} frames "
+          f"in {wall:.3f} s, finite={ok}")
+    if not ok:
+        failures.append("generate_long: bad audio")
+    return counts
+
+
 # The weights phase: a synthetic model directory in the published layout
 # at full EngineConfig() widths and depths, read by
 # TtsEngine(quant="q8_0"): int8 device weights.  Its paths and the kernels
@@ -3217,8 +3792,8 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,chunk,reference,engine,serving,wave,"
-                    "weights",
+                    default="kernels,chunk,reference,engine,stream,serving,"
+                    "wave,weights",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
     import torch
@@ -3259,7 +3834,7 @@ def main() -> int:
 
     phases = (("kernels", kernels), ("chunk", check_chunk),
               ("reference", check_reference), ("engine", drive_engine),
-              ("serving", drive_serving), ("wave", drive_wave),
+              ("stream", drive_stream), ("serving", drive_serving), ("wave", drive_wave),
               ("weights", drive_weights))
     results = {}
     for name, fn in phases:
@@ -3277,6 +3852,7 @@ def main() -> int:
 
     kernels = []
     counts = {**(results.get("engine") or {}),
+              **(results.get("stream") or {}),
               **(results.get("serving") or {}),
               **(results.get("wave") or {}),
               **(results.get("weights") or {})}
@@ -3284,7 +3860,8 @@ def main() -> int:
     if results.get("chunk"):
         measured["gen_chunk_fused"] = results["chunk"]
     # the path whose run gives a kernel's `launches`: the first that needs it
-    paths = {**PATH_KERNELS, "serving-b8": SERVING_PATH_KERNELS["step"],
+    paths = {**PATH_KERNELS, **STREAM_PATH_KERNELS,
+             "serving-b8": SERVING_PATH_KERNELS["step"],
              "serving-exact": SERVING_PATH_KERNELS["exact"],
              **WEIGHTS_PATH_KERNELS}
     for name, (src, replaces) in KERNELS.items():

@@ -6,6 +6,7 @@ preset-voice path (qwen3_tts_tpu/cli.py):
       [--seed N] [--temperature 0.7] [--top-k 40] [--top-p 0.9]
       [--output output.wav] [--metrics] [--model-dir models] [--device cuda]
       [--quant none|q5_k_m|q8_0] [--talker-mode w4a8|int8|w8a8|bf16]
+      [--voice-file voice.json] [--stream] [--long] [--config cfg.json]
 
 --model-dir is read in the published layout (TtsEngine): the GGUF files
 under gguf/ (--quant none) or gguf_<quant>/, the codec decoder under
@@ -14,8 +15,13 @@ with a warning.  --quant other than none gives int8 device weights.
 --talker-mode other than w4a8 runs the per-kernel decode path with that
 talker-step weight mode (the chunk kernel is w4a8).
 
---stream, --ref-audio, --voice-file and --long are accepted and refused:
-those paths are not ported yet.
+--voice-file reads a voice (io/voice_file; one with reference codes
+prompts as a clone) in place of --speaker.  --stream synthesizes through
+TtsEngine.generate_stream and prints one line per chunk and the time to
+the first chunk; --long (without --stream) synthesizes sentence by
+sentence (TtsEngine.generate_long).  --config reads an EngineConfig from
+a json or toml file.  --ref-audio is accepted and refused: cloning from
+audio is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import json
 import time
 from pathlib import Path
 
-NOT_PORTED = ("stream", "ref_audio", "voice_file", "long")
+NOT_PORTED = ("ref_audio",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,11 +61,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "attention instead of the CUDA kernels)")
+    p.add_argument("--voice-file", "-v", type=Path,
+                   help="voice JSON file (in place of --speaker)")
+    p.add_argument("--stream", action="store_true",
+                   help="stream the audio chunk by chunk")
+    p.add_argument("--long", action="store_true",
+                   help="sentence-chunked synthesis of long text (ignored "
+                        "with --stream)")
+    p.add_argument("--config", type=Path, default=None,
+                   help="EngineConfig json/toml file")
     # accepted for compatibility with the JAX CLI, refused below
-    p.add_argument("--stream", action="store_true", help="not yet ported")
     p.add_argument("--ref-audio", type=Path, help="not yet ported")
-    p.add_argument("--voice-file", "-v", type=Path, help="not yet ported")
-    p.add_argument("--long", action="store_true", help="not yet ported")
     return p
 
 
@@ -72,10 +84,13 @@ def main(argv=None) -> int:
                          "qwen3_tts_tpu_torch")
     t_total = time.perf_counter()
 
-    from .core.config import SamplerConfig
+    from .core.config import EngineConfig, SamplerConfig
     from .engine import TtsEngine
+    from .io.voice_file import VoiceFile
 
     engine = TtsEngine(model_dir=args.model_dir,
+                       config=(EngineConfig.from_file(args.config)
+                               if args.config else None),
                        speakers_dir=(args.speakers_dir
                                      if args.speakers_dir.exists() else None),
                        device=args.device, quant=args.quant,
@@ -86,11 +101,33 @@ def main(argv=None) -> int:
         seed=args.seed))
     print(f"Device: {engine.device}  sampler: temp={args.temperature} "
           f"top_k={args.top_k} top_p={args.top_p} seed={args.seed}")
-    voice = engine.get_speaker(args.speaker or "vivian")
+    if args.voice_file is not None:
+        voice = VoiceFile.load(args.voice_file)
+    else:
+        voice = engine.get_speaker(args.speaker or "vivian")
     print(f"Voice: {voice.name or 'Dynamic'}")
 
     t_gen = time.perf_counter()
-    audio = engine.generate_with_voice(args.text, voice, args.instruction)
+    if args.stream:
+        import numpy as np
+        from .core import protocol as P
+        from .io.audio import AudioSample
+        parts = []
+        for i, chunk in enumerate(engine.generate_stream(
+                args.text, voice, args.instruction)):
+            dt = (time.perf_counter() - t_gen) * 1000
+            print(f"  chunk {i}: {len(chunk)} samples @ {dt:.0f} ms")
+            parts.append(chunk)
+        ttft = engine.last_metrics.ttft_ms
+        print(f"TTFT: {'none' if ttft is None else f'{ttft:.1f} ms'}")
+        audio = AudioSample(
+            samples=(np.concatenate(parts) if parts
+                     else np.zeros(0, np.float32)),
+            sample_rate=P.SAMPLE_RATE, channels=1)
+    elif args.long:
+        audio = engine.generate_long(args.text, voice, args.instruction)
+    else:
+        audio = engine.generate_with_voice(args.text, voice, args.instruction)
     print(f"Generation took {time.perf_counter() - t_gen:.2f}s "
           f"for {audio.duration():.2f}s audio")
     audio.save_wav(args.output)

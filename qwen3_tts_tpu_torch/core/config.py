@@ -5,8 +5,10 @@ The port does not read these fields: the TPU routing switches
 TalkerConfig/PredictorConfig.flash_decode and layer_scan_unroll, and
 RuntimeConfig.mesh_shape, mesh_axes and donate_cache (on a CUDA tensor the
 port always runs its own attention kernels, on one device);
-RuntimeConfig.first_chunk_frames and batch_size, which belong to paths not
-yet ported (streaming, batched serving).  TtsEngine refuses a config that
+RuntimeConfig.batch_size (the serving classes take their batch size as an
+argument).  RuntimeConfig.first_chunk_frames is read as in the JAX
+package: the frames of a stream's first chunk (TtsEngine.generate_stream,
+stream_batch; 0: a whole chunk).  TtsEngine refuses a config that
 sets any of them away from its default (engine.IGNORED_FIELDS), so that
 setting one is never a silent no-op.  EngineConfig.int8_weights is read
 as in the JAX package: int8 device weights for the talker and predictor

@@ -54,16 +54,35 @@ chunk=True with fused=False, and chunk=True with a talker_mode other
 than "w4a8" raise ValueError naming the failed gate; nothing falls back.
 On the CPU the kernels' plain versions run.  The talker's prompt prefill
 multiplies int8 weights a8w8 unless a8_prefill=False (the JAX package's
-QTTS_A8_PREFILL).  Streaming, voice cloning from audio, the ONNX codec
-and the prompt-prefix KV cache are not ported yet and raise
-NotImplementedError.
+QTTS_A8_PREFILL).
+
+Streaming (`generate_stream`, `stream_long`, `stream_batch`) yields audio
+chunk by chunk: a first chunk of RuntimeConfig.first_chunk_frames frames
+(0: a whole chunk), then chunks of frames_per_chunk, each one
+Generator.chunk_with_audio.  One chunk runs ahead: chunk k + 1 is enqueued
+before chunk k is read, and chunk k reaches the host by a non-blocking
+copy into pinned memory (`_HostSlots`) started before chunk k + 1 is
+enqueued, so reading it waits for chunk k alone.  A single stream stops at
+the chunk where EOS occurs and drops the chunk ahead.
+
+Prompt-prefix KV reuse (`_start_state`, the JAX engine's): a prompt whose
+prefix (the instruction, control and speaker rows, and a clone voice's
+reference) has PREFIX_CACHE_MIN_ROWS rows or more prefills only its suffix
+after a copy of the prefix KV kept in an LRU of QTTS_PREFIX_CACHE_SIZE
+entries (default 4; QTTS_PREFIX_CACHE=0 turns it off).  A miss prefills
+the whole prompt once to fill the entry and then also goes through the
+continued prefill, so that a voice's synthesis is the same from its first
+request on.  Voice cloning from audio and the ONNX codec are not ported
+yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import collections
+import os
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -99,8 +118,7 @@ QUANT_DIRS = {"q5_k_m": "gguf_q5_k_m", "q8_0": "gguf_q8_0"}
 IGNORED_FIELDS = {
     "talker": ("flash_decode", "layer_scan_unroll"),
     "predictor": ("flash_decode", "layer_scan_unroll"),
-    "runtime": ("first_chunk_frames", "batch_size", "mesh_shape",
-                "mesh_axes", "donate_cache"),
+    "runtime": ("batch_size", "mesh_shape", "mesh_axes", "donate_cache"),
 }
 
 
@@ -164,6 +182,11 @@ class TtsEngine:
         self.dev_mode_components: list = []
         self.load_seconds: Dict[str, float] = {}   # build time by part
         self.weight_sources: Dict[str, str] = {}   # LM: "gguf" or "cache"
+        # prompt-prefix KV, (fingerprint, p_cap) -> (k, v): contiguous
+        # copies of p_cap slots, least recently used first
+        self._prefix_kv: collections.OrderedDict = collections.OrderedDict()
+        self._prefix_kv_max = int(os.environ.get("QTTS_PREFIX_CACHE_SIZE",
+                                                 "4"))
 
         use_int8 = self.config.int8_weights
         if use_int8 is None:
@@ -370,8 +393,105 @@ class TtsEngine:
                                   "not yet ported")
 
     def generate_stream(self, text: str, voice: VoiceFile,
-                        instruct: Optional[str] = None):
-        raise NotImplementedError("streaming synthesis is not yet ported")
+                        instruct: Optional[str] = None
+                        ) -> Iterator[np.ndarray]:
+        """Yield float32 waveform chunks while the talker is still
+        generating: first_chunk_frames frames first, then frames_per_chunk
+        (module docstring)."""
+        plan = self._build_voice_prompt(text, voice, instruct)
+        yield from self._stream_inference(plan)
+
+    def stream_long(self, text: str, voice: VoiceFile,
+                    instruct: Optional[str] = None,
+                    max_chars: int = 120) -> Iterator[np.ndarray]:
+        """generate_stream over the sentences of `text` (split_sentences),
+        one after the other."""
+        for piece in split_sentences(text, max_chars):
+            yield from self.generate_stream(piece, voice, instruct)
+
+    def generate_long(self, text: str, voice: VoiceFile,
+                      instruct: Optional[str] = None,
+                      max_chars: int = 120) -> AudioSample:
+        """Long text: each piece of split_sentences(text, max_chars)
+        synthesized with the same voice and instruction, the audio
+        concatenated."""
+        parts = []
+        for piece in split_sentences(text, max_chars):
+            audio = self.generate_with_voice(piece, voice, instruct)
+            if len(audio.samples):
+                parts.append(audio.samples)
+        samples = (np.concatenate(parts) if parts
+                   else np.zeros(0, np.float32))
+        return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
+                           channels=1)
+
+    @torch.no_grad()
+    def stream_batch(self, texts, voices, instructs=None
+                     ) -> Iterator[List[np.ndarray]]:
+        """Batched streaming: a wave of len(texts) requests decodes at one
+        prompt bucket, and every chunk boundary yields a list of one
+        float32 waveform piece per request (zero-length once a request
+        has finished).  The first chunk, first_chunk_frames long, comes
+        from Generator.start_plans_first_chunk (assembly, prefill and that
+        chunk); the stream ends when every lane has finished or at
+        max_steps.  One chunk runs ahead, as in generate_stream.  The
+        ONNX codec's branch is not ported and raises."""
+        if getattr(self, "onnx_decoder", None) is not None:
+            raise NotImplementedError("the ONNX codec path is not yet ported")
+        cfg = self.config
+        b = len(texts)
+        if isinstance(voices, VoiceFile):
+            voices = [voices] * b
+        if instructs is None or isinstance(instructs, str):
+            instructs = [instructs] * b
+        plans = [self._build_voice_prompt(t, v, i)
+                 for t, v, i in zip(texts, voices, instructs)]
+        a, lengths, bucket = self._plans_to_arrays(plans)
+        gen = self._torch_generator()
+        sampler = SamplerParams.make(self.sampler_config)
+        spf = cfg.codec_decoder.samples_per_frame
+        n_chunk = cfg.runtime.frames_per_chunk
+        first_n = cfg.runtime.first_chunk_frames
+        first_n = min(first_n, n_chunk) if first_n > 0 else n_chunk
+        dev = self.device
+        slots = _HostSlots(dev, b, max(first_n, n_chunk), spf)
+        done = np.zeros(b, bool)
+        dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, b,
+                                                     dev)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        state, dec_state, codes, valid, wav = \
+            self.generator.start_plans_first_chunk(
+                self.assets.text_table, self.assets.codec_tables,
+                t["text_idx"], t["codec_idx"], t["frame_slot"],
+                t["spk_flag"], t["frames"], t["spk_emb"],
+                torch.from_numpy(lengths).to(dev), gen, dec_state, sampler,
+                prompt_cap=bucket, n_frames=first_n)
+        pending = slots.put(wav, valid, codes, first_n)
+        steps = first_n
+        while pending is not None:
+            nxt = None
+            if steps < self.max_steps:
+                n = min(n_chunk, self.max_steps - steps)
+                state, dec_state, codes, valid, wav = \
+                    self.generator.chunk_with_audio(
+                        state, dec_state, sampler, prompt_cap=bucket,
+                        n_frames=n)
+                nxt = slots.put(wav, valid, codes, n)
+                steps += n
+            wav_h, valid_h, _, n0 = _HostSlots.get(pending)
+            out = []
+            for i in range(b):
+                if done[i]:
+                    out.append(np.zeros(0, np.float32))
+                    continue
+                n_valid = int(valid_h[i].sum())
+                out.append(wav_h[i, : n_valid * spf].copy())
+                if n_valid < n0:
+                    done[i] = True
+            yield out
+            if done.all():
+                break
+            pending = nxt
 
     @staticmethod
     def _safe_emb(emb: np.ndarray) -> np.ndarray:
@@ -457,11 +577,69 @@ class TtsEngine:
             t["spk_emb"], torch.from_numpy(lengths).to(dev), generator)
         return state, lengths, bucket
 
-    def _start_state(self, plan: PromptPlan, generator: torch.Generator):
-        """Assembly + prefill of one plan (no prefix-KV reuse yet).
-        Returns (GenState, bucket)."""
-        state, _, bucket = self.start_plans(plan, None, generator)
+    # below this many prefix rows a prefix prefill is cheap
+    PREFIX_CACHE_MIN_ROWS = 64
+
+    def _start_state(self, plan, generator: torch.Generator):
+        """Assembly + prefill of one plan, reusing the prompt-prefix KV of
+        its voice and instruction (module docstring; the JAX engine's
+        _start_state), or of a list of plans at one bucket.  Returns
+        (GenState, bucket)."""
+        use_prefix = (isinstance(plan, PromptPlan)
+                      and os.environ.get("QTTS_PREFIX_CACHE", "1") != "0"
+                      and plan.prefix_len >= self.PREFIX_CACHE_MIN_ROWS
+                      and plan.length <= self.config.runtime.max_prompt_len)
+        if use_prefix:
+            p_cap = ((plan.prefix_len + 63) // 64) * 64
+            suffix = plan.suffix_plan()
+            s_cap = ((suffix.length + 15) // 16) * 16
+            bucket = self._bucket(max(plan.length, p_cap,
+                                      plan.prefix_len + s_cap))
+            # _bucket stops at max_prompt_len: the suffix's pad rows must
+            # not spill past the prompt region into decode slots
+            use_prefix = plan.prefix_len + s_cap <= bucket and p_cap <= bucket
+        if not use_prefix:
+            state, _, bucket = self.start_plans(plan, None, generator)
+            return state, bucket
+
+        fp = (plan.prefix_fingerprint(), p_cap)
+        entry = self._prefix_kv.get(fp)
+        if entry is None:
+            full, _, _ = self.start_plans(plan, bucket, generator)
+            # slots [0, p_cap) of this prefill are the prefix KV; a copy,
+            # so that the entry holds p_cap slots and not the whole cache
+            entry = tuple(t[:, :, :, :p_cap].clone(
+                memory_format=torch.contiguous_format)
+                for t in (full.cache.k, full.cache.v))
+            del full
+            self._prefix_kv[fp] = entry
+            while len(self._prefix_kv) > self._prefix_kv_max:
+                self._prefix_kv.popitem(last=False)
+        else:
+            self._prefix_kv.move_to_end(fp)
+        # a miss too goes on through the continued prefill: the full and
+        # the continued prefill tile differently on the card
+        a, lens_s, _ = self._plans_to_arrays(suffix, s_cap)
+        dev = self.device
+        t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
+        state = self.generator.start_with_prefix_from_plans(
+            entry[0], entry[1], plan.prefix_len, self.assets.text_table,
+            self.assets.codec_tables, t["text_idx"], t["codec_idx"],
+            t["frame_slot"], t["spk_flag"], t["frames"], t["spk_emb"],
+            torch.from_numpy(lens_s).to(dev), generator, total_bucket=bucket)
         return state, bucket
+
+    def _torch_generator(self) -> torch.Generator:
+        """The request's generator, seeded from the sampler config (a
+        fresh seed when it has none)."""
+        seed = self.sampler_config.seed
+        if seed is None:
+            seed = time.time_ns() & 0x7FFFFFFFFFFFFFFF
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
     def _run_inference(self, plan: PromptPlan) -> AudioSample:
@@ -472,15 +650,9 @@ class TtsEngine:
         metrics = GenerationMetrics()
         watch = Stopwatch()
         t_start = time.perf_counter()
-        seed = self.sampler_config.seed
-        if seed is None:
-            seed = time.time_ns() & 0x7FFFFFFFFFFFFFFF
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-
-        state, bucket = self._start_state(plan, gen)
+        state, bucket = self._start_state(plan, self._torch_generator())
         sampler = SamplerParams.make(self.sampler_config)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
         metrics.prefill_ms = watch.lap_ms()
         max_frames = min(self.max_steps, cfg.runtime.max_steps)
         dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, 1,
@@ -502,6 +674,142 @@ class TtsEngine:
         log_event("generation", **metrics.as_dict())
         return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
                            channels=1)
+
+    @torch.no_grad()
+    def _stream_inference(self, plan: PromptPlan) -> Iterator[np.ndarray]:
+        """Streaming synthesis of one plan (module docstring): prefill,
+        then chunks of gen_frames + codec decode, one chunk ahead of the
+        one being read; stops at the chunk where EOS occurs.  Records
+        ttft_ms (start to the first non-empty chunk read) and chunk_ms
+        (between chunk reads); QTTS_TIMING=1 prints the prefill's and the
+        first chunk's times, each after a device synchronize."""
+        cfg = self.config
+        spf = cfg.codec_decoder.samples_per_frame
+        n_chunk = cfg.runtime.frames_per_chunk
+        first_n = cfg.runtime.first_chunk_frames
+        metrics = GenerationMetrics()
+        watch = Stopwatch()
+        t_start = time.perf_counter()
+        timing = os.environ.get("QTTS_TIMING")
+
+        def tlog(msg):
+            if timing:
+                self._sync()
+                print(f"[qtts-timing] {msg}: {watch.elapsed_ms():.0f} ms "
+                      f"(t+{(time.perf_counter() - t_start) * 1000:.0f} ms)",
+                      flush=True)
+
+        state, bucket = self._start_state(plan, self._torch_generator())
+        tlog("prefill")
+        sampler = SamplerParams.make(self.sampler_config)
+        dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, 1,
+                                                     self.device)
+        self._sync()
+        metrics.prefill_ms = watch.lap_ms()
+        slots = _HostSlots(self.device, 1, max(first_n, n_chunk), spf)
+        codes_out = []
+        steps = 0
+        pending = None                       # the chunk enqueued last
+        while True:
+            nxt = None
+            if steps < self.max_steps:
+                n = min(n_chunk, self.max_steps - steps)
+                if steps == 0 and 0 < first_n < n:
+                    n = first_n              # small first chunk
+                state, dec_state, codes, valid, wav = \
+                    self.generator.chunk_with_audio(
+                        state, dec_state, sampler, prompt_cap=bucket,
+                        n_frames=n)
+                nxt = slots.put(wav, valid, codes, n)
+                if steps == 0:
+                    tlog("lm + codec chunk 0")
+                steps += n
+            if pending is not None:
+                wav_h, valid_h, codes_h, n0 = _HostSlots.get(pending)
+                n_valid = int(valid_h[0].sum())
+                metrics.chunk_ms.append(watch.lap_ms())
+                if n_valid > 0:
+                    if metrics.ttft_ms is None:
+                        metrics.ttft_ms = (time.perf_counter()
+                                           - t_start) * 1000.0
+                    codes_out.append(codes_h[0, :n_valid].copy())
+                    yield wav_h[0, : n_valid * spf].copy()
+                if n_valid < n0:     # EOS in this chunk: drop the one ahead
+                    metrics.eos = True
+                    break
+            pending = nxt
+            if pending is None:
+                break
+
+        frames = sum(len(c) for c in codes_out)
+        self.last_codes = (np.concatenate(codes_out) if codes_out else
+                           np.zeros((0, P.NUM_CODEBOOKS), np.int32))
+        metrics.total_ms = (time.perf_counter() - t_start) * 1000.0
+        metrics.frames = frames
+        metrics.audio_seconds = frames * spf / P.SAMPLE_RATE
+        self.last_metrics = metrics
+        log_event("generation", **metrics.as_dict())
+
+
+class _HostSlots:
+    """Two host slots for a stream's one-chunk lookahead, pinned on a CUDA
+    device: `put` starts non-blocking copies of a chunk's wav [B, n * spf],
+    valid [B, n] and codes [B, n, 16] into the next slot and records an
+    event after them, so that `get` waits for that chunk alone and not for
+    the chunk enqueued after it.  A slot is reused two chunks later: copy
+    what `get` returns before then."""
+
+    def __init__(self, device: torch.device, batch: int, n_frames: int,
+                 spf: int):
+        pin = device.type == "cuda"
+        self.slots = [tuple(torch.empty(batch * n_frames * w, dtype=dt,
+                                        pin_memory=pin)
+                            for w, dt in ((spf, torch.float32),
+                                          (1, torch.bool),
+                                          (P.NUM_CODEBOOKS, torch.int32)))
+                      for _ in range(2)]
+        self.k = 0
+
+    def put(self, wav: torch.Tensor, valid: torch.Tensor,
+            codes: torch.Tensor, n: int):
+        slot = self.slots[self.k % 2]
+        self.k += 1
+        host = [buf[: t.numel()].view(t.shape).copy_(t, non_blocking=True)
+                for buf, t in zip(slot, (wav, valid, codes))]
+        event = None
+        if wav.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(wav.device))
+        return host, event, n
+
+    @staticmethod
+    def get(pending):
+        """(wav, valid, codes numpy views of the slot, n frames) once the
+        chunk's copies have landed."""
+        host, event, n = pending
+        if event is not None:
+            event.synchronize()
+        return (*(t.numpy() for t in host), n)
+
+
+_SENTENCE_ENDS = set(".!?;。！？；…\n")
+
+
+def split_sentences(text: str, max_chars: int = 120) -> List[str]:
+    """Greedy sentence-boundary chunking for long text (JAX
+    engine.split_sentences): a piece ends after sentence punctuation once
+    it has 4 characters, or at max_chars."""
+    pieces, cur = [], []
+    count = 0
+    for ch in text:
+        cur.append(ch)
+        count += 1
+        if (ch in _SENTENCE_ENDS and count >= 4) or count >= max_chars:
+            pieces.append("".join(cur).strip())
+            cur, count = [], 0
+    if cur and "".join(cur).strip():
+        pieces.append("".join(cur).strip())
+    return [p for p in pieces if p]
 
 
 def load_npz(path, device="cpu", dtype=None):

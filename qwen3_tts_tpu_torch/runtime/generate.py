@@ -42,6 +42,15 @@ bucket, so its cursor is uniform and a wave of 8-32 lanes can take the
 chunk kernel.  Continuous batching (serve/continuous.py) decodes with
 per-lane cursors (uniform_cursor=False) and refills freed lanes with
 `prefill_lanes`.
+
+Streaming (TtsEngine.generate_stream, stream_batch) runs one
+`gen_frames_with_audio` per chunk (Generator.chunk_with_audio), the first
+one `first_chunk_frames` long (Generator.start_first_chunk,
+start_plans_first_chunk: the prefill, then that chunk).  A prompt whose
+prefix KV the engine keeps (a voice's instruction and reference rows)
+prefills only its suffix: `prefill_with_prefix` copies the kept prefix
+into a fresh cache and runs the suffix rows at write cursor prefix_len
+(Generator.start_with_prefix, start_with_prefix_from_plans).
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from ..kernels import predictor_frame as predictor_kernel
 from ..kernels import talker_step as talker_kernel
 from ..models import predictor as predictor_lib
 from ..models import talker as talker_lib
+from ..models import transformer
 from ..kernels.flash_decode import inject_prompt_lanes
 from ..models.codec import decoder as codec_decoder
 from ..models.transformer import KVCache
@@ -111,6 +121,67 @@ def prefill(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
                     done=torch.zeros(b, dtype=torch.bool,
                                      device=embeds.device),
                     generator=generator)
+
+
+def prefill_with_prefix(cfg: EngineConfig, talker_params,
+                        prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                        prefix_len: int, suffix_embeds: torch.Tensor,
+                        suffix_lengths: torch.Tensor,
+                        generator: torch.Generator, total_bucket: int,
+                        a8: bool = True) -> GenState:
+    """Prefill continuing from a kept prompt prefix (JAX
+    runtime/generate.py prefill_with_prefix).
+
+    prefix_k/v: [L, B, Hkv, Pcap, Dh], slots [0, prefix_len) of an earlier
+    prefill's cache (padded to Pcap); they are copied into slots [0, Pcap)
+    of a fresh cache of the capacity `prefill` gives a prompt of
+    total_bucket rows, never written.  suffix_embeds: [B, Scap, 2048], the
+    task text and activation rows; prefix_len: int; suffix_lengths: [B]
+    int32.  The suffix prefills at write cursor prefix_len with positions
+    prefix_len.., against slots [0, total_bucket) (transformer_forward_suffix:
+    the prefill kernel at start = prefix_len, window = total_bucket).
+    Validity stays one range [0, prefix_len + suffix_len), so slots in
+    [lengths, total_bucket), stale rows of the earlier prefill included,
+    are masked like prompt padding.  total_bucket must be the prompt_cap of
+    the decode chunks after it; write_idx is set to it, as after `prefill`.
+    """
+    b, s_cap, _ = suffix_embeds.shape
+    dev = suffix_embeds.device
+    p_cap = prefix_k.shape[3]
+    cache = talker_lib.init_talker_cache(
+        cfg.talker, b, cache_capacity(cfg, total_bucket), dev)
+    cache.k[:, :, :, :p_cap].copy_(prefix_k)
+    cache.v[:, :, :, :p_cap].copy_(prefix_v)
+    start = torch.full((b,), int(prefix_len), dtype=torch.int32, device=dev)
+    suffix_lengths = suffix_lengths.to(device=dev, dtype=torch.int32)
+    lengths = start + suffix_lengths
+    cache.lengths = lengths
+    cache.write_idx = start
+    pos = start.long()[:, None] + torch.arange(s_cap, device=dev)[None, :]
+    cos, sin = talker_lib._rope_tables(cfg.talker, talker_lib._pos4(pos))
+    hidden_all, cache = transformer_forward_suffix(
+        cfg, talker_params, suffix_embeds, cos, sin, cache, total_bucket, a8)
+    last = torch.clamp(suffix_lengths.long() - 1, 0, s_cap - 1)
+    hidden = hidden_all[torch.arange(b, device=dev), last]
+    cache.write_idx = torch.full((b,), total_bucket, dtype=torch.int32,
+                                 device=dev)
+    return GenState(cache=cache,
+                    logits=talker_lib._codec_logits(talker_params, hidden),
+                    hidden=hidden, pos=lengths, step=0,
+                    done=torch.zeros(b, dtype=torch.bool, device=dev),
+                    generator=generator)
+
+
+def transformer_forward_suffix(cfg: EngineConfig, talker_params,
+                               embeds: torch.Tensor, cos: torch.Tensor,
+                               sin: torch.Tensor, cache: KVCache,
+                               total_bucket: int, a8: bool = True):
+    """The talker over the suffix rows at the cache cursor, against slots
+    [0, total_bucket) (decoder_forward's S > 1 branch)."""
+    return transformer.decoder_forward(
+        cfg.talker, talker_params,
+        embeds.to(transformer.dtype_of(cfg.talker.dtype)), cos, sin, cache,
+        prompt_cap=total_bucket, a8=a8)
 
 
 def _frame_emb_sum(codec_tables: torch.Tensor,
@@ -231,6 +302,24 @@ def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
                      done=state.done | cum[:, -1],
                      generator=state.generator)
     return state, codes, valid
+
+
+def gen_frames_with_audio(cfg: EngineConfig, talker_params,
+                          predictor_params, assets_pack, codec_params,
+                          state: GenState,
+                          dec_state: codec_decoder.DecoderState,
+                          sampler: SamplerParams, n_frames: int,
+                          prompt_cap: int, uniform_cursor: bool = True):
+    """One chunk of a stream: gen_frames, then the codec decode of its
+    codes.  Returns (state, dec_state, codes [B, n, 16], valid [B, n],
+    wav [B, n * spf])."""
+    state, codes, valid = gen_frames(cfg, talker_params, predictor_params,
+                                     assets_pack, state, sampler, n_frames,
+                                     prompt_cap, uniform_cursor)
+    wav, dec_state = codec_decoder.decode_chunk(cfg.codec_decoder,
+                                                codec_params, codes,
+                                                dec_state)
+    return state, dec_state, codes, valid, wav
 
 
 def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
@@ -423,6 +512,59 @@ class Generator:
                           frame_slot, spk_flag, frames, spk_emb, lengths)
         return self.start(embeds, lengths, generator)
 
+    def start_first_chunk(self, embeds: torch.Tensor, lengths: torch.Tensor,
+                          generator: torch.Generator, dec_state,
+                          sampler: SamplerParams, prompt_cap: int,
+                          n_frames: int = 1):
+        """Prefill, then the first n_frames with their audio (a stream's
+        first chunk).  Returns (state, dec_state, codes, valid, wav)."""
+        state = self.start(embeds, lengths, generator)
+        return self.chunk_with_audio(state, dec_state, sampler, prompt_cap,
+                                     n_frames=n_frames)
+
+    def start_plans_first_chunk(self, text_table, codec_tables, text_idx,
+                                codec_idx, frame_slot, spk_flag, frames,
+                                spk_emb, lengths,
+                                generator: torch.Generator, dec_state,
+                                sampler: SamplerParams, prompt_cap: int,
+                                n_frames: int = 1):
+        """start_first_chunk from the stacked padded plan arrays (a wave's
+        start in TtsEngine.stream_batch).  Returns (state, dec_state,
+        codes, valid, wav)."""
+        state = self.start_from_plans(text_table, codec_tables, text_idx,
+                                      codec_idx, frame_slot, spk_flag,
+                                      frames, spk_emb, lengths, generator)
+        return self.chunk_with_audio(state, dec_state, sampler, prompt_cap,
+                                     n_frames=n_frames)
+
+    def start_with_prefix(self, prefix_k, prefix_v, prefix_len: int,
+                          suffix_embeds, suffix_lengths,
+                          generator: torch.Generator,
+                          total_bucket: int) -> GenState:
+        """Prefill reusing a kept prompt-prefix KV (prefill_with_prefix);
+        total_bucket must be the prompt_cap of the decode chunks."""
+        return prefill_with_prefix(
+            self.cfg, self.talker_params, prefix_k, prefix_v, prefix_len,
+            suffix_embeds, torch.as_tensor(suffix_lengths,
+                                           device=suffix_embeds.device),
+            generator, total_bucket, a8=self.a8_prefill)
+
+    def start_with_prefix_from_plans(self, prefix_k, prefix_v,
+                                     prefix_len: int, text_table,
+                                     codec_tables, text_idx, codec_idx,
+                                     frame_slot, spk_flag, frames, spk_emb,
+                                     suffix_lengths,
+                                     generator: torch.Generator,
+                                     total_bucket: int) -> GenState:
+        """Suffix assembly from the stacked padded plan arrays, then
+        start_with_prefix."""
+        embeds = assemble(text_table, codec_tables, text_idx, codec_idx,
+                          frame_slot, spk_flag, frames, spk_emb,
+                          suffix_lengths)
+        return self.start_with_prefix(prefix_k, prefix_v, prefix_len, embeds,
+                                      suffix_lengths, generator,
+                                      total_bucket)
+
     def refill_lanes(self, state: GenState, embeds_r: torch.Tensor,
                      lengths, lanes) -> GenState:
         """Prefill len(lanes) lanes of a running batch with new prompts
@@ -458,3 +600,18 @@ class Generator:
                          dec_state, sampler, budgets, max_frames=max_frames,
                          chunk=self.cfg.runtime.frames_per_chunk,
                          prompt_cap=prompt_cap, uniform_cursor=uniform_cursor)
+
+    def chunk_with_audio(self, state: GenState, dec_state,
+                         sampler: SamplerParams, prompt_cap: int,
+                         n_frames: Optional[int] = None,
+                         uniform_cursor: bool = True):
+        """One chunk of n_frames (default cfg.runtime.frames_per_chunk)
+        with its codec decode (gen_frames_with_audio).  Returns (state,
+        dec_state, codes, valid, wav)."""
+        if self.codec_params is None:
+            raise ValueError("Generator built without codec_params")
+        return gen_frames_with_audio(
+            self.cfg, self.talker_params, self.predictor_params,
+            self.assets_pack, self.codec_params, state, dec_state, sampler,
+            n_frames or self.cfg.runtime.frames_per_chunk, prompt_cap,
+            uniform_cursor)

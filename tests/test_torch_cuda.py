@@ -104,6 +104,9 @@ def _i32(x, dev):
     (1024, 1024, 128, 16, 8, 0, 1024, [1024, 700]),  # long prompt, window C
     (100, 160, 128, 16, 2, 60, 100, [100, 40]),     # G=8, suffix
     (17, 17, 128, 8, 8, 0, 17, [17, 9]),            # G=1, ragged
+    (16, 128, 128, 16, 8, 64, 128, [75, 80]),       # continued prefill
+    (48, 256, 128, 16, 8, 192, 256, [235, 240]),    # continued, window 256
+    (32, 128, 128, 16, 8, 95, 128, [122, 118]),     # continued, start 95
 ])
 def test_prefill_kernel_matches_plain(dev, s, window, dh, h, hkv, start,
                                       prompt_cap, lengths):
