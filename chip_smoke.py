@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py [--phases kernels,chunk,reference,engine,stream,
-                                    serving,wave,weights]
+                                    clone,serving,wave,weights]
 
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
@@ -43,14 +43,17 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      - flash_gqa_prefill_stacked continuing a kept prompt prefix: B = 1,
        start 64 and 192, S 16 and 48, window 128 and 256, the stale rows
        of an earlier request past the suffix poisoned, two shapes timed
-       beside SDPA;
+       beside SDPA; and on whole clone prompts, S = 512 and 4096 (B = 1,
+       window S), timed beside SDPA;
      Small kernels are also timed in a CUDA graph (device time without the
      wrapper's host enqueue): the attention kernels, matmul_int4 and the
      three lane kernels of continuous batching;
   3. chunk: gen_chunk_fused (one cooperative launch per chunk; full width,
      B=1, F=4, C=1024) against gen_chunk_plain on copies of one cache at
      (prompt_cap, length, start) = (32, 31, 32), (128, 117, 159) and
-     (128, 90, 1020), greedy; one sampled chunk; the in-kernel sampler alone
+     (128, 90, 1020) and, on a 5120-slot cache (a clone prompt filling the
+     4096-row bucket), (4096, 4070, 4100), greedy; one sampled chunk; the
+     in-kernel sampler alone
      against ops.sampling.sample_threshold; the batched forms at B = 8, 16,
      24 and 32 (ragged lengths, one cursor), greedy and sampled: every lane
      bit-equal to the one-lane launch; lanes 0, B - 1 and the first of
@@ -91,21 +94,36 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      ms, greedy codes equal, the entry a copy of its slots, the continued
      prefill's logits against a full prefill's); generate_long on three
      sentences.
-  7. serving: continuous batching (serve/continuous.py) at batch 8 and 32
+  7. clone: voice cloning from reference audio on the engine phase's
+     model (codec encoder and speaker encoder on seeded random weights):
+     seeded 10 s and 30 s reference WAVs through create_voice_file (codes
+     [120, 16] and [360, 16], a unit-norm embedding) held against the port
+     on the CPU with the same weights (codes equal, log-mel and embedding
+     within stated tolerances), the mel, the encoder's convs, its RVQ and
+     the speaker encoder timed alone; warmup at buckets 256 and 512;
+     generate greedy twice per reference (a miss, then a hit: the .cache
+     sidecar read and the encoder not run, the prefix KV reused, codes
+     equal; prefill ms of each), launching the prefill and chunk kernels
+     and not the step kernels; a cloned stream's TTFT; a clone voice whose
+     prompt fills the 4096-row bucket for 8 frames on the chunk kernel;
+     the 28-layer prefill of a 4096-row prompt (Generator.start).
+  8. serving: continuous batching (serve/continuous.py) at batch 8 and 32
      on the default engine (per-lane cursors: the step schedule) and at
      batch 4 on the exact path (flash_gqa_decode_append), each queue's
      audio digest printed.
-  8. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
+  9. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
      engine at batch 8, 16 and 32 (the batched chunk kernel), a
      mixed-budget run with a padded last wave, and batch 8 on a chunk=False
      engine (the step schedule); launch counts, frames/s, per-stream RTF
      and one profiled wave per batch size.
-  9. weights: the deployed weight path at full width: a synthetic model
+  10. weights: the deployed weight path at full width: a synthetic model
      directory (F16 talker and predictor GGUFs under llama.cpp names,
-     the assets GGUF, codec/decoder.npz; written from a seed, ~4.6 GB,
-     removed at the end), TtsEngine(model_dir, quant="q8_0") built twice
+     the assets GGUF, codec/decoder.npz, encoder.npz and speaker.npz;
+     written from a seed, ~4.8 GB, removed at the end),
+     TtsEngine(model_dir, quant="q8_0") built twice
      (the second from the weight cache, its tensors equal to the first's),
-     a greedy request and its rerun on the chunk path, the per-kernel
+     a voice from a 2 s reference on the encoders read from the npz
+     files, a greedy request and its rerun on the chunk path, the per-kernel
      path in each talker mode (w4a8, int8, w8a8, bf16), the exact path
      (int8 matmuls, a8w8 prefill) and the exact path on int4 layers
      (matmul_int4); launch counts per path and talker mode.
@@ -143,6 +161,15 @@ REQUESTS = [
     ("greedy-b32-again", "Hello from the H100.", None, GREEDY, 1),
 ]
 PREFILL_TOL = 2e-2   # bf16 K/V and bf16 p in P.V against f32 attention
+# The clone-length prefill cases are held row by row: at S = 4096 with
+# these inputs (std 0.5, near-uniform softmax) a long row's values are
+# about 0.01, below PREFILL_TOL.  For each (row, head) the largest
+# |kernel - plain| over Dh, over the RMS of the plain row.  Both outputs
+# are rounded to bf16 (one ulp, 2^-8 of a value up to ~5 RMS apart) and
+# the kernel rounds p to bf16 (~2^-9 / sqrt(3) of the RMS): about 0.03
+# at most.  One K/V tile (64 slots) left out of a 4000-key row moves it
+# by several tenths (checked in the phase on its own inputs).
+PREFILL_ROW_TOL = 2.0 ** -4
 # The decode kernel computes in f32, as its plain version does, and rounds
 # only its output to bf16: against the plain version's f32 result on the
 # same inputs it is off by at most half a bf16 ulp (2^-8 of the value),
@@ -473,6 +500,9 @@ def check_kernels(dev, failures):
     del kv1k, q1k, args1k, mask1k
     out["flash_gqa_prefill_stacked"]["start_ne_0"] = prefill_continued(
         dev, failures, rnd, i32)
+    for s_ in PREFILL_CLONE_S:
+        out["flash_gqa_prefill_stacked"][f"s{s_}"] = prefill_clone(
+            dev, failures, rnd, i32, s_)
 
     errs = []
     tol = f"{DECODE_ATOL} + 2^-8*|plain f32|"
@@ -721,6 +751,98 @@ def prefill_continued(dev, failures, rnd, i32):
         rows.append(row)
         del k, v
     return rows
+
+
+# the clone prompts' lengths: a 30 s reference gives bucket 512, and a
+# prompt that fills the context RuntimeConfig.max_prompt_len = 4096
+PREFILL_CLONE_S = (512, 4096)
+
+
+def prefill_row_err(got, want):
+    """max over (lane, row, head) of max_d |got - want| / RMS_d(want)."""
+    got, want = got.float(), want.float()
+    rms = want.square().mean(-1).sqrt().clamp_min(1e-12)
+    return ((got - want).abs().amax(-1) / rms).max().item()
+
+
+def prefill_dropped_tile_err(q, k, v, lens, s, row, want_row):
+    """prefill_row_err of row `row` of the plain prefill against the same
+    row with one K/V tile (64 slots, mid-history) left out of its mask:
+    what a kernel that skipped that tile would show."""
+    from qwen3_tts_tpu_torch.ops.attention import gqa_attend, history_mask
+    mask = history_mask(lens, s, 0, s, s)[:, row:row + 1].clone()
+    t0 = (row // 64 // 2) * 64
+    mask[..., t0:t0 + 64] = False
+    dropped = gqa_attend(q[:, row:row + 1], k[0], v[0], mask)
+    return prefill_row_err(dropped, want_row)
+
+
+def prefill_clone(dev, failures, rnd, i32, s):
+    """flash_gqa_prefill_stacked on a whole clone prompt: B = 1, S rows,
+    window S, length S - 7, one talker layer of an S-slot cache, against
+    prefill_attention_plain (f32 scores: 1 GB at S = 4096); timed with
+    CUDA events and in a CUDA graph beside SDPA on the same inputs.
+    Returns {max_abs_err, ms, plain_ms, library_ms, device_ms,
+    library_device_ms, bound_ms, bound_by, grid}."""
+    import torch
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked, prefill_attention_plain)
+    from qwen3_tts_tpu_torch.ops.attention import history_mask
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    k, v = rnd(1, 1, 8, s, 128), rnd(1, 1, 8, s, 128)
+    q = rnd(1, s, 16, 128)
+    lens, st = i32(s - 7), i32(0)
+    args = (q, k, v, lens, st, 0, s, s)
+    got = flash_gqa_prefill_stacked(*args)
+    torch.cuda.synchronize()
+    grid = list(flash_gqa_prefill_stacked.grid)
+    want = prefill_attention_plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    row_err = prefill_row_err(got, want)
+    # the row-scaled check must see a K/V tile left out of a long row
+    r = s - 96
+    drop_err = prefill_dropped_tile_err(q, k, v, lens, s, r,
+                                        want[:, r:r + 1])
+    del got, want
+    ms = plain = 0.0
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            ms += cuda_ms(lambda i: flash_gqa_prefill_stacked(*args)) / 2
+        else:
+            plain += cuda_ms(lambda i: prefill_attention_plain(*args),
+                             2, 1) / 2
+    mask = history_mask(lens, s, st, s, s)
+    qt, kl, vl = q.transpose(1, 2), k[0], v[0]
+
+    def lib(i):
+        return sdpa(qt, kl, vl, attn_mask=mask[:, None], enable_gqa=True)
+
+    lib_ms = cuda_ms(lib)
+    dev_k = graph_ms(lambda i: flash_gqa_prefill_stacked(*args))
+    dev_l = graph_ms(lib)
+    b_ms, b_by = bound(nbytes((q, kl, vl)) + q.numel() * 2,
+                       4 * int(mask.sum()) * 16 * 128, "bf16")
+    print(f"[kernel] flash_gqa_prefill_stacked clone prompt S={s} window={s} "
+          f"length={s - 7} one layer, grid (CTAs, warps each) {grid}: "
+          f"max_abs_err={err:.3e}, row-scaled err (max |err| / row RMS, "
+          f"per row and head) {row_err:.3e} tol={PREFILL_ROW_TOL:.4g}; "
+          f"row {r} with one K/V tile left out gives {drop_err:.3e}; "
+          f"{ms:.4f} ms, plain "
+          f"{plain:.4f} ms, torch sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+          f"({b_by}); device time (CUDA graph of 20 calls) kernel "
+          f"{dev_k:.4f} ms, sdpa {dev_l:.4f} ms ({dev_k / dev_l:.2f}x), "
+          f"{dev_k / b_ms:.1f}x the bound")
+    if not (err <= PREFILL_TOL and row_err <= PREFILL_ROW_TOL):
+        failures.append(f"flash_gqa_prefill_stacked disagrees with plain at "
+                        f"S {s}")
+    if not drop_err > PREFILL_ROW_TOL:
+        failures.append(f"the row-scaled prefill check cannot see a K/V "
+                        f"tile left out at S {s}: {drop_err:.3e}")
+    return dict(max_abs_err=err, row_err=row_err, dropped_tile_err=drop_err,
+                ms=ms, plain_ms=plain, library_ms=lib_ms,
+                device_ms=dev_k, library_device_ms=dev_l, bound_ms=b_ms,
+                bound_by=b_by, grid=grid)
 
 
 def check_talker_step(dev, failures):
@@ -1234,7 +1356,8 @@ def check_predictor_frame(dev, failures):
 
 def check_chunk(dev, failures):
     """gen_chunk_fused against gen_chunk_plain at full width (B = 1, F = 4,
-    C = 1024), and the in-kernel sampler alone against its plain version."""
+    C = 1024, and C = 5120 at prompt_cap 4096), and the in-kernel sampler
+    alone against its plain version."""
     import torch
     from qwen3_tts_tpu_torch import EngineConfig
     from qwen3_tts_tpu_torch.io.assets import Assets
@@ -1272,8 +1395,10 @@ def check_chunk(dev, failures):
         cos, sin = talker_lib._rope_tables(tcfg, talker_lib._pos4(p))
         return cos.float().contiguous(), sin.float().contiguous()
 
-    def run(fn, n, prompt_cap, length, start, u, sampler, state=None, **kw):
-        lg, hd, k, v = (logits0, hidden0, *kv) if state is None else state
+    def run(fn, n, prompt_cap, length, start, u, sampler, state=None,
+            cache=None, **kw):
+        lg, hd, k, v = ((logits0, hidden0, *(cache or kv)) if state is None
+                        else state)
         k, v = k.clone(), v.clone()
         out = fn(tcfg, pcfg, tw, pw, ex, lg, hd, k, v, i32(length),
                  i32(start), *inputs(n, start), u, sampler, prompt_cap, **kw)
@@ -1292,33 +1417,42 @@ def check_chunk(dev, failures):
                 max(rel(x[:, :, :, row], y[:, :, :, row])
                     for x, y in zip(a[3:], b[3:])))
 
-    def all_but(rows):
-        keep = torch.ones(cap, dtype=torch.bool, device=dev)
+    def all_but(rows, c=cap):
+        keep = torch.ones(c, dtype=torch.bool, device=dev)
         keep[rows] = False
         return keep
 
     zeros = torch.zeros(n_frames, 1, device=dev)
     worst_abs = 0.0
-    for prompt_cap, length, start in ((32, 31, 32), (128, 117, 159),
-                                      (128, 90, 1020)):
+    # a clone prompt that fills the 4096-row bucket: the engine's cache of
+    # that bucket (cache_capacity: 4096 + 512 + 4 rounded up to 512 slots)
+    cap_long = 5120
+    kv_long = [(torch.randn((*shape[:3], cap_long, shape[4]), generator=g,
+                            device=dev) * 0.5).to(torch.bfloat16)
+               for _ in range(2)]
+    for prompt_cap, length, start, cache in (
+            (32, 31, 32, kv), (128, 117, 159, kv), (128, 90, 1020, kv),
+            (4096, 4070, 4100, kv_long)):
+        c_cap = cache[0].shape[3]
         # the kernel from the carried state over 1 .. F frames, one launch
         # each; the F-frame launch gives the window logits
         tk = []
         runs = [run(cs.gen_chunk_fused, n, prompt_cap, length, start,
-                    zeros[:n], greedy, taps=tk if n == n_frames else None)
+                    zeros[:n], greedy, cache=cache,
+                    taps=tk if n == n_frames else None)
                 for n in range(1, n_frames + 1)]
         codes = runs[-1][0]
         # each launch repeats the shorter one: its codes, and every cache
         # row but the one its last frame wrote
         repeat = all(
             torch.equal(runs[f][0][:, :f], runs[f - 1][0])
-            and all(torch.equal(a[:, :, :, all_but(start + f)],
-                                b[:, :, :, all_but(start + f)])
+            and all(torch.equal(a[:, :, :, all_but(start + f, c_cap)],
+                                b[:, :, :, all_but(start + f, c_cap)])
                     for a, b in zip(runs[f][3:], runs[f - 1][3:]))
             for f in range(1, n_frames))
-        keep = all_but(slice(start, start + n_frames))
+        keep = all_but(slice(start, start + n_frames), c_cap)
         same = all(torch.equal(a[:, :, :, keep], t_[:, :, :, keep])
-                   for a, t_ in zip(runs[-1][3:], kv))
+                   for a, t_ in zip(runs[-1][3:], cache))
         finite = all(bool(torch.isfinite(x).all())
                      for r in runs for x in r[1:3])
         ok = repeat and same and finite
@@ -1330,11 +1464,12 @@ def check_chunk(dev, failures):
             state = None if f == 0 else runs[f - 1][1:]
             tp_, t128 = [], []
             want = run(cs.gen_chunk_plain, 1, prompt_cap, length, start + f,
-                       zeros[:1], greedy, state=state, taps=tp_,
-                       force_codes=codes[:, f:f + 1])
+                       zeros[:1], greedy, state=state, cache=cache,
+                       taps=tp_, force_codes=codes[:, f:f + 1])
             alt = run(cs.gen_chunk_plain, 1, prompt_cap, length, start + f,
-                      zeros[:1], greedy, state=state, taps=t128,
-                      force_codes=codes[:, f:f + 1], prefix_tile=cs.SPLIT)
+                      zeros[:1], greedy, state=state, cache=cache,
+                      taps=t128, force_codes=codes[:, f:f + 1],
+                      prefix_tile=cs.SPLIT)
             got, kt = runs[f], tk[f * 15:(f + 1) * 15]
             picks, mine = want[0][0, 0].cpu(), codes[0, f].cpu()
             for t in range(16):
@@ -1361,7 +1496,7 @@ def check_chunk(dev, failures):
                                          for a, b in zip(got[1:3],
                                                          want[1:3])))
         n_eq = 16 * n_frames - len(flips)
-        print(f"[kernel] gen_chunk_fused F={n_frames} C={cap} prompt_cap="
+        print(f"[kernel] gen_chunk_fused F={n_frames} C={c_cap} prompt_cap="
               f"{prompt_cap} length={length} start={start} grid="
               f"{cs.gen_chunk_fused.grid}, each frame against plain from "
               f"the kernel's state: codes equal to the plain picks "
@@ -1377,6 +1512,9 @@ def check_chunk(dev, failures):
         if not ok:
             failures.append(f"gen_chunk_fused disagrees with plain at "
                             f"start={start}")
+    # the frames' largest rel err at prompt_cap 4096 (C = 5120)
+    long_err = max(max(e[:4]) for e in errs)
+    del kv_long, runs
 
     u = torch.tensor([[0.3], [0.7], [0.1], [0.9]], device=dev)
     codes = run(cs.gen_chunk_fused, n_frames, 32, 31, 32, u, sampled)[0]
@@ -1459,7 +1597,8 @@ def check_chunk(dev, failures):
           f"{plain:.1f} ms per chunk; bound {b_ms:.4f} ms per chunk "
           f"({b_by}: each input read once); no single PyTorch call")
     out = dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain, bound_ms=b_ms,
-               bound_by=b_by, library_ms=None)
+               bound_by=b_by, library_ms=None,
+               prompt_cap_4096_max_rel_err=long_err)
     out.update(check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g))
     return out
 
@@ -3500,6 +3639,363 @@ def drive_stream(dev, failures):
     return counts
 
 
+# The clone phase: voice cloning from reference audio at full width (the
+# engine phase's model; the codec encoder and speaker encoder on random
+# weights from a seed).  Reference lengths in seconds: 120 and 360 codec
+# frames, prompt buckets 256 and 512
+CLONE_SECONDS = (10, 30)
+CLONE_TEXT = "A cloned voice reads this sentence aloud."
+CLONE_REF_TEXT = "These are the words the reference speaker said."
+# The card against the port on the CPU, the same weights and WAV, f32 with
+# TF32 off (set_cuda_precision): cuFFT, cuDNN and cuBLAS sum in other
+# orders than the CPU's FFT, convolutions and products (measured on the CPU
+# against the JAX package: ~1e-6).  The log-mel (natural log) within
+# CLONE_MEL_TOL, absolute; the unit-norm speaker embedding within
+# CLONE_EMB_TOL, absolute; the codes equal (a flip would need two codebook
+# entries within ~1e-4 of each other in |c|^2 - 2 r.c, whose spread is
+# ~45: on a mismatch the CPU's margin there is printed)
+CLONE_MEL_TOL = 1e-3
+CLONE_EMB_TOL = 1e-4
+# each clone request launches the prefill and the chunk kernel, and never
+# the step schedule's kernels
+CLONE_PATH_KERNELS = {
+    run: ("flash_gqa_prefill_stacked", "gen_chunk_fused")
+    for run in ("clone-10s-miss", "clone-10s-hit", "clone-30s-miss",
+                "clone-30s-hit", "clone-stream", "clone-4096")}
+CLONE_FORBIDDEN = {run: ("talker_step_fused", "predict_frame_fused")
+                   for run in CLONE_PATH_KERNELS}
+CLONE_BUCKET_FRAMES = 8     # frames of the 4096-row request
+
+
+def reference_wav(seconds: int, seed: int):
+    """A seeded speech-like 24 kHz signal: eight harmonics of a pitch
+    gliding around 120 Hz, syllable-rate amplitude, a little noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    t = np.arange(seconds * 24000) / 24000.0
+    f0 = 120.0 + 30.0 * np.sin(2 * np.pi * 0.5 * t + rng.uniform(0, 6))
+    phase = 2 * np.pi * np.cumsum(f0) / 24000.0
+    voiced = sum(np.sin(h * phase) / h for h in range(1, 9))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t + rng.uniform(0, 6))
+    x = 0.2 * env * voiced + 0.01 * rng.standard_normal(t.shape)
+    return (x / max(1.0, np.abs(x).max() / 0.9)).astype(np.float32)
+
+
+def rvq_margin(codebooks, z, frame, stage):
+    """On the CPU: how far the RVQ's pick at (frame, stage) leads the
+    runner-up in |c|^2 - 2 r.c (codebooks [Q, K, D], z [N, D] f32), and
+    the score's magnitude there."""
+    import torch
+    r = z[frame].clone()
+    for q in range(stage + 1):
+        cb = codebooks[q].float()
+        scores = (cb ** 2).sum(-1) - 2.0 * (cb @ r)
+        if q < stage:
+            r = r - cb[int(scores.argmin())]
+    top2 = torch.topk(scores, 2, largest=False).values
+    return (top2[1] - top2[0]).item(), top2[0].abs().item()
+
+
+def drive_clone(dev, failures):
+    """Voice cloning at full width on the card (seeded random codec
+    encoder and speaker encoder weights): seeded 10 s and 30 s reference
+    WAVs; create_voice_file's codes, log-mel and embedding against the
+    port on the CPU with the same weights; the mel, the encoder's conv
+    stack and RVQ and the speaker encoder timed alone (CUDA events);
+    generate greedy twice per reference (a miss: the encoder runs, the
+    sidecar is written, the prefix KV filled; then a hit: the sidecar
+    read, the encoder not run, the prefix reused, the codes equal);
+    generate_stream with the cloned voice (TTFT); a clone voice of random
+    codes that fills the 4096-row bucket, CLONE_BUCKET_FRAMES frames on the
+    chunk kernel (cache 5120 slots); the 28-layer prefill of a 4096-row
+    prompt through Generator.start (bench.py's clone_prefill_ms_4096).
+    Returns {run: {kernel: launches}}."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine, VoiceFile
+    from qwen3_tts_tpu_torch.core import protocol as P
+    from qwen3_tts_tpu_torch.io.audio import AudioSample, load_reference_wav
+    from qwen3_tts_tpu_torch.kernels import flash_decode as fd
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import talker_step_fused
+    from qwen3_tts_tpu_torch.models.codec import encoder as enc_lib
+    from qwen3_tts_tpu_torch.models.codec import speaker as spk_lib
+    from qwen3_tts_tpu_torch.ops.mel import log_mel
+
+    fns = {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, fd.flash_gqa_decode_stacked,
+        fd.flash_gqa_decode, talker_step_fused, predict_frame_fused,
+        gen_chunk_fused)}
+    t0 = time.perf_counter()
+    eng = TtsEngine(device=dev, speakers_dir="speakers")
+    torch.cuda.synchronize()
+    ecfg, scfg = eng.config.codec_encoder, eng.config.speaker_encoder
+    spf = eng.config.codec_decoder.samples_per_frame
+    print(f"[clone] full-width TtsEngine: init {time.perf_counter() - t0:.2f}"
+          f" s; codec encoder channels {ecfg.channels} d {ecfg.d_model}, "
+          f"speaker encoder {scfg.n_layers} x {scfg.d_model} "
+          f"({scfg.pooling}); random components {eng.dev_mode_components}")
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    enc_cpu = to_cpu(eng.codec_encoder_params)
+    spk_cpu = to_cpu(eng.speaker_params)
+    counts = {}
+    enc_calls = [0]
+    real_encode = enc_lib.encode
+
+    def counted_encode(*a, **k):
+        enc_calls[0] += 1
+        return real_encode(*a, **k)
+
+    def check_launches(run):
+        for k_ in CLONE_PATH_KERNELS[run]:
+            if counts[run][k_] <= 0:
+                failures.append(f"{run} never launched {k_}")
+        for k_ in CLONE_FORBIDDEN[run]:
+            if counts[run][k_] != 0:
+                failures.append(f"{run} launched {k_}")
+
+    def audio_ok(audio, frames):
+        x = audio.samples
+        return (frames > 0 and len(x) == frames * spf
+                and bool(np.isfinite(x).all())
+                and float(np.abs(x).max()) > 1e-4)
+
+    tmp = tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR"))
+    enc_lib.encode = counted_encode
+    try:
+        refs, voices = {}, {}
+        for secs in CLONE_SECONDS:
+            path = Path(tmp.name) / f"ref_{secs}s.wav"
+            AudioSample(samples=reference_wav(secs, secs),
+                        sample_rate=24000).save_wav(path)
+            refs[secs] = path
+            wav = load_reference_wav(path)
+            # the port on the CPU, the same weights
+            t_cpu = time.perf_counter()
+            with torch.no_grad():
+                xc = torch.from_numpy(wav)
+                z_cpu = enc_lib.encode_latents(ecfg, enc_cpu, xc[None])[0]
+                codes_cpu = enc_lib.rvq_encode(enc_cpu["codebooks"],
+                                               z_cpu[None])[0]
+                mel_cpu = log_mel(xc, scfg.sample_rate, scfg.n_fft,
+                                  scfg.hop_length, scfg.n_mels, scfg.fmin,
+                                  scfg.fmax)
+                emb_cpu = spk_lib.speaker_embed_from_mel(
+                    scfg, spk_cpu, mel_cpu[None])[0]
+            t_cpu = time.perf_counter() - t_cpu
+            # the card: each part alone, then create_voice_file
+            x = torch.from_numpy(wav).to(dev)
+            with torch.no_grad():
+                def mel_fn(i):
+                    return log_mel(x, scfg.sample_rate, scfg.n_fft,
+                                   scfg.hop_length, scfg.n_mels, scfg.fmin,
+                                   scfg.fmax)
+
+                mel = mel_fn(0)
+                z = enc_lib.encode_latents(ecfg, eng.codec_encoder_params,
+                                           x[None])
+                mel_ms = cuda_ms(mel_fn, 5, 1)
+                conv_ms = cuda_ms(lambda i: enc_lib.encode_latents(
+                    ecfg, eng.codec_encoder_params, x[None]), 5, 1)
+                rvq_ms = cuda_ms(lambda i: enc_lib.rvq_encode(
+                    eng.codec_encoder_params["codebooks"], z), 5, 1)
+                spk_ms = cuda_ms(lambda i: spk_lib.speaker_embed_from_mel(
+                    scfg, eng.speaker_params, mel[None]), 5, 1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            voice = eng.create_voice_file(path, CLONE_REF_TEXT)
+            wall = (time.perf_counter() - t1) * 1e3
+            voices[secs] = voice
+            codes = voice.codes_array
+            emb = voice.embedding_array
+            n_frames = len(wav) // enc_lib.samples_per_frame(ecfg)
+            same = np.array_equal(codes, codes_cpu.numpy())
+            mel_err = (mel.cpu() - mel_cpu).abs().max().item()
+            emb_err = float(np.abs(emb - emb_cpu.numpy()).max())
+            norm = float(np.linalg.norm(emb))
+            ok = (codes.shape == (n_frames, P.NUM_CODEBOOKS)
+                  and emb.shape == (P.SPEAKER_EMB_DIM,)
+                  and abs(norm - 1.0) < 1e-4 and bool(np.isfinite(emb).all()))
+            print(f"[clone] create_voice_file {secs} s ({len(wav)} samples): "
+                  f"codes {codes.shape} (expected ({n_frames}, 16)), "
+                  f"embedding {emb.shape} norm {norm:.6f}; card vs CPU: "
+                  f"codes equal={same}, log-mel {tuple(mel.shape)} max |diff| "
+                  f"{mel_err:.3e} (tol {CLONE_MEL_TOL}), embedding max |diff| "
+                  f"{emb_err:.3e} (tol {CLONE_EMB_TOL}); card ms (events): mel"
+                  f" {mel_ms:.3f}, encoder convs + projection {conv_ms:.3f}, "
+                  f"RVQ {rvq_ms:.3f}, speaker encoder {spk_ms:.3f}; "
+                  f"create_voice_file wall {wall:.1f} ms (WAV read, copies, "
+                  f"host sync included); the CPU's {t_cpu:.1f} s")
+            if not same:
+                diff = np.argwhere(codes != codes_cpu.numpy())
+                f_, q_ = (int(v) for v in diff[0])
+                margin, mag = rvq_margin(enc_cpu["codebooks"], z_cpu, f_, q_)
+                print(f"[clone] {secs} s: {len(diff)} codes differ, the "
+                      f"first at frame {f_}, stage {q_}: card "
+                      f"{codes[f_, q_]} CPU {int(codes_cpu[f_, q_])}; the "
+                      f"CPU's margin there {margin:.4e} (score {mag:.2f}); "
+                      f"card vs CPU z max |diff| "
+                      f"{(z[0].cpu() - z_cpu).abs().max().item():.3e}")
+                failures.append(f"clone {secs} s: the card's codes differ "
+                                f"from the CPU's")
+            if not (ok and mel_err <= CLONE_MEL_TOL
+                    and emb_err <= CLONE_EMB_TOL):
+                failures.append(f"clone {secs} s: voice off the CPU's or "
+                                f"malformed")
+
+        # warmup at the clone buckets (a prefill and a chunk each, the
+        # encoders on a second of silence), then generate: a miss (the
+        # encoder runs, the sidecar is written, the prefix KV filled), then
+        # a hit (the sidecar read, the prefix reused), greedy, MAX_STEPS
+        # frames
+        eng.set_max_steps(MAX_STEPS)
+        eng._prefix_kv.clear()
+        zero_counts(fns)
+        t1 = time.perf_counter()
+        eng.warmup(buckets=(256, 512), batch_sizes=(1,))
+        print(f"[clone] warmup(buckets=(256, 512)): "
+              f"{(time.perf_counter() - t1) * 1e3:.1f} ms, launches "
+              f"{read_counts(fns)}")
+        for secs, path in refs.items():
+            plan = eng._build_voice_prompt(CLONE_TEXT, voices[secs], None)
+            res = {}
+            for kind in ("miss", "hit"):
+                run = f"clone-{secs}s-{kind}"
+                eng.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+                zero_counts(fns)
+                enc_calls[0] = 0
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                audio = eng.generate(CLONE_TEXT, path, CLONE_REF_TEXT)
+                wall = (time.perf_counter() - t1) * 1e3
+                counts[run] = read_counts(fns)
+                m = eng.last_metrics
+                res[kind] = (eng.last_codes, enc_calls[0], len(eng._prefix_kv))
+                ok = audio_ok(audio, m.frames)
+                print(f"[clone] generate {secs} s reference, {kind}: prompt "
+                      f"{plan.length} rows (prefix {plan.prefix_len}), bucket "
+                      f"{eng._bucket(plan.length)}, frames {m.frames}, "
+                      f"finite and non-silent={ok}; prefill {m.prefill_ms:.2f}"
+                      f" ms, total {m.total_ms:.2f} ms, wall {wall:.1f} ms, "
+                      f"{(m.total_ms - m.prefill_ms) / max(m.frames, 1):.2f} "
+                      f"decode ms/frame; encoder calls {enc_calls[0]}, "
+                      f"sidecar {path.with_suffix('.cache').exists()}, prefix "
+                      f"entries {len(eng._prefix_kv)}; launches "
+                      f"{counts[run]}")
+                if not ok:
+                    failures.append(f"{run}: bad audio")
+                check_launches(run)
+            (c_miss, e_miss, n_miss), (c_hit, e_hit, n_hit) = (res["miss"],
+                                                               res["hit"])
+            eq = np.array_equal(c_miss, c_hit)
+            print(f"[clone] {secs} s: hit == miss greedy codes={eq}; encoder "
+                  f"calls miss {e_miss} / hit {e_hit}; prefill launches miss "
+                  f"{counts[f'clone-{secs}s-miss']['flash_gqa_prefill_stacked']}"
+                  f" / hit "
+                  f"{counts[f'clone-{secs}s-hit']['flash_gqa_prefill_stacked']}")
+            if not (eq and e_miss == 1 and e_hit == 0 and n_hit == n_miss):
+                failures.append(f"clone {secs} s: the sidecar or prefix "
+                                f"rerun differs")
+
+        # generate_stream with the cloned 10 s voice, then its rerun
+        ttfts = []
+        for rep in range(2):
+            eng.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+            zero_counts(fns)
+            got = list(eng.generate_stream(CLONE_TEXT, voices[10]))
+            ttfts.append(eng.last_metrics.ttft_ms)
+            if not rep:
+                counts["clone-stream"] = read_counts(fns)
+                chunks, m = got, eng.last_metrics
+        x = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+        ok = audio_ok(AudioSample(samples=x), m.frames)
+        print(f"[clone] generate_stream, cloned 10 s voice: {m.frames} frames "
+              f"in chunks {[len(c) // spf for c in chunks]}, finite and "
+              f"non-silent={ok}; TTFT {m.ttft_ms:.2f} ms (rerun "
+              f"{ttfts[1]:.2f}), prefill "
+              f"{m.prefill_ms:.2f} ms, mean chunk interval after the first "
+              f"{np.mean(m.chunk_ms[1:]) if len(m.chunk_ms) > 1 else 0:.2f} "
+              f"ms; launches {counts['clone-stream']}")
+        if not ok:
+            failures.append("clone stream: bad audio")
+        check_launches("clone-stream")
+
+        # a clone voice whose prompt fills the 4096-row bucket: random
+        # reference codes, the 10 s voice's embedding; the chunk kernel on
+        # a 5120-slot cache
+        rows = eng._build_voice_prompt(CLONE_TEXT, VoiceFile.new(
+            CLONE_REF_TEXT, [0] * 16, voices[10].embedding_array),
+            None).length - 1                      # the rows besides frames
+        n_ref = eng.config.runtime.max_prompt_len - rows - 2
+        rng = np.random.default_rng(4096)
+        big = VoiceFile.new(CLONE_REF_TEXT,
+                            rng.integers(0, P.CODEBOOK_SIZE, n_ref * 16),
+                            voices[10].embedding_array)
+        plan = eng._build_voice_prompt(CLONE_TEXT, big, None)
+        eng.set_max_steps(CLONE_BUCKET_FRAMES)
+        eng.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+        zero_counts(fns)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        audio = eng.generate_with_voice(CLONE_TEXT, big)
+        wall = (time.perf_counter() - t1) * 1e3
+        counts["clone-4096"] = read_counts(fns)
+        m = eng.last_metrics
+        ok = audio_ok(audio, m.frames) and m.frames == CLONE_BUCKET_FRAMES
+        print(f"[clone] 4096-row bucket: {n_ref} reference frames, prompt "
+              f"{plan.length} rows (prefix {plan.prefix_len}), bucket "
+              f"{eng._bucket(plan.length)}, {m.frames} frames, finite and "
+              f"non-silent={ok}; prefill {m.prefill_ms:.2f} ms, total "
+              f"{m.total_ms:.2f} ms, wall {wall:.1f} ms; launches "
+              f"{counts['clone-4096']}")
+        if not ok:
+            failures.append("clone 4096: bad audio")
+        check_launches("clone-4096")
+        eng._prefix_kv.clear()
+
+        # the 28-layer prefill of a 4096-row prompt (bench.py's
+        # clone_prefill_ms_4096: Generator.start, the least of three)
+        g = torch.Generator(device=dev).manual_seed(5)
+        e4 = torch.randn(1, 4096, P.TALKER_DIM, generator=g,
+                         device=dev) * 0.02
+        l4 = torch.full((1,), 4096, dtype=torch.int32, device=dev)
+        times = []
+        for rep in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                st = eng.generator.start(e4, l4, g)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+            ok = bool(torch.isfinite(st.logits).all())
+            del st
+        print(f"[clone] prefill of a 4096-row prompt (Generator.start, 28 "
+              f"layers, host clock with a device sync): first "
+              f"{times[0]:.2f} ms, then {[round(t, 2) for t in times[1:]]}; "
+              f"clone_prefill_ms_4096 = {min(times[1:]):.2f}; logits "
+              f"finite={ok}")
+        if not ok:
+            failures.append("clone prefill 4096: non-finite logits")
+    finally:
+        enc_lib.encode = real_encode
+        tmp.cleanup()
+    return counts
+
+
 # The weights phase: a synthetic model directory in the published layout
 # at full EngineConfig() widths and depths, read by
 # TtsEngine(quant="q8_0"): int8 device weights.  Its paths and the kernels
@@ -3534,13 +4030,16 @@ def write_model_dir(root, dev, seed: int = 11) -> dict:
     random init's scales: d^-0.5, (h * dh)^-0.5, d_ff^-0.5; unit norms)
     and qwen3_assets.gguf (tests/test_engine_gguf.py's row counts: text
     rows up to EOS_TOKEN, 3,100 codec rows), and codec/decoder.npz from
-    the codec's random init.  Returns {file: (seconds, bytes)}."""
+    the codec's random init, and codec/encoder.npz and codec/speaker.npz
+    from the cloning encoders'.  Returns {file: (seconds, bytes)}."""
     import numpy as np
     import torch
     from qwen3_tts_tpu_torch import EngineConfig
     from qwen3_tts_tpu_torch.core import protocol as P
     from qwen3_tts_tpu_torch.io.gguf import write_gguf
     from qwen3_tts_tpu_torch.models.codec import decoder as codec_decoder
+    from qwen3_tts_tpu_torch.models.codec import encoder as codec_encoder
+    from qwen3_tts_tpu_torch.models.codec import speaker as speaker_lib
 
     cfg = EngineConfig()
     gdir = root / "gguf_q8_0"
@@ -3621,6 +4120,19 @@ def write_model_dir(root, dev, seed: int = 11) -> dict:
     written["codec/decoder.npz"] = (
         time.perf_counter() - t0, (root / "codec" / "decoder.npz").stat()
         .st_size)
+    # the cloning encoders, in the JAX engine's flattened layout too
+    for name, init, sub in (
+            ("encoder.npz", codec_encoder.init_encoder_params,
+             cfg.codec_encoder),
+            ("speaker.npz", speaker_lib.init_speaker_params,
+             cfg.speaker_encoder)):
+        t0 = time.perf_counter()
+        flat = {}
+        with torch.no_grad():
+            walk(init(sub, g), "")
+        np.savez(root / "codec" / name, **flat)
+        written[f"codec/{name}"] = (time.perf_counter() - t0,
+                                    (root / "codec" / name).stat().st_size)
     return written
 
 
@@ -3703,6 +4215,27 @@ def drive_weights(dev, failures):
         if not (int8 and cached and same and not e1.dev_mode_components
                 and e1.fused and e1.chunk):
             failures.append("weights: the GGUF engine or its cache is wrong")
+        # a voice from reference audio on the encoders read from the npz
+        from qwen3_tts_tpu_torch.io.audio import AudioSample
+        ref = root / "ref.wav"
+        AudioSample(samples=reference_wav(2, 7),
+                    sample_rate=24000).save_wav(ref)
+        t0 = time.perf_counter()
+        voice = e1.create_voice_file(ref, "A reference.")
+        wall = (time.perf_counter() - t0) * 1e3
+        emb = voice.embedding_array
+        ok = (voice.codes_array.shape == (24, 16)
+              and bool(np.isfinite(emb).all())
+              and abs(float(np.linalg.norm(emb)) - 1.0) < 1e-4)
+        print(f"[weights] create_voice_file on codec/encoder.npz and "
+              f"codec/speaker.npz (neither random: "
+              f"{not {'codec_encoder', 'speaker_encoder'} & set(e1.dev_mode_components)}"
+              f"): 2 s reference, codes {voice.codes_array.shape}, embedding "
+              f"norm {float(np.linalg.norm(emb)):.6f}, {wall:.1f} ms; "
+              f"well-formed={ok}")
+        if not ok:
+            failures.append("weights: create_voice_file on the npz encoders "
+                            "is malformed")
         del e2, builds
         weights = dict(assets=e1.assets, talker=e1.talker_params,
                        predictor=e1.predictor_params,
@@ -3792,8 +4325,8 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="kernels,chunk,reference,engine,stream,serving,"
-                    "wave,weights",
+                    default="kernels,chunk,reference,engine,stream,clone,"
+                    "serving,wave,weights",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
     import torch
@@ -3834,7 +4367,8 @@ def main() -> int:
 
     phases = (("kernels", kernels), ("chunk", check_chunk),
               ("reference", check_reference), ("engine", drive_engine),
-              ("stream", drive_stream), ("serving", drive_serving), ("wave", drive_wave),
+              ("stream", drive_stream), ("clone", drive_clone),
+              ("serving", drive_serving), ("wave", drive_wave),
               ("weights", drive_weights))
     results = {}
     for name, fn in phases:
@@ -3853,6 +4387,7 @@ def main() -> int:
     kernels = []
     counts = {**(results.get("engine") or {}),
               **(results.get("stream") or {}),
+              **(results.get("clone") or {}),
               **(results.get("serving") or {}),
               **(results.get("wave") or {}),
               **(results.get("weights") or {})}
@@ -3863,7 +4398,7 @@ def main() -> int:
     paths = {**PATH_KERNELS, **STREAM_PATH_KERNELS,
              "serving-b8": SERVING_PATH_KERNELS["step"],
              "serving-exact": SERVING_PATH_KERNELS["exact"],
-             **WEIGHTS_PATH_KERNELS}
+             **WEIGHTS_PATH_KERNELS, **CLONE_PATH_KERNELS}
     for name, (src, replaces) in KERNELS.items():
         k = dict(measured.get(name, {}))
         by_path = {p: c.get(name, 0) for p, c in counts.items()}

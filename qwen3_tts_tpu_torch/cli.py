@@ -1,27 +1,29 @@
-"""Command line of the PyTorch port, with the JAX CLI's flags for the
-preset-voice path (qwen3_tts_tpu/cli.py):
+"""Command line of the PyTorch port, with the JAX CLI's flags
+(qwen3_tts_tpu/cli.py):
 
   python -m qwen3_tts_tpu_torch --text "..." [--speaker vivian]
       [--speakers-dir speakers] [--instruction "Happy"] [--max-steps 512]
       [--seed N] [--temperature 0.7] [--top-k 40] [--top-p 0.9]
       [--output output.wav] [--metrics] [--model-dir models] [--device cuda]
       [--quant none|q5_k_m|q8_0] [--talker-mode w4a8|int8|w8a8|bf16]
-      [--voice-file voice.json] [--stream] [--long] [--config cfg.json]
+      [--voice-file voice.json] [--ref-audio ref.wav --ref-text "..."]
+      [--save-voice voice.json] [--stream] [--long] [--config cfg.json]
 
 --model-dir is read in the published layout (TtsEngine): the GGUF files
 under gguf/ (--quant none) or gguf_<quant>/, the codec decoder under
-codec/decoder.npz; a component without its file runs on random weights,
-with a warning.  --quant other than none gives int8 device weights.
+codec/decoder.npz, codec/encoder.npz and codec/speaker.npz; a component
+without its file runs on random weights, with a warning.  --quant other than none gives int8 device weights.
 --talker-mode other than w4a8 runs the per-kernel decode path with that
 talker-step weight mode (the chunk kernel is w4a8).
 
 --voice-file reads a voice (io/voice_file; one with reference codes
-prompts as a clone) in place of --speaker.  --stream synthesizes through
-TtsEngine.generate_stream and prints one line per chunk and the time to
-the first chunk; --long (without --stream) synthesizes sentence by
-sentence (TtsEngine.generate_long).  --config reads an EngineConfig from
-a json or toml file.  --ref-audio is accepted and refused: cloning from
-audio is not ported yet.
+prompts as a clone) in place of --speaker.  --ref-audio (a 24 kHz WAV)
+clones its voice instead (TtsEngine.create_voice_file, with --ref-text as
+the reference's transcript), and --save-voice writes that voice as JSON.
+--stream synthesizes through TtsEngine.generate_stream and prints one
+line per chunk and the time to the first chunk; --long (without --stream)
+synthesizes sentence by sentence (TtsEngine.generate_long).  --config
+reads an EngineConfig from a json or toml file.
 """
 
 from __future__ import annotations
@@ -30,8 +32,6 @@ import argparse
 import json
 import time
 from pathlib import Path
-
-NOT_PORTED = ("ref_audio",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,6 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "attention instead of the CUDA kernels)")
     p.add_argument("--voice-file", "-v", type=Path,
                    help="voice JSON file (in place of --speaker)")
+    p.add_argument("--ref-audio", type=Path,
+                   help="24 kHz reference WAV whose voice is cloned")
+    p.add_argument("--ref-text", help="transcript of --ref-audio")
+    p.add_argument("--save-voice", type=Path,
+                   help="write the voice cloned from --ref-audio as JSON")
     p.add_argument("--stream", action="store_true",
                    help="stream the audio chunk by chunk")
     p.add_argument("--long", action="store_true",
@@ -70,18 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "with --stream)")
     p.add_argument("--config", type=Path, default=None,
                    help="EngineConfig json/toml file")
-    # accepted for compatibility with the JAX CLI, refused below
-    p.add_argument("--ref-audio", type=Path, help="not yet ported")
     return p
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for name in NOT_PORTED:
-        if getattr(args, name):
-            parser.error(f"--{name.replace('_', '-')} is not yet ported to "
-                         "qwen3_tts_tpu_torch")
+    args = build_parser().parse_args(argv)
     t_total = time.perf_counter()
 
     from .core.config import EngineConfig, SamplerConfig
@@ -101,7 +99,13 @@ def main(argv=None) -> int:
         seed=args.seed))
     print(f"Device: {engine.device}  sampler: temp={args.temperature} "
           f"top_k={args.top_k} top_p={args.top_p} seed={args.seed}")
-    if args.voice_file is not None:
+    if args.ref_audio is not None:
+        print(f"Creating voice from reference: {args.ref_audio}")
+        voice = engine.create_voice_file(args.ref_audio, args.ref_text or "")
+        if args.save_voice:
+            voice.save(args.save_voice)
+            print(f"Saved voice file to {args.save_voice}")
+    elif args.voice_file is not None:
         voice = VoiceFile.load(args.voice_file)
     else:
         voice = engine.get_speaker(args.speaker or "vivian")

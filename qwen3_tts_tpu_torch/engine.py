@@ -1,9 +1,10 @@
-"""TtsEngine: the top-level facade.  Counterpart of qwen3_tts_tpu/engine.py,
-for the preset-voice synthesis path:
+"""TtsEngine: the top-level facade.  Counterpart of qwen3_tts_tpu/engine.py:
 
     engine = TtsEngine("models", quant="q8_0", device="cuda")
     engine.set_max_steps(512); engine.set_sampler_config(SamplerConfig(...))
     audio = engine.generate_with_voice(text, engine.get_speaker("vivian"))
+    voice = engine.create_voice_file("ref.wav", "ref text")
+    audio = engine.generate(text, "ref.wav", "ref text")
 
 A request is one prompt plan, assembled and prefilled on the device, then
 the bulk loop (runtime/generate._gen_bulk) over 4-frame chunks, each
@@ -13,18 +14,20 @@ Weights, in the JAX engine's order (qwen3_tts_tpu/engine.py), from
 `model_dir` in the published layout: the assets
 (`<weights dir>/qwen3_assets.gguf`, io/assets), the tokenizer, the talker
 and predictor (`qwen3_tts_talker.gguf`, `qwen3_tts_predictor.gguf`,
-io/weights: dims from the GGUF metadata), the codec decoder
-(`codec/decoder.npz`).  The weights dir is `gguf/` for quant="none",
-`gguf_q5_k_m/` / `gguf_q8_0/` for "q5_k_m" / "q8_0" (QUANT_DIRS).  A
-component without its file runs on deterministic random weights
-(development mode) at the configured widths, and the engine says so
-loudly.  EngineConfig.int8_weights (None: quant != "none") quantizes the
-talker's and predictor's layers and heads to int8 device weights
-(ops.quant).  With weight_cache=True (the JAX package's QTTS_WEIGHT_CACHE)
-the converted talker and predictor are saved under `model_dir/cache/`
-(io/checkpoint) and read back by later engines.  `weights=` hands the
-components in directly (io/from_jax builds them from the JAX package's
-arrays) and reads no file.
+io/weights: dims from the GGUF metadata), the codec decoder, codec
+encoder and speaker encoder (`codec/decoder.npz`, `codec/encoder.npz`,
+`codec/speaker.npz`, in their configs' dtypes).  The weights dir is
+`gguf/` for quant="none", `gguf_q5_k_m/` / `gguf_q8_0/` for "q5_k_m" /
+"q8_0" (QUANT_DIRS).  A component without its file runs on deterministic
+random weights (development mode) at the configured widths, and the
+engine says so loudly.  EngineConfig.int8_weights (None: quant != "none")
+quantizes the talker's and predictor's layers and heads to int8 device
+weights (ops.quant).  With weight_cache=True (the JAX package's
+QTTS_WEIGHT_CACHE) the converted talker and predictor are saved under
+`model_dir/cache/` (io/checkpoint) and read back by later engines.
+`weights=` hands the components in directly (io/from_jax builds them from
+the JAX package's arrays) and reads no file; a cloning encoder it does
+not hold runs on random weights.
 
 Decode paths: `TtsEngine(fused=None, chunk=None)` (the defaults) resolve
 once, at construction, as the JAX package resolves its own defaults.
@@ -72,8 +75,21 @@ after a copy of the prefix KV kept in an LRU of QTTS_PREFIX_CACHE_SIZE
 entries (default 4; QTTS_PREFIX_CACHE=0 turns it off).  A miss prefills
 the whole prompt once to fill the entry and then also goes through the
 continued prefill, so that a voice's synthesis is the same from its first
-request on.  Voice cloning from audio and the ONNX codec are not ported
-yet and raise NotImplementedError.
+request on.
+
+Voice cloning from reference audio (`create_voice_file`, `generate`): the
+24 kHz reference goes through the codec encoder (models/codec/encoder:
+[frames, 16] RVQ codes) and the speaker encoder (ops/mel's log-mel, then
+models/codec/speaker: a unit-norm 2048-d embedding) on the engine's
+device; `generate` keeps both in a `.cache` sidecar beside the WAV
+(io/cache, the reference implementation's format), read on later calls,
+and prompts as a clone (PromptBuilder.plan_clone), whose reference rows
+are its prefix and so go through the prefix-KV path above.  The ONNX
+codec (decoder, encoder, speaker encoder under `onnx/`) is not ported:
+where `codec/encoder.npz` or `codec/speaker.npz` is missing and its ONNX
+file is present, `create_voice_file` and `generate` raise
+NotImplementedError naming the file; they never run random weights in its
+place.
 """
 
 from __future__ import annotations
@@ -82,21 +98,24 @@ import collections
 import os
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .core import protocol as P
 from .core.config import EngineConfig, SamplerConfig
+from .io import cache as cache_io
 from .io import checkpoint as ckpt_io
 from .io import weights as weights_io
 from .io.assets import Assets
-from .io.audio import AudioSample
+from .io.audio import AudioSample, load_reference_wav
 from .io.voice_file import VoiceFile
 from .models import predictor as predictor_lib
 from .models import talker as talker_lib
 from .models.codec import decoder as codec_decoder
+from .models.codec import encoder as codec_encoder
+from .models.codec import speaker as speaker_lib
 from .models.transformer import dtype_of
 from .ops import quant as quant_ops
 from .prompt import PromptBuilder, PromptPlan, assemble
@@ -112,6 +131,13 @@ class PromptTooLongError(ValueError):
 
 
 QUANT_DIRS = {"q5_k_m": "gguf_q5_k_m", "q8_0": "gguf_q8_0"}
+
+# the cloning encoders: component -> (npz under model_dir/codec, the ONNX
+# file under model_dir/onnx that the port does not run)
+CLONE_PARTS = {
+    "codec_encoder": ("encoder.npz", "qwen3_tts_codec_encoder.onnx"),
+    "speaker_encoder": ("speaker.npz", "qwen3_tts_speaker_encoder.onnx"),
+}
 
 # EngineConfig fields the port does not read (see core/config.py), by
 # sub-config ("" = EngineConfig itself)
@@ -156,8 +182,9 @@ class TtsEngine:
                  weight_cache: bool = True):
         """model_dir, quant: where the weights are read (module docstring);
         weights: optional {"assets": Assets, "talker", "predictor",
-        "codec_decoder": param dicts} already on `device`, read instead of
-        any file; init_seed: the seed of development weights.  fused,
+        "codec_decoder" and optionally "codec_encoder", "speaker_encoder":
+        param dicts} already on `device`, read instead of any file;
+        init_seed: the seed of development weights.  fused,
         chunk, talker_mode: the decode path (module docstring); None,
         None = the chunk path on a CUDA device, the exact path on the CPU.
         a8_prefill: a8w8 prompt prefill on int8 weights.  weight_cache:
@@ -181,6 +208,7 @@ class TtsEngine:
         self.last_codes: Optional[np.ndarray] = None
         self.dev_mode_components: list = []
         self.load_seconds: Dict[str, float] = {}   # build time by part
+        self.onnx_only: Dict[str, Path] = {}        # part -> unported file
         self.weight_sources: Dict[str, str] = {}   # LM: "gguf" or "cache"
         # prompt-prefix KV, (fingerprint, p_cap) -> (k, v): contiguous
         # copies of p_cap slots, least recently used first
@@ -199,10 +227,19 @@ class TtsEngine:
                                                 "codec_head"),
                            predictor=self._int8_lm(weights["predictor"],
                                                    "lm_head"))
+        if any(name not in weights for name in CLONE_PARTS):
+            weights = dict(weights)
+            for name in CLONE_PARTS:
+                if name not in weights:
+                    weights[name] = self._random_component(name, init_seed)
+            self._warn_dev_mode()
         self.assets: Assets = weights["assets"]
         self.talker_params = weights["talker"]
         self.predictor_params = weights["predictor"]
         self.codec_decoder_params = weights["codec_decoder"]
+        # None where only the ONNX file exists (self.onnx_only names it)
+        self.codec_encoder_params = weights["codec_encoder"]
+        self.speaker_params = weights["speaker_encoder"]
         self.tokenizer = Tokenizer.load(self.model_dir)
 
         self.talker_mode = talker_mode
@@ -297,6 +334,21 @@ class TtsEngine:
             load_npz(path, dev, dtype_of(cfg.codec_decoder.dtype))
             if path.exists() else
             self._random_component("codec_decoder", seed))
+        for name, (npz, onnx) in CLONE_PARTS.items():
+            path = self.model_dir / "codec" / npz
+            onnx_path = self.model_dir / "onnx" / onnx
+            if path.exists():
+                out[name] = load_npz(path, dev,
+                                     dtype_of(getattr(cfg, name).dtype))
+            elif onnx_path.exists():
+                out[name] = None
+                self.onnx_only[name] = onnx_path
+                get_logger().warning(
+                    f"{name}: only {onnx_path} is present, and the ONNX "
+                    "codec is not ported: cloning from reference audio "
+                    "raises NotImplementedError")
+            else:
+                out[name] = self._random_component(name, seed)
         self._warn_dev_mode()
         return out
 
@@ -317,7 +369,8 @@ class TtsEngine:
         mode): the JAX init's shapes, scales and dtypes, other draws."""
         self.dev_mode_components.append(name)
         cfg = self.config
-        i = ("assets", "talker", "predictor", "codec_decoder").index(name)
+        i = ("assets", "talker", "predictor", "codec_decoder",
+             "codec_encoder", "speaker_encoder").index(name)
         g = torch.Generator(device=self.device).manual_seed(seed + i)
         with torch.no_grad():
             if name == "assets":
@@ -326,6 +379,10 @@ class TtsEngine:
                 return talker_lib.init_talker_params(cfg.talker, g)
             if name == "predictor":
                 return predictor_lib.init_predictor_params(cfg.predictor, g)
+            if name == "codec_encoder":
+                return codec_encoder.init_encoder_params(cfg.codec_encoder, g)
+            if name == "speaker_encoder":
+                return speaker_lib.init_speaker_params(cfg.speaker_encoder, g)
             return codec_decoder.init_decoder_params(cfg.codec_decoder, g)
 
     def _warn_dev_mode(self) -> None:
@@ -337,7 +394,8 @@ class TtsEngine:
             f"[{', '.join(self.dev_mode_components)}] under "
             f"{self.model_dir} (quant={self.quant!r}) — synthesis will be "
             "NOISE, not speech.  Place the model files (gguf*/*.gguf, "
-            "codec/decoder.npz) in the model dir.")
+            "codec/decoder.npz, codec/encoder.npz, codec/speaker.npz) in the "
+            "model dir.")
 
     # ------------------------------------------------------------------ API
     def set_max_steps(self, steps: int) -> None:
@@ -385,12 +443,110 @@ class TtsEngine:
 
     def generate(self, text: str, ref_audio_path, ref_text: str,
                  instruct: Optional[str] = None) -> AudioSample:
-        raise NotImplementedError("voice cloning from reference audio is "
-                                  "not yet ported")
+        """Clone the voice of a 24 kHz reference WAV (its codes and speaker
+        embedding from the `.cache` sidecar where one loads,
+        _process_reference) and synthesize `text` in it."""
+        codes, emb = self._process_reference(ref_audio_path)
+        plan = PromptBuilder.plan_clone(
+            text, self.tokenizer, ref_codes=codes,
+            ref_text_ids=self.tokenizer.encode(ref_text),
+            spk_emb=self._safe_emb(emb), lang_id=self.config.lang_id,
+            instruct=instruct)
+        return self._run_inference(plan)
 
     def create_voice_file(self, audio_path, ref_text: str) -> VoiceFile:
-        raise NotImplementedError("voice cloning from reference audio is "
-                                  "not yet ported")
+        """A clone VoiceFile of a 24 kHz reference WAV: its codec codes
+        (flattened [frames, 16]) and speaker embedding, computed on the
+        engine's device."""
+        codes, emb = self.encode_reference(load_reference_wav(audio_path))
+        return VoiceFile.new(ref_text, codes.reshape(-1), emb)
+
+    @torch.no_grad()
+    def encode_reference(self, wav: np.ndarray) -> Tuple[np.ndarray,
+                                                         np.ndarray]:
+        """Reference samples f32 [T] at 24 kHz -> (codes int32 [T // 2000,
+        16], speaker embedding f32 [2048]).  Raises NotImplementedError
+        where an encoder exists only as an ONNX file."""
+        if self.onnx_only:
+            name, path = next(iter(self.onnx_only.items()))
+            raise NotImplementedError(
+                f"{name}: the model dir has only {path}, and the ONNX codec "
+                "is not ported to qwen3_tts_tpu_torch; convert it to "
+                f"codec/{CLONE_PARTS[name][0]}")
+        x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(
+            self.device)
+        codes = codec_encoder.encode(self.config.codec_encoder,
+                                     self.codec_encoder_params, x[None])
+        emb = speaker_lib.speaker_embed(self.config.speaker_encoder,
+                                        self.speaker_params, x)
+        return codes[0].cpu().numpy(), emb[0].cpu().numpy()
+
+    def _process_reference(self, audio_path) -> Tuple[np.ndarray, np.ndarray]:
+        """Codes + speaker embedding of a reference WAV through its
+        `.cache` sidecar: read where it loads; else computed and written
+        (a sidecar that cannot be written is skipped)."""
+        audio_path = Path(audio_path)
+        cache_path = audio_path.with_suffix(".cache")
+        if cache_path.exists():
+            try:
+                return cache_io.load_cache(cache_path)
+            except (OSError, ValueError) as e:
+                get_logger().warning("recomputing the unreadable reference "
+                                     "cache %s: %r", cache_path, e)
+        codes, emb = self.encode_reference(load_reference_wav(audio_path))
+        codes = codes.astype(np.int64).reshape(-1)
+        try:
+            cache_io.save_cache(cache_path, codes, emb)
+        except OSError as e:
+            get_logger().warning("reference cache %s not written: %r",
+                                 cache_path, e)
+        return codes, emb
+
+    @torch.no_grad()
+    def decode_codes(self, codes) -> AudioSample:
+        """Raw codec codes ([frames, 16] or flattened; a trailing partial
+        frame dropped) to audio through the codec decoder, e.g. to listen
+        to a VoiceFile's reference codes."""
+        codes = np.asarray(codes, np.int32).reshape(-1)
+        n = len(codes) // P.NUM_CODEBOOKS
+        frames = torch.from_numpy(np.ascontiguousarray(
+            codes[: n * P.NUM_CODEBOOKS].reshape(1, n, P.NUM_CODEBOOKS)))
+        cfg = self.config.codec_decoder
+        state = codec_decoder.init_decoder_state(cfg, 1, self.device)
+        wav, _ = codec_decoder.decode_chunk(
+            cfg, self.codec_decoder_params, frames.to(self.device), state)
+        return AudioSample(samples=wav[0].float().cpu().numpy(),
+                           sample_rate=P.SAMPLE_RATE, channels=1)
+
+    @torch.no_grad()
+    def warmup(self, buckets=(32, 64, 128), batch_sizes=(1,),
+               frames: Optional[int] = None) -> None:
+        """Build the kernels and make the device's plans before the first
+        request, so that none pays for them: for each batch size and
+        prompt bucket one prefill and one chunk of `frames` (default
+        frames_per_chunk) with its audio, from zero prompts (the chunk
+        kernel's scratch for that batch and cache capacity), then one
+        second of silence through the mel, codec encoder and speaker
+        encoder where both are loaded (the cuFFT and cuDNN plans).  No
+        request's state, sampler or prefix entry changes.  The JAX
+        engine's ONNX-codec branch is not ported."""
+        frames = frames or self.config.runtime.frames_per_chunk
+        sampler = SamplerParams.make(self.sampler_config)
+        dev = self.device
+        for b in batch_sizes:
+            for bucket in buckets:
+                state = self.generator.start(
+                    torch.zeros((b, bucket, P.TALKER_DIM), device=dev),
+                    torch.full((b,), bucket, dtype=torch.int32, device=dev),
+                    torch.Generator(device=dev).manual_seed(0))
+                dec_state = codec_decoder.init_decoder_state(
+                    self.config.codec_decoder, b, dev)
+                self.generator.chunk_with_audio(state, dec_state, sampler,
+                                                prompt_cap=bucket,
+                                                n_frames=frames)
+        if not self.onnx_only:
+            self.encode_reference(np.zeros(P.SAMPLE_RATE, np.float32))
+        self._sync()
 
     def generate_stream(self, text: str, voice: VoiceFile,
                         instruct: Optional[str] = None

@@ -48,12 +48,39 @@ def assets_from_arrays(a: Dict[str, Any], device="cpu") -> Assets:
 
 
 def engine_weights(assets: Dict[str, Any], talker, predictor, codec_decoder,
-                   device="cpu") -> Dict[str, Any]:
-    """The `weights` argument of TtsEngine from the JAX package's arrays."""
-    return {"assets": assets_from_arrays(assets, device),
-            "talker": tree_to_torch(talker, device),
-            "predictor": tree_to_torch(predictor, device),
-            "codec_decoder": tree_to_torch(codec_decoder, device)}
+                   device="cpu", codec_encoder=None,
+                   speaker_encoder=None) -> Dict[str, Any]:
+    """The `weights` argument of TtsEngine from the JAX package's arrays;
+    the cloning encoders (encoder_from_jax, speaker_from_jax) when given."""
+    out = {"assets": assets_from_arrays(assets, device),
+           "talker": tree_to_torch(talker, device),
+           "predictor": tree_to_torch(predictor, device),
+           "codec_decoder": tree_to_torch(codec_decoder, device)}
+    if codec_encoder is not None:
+        out["codec_encoder"] = encoder_from_jax(codec_encoder, device)
+    if speaker_encoder is not None:
+        out["speaker_encoder"] = speaker_from_jax(speaker_encoder, device)
+    return out
+
+
+def encoder_from_jax(params, device="cpu") -> Dict[str, Any]:
+    """models/codec/encoder's params from the JAX engine's
+    `codec_encoder_params`: in_conv {w, b}, the tuple of stages {w, b}
+    (a list here), out_proj, codebooks; layouts kept."""
+    p = tree_to_torch(params, device)
+    if set(p) != {"in_conv", "stages", "out_proj", "codebooks"}:
+        raise ValueError(f"not a codec encoder tree: {sorted(p)}")
+    return p
+
+
+def speaker_from_jax(params, device="cpu") -> Dict[str, Any]:
+    """models/codec/speaker's params from the JAX engine's
+    `speaker_params`: in_proj, the tuple of convs {w, b} (a list here),
+    head and, for attentive pooling, attn_w and attn_v; layouts kept."""
+    p = tree_to_torch(params, device)
+    if not {"in_proj", "convs", "head"} <= set(p):
+        raise ValueError(f"not a speaker encoder tree: {sorted(p)}")
+    return p
 
 
 def talker_w4a8_from_jax(layer_w: Dict[str, Any], device="cpu"

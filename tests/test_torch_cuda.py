@@ -1175,3 +1175,49 @@ def test_flash_gqa_decode_matches_plain_and_stacked(dev, dh, h, hkv):
     assert bool(((got.float() - want).abs()
                  <= DECODE_ATOL + DECODE_RTOL * want.abs()).all())
     assert fd.flash_gqa_decode.combine_launches == n0
+
+
+# Voice cloning's modules on the card against the CPU, the same weights
+# (full EngineConfig() widths, seeded) and a 2 s reference: f32 with TF32
+# off (engine.set_cuda_precision), cuFFT / cuDNN / cuBLAS summing in other
+# orders than the CPU: codes equal, log-mel within 1e-3 (absolute, natural
+# log), the unit-norm embedding within 1e-4 (chip_smoke.py's clone phase
+# holds 10 s and 30 s references the same way).
+@pytest.mark.parametrize("pooling", ["attentive", "xvector"])
+def test_clone_encoders_match_cpu(dev, pooling):
+    from qwen3_tts_tpu_torch.core.config import (EngineConfig,
+                                                 SpeakerEncoderConfig)
+    from qwen3_tts_tpu_torch.engine import set_cuda_precision
+    from qwen3_tts_tpu_torch.models.codec import encoder as enc
+    from qwen3_tts_tpu_torch.models.codec import speaker as spk
+    from qwen3_tts_tpu_torch.ops.mel import log_mel
+
+    set_cuda_precision()
+    cfg = EngineConfig()
+    scfg = SpeakerEncoderConfig(pooling=pooling)
+    g = torch.Generator().manual_seed(13)
+    ep = enc.init_encoder_params(cfg.codec_encoder, g)
+    sp = spk.init_speaker_params(scfg, g)
+
+    def on(tree, d):
+        if isinstance(tree, dict):
+            return {k: on(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [on(v, d) for v in tree]
+        return tree.to(d)
+
+    t = np.arange(48000 + 123) / 24000.0
+    wav = torch.from_numpy((0.3 * np.sin(2 * np.pi * 150 * t)
+                            + 0.05 * np.random.default_rng(1).standard_normal(
+                                t.shape)).astype(np.float32))
+    with torch.no_grad():
+        want = (enc.encode(cfg.codec_encoder, ep, wav[None]), log_mel(wav),
+                spk.speaker_embed(scfg, sp, wav))
+        x = wav.to(dev)
+        got = (enc.encode(cfg.codec_encoder, on(ep, dev), x[None]),
+               log_mel(x), spk.speaker_embed(scfg, on(sp, dev), x))
+    assert got[0].shape == (1, 24, 16)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert (got[1].cpu() - want[1]).abs().max().item() <= 1e-3
+    assert (got[2].cpu() - want[2]).abs().max().item() <= 1e-4
+    assert abs(got[2].norm().item() - 1.0) < 1e-4

@@ -175,26 +175,22 @@ def test_buckets_and_plan_arrays_match_jax(pair):
         np.testing.assert_array_equal(ta[key], ja[key], err_msg=key)
 
 
-def test_speakers_and_unported_paths(pair):
+def test_speakers_and_unported_paths(pair, tmp_path):
     _, te = pair
     assert te.get_speaker("no_such_voice").name == "vivian"
     voice = te.get_speaker("vivian")
     te.set_max_steps(2)
     assert next(iter(te.generate_stream("x", voice))).dtype == np.float32
-    with pytest.raises(NotImplementedError):
-        te.generate("x", "ref.wav", "ref")
+    # cloning from reference audio is ported (tests/test_torch_clone.py)
+    from qwen3_tts_tpu_torch.io.audio import AudioSample
+    ref = tmp_path / "ref.wav"
+    AudioSample(samples=np.full(20, 0.1, np.float32)).save_wav(ref)
+    audio = te.generate("x", ref, "ref")
+    assert np.isfinite(audio.samples).all() and audio.sample_rate == 24000
+    assert ref.with_suffix(".cache").exists()
     from qwen3_tts_tpu_torch.engine import PromptTooLongError
     with pytest.raises(PromptTooLongError):
         te.generate_with_voice("x" * 200, voice)
-
-
-@pytest.mark.parametrize("flag", [["--ref-audio", "r.wav"]])
-def test_cli_refuses_unported_flags(flag, capsys):
-    from qwen3_tts_tpu_torch.cli import main
-    with pytest.raises(SystemExit) as e:
-        main(["--text", "hi", "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "not yet ported" in capsys.readouterr().err
 
 
 def test_imports_without_jax():

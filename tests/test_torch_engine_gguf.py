@@ -30,6 +30,8 @@ import torch
 
 from qwen3_tts_tpu.core.config import SamplerConfig as JS
 from qwen3_tts_tpu.models.codec import decoder as jcd
+from qwen3_tts_tpu.models.codec import encoder as jenc
+from qwen3_tts_tpu.models.codec import speaker as jspk
 from qwen3_tts_tpu_torch.core.config import EngineConfig as TC
 from qwen3_tts_tpu_torch.core.config import SamplerConfig as TS
 from qwen3_tts_tpu_torch.engine import TtsEngine
@@ -66,6 +68,11 @@ def engines(gguf_model_dir):  # noqa: F811
     (root / "codec").mkdir(exist_ok=True)
     dec = jcd.init_decoder_params(cfg.codec_decoder, jax.random.PRNGKey(5))
     np.savez(root / "codec" / "decoder.npz", **_flatten(dec))
+    # the cloning encoders too, so that the engines hold no random part
+    enc = jenc.init_encoder_params(cfg.codec_encoder, jax.random.PRNGKey(6))
+    np.savez(root / "codec" / "encoder.npz", **_flatten(enc))
+    spk = jspk.init_speaker_params(cfg.speaker_encoder, jax.random.PRNGKey(7))
+    np.savez(root / "codec" / "speaker.npz", **_flatten(spk))
     from qwen3_tts_tpu.engine import TtsEngine as JaxEngine
     old = os.environ.get("QTTS_WEIGHT_CACHE")
     os.environ["QTTS_WEIGHT_CACHE"] = "0"
