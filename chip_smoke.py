@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py [--phases kernels,chunk,reference,engine,stream,
-                                    clone,serving,wave,weights]
+                                    clone,onnx,serving,wave,weights]
 
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
@@ -107,16 +107,29 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      and not the step kernels; a cloned stream's TTFT; a clone voice whose
      prompt fills the 4096-row bucket for 8 frames on the chunk kernel;
      the 28-layer prefill of a 4096-row prompt (Generator.start).
-  8. serving: continuous batching (serve/continuous.py) at batch 8 and 32
+  8. onnx: the ONNX codec, a model directory laid out as the reference
+     ships it (onnx/qwen3_tts_decoder.onnx, ..._codec_encoder.onnx,
+     ..._speaker_encoder.onnx: the graphs of tests/torch_onnx_fixtures.py
+     at the published contract's widths, written from a seed under
+     qwen3_tts_tpu_torch/build/ and removed at the end) beside the engine
+     phase's LMs: the decoder graph alone (one 8-frame call against 4 + 4
+     chunked calls, the port on the CPU and the numpy reference; an 8-lane
+     decode_batch against each lane alone; a 4-frame call timed beside the
+     native decode_chunk), a greedy 32-frame request whose codes equal a
+     native-codec engine's (8 chunk-kernel launches, one 28-layer
+     prefill), a stream, stream_batch at 8 lanes, a wave of 8 and a
+     continuous queue at batch 8 (each lane against a decode of its own
+     codes), and a clone from a 10 s reference through the encoder graphs.
+  9. serving: continuous batching (serve/continuous.py) at batch 8 and 32
      on the default engine (per-lane cursors: the step schedule) and at
      batch 4 on the exact path (flash_gqa_decode_append), each queue's
      audio digest printed.
-  9. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
+  10. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
      engine at batch 8, 16 and 32 (the batched chunk kernel), a
      mixed-budget run with a padded last wave, and batch 8 on a chunk=False
      engine (the step schedule); launch counts, frames/s, per-stream RTF
      and one profiled wave per batch size.
-  10. weights: the deployed weight path at full width: a synthetic model
+  11. weights: the deployed weight path at full width: a synthetic model
      directory (F16 talker and predictor GGUFs under llama.cpp names,
      the assets GGUF, codec/decoder.npz, encoder.npz and speaker.npz;
      written from a seed, ~4.8 GB, removed at the end),
@@ -3996,6 +4009,450 @@ def drive_clone(dev, failures):
     return counts
 
 
+# the ONNX codec phase: a model directory laid out as the reference ships
+# it (onnx/ graphs of tests/torch_onnx_fixtures.py at the published
+# contract's widths) beside the engine phase's full-width LMs
+ONNX_FRAMES = 32
+ONNX_PATH_KERNELS = {"onnx": ("flash_gqa_prefill_stacked", "gen_chunk_fused")}
+ONNX_FORBIDDEN = {"onnx": ("talker_step_fused", "predict_frame_fused")}
+# a 32-frame greedy request at bucket 32: one 28-layer prefill, 8 chunks
+ONNX_LAUNCHES = {"flash_gqa_prefill_stacked": 28, "gen_chunk_fused": 8}
+# one decoder call against chunked calls, lanes of one decode_batch and a
+# stream's pieces against whole decodes: f32 with TF32 off, cuDNN's and
+# cuBLAS's sums in the orders their shapes pick (held with
+# tests/test_onnx_codec.py's rtol 1e-4 beside an atol of 1e-5); against
+# the port on the CPU likewise; against the numpy reference within
+# test_full_scale_contract_replica's rtol 1e-3, atol 1e-4; batching's lanes
+# against decodes of their own codes within 1e-4
+ONNX_RTOL, ONNX_ATOL = 1e-4, 1e-5
+ONNX_REF_RTOL, ONNX_REF_ATOL = 1e-3, 1e-4
+ONNX_LANE_TOL = 1e-4
+ONNX_EMB_TOL = 1e-5
+
+
+def drive_onnx(dev, failures):
+    """The ONNX codec at the published contract's widths: the decoder graph
+    (FULL: 512-channel pre-conv history, 1024-d latents, 8 x 16 heads of
+    64, 2000 samples a frame), the audio-encoder graph (16 RVQ stages of
+    2048 codes, 2000-sample hop) and the speaker-encoder graph (128 mels
+    -> 2048), written from a seed under qwen3_tts_tpu_torch/build/ and
+    removed at the end, beside the engine phase's full-width LMs on seeded
+    development weights.  The decoder alone: one call against 4 + 4
+    chunked calls, the port on the CPU and the numpy reference, an 8-lane
+    decode_batch against each lane alone; a 4-frame call timed (CUDA
+    events, host wall, the run's enqueue, nodes, profiled launches) beside
+    the native decode_chunk.  The engine (chunk path, greedy, bucket 32,
+    32 frames): codes equal a native-codec engine's on the same weights,
+    audio a decode of them, the prefill and chunk kernels' launches; a
+    stream against a decode of its own codes (TTFT, chunk intervals);
+    stream_batch at 8 lanes, a wave of 8 and a continuous-batching queue
+    at batch 8, each lane against a decode of its own codes; clone from a
+    10 s reference through the two encoder graphs against the port on the
+    CPU.  Returns {"onnx": {kernel: launches}}."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_onnx_fixtures as tfx
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.core.config import EngineConfig
+    from qwen3_tts_tpu_torch.io.audio import AudioSample, load_reference_wav
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import talker_step_fused
+    from qwen3_tts_tpu_torch.models.codec import decoder as codec_decoder
+    from qwen3_tts_tpu_torch.models.codec.onnx_decoder import (
+        OnnxAudioEncoder, OnnxSpeakerEncoder, OnnxStreamingDecoder)
+    from qwen3_tts_tpu_torch.ops.mel import log_mel
+    from qwen3_tts_tpu_torch.serve import codec_path
+    from qwen3_tts_tpu_torch.serve.batch import (BatchRequest,
+                                                 BatchSynthesizer)
+    from qwen3_tts_tpu_torch.serve.continuous import ContinuousBatcher
+
+    fns = {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, talker_step_fused, predict_frame_fused,
+        gen_chunk_fused)}
+
+    def close(a, b, rtol, atol):
+        a, b = np.asarray(a), np.asarray(b)
+        err = float(np.abs(a - b).max()) if a.size else 0.0
+        return (a.shape == b.shape
+                and bool(np.all(np.abs(a - b) <= atol + rtol * np.abs(b))),
+                err)
+
+    def peak(x):
+        return float(np.abs(x).max()) if np.size(x) else 0.0
+
+    root = (Path(__file__).resolve().parent / "qwen3_tts_tpu_torch" / "build"
+            / f"onnx_model_{os.getpid()}")
+    counts = {}
+    try:
+        t0 = time.perf_counter()
+        (root / "onnx").mkdir(parents=True)
+        dec_path = root / "onnx" / "qwen3_tts_decoder.onnx"
+        enc_path = root / "onnx" / "qwen3_tts_codec_encoder.onnx"
+        spk_path = root / "onnx" / "qwen3_tts_speaker_encoder.onnx"
+        tfx.build_decoder(tfx.FULL, path=dec_path)
+        t_dec = time.perf_counter() - t0
+        enc_dims = tfx.EncDims()
+        tfx.build_encoder(enc_dims, path=enc_path)
+        tfx.build_speaker(tfx.SpkDims(), path=spk_path)
+        print(f"[onnx] graphs written in {time.perf_counter() - t0:.2f} s "
+              f"(FULL decoder {t_dec:.2f} s, "
+              f"{dec_path.stat().st_size / 2**20:.1f} MiB; encoder "
+              f"{enc_path.stat().st_size / 2**20:.1f} MiB; speaker "
+              f"{spk_path.stat().st_size / 2**20:.1f} MiB)")
+
+        # ------------------------------------------------ the decoder alone
+        t0 = time.perf_counter()
+        dec = OnnxStreamingDecoder.load(dec_path, dev)
+        dec_cpu = OnnxStreamingDecoder.load(dec_path, "cpu")
+        nodes = len(dec.ex.graph.nodes)
+        print(f"[onnx] FULL decoder loaded on {dev} and the CPU in "
+              f"{time.perf_counter() - t0:.2f} s: {nodes} nodes, "
+              f"{len(dec.ex.params)} device tensors "
+              f"({sum(t.numel() for t in dec.ex.params.values()) * 4 / 2**20:.0f}"
+              f" MiB), ops {dec.ex.graph.op_histogram()}")
+        rng = np.random.default_rng(3)
+        codes = rng.integers(0, 2048, size=(8, 16))
+        full, _ = dec.decode(codes, dec.create_state(), is_final=True)
+        w1, st = dec.decode(codes[:4], dec.create_state())
+        w2, st = dec.decode(codes[4:], st, is_final=True)
+        cpu, _ = dec_cpu.decode(codes, dec_cpu.create_state(), is_final=True)
+        ref = tfx.decoder_reference(tfx.FULL, codes)
+        for what, (ok, err) in (
+                ("4 + 4 chunked calls vs one call",
+                 close(np.concatenate([w1, w2]), full, ONNX_RTOL, ONNX_ATOL)),
+                ("card vs the port on the CPU",
+                 close(full, cpu, ONNX_RTOL, ONNX_ATOL)),
+                ("card vs the numpy reference",
+                 close(full, ref, ONNX_REF_RTOL, ONNX_REF_ATOL))):
+            print(f"[onnx] decoder {what}: max |diff| {err:.3e} (max |want| "
+                  f"{peak(full):.3e}: {err / max(peak(full), 1e-30):.2e} of "
+                  f"it) ok={ok}")
+            if not ok:
+                failures.append(f"onnx decoder: {what} max |diff| {err:.3e}")
+        if (full.shape != (8 * 2000,) or st["past_key_0"].shape
+                != (1, 16, 8, 64) or st["past_key_0"].device.type != "cuda"):
+            failures.append(f"onnx decoder: waveform {full.shape}, KV state "
+                            f"{tuple(st['past_key_0'].shape)} on "
+                            f"{st['past_key_0'].device}")
+        lanes = rng.integers(0, 2048, size=(8, 4, 16))
+        wavs, _ = dec.decode_batch(lanes, [dec.create_state()
+                                           for _ in range(8)], is_final=True)
+        errs = []
+        for i in range(8):
+            alone, _ = dec.decode(lanes[i], dec.create_state(), is_final=True)
+            ok, err = close(wavs[i], alone, ONNX_RTOL, ONNX_ATOL)
+            errs.append(err)
+            if not ok:
+                failures.append(f"onnx decode_batch lane {i}: max |diff| "
+                                f"{err:.3e} against the lane alone")
+        print(f"[onnx] decode_batch of 8 lanes x 4 frames vs each lane "
+              f"alone: max |diff| {max(errs):.3e}")
+
+        # a 4-frame call mid-stream (a state after 4 frames), timed
+        st4 = dec.decode(codes[:4], dec.create_state())[1]
+        chunk = codes[4:]
+        feeds = {"audio_codes": dec._frames(chunk)[None],
+                 "is_last": dec._is_last[False], **st4}
+        for _ in range(3):
+            dec.decode(chunk, st4)
+        torch.cuda.synchronize()
+        n_calls = 10
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        ev0.record()
+        for _ in range(n_calls):
+            dec.decode(chunk, st4)
+        ev1.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n_calls
+        dev_ms = ev0.elapsed_time(ev1) / n_calls
+        enq = []
+        for _ in range(n_calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.ex.run(feeds)
+            enq.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            dec.decode(chunk, st4)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        launches = sum(e.count for e in events)
+        kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+        # the native codec at full width (random weights), a 4-frame chunk
+        ccfg = EngineConfig().codec_decoder
+        cparams = codec_decoder.init_decoder_params(
+            ccfg, torch.Generator(device=dev).manual_seed(3))
+        ncodes = torch.from_numpy(chunk[None].astype(np.int32)).to(dev)
+        nstate = codec_decoder.init_decoder_state(ccfg, 1, dev)
+        with torch.no_grad():
+            for _ in range(3):
+                codec_decoder.decode_chunk(ccfg, cparams, ncodes, nstate)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev0.record()
+            for _ in range(n_calls):
+                nwav, _ = codec_decoder.decode_chunk(ccfg, cparams, ncodes,
+                                                     nstate)
+            ev1.record()
+            nwav.cpu()
+            nwall = (time.perf_counter() - t0) * 1e3 / n_calls
+            torch.cuda.synchronize()
+        ndev = ev0.elapsed_time(ev1) / n_calls
+        print(f"[onnx] FULL decoder, one 4-frame call after 4 frames: "
+              f"device (events) {dev_ms:.3f} ms, host wall {wall:.3f} ms, "
+              f"enqueue of the graph walk {np.median(enq):.3f} ms (median "
+              f"of {n_calls}), nodes {nodes} ({dec.ex.device_nodes} on the "
+              f"device), launches {launches} (profiled; kernel time "
+              f"{kernel_ms:.3f} ms); the native decode_chunk at full width, "
+              f"4 frames: device {ndev:.3f} ms, host wall {nwall:.3f} ms")
+
+        # --------------------------------------------------------- engine
+        t0 = time.perf_counter()
+        native = TtsEngine(device=dev, speakers_dir="speakers")
+        onnx = TtsEngine(model_dir=root, device=dev, speakers_dir="speakers",
+                         weights=dict(assets=native.assets,
+                                      talker=native.talker_params,
+                                      predictor=native.predictor_params))
+        torch.cuda.synchronize()
+        print(f"[onnx] native and ONNX-codec engines in "
+              f"{time.perf_counter() - t0:.2f} s; ONNX loads "
+              f"{ {k: round(v, 2) for k, v in onnx.load_seconds.items()} }; "
+              f"random components {onnx.dev_mode_components}; "
+              f"chunk={onnx.chunk}")
+        if (onnx.onnx_decoder is None or onnx.onnx_encoder is None
+                or onnx.onnx_speaker is None or onnx.dev_mode_components):
+            failures.append("onnx engine: a graph was not loaded")
+        text = REQUESTS[0][1]
+        for eng in (native, onnx):
+            eng.set_max_steps(ONNX_FRAMES)
+            eng.set_sampler_config(SamplerConfig(seed=1, **GREEDY))
+        voice = onnx.get_speaker("vivian")
+        native.generate_with_voice(text, voice)
+        native_codes = native.last_codes
+        onnx.generate_with_voice(text, voice)        # first use, untimed
+        decode_ms = []
+        real_decode = onnx.onnx_decoder.decode
+
+        def timed_decode(*a, **k):
+            t = time.perf_counter()
+            out = real_decode(*a, **k)
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        onnx.onnx_decoder.decode = timed_decode
+        torch.cuda.synchronize()
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        audio = onnx.generate_with_voice(text, voice)
+        wall = (time.perf_counter() - t0) * 1e3
+        counts["onnx"] = read_counts(fns)
+        del onnx.onnx_decoder.decode
+        m = onnx.last_metrics
+        same = np.array_equal(onnx.last_codes, native_codes)
+        want, _ = onnx.onnx_decoder.decode(
+            onnx.last_codes, onnx.onnx_decoder.create_state(), is_final=True)
+        ok, err = close(audio.samples, want, 0.0, ONNX_ATOL)
+        print(f"[onnx] engine request: frames={m.frames} eos={m.eos} "
+              f"samples={len(audio.samples)} codes equal the native-codec "
+              f"engine's={same}; audio vs a decode of its codes max |diff| "
+              f"{err:.3e}; prefill_ms={m.prefill_ms:.2f} total_ms="
+              f"{m.total_ms:.2f} wall_ms={wall:.2f} ms/frame="
+              f"{m.total_ms / max(m.frames, 1):.2f}; the codec's decode "
+              f"{sum(decode_ms):.2f} ms ({sum(decode_ms) / m.total_ms:.3f} "
+              f"of the request); launches {counts['onnx']}")
+        if not same:
+            failures.append("onnx engine: codes differ from the native-codec "
+                            "engine's")
+        if not ok or not np.isfinite(audio.samples).all() or m.frames == 0:
+            failures.append(f"onnx engine: audio off a decode of its codes "
+                            f"by {err:.3e}")
+        for name in ONNX_PATH_KERNELS["onnx"]:
+            want_n = (ONNX_LAUNCHES[name] if m.frames == ONNX_FRAMES
+                      and not m.eos else 1)
+            if (counts["onnx"][name] != want_n if m.frames == ONNX_FRAMES
+                    and not m.eos else counts["onnx"][name] < want_n):
+                failures.append(f"onnx engine: {name} launched "
+                                f"{counts['onnx'][name]} times, not {want_n}")
+        for name in ONNX_FORBIDDEN["onnx"]:
+            if counts["onnx"][name]:
+                failures.append(f"onnx engine launched {name}")
+
+        # --------------------------------------------------------- stream
+        # twice: the first stream of the process pays the decoder's first
+        # calls at a 1-frame and a 3-frame chunk
+        for rep in ("", " again"):
+            decode_ms.clear()
+            onnx.onnx_decoder.decode = timed_decode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunks = list(onnx.generate_stream(text, voice))
+            wall = (time.perf_counter() - t0) * 1e3
+            del onnx.onnx_decoder.decode
+            m = onnx.last_metrics
+            want, _ = onnx.onnx_decoder.decode(
+                onnx.last_codes, onnx.onnx_decoder.create_state(),
+                is_final=True)
+            ok, err = close(np.concatenate(chunks), want, ONNX_RTOL,
+                            ONNX_ATOL)
+            print(f"[onnx] stream{rep}: {len(chunks)} chunks of "
+                  f"{[len(c) // 2000 for c in chunks]} frames; vs a decode "
+                  f"of its own codes max |diff| {err:.3e} (peak "
+                  f"{peak(want):.3e}); TTFT {m.ttft_ms:.2f} ms; chunk "
+                  f"intervals {[round(x, 2) for x in m.chunk_ms]} ms; the "
+                  f"decoder's calls {[round(x, 2) for x in decode_ms]} ms; "
+                  f"wall {wall:.2f} ms")
+            if not ok:
+                failures.append(f"onnx stream{rep}: off a decode of its "
+                                f"codes by {err:.3e}")
+
+        # -------------------------------------------------------- batching
+        def lane_check(what, pairs):
+            errs = []
+            for i, (lane_codes, lane_audio) in enumerate(pairs):
+                want, _ = onnx.onnx_decoder.decode(
+                    lane_codes, onnx.onnx_decoder.create_state(),
+                    is_final=True)
+                ok, err = close(lane_audio, want, ONNX_LANE_TOL,
+                                ONNX_LANE_TOL)
+                errs.append(err)
+                if not ok or len(lane_codes) == 0:
+                    failures.append(f"onnx {what} lane {i}: off a decode "
+                                    f"of its codes by {err:.3e}")
+            return max(errs)
+
+        texts = [SERVING_TEXTS[0] + f" {i}." for i in range(8)]
+        log = []
+        real_chunk = onnx.generator.chunk
+
+        def chunk_spy(*a, **k):
+            out = real_chunk(*a, **k)
+            log.append((out[1].cpu().numpy(), out[2].cpu().numpy()))
+            return out
+
+        onnx.generator.chunk = chunk_spy
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        waves = list(onnx.stream_batch(texts, voice))
+        wall = (time.perf_counter() - t0) * 1e3
+        del onnx.generator.chunk
+        err = lane_check("stream_batch", [
+            (np.concatenate([c[i][v[i]] for c, v in log]),
+             np.concatenate([w[i] for w in waves])) for i in range(8)])
+        print(f"[onnx] stream_batch 8 lanes: {len(waves)} chunks, wall "
+              f"{wall:.2f} ms; lanes vs decodes of their codes max |diff| "
+              f"{err:.3e}")
+
+        bulk = []
+        real_bulk = onnx.generator.run_bulk_codes
+
+        def bulk_spy(*a, **k):
+            out = real_bulk(*a, **k)
+            bulk.append((out[1].cpu().numpy(), out[2].cpu().numpy()))
+            return out
+
+        onnx.generator.run_bulk_codes = bulk_spy
+        reqs = [BatchRequest(t, voice) for t in texts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = BatchSynthesizer(onnx, batch_size=8).synthesize(reqs)
+        wall = (time.perf_counter() - t0) * 1e3
+        del onnx.generator.run_bulk_codes
+        c, v = bulk[0]
+        err = lane_check("wave", [(c[i][v[i]], r.audio.samples)
+                                  for i, r in enumerate(results)])
+        print(f"[onnx] wave of 8: frames {[r.frames for r in results]}, "
+              f"wall {wall:.2f} ms; lanes vs decodes of their codes max "
+              f"|diff| {err:.3e}")
+
+        segments = {}
+        real_audio = codec_path.LaneCodec.chunk_audio
+        real_reset = codec_path.LaneCodec.reset_lanes
+
+        def chunk_audio(self, codes_np, ks, finals):
+            out = real_audio(self, codes_np, ks, finals)
+            for lane in range(self.b):
+                if int(ks[lane]) > 0:
+                    seg = segments.setdefault(lane, [[[], []]])[-1]
+                    seg[0].append(codes_np[lane][: int(ks[lane])])
+                    seg[1].append(out[lane])
+            return out
+
+        def reset_lanes(self, mask):
+            for lane in np.nonzero(mask)[0]:
+                segments.setdefault(int(lane), [[[], []]]).append([[], []])
+            return real_reset(self, mask)
+
+        codec_path.LaneCodec.chunk_audio = chunk_audio
+        codec_path.LaneCodec.reset_lanes = reset_lanes
+        try:
+            queue = [BatchRequest(SERVING_TEXTS[0] + f" {i}.", voice,
+                                  max_frames=8 + 4 * (i % 3))
+                     for i in range(12)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = ContinuousBatcher(onnx, batch_size=8).run(queue)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            codec_path.LaneCodec.chunk_audio = real_audio
+            codec_path.LaneCodec.reset_lanes = real_reset
+        pairs = [(np.concatenate(cs), np.concatenate(au))
+                 for segs in segments.values() for cs, au in segs if cs]
+        err = lane_check("continuous", pairs)
+        if len(pairs) != len(queue):
+            failures.append(f"onnx continuous: {len(pairs)} streams for "
+                            f"{len(queue)} requests")
+        print(f"[onnx] continuous batching, batch 8, {len(queue)} requests: "
+              f"frames {[r.frames for r in results]}, wall {wall:.2f} ms; "
+              f"streams vs decodes of their codes max |diff| {err:.3e}")
+
+        # ---------------------------------------------------------- clone
+        wav_path = root / "ref_10s.wav"
+        AudioSample(samples=reference_wav(10, 10),
+                    sample_rate=24000).save_wav(wav_path)
+        clone_ms = []
+        for _ in range(2):          # the first call of the encoder graphs
+            t0 = time.perf_counter()
+            vf = onnx.create_voice_file(wav_path, "A reference transcript.")
+            torch.cuda.synchronize()
+            clone_ms.append(round((time.perf_counter() - t0) * 1e3, 2))
+        x = load_reference_wav(wav_path)
+        cpu_codes = OnnxAudioEncoder.load(enc_path, "cpu").encode(x)
+        cpu_emb = OnnxSpeakerEncoder.load(spk_path, "cpu").encode_mels(
+            log_mel(torch.from_numpy(x)))
+        got_codes = np.asarray(vf.audio_codes).reshape(-1, 16)
+        same = np.array_equal(got_codes, cpu_codes)
+        emb_err = float(np.abs(vf.embedding_array - cpu_emb).max())
+        onnx.set_max_steps(8)
+        audio = onnx.generate("Cloned on the card.", wav_path,
+                              "A reference transcript.")
+        print(f"[onnx] clone from a 10 s reference: codes {got_codes.shape} "
+              f"equal the port on the CPU={same}; embedding max |diff| "
+              f"{emb_err:.3e}; create_voice_file {clone_ms} ms; "
+              f"generate: {onnx.last_metrics.frames} frames, "
+              f"{len(audio.samples)} samples, finite="
+              f"{bool(np.isfinite(audio.samples).all())}")
+        if (not same or got_codes.shape != (120, 16)
+                or emb_err > ONNX_EMB_TOL
+                or not np.isfinite(audio.samples).all()
+                or onnx.last_metrics.frames == 0):
+            failures.append(f"onnx clone: codes equal={same} "
+                            f"{got_codes.shape}, embedding {emb_err:.3e}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 # The weights phase: a synthetic model directory in the published layout
 # at full EngineConfig() widths and depths, read by
 # TtsEngine(quant="q8_0"): int8 device weights.  Its paths and the kernels
@@ -4326,7 +4783,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,chunk,reference,engine,stream,clone,"
-                    "serving,wave,weights",
+                    "onnx,serving,wave,weights",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
     import torch
@@ -4368,7 +4825,7 @@ def main() -> int:
     phases = (("kernels", kernels), ("chunk", check_chunk),
               ("reference", check_reference), ("engine", drive_engine),
               ("stream", drive_stream), ("clone", drive_clone),
-              ("serving", drive_serving), ("wave", drive_wave),
+              ("onnx", drive_onnx), ("serving", drive_serving), ("wave", drive_wave),
               ("weights", drive_weights))
     results = {}
     for name, fn in phases:
@@ -4388,6 +4845,7 @@ def main() -> int:
     counts = {**(results.get("engine") or {}),
               **(results.get("stream") or {}),
               **(results.get("clone") or {}),
+              **(results.get("onnx") or {}),
               **(results.get("serving") or {}),
               **(results.get("wave") or {}),
               **(results.get("weights") or {})}
@@ -4398,7 +4856,8 @@ def main() -> int:
     paths = {**PATH_KERNELS, **STREAM_PATH_KERNELS,
              "serving-b8": SERVING_PATH_KERNELS["step"],
              "serving-exact": SERVING_PATH_KERNELS["exact"],
-             **WEIGHTS_PATH_KERNELS, **CLONE_PATH_KERNELS}
+             **WEIGHTS_PATH_KERNELS, **CLONE_PATH_KERNELS,
+             **ONNX_PATH_KERNELS}
     for name, (src, replaces) in KERNELS.items():
         k = dict(measured.get(name, {}))
         by_path = {p: c.get(name, 0) for p, c in counts.items()}

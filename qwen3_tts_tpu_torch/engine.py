@@ -8,7 +8,9 @@
 
 A request is one prompt plan, assembled and prefilled on the device, then
 the bulk loop (runtime/generate._gen_bulk) over 4-frame chunks, each
-decoded to audio by the native codec, with an early exit at EOS.
+decoded to audio by the native codec, with an early exit at EOS; with the
+ONNX codec (below) the loop makes codes only, and the published decoder
+graph decodes them.
 
 Weights, in the JAX engine's order (qwen3_tts_tpu/engine.py), from
 `model_dir` in the published layout: the assets
@@ -16,18 +18,30 @@ Weights, in the JAX engine's order (qwen3_tts_tpu/engine.py), from
 and predictor (`qwen3_tts_talker.gguf`, `qwen3_tts_predictor.gguf`,
 io/weights: dims from the GGUF metadata), the codec decoder, codec
 encoder and speaker encoder (`codec/decoder.npz`, `codec/encoder.npz`,
-`codec/speaker.npz`, in their configs' dtypes).  The weights dir is
+`codec/speaker.npz`, in their configs' dtypes; where an npz is missing,
+the published ONNX graph `onnx/qwen3_tts_decoder.onnx`,
+`onnx/qwen3_tts_codec_encoder.onnx` or `onnx/qwen3_tts_speaker_encoder.onnx`,
+run by models/codec/onnx_decoder on the engine's device: an npz beside
+an `.onnx` wins, as in the JAX engine).  The weights dir is
 `gguf/` for quant="none", `gguf_q5_k_m/` / `gguf_q8_0/` for "q5_k_m" /
 "q8_0" (QUANT_DIRS).  A component without its file runs on deterministic
 random weights (development mode) at the configured widths, and the
-engine says so loudly.  EngineConfig.int8_weights (None: quant != "none")
+engine says so loudly (QTTS_REQUIRE_WEIGHTS=1: it raises instead).  EngineConfig.int8_weights (None: quant != "none")
 quantizes the talker's and predictor's layers and heads to int8 device
 weights (ops.quant).  With weight_cache=True (the JAX package's
 QTTS_WEIGHT_CACHE) the converted talker and predictor are saved under
 `model_dir/cache/` (io/checkpoint) and read back by later engines.
 `weights=` hands the components in directly (io/from_jax builds them from
-the JAX package's arrays) and reads no file; a cloning encoder it does
-not hold runs on random weights.
+the JAX package's arrays) and reads no weight file; a codec component it
+does not hold runs its ONNX graph where model_dir has one, else random
+weights.
+
+Unlike the JAX engine, which logs a failed ONNX load and goes on with
+native or random weights, an `.onnx` file that cannot be read, lacks its
+graph's inputs and outputs or holds an op io/onnx_exec does not run
+raises at construction, naming the file; a graph that fails to run raises
+naming the file and the node.  Nothing goes quietly to random weights or
+to the CPU.
 
 Decode paths: `TtsEngine(fused=None, chunk=None)` (the defaults) resolve
 once, at construction, as the JAX package resolves its own defaults.
@@ -84,12 +98,9 @@ models/codec/speaker: a unit-norm 2048-d embedding) on the engine's
 device; `generate` keeps both in a `.cache` sidecar beside the WAV
 (io/cache, the reference implementation's format), read on later calls,
 and prompts as a clone (PromptBuilder.plan_clone), whose reference rows
-are its prefix and so go through the prefix-KV path above.  The ONNX
-codec (decoder, encoder, speaker encoder under `onnx/`) is not ported:
-where `codec/encoder.npz` or `codec/speaker.npz` is missing and its ONNX
-file is present, `create_voice_file` and `generate` raise
-NotImplementedError naming the file; they never run random weights in its
-place.
+are its prefix and so go through the prefix-KV path above.  With the ONNX
+encoders the codes come from the audio-encoder graph and the embedding
+from the speaker-encoder graph on ops/mel's log-mel.
 """
 
 from __future__ import annotations
@@ -110,14 +121,18 @@ from .io import checkpoint as ckpt_io
 from .io import weights as weights_io
 from .io.assets import Assets
 from .io.audio import AudioSample, load_reference_wav
+from .io.convert import unflatten
 from .io.voice_file import VoiceFile
 from .models import predictor as predictor_lib
 from .models import talker as talker_lib
 from .models.codec import decoder as codec_decoder
 from .models.codec import encoder as codec_encoder
 from .models.codec import speaker as speaker_lib
+from .models.codec.onnx_decoder import (OnnxAudioEncoder, OnnxSpeakerEncoder,
+                                        OnnxStreamingDecoder, decode_lanes)
 from .models.transformer import dtype_of
 from .ops import quant as quant_ops
+from .ops.mel import log_mel
 from .prompt import PromptBuilder, PromptPlan, assemble
 from .runtime.generate import (CHUNK_BATCHES, Generator, SamplerParams,
                                chunk_unsupported, fused_unsupported)
@@ -132,11 +147,16 @@ class PromptTooLongError(ValueError):
 
 QUANT_DIRS = {"q5_k_m": "gguf_q5_k_m", "q8_0": "gguf_q8_0"}
 
-# the cloning encoders: component -> (npz under model_dir/codec, the ONNX
-# file under model_dir/onnx that the port does not run)
-CLONE_PARTS = {
-    "codec_encoder": ("encoder.npz", "qwen3_tts_codec_encoder.onnx"),
-    "speaker_encoder": ("speaker.npz", "qwen3_tts_speaker_encoder.onnx"),
+# the codec's components: name -> (npz under model_dir/codec, the ONNX
+# graph under model_dir/onnx run where the npz is missing, its runner,
+# the engine attribute that holds the runner)
+CODEC_PARTS = {
+    "codec_decoder": ("decoder.npz", "qwen3_tts_decoder.onnx",
+                      OnnxStreamingDecoder, "onnx_decoder"),
+    "codec_encoder": ("encoder.npz", "qwen3_tts_codec_encoder.onnx",
+                      OnnxAudioEncoder, "onnx_encoder"),
+    "speaker_encoder": ("speaker.npz", "qwen3_tts_speaker_encoder.onnx",
+                        OnnxSpeakerEncoder, "onnx_speaker"),
 }
 
 # EngineConfig fields the port does not read (see core/config.py), by
@@ -208,7 +228,6 @@ class TtsEngine:
         self.last_codes: Optional[np.ndarray] = None
         self.dev_mode_components: list = []
         self.load_seconds: Dict[str, float] = {}   # build time by part
-        self.onnx_only: Dict[str, Path] = {}        # part -> unported file
         self.weight_sources: Dict[str, str] = {}   # LM: "gguf" or "cache"
         # prompt-prefix KV, (fingerprint, p_cap) -> (k, v): contiguous
         # copies of p_cap slots, least recently used first
@@ -227,17 +246,29 @@ class TtsEngine:
                                                 "codec_head"),
                            predictor=self._int8_lm(weights["predictor"],
                                                    "lm_head"))
-        if any(name not in weights for name in CLONE_PARTS):
-            weights = dict(weights)
-            for name in CLONE_PARTS:
-                if name not in weights:
-                    weights[name] = self._random_component(name, init_seed)
-            self._warn_dev_mode()
+        weights = dict(weights)
+        # the ONNX graph of each codec component without weights, else
+        # random weights; None in `weights` where the graph runs
+        self.onnx_decoder: Optional[OnnxStreamingDecoder] = None
+        self.onnx_encoder: Optional[OnnxAudioEncoder] = None
+        self.onnx_speaker: Optional[OnnxSpeakerEncoder] = None
+        for name, (_, onnx_file, runner, attr) in CODEC_PARTS.items():
+            if name in weights:
+                continue
+            path = self.model_dir / "onnx" / onnx_file
+            if path.exists():
+                t0 = time.perf_counter()
+                setattr(self, attr, runner.load(path, self.device))
+                self.load_seconds[attr] = time.perf_counter() - t0
+                weights[name] = None
+            else:
+                weights[name] = self._random_component(name, init_seed)
+        self._warn_dev_mode()
         self.assets: Assets = weights["assets"]
         self.talker_params = weights["talker"]
         self.predictor_params = weights["predictor"]
         self.codec_decoder_params = weights["codec_decoder"]
-        # None where only the ONNX file exists (self.onnx_only names it)
+        # None where the component's ONNX graph runs
         self.codec_encoder_params = weights["codec_encoder"]
         self.speaker_params = weights["speaker_encoder"]
         self.tokenizer = Tokenizer.load(self.model_dir)
@@ -283,8 +314,9 @@ class TtsEngine:
     def _load_weights(self, seed: int, use_int8: bool,
                       weight_cache: bool) -> Dict:
         """Every component from its file under model_dir, or random
-        (module docstring), in the JAX engine's order; self.config takes
-        the GGUF metadata's dims."""
+        (module docstring), in the JAX engine's order; a codec component
+        without its npz is left out (its ONNX graph, else random weights,
+        in __init__).  self.config takes the GGUF metadata's dims."""
         from .core.config import PredictorConfig, TalkerConfig
         cfg, dev = self.config, self.device
         weights_dir = self.model_dir / QUANT_DIRS.get(self.quant, "gguf")
@@ -329,27 +361,11 @@ class TtsEngine:
             out[name] = params
             self.load_seconds[name] = time.perf_counter() - t0
 
-        path = self.model_dir / "codec" / "decoder.npz"
-        out["codec_decoder"] = (
-            load_npz(path, dev, dtype_of(cfg.codec_decoder.dtype))
-            if path.exists() else
-            self._random_component("codec_decoder", seed))
-        for name, (npz, onnx) in CLONE_PARTS.items():
+        for name, (npz, _, _, _) in CODEC_PARTS.items():
             path = self.model_dir / "codec" / npz
-            onnx_path = self.model_dir / "onnx" / onnx
             if path.exists():
                 out[name] = load_npz(path, dev,
                                      dtype_of(getattr(cfg, name).dtype))
-            elif onnx_path.exists():
-                out[name] = None
-                self.onnx_only[name] = onnx_path
-                get_logger().warning(
-                    f"{name}: only {onnx_path} is present, and the ONNX "
-                    "codec is not ported: cloning from reference audio "
-                    "raises NotImplementedError")
-            else:
-                out[name] = self._random_component(name, seed)
-        self._warn_dev_mode()
         return out
 
     @staticmethod
@@ -386,16 +402,19 @@ class TtsEngine:
             return codec_decoder.init_decoder_params(cfg.codec_decoder, g)
 
     def _warn_dev_mode(self) -> None:
-        """Loudly flag components on random weights: synthesis is noise."""
+        """Loudly flag components on random weights: synthesis is noise.
+        QTTS_REQUIRE_WEIGHTS=1 turns the warning into a RuntimeError."""
         if not self.dev_mode_components:
             return
-        get_logger().warning(
-            f"DEV MODE: no trained weights found for "
-            f"[{', '.join(self.dev_mode_components)}] under "
-            f"{self.model_dir} (quant={self.quant!r}) — synthesis will be "
-            "NOISE, not speech.  Place the model files (gguf*/*.gguf, "
-            "codec/decoder.npz, codec/encoder.npz, codec/speaker.npz) in the "
-            "model dir.")
+        msg = (f"DEV MODE: no trained weights found for "
+               f"[{', '.join(self.dev_mode_components)}] under "
+               f"{self.model_dir} (quant={self.quant!r}) — synthesis will "
+               "be NOISE, not speech.  Place the model files "
+               "(gguf*/*.gguf, codec/*.npz or onnx/*.onnx) in the model "
+               "dir.")
+        if os.environ.get("QTTS_REQUIRE_WEIGHTS") == "1":
+            raise RuntimeError(msg)
+        get_logger().warning(msg)
 
     # ------------------------------------------------------------------ API
     def set_max_steps(self, steps: int) -> None:
@@ -465,21 +484,23 @@ class TtsEngine:
     def encode_reference(self, wav: np.ndarray) -> Tuple[np.ndarray,
                                                          np.ndarray]:
         """Reference samples f32 [T] at 24 kHz -> (codes int32 [T // 2000,
-        16], speaker embedding f32 [2048]).  Raises NotImplementedError
-        where an encoder exists only as an ONNX file."""
-        if self.onnx_only:
-            name, path = next(iter(self.onnx_only.items()))
-            raise NotImplementedError(
-                f"{name}: the model dir has only {path}, and the ONNX codec "
-                "is not ported to qwen3_tts_tpu_torch; convert it to "
-                f"codec/{CLONE_PARTS[name][0]}")
+        16], speaker embedding f32 [2048]), through the native encoders or
+        their ONNX graphs (the speaker graph on ops/mel's log-mel)."""
         x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(
             self.device)
-        codes = codec_encoder.encode(self.config.codec_encoder,
-                                     self.codec_encoder_params, x[None])
-        emb = speaker_lib.speaker_embed(self.config.speaker_encoder,
-                                        self.speaker_params, x)
-        return codes[0].cpu().numpy(), emb[0].cpu().numpy()
+        if self.onnx_encoder is not None:
+            codes = self.onnx_encoder.encode(x).astype(np.int32)
+        else:
+            codes = codec_encoder.encode(self.config.codec_encoder,
+                                         self.codec_encoder_params,
+                                         x[None])[0].cpu().numpy()
+        if self.onnx_speaker is not None:
+            emb = self.onnx_speaker.encode_mels(log_mel(x))
+        else:
+            emb = speaker_lib.speaker_embed(self.config.speaker_encoder,
+                                            self.speaker_params,
+                                            x)[0].cpu().numpy()
+        return codes, emb
 
     def _process_reference(self, audio_path) -> Tuple[np.ndarray, np.ndarray]:
         """Codes + speaker embedding of a reference WAV through its
@@ -508,6 +529,11 @@ class TtsEngine:
         frame dropped) to audio through the codec decoder, e.g. to listen
         to a VoiceFile's reference codes."""
         codes = np.asarray(codes, np.int32).reshape(-1)
+        if self.onnx_decoder is not None:
+            wav, _ = self.onnx_decoder.decode(
+                codes, self.onnx_decoder.create_state(), is_final=True)
+            return AudioSample(samples=wav, sample_rate=P.SAMPLE_RATE,
+                               channels=1)
         n = len(codes) // P.NUM_CODEBOOKS
         frames = torch.from_numpy(np.ascontiguousarray(
             codes[: n * P.NUM_CODEBOOKS].reshape(1, n, P.NUM_CODEBOOKS)))
@@ -525,11 +551,14 @@ class TtsEngine:
         request, so that none pays for them: for each batch size and
         prompt bucket one prefill and one chunk of `frames` (default
         frames_per_chunk) with its audio, from zero prompts (the chunk
-        kernel's scratch for that batch and cache capacity), then one
-        second of silence through the mel, codec encoder and speaker
-        encoder where both are loaded (the cuFFT and cuDNN plans).  No
-        request's state, sampler or prefix entry changes.  The JAX
-        engine's ONNX-codec branch is not ported."""
+        kernel's scratch for that batch and cache capacity; with the ONNX
+        decoder the chunk makes codes only, and the decoder graph then
+        decodes zero codes from a fresh state, a stream's first chunk
+        (first_chunk_frames) and two of `frames`, so that a stream's first
+        decoder calls do not meet their shapes first), then one second of
+        silence through the mel, codec encoder and speaker encoder (the
+        cuFFT and cuDNN plans).  No request's state, sampler or prefix
+        entry changes."""
         frames = frames or self.config.runtime.frames_per_chunk
         sampler = SamplerParams.make(self.sampler_config)
         dev = self.device
@@ -539,13 +568,22 @@ class TtsEngine:
                     torch.zeros((b, bucket, P.TALKER_DIM), device=dev),
                     torch.full((b,), bucket, dtype=torch.int32, device=dev),
                     torch.Generator(device=dev).manual_seed(0))
+                if self.onnx_decoder is not None:
+                    self.generator.chunk(state, sampler, prompt_cap=bucket,
+                                         n_frames=frames)
+                    continue
                 dec_state = codec_decoder.init_decoder_state(
                     self.config.codec_decoder, b, dev)
                 self.generator.chunk_with_audio(state, dec_state, sampler,
                                                 prompt_cap=bucket,
                                                 n_frames=frames)
-        if not self.onnx_only:
-            self.encode_reference(np.zeros(P.SAMPLE_RATE, np.float32))
+        if self.onnx_decoder is not None:
+            st = self.onnx_decoder.create_state()
+            first = self.config.runtime.first_chunk_frames or frames
+            for n in (first, frames, frames):
+                _, st = self.onnx_decoder.decode(
+                    np.zeros((n, P.NUM_CODEBOOKS), np.int64), st)
+        self.encode_reference(np.zeros(P.SAMPLE_RATE, np.float32))
         self._sync()
 
     def generate_stream(self, text: str, voice: VoiceFile,
@@ -590,10 +628,12 @@ class TtsEngine:
         has finished).  The first chunk, first_chunk_frames long, comes
         from Generator.start_plans_first_chunk (assembly, prefill and that
         chunk); the stream ends when every lane has finished or at
-        max_steps.  One chunk runs ahead, as in generate_stream.  The
-        ONNX codec's branch is not ported and raises."""
-        if getattr(self, "onnx_decoder", None) is not None:
-            raise NotImplementedError("the ONNX codec path is not yet ported")
+        max_steps.  One chunk runs ahead, as in generate_stream.  With
+        the ONNX codec each chunk makes codes only (the prefill, then
+        Generator.chunk), and the pieces are decoded when the chunk is
+        read: lanes in lockstep through one decode_batch, a lane out of
+        step alone (onnx_decoder.decode_lanes), each lane flushed at its
+        last chunk."""
         cfg = self.config
         b = len(texts)
         if isinstance(voices, VoiceFile):
@@ -610,39 +650,62 @@ class TtsEngine:
         first_n = cfg.runtime.first_chunk_frames
         first_n = min(first_n, n_chunk) if first_n > 0 else n_chunk
         dev = self.device
-        slots = _HostSlots(dev, b, max(first_n, n_chunk), spf)
+        onnx = self.onnx_decoder
+        slots = _HostSlots(dev, b, max(first_n, n_chunk),
+                           0 if onnx else spf)
         done = np.zeros(b, bool)
-        dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, b,
-                                                     dev)
         t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
-        state, dec_state, codes, valid, wav = \
-            self.generator.start_plans_first_chunk(
-                self.assets.text_table, self.assets.codec_tables,
-                t["text_idx"], t["codec_idx"], t["frame_slot"],
-                t["spk_flag"], t["frames"], t["spk_emb"],
-                torch.from_numpy(lengths).to(dev), gen, dec_state, sampler,
-                prompt_cap=bucket, n_frames=first_n)
+        plan_args = (self.assets.text_table, self.assets.codec_tables,
+                     t["text_idx"], t["codec_idx"], t["frame_slot"],
+                     t["spk_flag"], t["frames"], t["spk_emb"],
+                     torch.from_numpy(lengths).to(dev), gen)
+
+        def lm_chunk(state, dec_state, n):
+            if onnx is None:
+                return self.generator.chunk_with_audio(
+                    state, dec_state, sampler, prompt_cap=bucket, n_frames=n)
+            state, codes, valid = self.generator.chunk(
+                state, sampler, prompt_cap=bucket, n_frames=n)
+            return state, dec_state, codes, valid, valid.new_zeros(
+                (b, 0), dtype=torch.float32)
+
+        if onnx is None:
+            dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder,
+                                                         b, dev)
+            state, dec_state, codes, valid, wav = \
+                self.generator.start_plans_first_chunk(
+                    *plan_args, dec_state, sampler, prompt_cap=bucket,
+                    n_frames=first_n)
+        else:
+            dec_state = [onnx.create_state() for _ in range(b)]
+            state, dec_state, codes, valid, wav = lm_chunk(
+                self.generator.start_from_plans(*plan_args), dec_state,
+                first_n)
         pending = slots.put(wav, valid, codes, first_n)
         steps = first_n
         while pending is not None:
             nxt = None
             if steps < self.max_steps:
                 n = min(n_chunk, self.max_steps - steps)
-                state, dec_state, codes, valid, wav = \
-                    self.generator.chunk_with_audio(
-                        state, dec_state, sampler, prompt_cap=bucket,
-                        n_frames=n)
+                state, dec_state, codes, valid, wav = lm_chunk(
+                    state, dec_state, n)
                 nxt = slots.put(wav, valid, codes, n)
                 steps += n
-            wav_h, valid_h, _, n0 = _HostSlots.get(pending)
+            wav_h, valid_h, codes_h, n0 = _HostSlots.get(pending)
+            n_valid = valid_h.sum(1)
+            if onnx is not None:
+                pieces = decode_lanes(
+                    onnx, codes_h, [0 if done[i] else int(n_valid[i])
+                                    for i in range(b)], dec_state,
+                    [n_valid[i] < n0 or nxt is None for i in range(b)])
             out = []
             for i in range(b):
                 if done[i]:
                     out.append(np.zeros(0, np.float32))
                     continue
-                n_valid = int(valid_h[i].sum())
-                out.append(wav_h[i, : n_valid * spf].copy())
-                if n_valid < n0:
+                out.append(pieces[i] if onnx is not None else
+                           wav_h[i, : int(n_valid[i]) * spf].copy())
+                if n_valid[i] < n0:
                     done[i] = True
             yield out
             if done.all():
@@ -800,7 +863,9 @@ class TtsEngine:
     @torch.no_grad()
     def _run_inference(self, plan: PromptPlan) -> AudioSample:
         """Non-streaming synthesis: prefill, then the bulk chunk loop with
-        the codec decode of each chunk; early exit at EOS."""
+        the codec decode of each chunk; early exit at EOS.  With the ONNX
+        codec the loop makes codes only, and the decoder graph decodes
+        them in one call from a fresh state (the JAX engine's rule)."""
         cfg = self.config
         spf = cfg.codec_decoder.samples_per_frame
         metrics = GenerationMetrics()
@@ -811,15 +876,23 @@ class TtsEngine:
         self._sync()
         metrics.prefill_ms = watch.lap_ms()
         max_frames = min(self.max_steps, cfg.runtime.max_steps)
-        dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, 1,
-                                                     self.device)
-        (state, dec_state, codes, valid, wav, _,
-         saw_eos) = self.generator.run_bulk(state, dec_state, sampler,
-                                            prompt_cap=bucket,
-                                            max_frames=max_frames)
-        n_valid = int(valid[0].sum())
+        if self.onnx_decoder is not None:
+            state, codes, valid, _, saw_eos = self.generator.run_bulk_codes(
+                state, sampler, prompt_cap=bucket, max_frames=max_frames)
+            n_valid = int(valid[0].sum())
+            samples, _ = self.onnx_decoder.decode(
+                codes[0, :n_valid], self.onnx_decoder.create_state(),
+                is_final=True)
+        else:
+            dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder,
+                                                         1, self.device)
+            (state, dec_state, codes, valid, wav, _,
+             saw_eos) = self.generator.run_bulk(state, dec_state, sampler,
+                                                prompt_cap=bucket,
+                                                max_frames=max_frames)
+            n_valid = int(valid[0].sum())
+            samples = wav[0, : n_valid * spf].cpu().numpy()
         metrics.eos = bool(saw_eos[0])
-        samples = wav[0, : n_valid * spf].cpu().numpy()
         self.last_codes = codes[0, :n_valid].cpu().numpy()
 
         metrics.total_ms = (time.perf_counter() - t_start) * 1000.0
@@ -835,7 +908,10 @@ class TtsEngine:
     def _stream_inference(self, plan: PromptPlan) -> Iterator[np.ndarray]:
         """Streaming synthesis of one plan (module docstring): prefill,
         then chunks of gen_frames + codec decode, one chunk ahead of the
-        one being read; stops at the chunk where EOS occurs.  Records
+        one being read; stops at the chunk where EOS occurs.  With the
+        ONNX codec a chunk carries codes only, and the decoder graph
+        decodes them when the chunk is read, flushed at the last chunk
+        (EOS in it, or no chunk after it).  Records
         ttft_ms (start to the first non-empty chunk read) and chunk_ms
         (between chunk reads); QTTS_TIMING=1 prints the prefill's and the
         first chunk's times, each after a device synchronize."""
@@ -858,11 +934,14 @@ class TtsEngine:
         state, bucket = self._start_state(plan, self._torch_generator())
         tlog("prefill")
         sampler = SamplerParams.make(self.sampler_config)
-        dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, 1,
-                                                     self.device)
+        onnx = self.onnx_decoder
+        dec_state = (onnx.create_state() if onnx is not None else
+                     codec_decoder.init_decoder_state(cfg.codec_decoder, 1,
+                                                      self.device))
         self._sync()
         metrics.prefill_ms = watch.lap_ms()
-        slots = _HostSlots(self.device, 1, max(first_n, n_chunk), spf)
+        slots = _HostSlots(self.device, 1, max(first_n, n_chunk),
+                           0 if onnx else spf)
         codes_out = []
         steps = 0
         pending = None                       # the chunk enqueued last
@@ -872,10 +951,15 @@ class TtsEngine:
                 n = min(n_chunk, self.max_steps - steps)
                 if steps == 0 and 0 < first_n < n:
                     n = first_n              # small first chunk
-                state, dec_state, codes, valid, wav = \
-                    self.generator.chunk_with_audio(
-                        state, dec_state, sampler, prompt_cap=bucket,
-                        n_frames=n)
+                if onnx is None:
+                    state, dec_state, codes, valid, wav = \
+                        self.generator.chunk_with_audio(
+                            state, dec_state, sampler, prompt_cap=bucket,
+                            n_frames=n)
+                else:
+                    state, codes, valid = self.generator.chunk(
+                        state, sampler, prompt_cap=bucket, n_frames=n)
+                    wav = valid.new_zeros((1, 0), dtype=torch.float32)
                 nxt = slots.put(wav, valid, codes, n)
                 if steps == 0:
                     tlog("lm + codec chunk 0")
@@ -885,11 +969,17 @@ class TtsEngine:
                 n_valid = int(valid_h[0].sum())
                 metrics.chunk_ms.append(watch.lap_ms())
                 if n_valid > 0:
+                    if onnx is None:
+                        piece = wav_h[0, : n_valid * spf].copy()
+                    else:
+                        piece, dec_state = onnx.decode(
+                            codes_h[0, :n_valid], dec_state,
+                            is_final=n_valid < n0 or nxt is None)
                     if metrics.ttft_ms is None:
                         metrics.ttft_ms = (time.perf_counter()
                                            - t_start) * 1000.0
                     codes_out.append(codes_h[0, :n_valid].copy())
-                    yield wav_h[0, : n_valid * spf].copy()
+                    yield piece
                 if n_valid < n0:     # EOS in this chunk: drop the one ahead
                     metrics.eos = True
                     break
@@ -970,26 +1060,14 @@ def split_sentences(text: str, max_chars: int = 120) -> List[str]:
 
 def load_npz(path, device="cpu", dtype=None):
     """A nested dict / list of tensors on `device` from an npz whose keys
-    are 'a/b/0/c' paths (the JAX engine's `_unflatten_npz`); floating
-    arrays in `dtype` when given (the codec decoder holds every parameter
-    in its config's dtype)."""
-    tree: Dict = {}
+    are 'a/b/0/c' paths (io.convert.unflatten); floating arrays in `dtype`
+    when given (the codec decoder holds every parameter in its config's
+    dtype)."""
+    flat = {}
     with np.load(path, allow_pickle=False) as data:
         for key in data.files:
-            parts = key.split("/")
-            node = tree
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
             t = torch.from_numpy(np.array(data[key])).to(device)
             if dtype is not None and t.is_floating_point():
                 t = t.to(dtype)
-            node[parts[-1]] = t
-
-    def fix(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [fix(node[str(i)]) for i in range(len(node))]
-        return {k: fix(v) for k, v in node.items()}
-
-    return fix(tree)
+            flat[key] = t
+    return unflatten(flat)

@@ -43,6 +43,11 @@ chunk kernel.  Continuous batching (serve/continuous.py) decodes with
 per-lane cursors (uniform_cursor=False) and refills freed lanes with
 `prefill_lanes`.
 
+The ONNX codec (models/codec/onnx_decoder) decodes outside this loop: an
+engine that runs it builds its Generator without codec_params and takes
+the codes-only forms, Generator.chunk (gen_frames) and
+Generator.run_bulk_codes (_gen_bulk with no decode).
+
 Streaming (TtsEngine.generate_stream, stream_batch) runs one
 `gen_frames_with_audio` per chunk (Generator.chunk_with_audio), the first
 one `first_chunk_frames` long (Generator.start_first_chunk,
@@ -324,9 +329,9 @@ def gen_frames_with_audio(cfg: EngineConfig, talker_params,
 
 def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
               assets_pack, codec_params, state: GenState,
-              dec_state: codec_decoder.DecoderState, sampler: SamplerParams,
-              budgets=None, *, max_frames: int, chunk: int, prompt_cap: int,
-              uniform_cursor: bool = True):
+              dec_state: Optional[codec_decoder.DecoderState],
+              sampler: SamplerParams, budgets=None, *, max_frames: int,
+              chunk: int, prompt_cap: int, uniform_cursor: bool = True):
     """Whole-request generation: a loop over `chunk`-frame groups, each
     followed by its codec decode, that exits at the first chunk boundary
     where every lane is done.
@@ -338,7 +343,9 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
     max_frames rounded up to whole chunks; columns past a lane's budget
     are invalid, so the budget is exact.  saw_eos[i] is True iff lane i
     sampled EOS (rather than running out of budget).  uniform_cursor as in
-    gen_frames.
+    gen_frames.  codec_params=None: the codes-only form (the ONNX codec
+    decodes them apart), the same loop with no decode; dec_state and wav
+    are then None.
     """
     b = state.hidden.shape[0]
     dev = state.hidden.device
@@ -352,7 +359,8 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
     codes_buf = torch.zeros(b, f_cap, P.NUM_CODEBOOKS, dtype=torch.int32,
                             device=dev)
     valid_buf = torch.zeros(b, f_cap, dtype=torch.bool, device=dev)
-    wav_buf = torch.zeros(b, f_cap * spf, dtype=torch.float32, device=dev)
+    wav_buf = (None if codec_params is None else
+               torch.zeros(b, f_cap * spf, dtype=torch.float32, device=dev))
     saw_eos = torch.zeros(b, dtype=torch.bool, device=dev)
 
     ci = 0
@@ -365,9 +373,10 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
         saw_eos = saw_eos | (state.done & ~prev_done)
         codes_buf[:, ci * chunk:(ci + 1) * chunk] = codes
         valid_buf[:, ci * chunk:(ci + 1) * chunk] = valid
-        wav, dec_state = codec_decoder.decode_chunk(
-            cfg.codec_decoder, codec_params, codes, dec_state)
-        wav_buf[:, ci * chunk * spf:(ci + 1) * chunk * spf] = wav
+        if codec_params is not None:
+            wav, dec_state = codec_decoder.decode_chunk(
+                cfg.codec_decoder, codec_params, codes, dec_state)
+            wav_buf[:, ci * chunk * spf:(ci + 1) * chunk * spf] = wav
         state.done = state.done | ((ci + 1) * chunk >= budgets)
         ci += 1
         if bool(state.done.all()):      # the loop's one host sync per chunk
@@ -600,6 +609,30 @@ class Generator:
                          dec_state, sampler, budgets, max_frames=max_frames,
                          chunk=self.cfg.runtime.frames_per_chunk,
                          prompt_cap=prompt_cap, uniform_cursor=uniform_cursor)
+
+    def run_bulk_codes(self, state: GenState, sampler: SamplerParams,
+                       prompt_cap: int, max_frames: int, budgets=None,
+                       uniform_cursor: bool = True):
+        """run_bulk without the codec (the ONNX codec decodes the codes
+        apart): the same loop, no decode.  Returns (state, codes, valid,
+        frames_done, saw_eos)."""
+        state, _, codes, valid, _, done, saw_eos = _gen_bulk(
+            self.cfg, self.talker_params, self.predictor_params,
+            self.assets_pack, None, state, None, sampler, budgets,
+            max_frames=max_frames, chunk=self.cfg.runtime.frames_per_chunk,
+            prompt_cap=prompt_cap, uniform_cursor=uniform_cursor)
+        return state, codes, valid, done, saw_eos
+
+    def chunk(self, state: GenState, sampler: SamplerParams,
+              prompt_cap: int, n_frames: Optional[int] = None,
+              uniform_cursor: bool = True):
+        """One chunk of n_frames (default cfg.runtime.frames_per_chunk)
+        without the codec (gen_frames).  Returns (state, codes, valid)."""
+        return gen_frames(
+            self.cfg, self.talker_params, self.predictor_params,
+            self.assets_pack, state, sampler,
+            n_frames or self.cfg.runtime.frames_per_chunk, prompt_cap,
+            uniform_cursor)
 
     def chunk_with_audio(self, state: GenState, dec_state,
                          sampler: SamplerParams, prompt_cap: int,

@@ -19,9 +19,13 @@ each with that request's frame budget.
     results = synth.synthesize([BatchRequest(text, voice), ...])
 
 Each wave runs through Generator.run_bulk, with one host sync per chunk
-for the early exit.  Differences from the JAX synthesizer: no `mesh`
-(tensor and data parallelism are not ported: ROADMAP Queue A item 15), no
-ONNX codec (item 12); both raise NotImplementedError.  JAX's chunk-at-a-time
+for the early exit.  With the ONNX codec (engine.onnx_decoder) the wave
+runs through Generator.run_bulk_codes, and each lane's codes are decoded
+from a fresh decoder state, flushed: lanes with equal frame counts through
+one decode_batch, a lane alone through decode (the JAX synthesizer's
+rule).  Differences from the JAX synthesizer: no `mesh` (tensor and data
+parallelism are not ported: ROADMAP Queue A item 15; it raises
+NotImplementedError).  JAX's chunk-at-a-time
 fallback (QTTS_BULK=0) is not ported: it gives the same audio, and the
 streaming slice brings a chunked loop with a caller.  Pad lanes run to
 their copied request's budget, not to the engine's max_steps as in JAX;
@@ -41,6 +45,7 @@ from ..core import protocol as P_
 from ..io.audio import AudioSample
 from ..io.voice_file import VoiceFile
 from ..models.codec import decoder as codec_decoder
+from ..models.codec.onnx_decoder import decode_lanes
 from ..runtime.generate import SamplerParams
 
 
@@ -78,8 +83,6 @@ class BatchSynthesizer:
         if mesh is not None:
             raise NotImplementedError("a device mesh (tensor and data "
                                       "parallelism) is not yet ported")
-        if getattr(engine, "onnx_decoder", None) is not None:
-            raise NotImplementedError("the ONNX codec path is not yet ported")
         self.engine = engine
         self.batch_size = int(batch_size)
 
@@ -118,19 +121,27 @@ class BatchSynthesizer:
         budgets = np.minimum(budgets,
                              min(eng.max_steps, cfg.runtime.max_steps))
         spf = cfg.codec_decoder.samples_per_frame
-        dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder, b,
-                                                     eng.device)
-        state, dec_state, codes, valid, wav, _, saw_eos = \
-            eng.generator.run_bulk(
-                state, dec_state, sampler, prompt_cap=bucket,
-                max_frames=int(budgets.max()),
-                budgets=torch.as_tensor(budgets.astype(np.int32),
-                                        device=eng.device))
-        wav_np = wav.cpu().numpy()
+        bt = torch.as_tensor(budgets.astype(np.int32), device=eng.device)
+        onnx = eng.onnx_decoder
+        if onnx is not None:
+            state, codes, valid, _, saw_eos = eng.generator.run_bulk_codes(
+                state, sampler, prompt_cap=bucket,
+                max_frames=int(budgets.max()), budgets=bt)
+        else:
+            dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder,
+                                                         b, eng.device)
+            state, dec_state, codes, valid, wav, _, saw_eos = \
+                eng.generator.run_bulk(
+                    state, dec_state, sampler, prompt_cap=bucket,
+                    max_frames=int(budgets.max()), budgets=bt)
+            wav_np = wav.cpu().numpy()
         valid_np = valid.cpu().numpy()
         eos_np = saw_eos.cpu().numpy()
-        out = []
-        for i in range(n_real):
-            k = int(valid_np[i].sum())
-            out.append(_result(wav_np[i, : k * spf], k, eos_np[i]))
-        return out
+        ks = [int(valid_np[i].sum()) for i in range(n_real)]
+        if onnx is not None:
+            wavs = decode_lanes(onnx, codes[:n_real], ks,
+                                [onnx.create_state() for _ in range(n_real)],
+                                [True] * n_real)
+        else:
+            wavs = [wav_np[i, : k * spf] for i, k in enumerate(ks)]
+        return [_result(wavs[i], ks[i], eos_np[i]) for i in range(n_real)]

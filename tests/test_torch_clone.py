@@ -45,6 +45,7 @@ from qwen3_tts_tpu_torch.io.from_jax import (encoder_from_jax, engine_weights,
                                              speaker_from_jax)
 from qwen3_tts_tpu_torch.io.voice_file import VoiceFile as TVoice
 from qwen3_tts_tpu_torch.models.codec import encoder as tenc
+from qwen3_tts_tpu_torch.models.codec.onnx_decoder import OnnxLoadError
 from qwen3_tts_tpu_torch.models.codec import speaker as tspk
 from qwen3_tts_tpu_torch.ops import mel as tmel
 from test_torch_engine_gguf import _flatten
@@ -378,21 +379,16 @@ def test_long_clone_reference_raises(pair, tmp_path):
 
 
 def test_onnx_only_encoder_raises(tmp_path):
+    """An unreadable onnx/qwen3_tts_codec_encoder.onnx, the model dir's
+    only codec encoder, raises at construction, naming the file: the
+    engine never runs random weights in its place (the ONNX encoders
+    themselves: tests/test_torch_onnx_engine.py)."""
     (tmp_path / "onnx").mkdir()
     onnx = tmp_path / "onnx" / "qwen3_tts_codec_encoder.onnx"
     onnx.write_bytes(b"")
-    te = TtsEngine(model_dir=tmp_path, config=TC.tiny(), device="cpu")
-    assert te.onnx_only == {"codec_encoder": onnx}
-    assert te.codec_encoder_params is None
-    assert "codec_encoder" not in te.dev_mode_components
-    assert "speaker_encoder" in te.dev_mode_components
-    wav = _ref_wav(tmp_path / "ref.wav", 5, seed=3)
-    with pytest.raises(NotImplementedError,
-                       match="qwen3_tts_codec_encoder.onnx"):
-        te.create_voice_file(wav, "x")
-    with pytest.raises(NotImplementedError, match="ONNX"):
-        te.generate("x", wav, "x")
-    assert not wav.with_suffix(".cache").exists()
+    with pytest.raises(OnnxLoadError) as e:
+        TtsEngine(model_dir=tmp_path, config=TC.tiny(), device="cpu")
+    assert str(onnx) in str(e.value)
 
 
 def test_encoder_and_speaker_npz_load(tiny_engine, tmp_path):
@@ -413,7 +409,7 @@ def test_encoder_and_speaker_npz_load(tiny_engine, tmp_path):
     te = TtsEngine(model_dir=tmp_path, config=TC.tiny(), device="cpu")
     assert not {"codec_encoder", "speaker_encoder"} & set(
         te.dev_mode_components)
-    assert te.onnx_only == {}
+    assert te.onnx_encoder is None and te.onnx_speaker is None
     wav = _ref_wav(tmp_path / "ref.wav", 9, 3, seed=4)
     got = te.create_voice_file(wav, "r")
     x = AudioSample.load_wav(wav).mono()

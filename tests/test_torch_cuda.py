@@ -1221,3 +1221,58 @@ def test_clone_encoders_match_cpu(dev, pooling):
     assert (got[1].cpu() - want[1]).abs().max().item() <= 1e-3
     assert (got[2].cpu() - want[2]).abs().max().item() <= 1e-4
     assert abs(got[2].norm().item() - 1.0) < 1e-4
+
+
+@pytest.mark.parametrize("size", ["mini", "mid"])
+def test_onnx_graphs_match_cpu(dev, size):
+    """The ONNX codec graphs (tests/torch_onnx_fixtures.py) through
+    io/onnx_exec on the card against the port on the CPU: the decoder
+    whole, in two chunks and as decode_batch of 3 lanes within 1e-5 (f32
+    with TF32 off: cuDNN's and cuBLAS's sums in other orders), the audio
+    encoder's codes exactly, the speaker embedding within 1e-5."""
+    import torch_onnx_fixtures as tfx
+    from qwen3_tts_tpu_torch.engine import set_cuda_precision
+    from qwen3_tts_tpu_torch.io.onnx_exec import OnnxExecutor
+    from qwen3_tts_tpu_torch.io.onnx_lite import read_onnx_graph
+    from qwen3_tts_tpu_torch.models.codec.onnx_decoder import (
+        OnnxAudioEncoder, OnnxSpeakerEncoder, OnnxStreamingDecoder)
+
+    set_cuda_precision()
+    dims = tfx.MINI if size == "mini" else tfx.Dims(
+        DL=32, DA=64, DC=48, H=4, DH=16, K0=5, K1=5, K2=3, VOCAB=256,
+        LAYERS=2, up_factors=(4, 5), up_channels=(48, 16, 1))
+    data, _ = tfx.build_decoder(dims)
+    on = {d: OnnxStreamingDecoder(OnnxExecutor(read_onnx_graph(data), d))
+          for d in ("cpu", dev)}
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, dims.VOCAB, size=(3, 6, 16))
+    for lane in range(3):
+        want, _ = on["cpu"].decode(codes[lane], on["cpu"].create_state(),
+                                   is_final=True)
+        got, st = on[dev].decode(codes[lane, :4], on[dev].create_state())
+        got2, st = on[dev].decode(codes[lane, 4:], st, is_final=True)
+        assert st["past_key_0"].device.type == "cuda"
+        np.testing.assert_allclose(np.concatenate([got, got2]), want,
+                                   rtol=1e-5, atol=1e-5)
+    wavs, _ = on[dev].decode_batch(codes, [on[dev].create_state()
+                                           for _ in range(3)], is_final=True)
+    for lane in range(3):
+        want, _ = on["cpu"].decode(codes[lane], on["cpu"].create_state(),
+                                   is_final=True)
+        np.testing.assert_allclose(wavs[lane], want, rtol=1e-5, atol=1e-5)
+    enc = tfx.EncDims(hop=2000, d=64) if size == "mid" else tfx.EncDims(
+        hop=16, d=8)
+    edata, _ = tfx.build_encoder(enc)
+    sdata, _ = tfx.build_speaker()
+    wav = (rng.standard_normal(enc.hop * 12 + 7) * 0.2).astype(np.float32)
+    mels = rng.standard_normal((50, 128)).astype(np.float32)
+    out = {}
+    for d in ("cpu", dev):
+        out[d] = (OnnxAudioEncoder(OnnxExecutor(read_onnx_graph(edata), d))
+                  .encode(wav),
+                  OnnxSpeakerEncoder(OnnxExecutor(read_onnx_graph(sdata), d))
+                  .encode_mels(mels))
+    np.testing.assert_array_equal(out[dev][0], out["cpu"][0])
+    np.testing.assert_array_equal(out[dev][0], tfx.encoder_reference(enc,
+                                                                     wav))
+    np.testing.assert_allclose(out[dev][1], out["cpu"][1], atol=1e-5)

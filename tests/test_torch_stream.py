@@ -256,11 +256,44 @@ def test_stream_batch_zero_pieces_after_a_lane_finishes(pair, monkeypatch):
     np.testing.assert_array_equal(waves[1][1], free[1][1][:spf])
 
 
-def test_stream_batch_refuses_the_onnx_codec(pair, monkeypatch):
+def test_stream_batch_refuses_the_onnx_codec(pair, tmp_path, monkeypatch):
+    """stream_batch on the ONNX codec (onnx/qwen3_tts_decoder.onnx, the
+    MINI fixture graph) with the port's LM weights: each lane's codes
+    equal the native-codec stream_batch's, and its audio is a decode of
+    those codes alone within WAV_ATOL."""
+    import torch_onnx_fixtures as tfx
     _, te = pair
-    monkeypatch.setattr(te, "onnx_decoder", object(), raising=False)
-    with pytest.raises(NotImplementedError, match="ONNX"):
-        next(iter(te.stream_batch(["x"], te.get_speaker("vivian"))))
+    (tmp_path / "onnx").mkdir()
+    tfx.build_decoder(tfx.MINI, path=tmp_path / "onnx" /
+                      "qwen3_tts_decoder.onnx")
+    oe = TtsEngine(model_dir=tmp_path, config=TC.tiny(), device="cpu",
+                   weights=dict(assets=te.assets, talker=te.talker_params,
+                                predictor=te.predictor_params),
+                   speakers_dir=te.model_dir / "preset_speakers")
+    assert oe.onnx_decoder is not None
+    texts = ["lane zero", "the second lane"]
+    lanes = {}
+    for eng, name in ((te, "chunk_with_audio"), (oe, "chunk")):
+        log = []
+        real = getattr(eng.generator, name)
+
+        def spy(*a, real=real, log=log, **k):
+            out = real(*a, **k)
+            log.append(out[1:] if name == "chunk" else out[2:4])
+            return out
+
+        monkeypatch.setattr(eng.generator, name, spy)
+        eng.set_max_steps(9)
+        eng.set_sampler_config(TS(seed=3, **GREEDY))
+        waves = list(eng.stream_batch(texts, eng.get_speaker("vivian")))
+        lanes[name] = [(np.concatenate([c[i][v[i]].numpy() for c, v in log]),
+                        _cat([w[i] for w in waves])) for i in range(2)]
+    for (codes, _), (o_codes, audio) in zip(lanes["chunk_with_audio"],
+                                            lanes["chunk"]):
+        np.testing.assert_array_equal(o_codes, codes)
+        want, _ = oe.onnx_decoder.decode(codes, oe.onnx_decoder.create_state(),
+                                         is_final=True)
+        np.testing.assert_allclose(audio, want, atol=WAV_ATOL)
 
 
 @pytest.mark.parametrize("text,max_chars", [

@@ -37,15 +37,16 @@ the same inputs and weights.
   through `gen_chunk_fused` (one call per chunk at B = 8; no launch on the
   CPU) and gives 8 identical results, equal to the batch-1 wave of that
   request within WAV_ATOL (torch's CPU matmuls order their sums by shape).
-- The chunk gate's messages, and `mesh` / the ONNX codec, which raise
-  NotImplementedError.
+- The chunk gate's messages, and `mesh`, which raises
+  NotImplementedError; a wave on the ONNX codec (the MINI fixture graph):
+  codes equal the native-codec wave's, audio a decode of each lane's
+  codes alone within WAV_ATOL.
 """
 
 import json
 import os
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import numpy as np
@@ -557,11 +558,48 @@ def test_gate_names_what_fails(batch, n_frames, why):
 
 
 @pytest.mark.parametrize("what", ["mesh", "onnx"])
-def test_mesh_and_onnx_codec_are_not_ported(pair, what):
+def test_mesh_and_onnx_codec_are_not_ported(pair, what, tmp_path,
+                                            monkeypatch):
+    """`mesh` raises NotImplementedError.  A wave on the ONNX codec
+    (onnx/qwen3_tts_decoder.onnx, the MINI fixture graph; the port's LM
+    weights): each request's codes equal the native-codec wave's, and its
+    audio is a decode of those codes alone within WAV_ATOL."""
     _, te = pair
     if what == "mesh":
         with pytest.raises(NotImplementedError, match="mesh"):
             TBS(te, batch_size=2, mesh=object())
-    else:
-        with pytest.raises(NotImplementedError, match="ONNX"):
-            TBS(types.SimpleNamespace(onnx_decoder=object()), batch_size=2)
+        return
+    import torch_onnx_fixtures as tfx
+    (tmp_path / "onnx").mkdir()
+    tfx.build_decoder(tfx.MINI, path=tmp_path / "onnx" /
+                      "qwen3_tts_decoder.onnx")
+    oe = TtsEngine(model_dir=tmp_path, config=TC.tiny(), device="cpu",
+                   weights=dict(assets=te.assets, talker=te.talker_params,
+                                predictor=te.predictor_params),
+                   speakers_dir=te.model_dir / "preset_speakers")
+    codes = {}
+    for eng, name in ((te, "run_bulk"), (oe, "run_bulk_codes")):
+        log = []
+        real = getattr(eng.generator, name)
+
+        def spy(*a, real=real, log=log, **k):
+            out = real(*a, **k)
+            log.append(out)
+            return out
+
+        monkeypatch.setattr(eng.generator, name, spy)
+        eng.set_max_steps(8)
+        eng.set_sampler_config(TS(temperature=0.0, seed=5))
+        voice = eng.get_speaker("vivian")
+        res = TBS(eng, batch_size=2).synthesize(
+            [TBR("wave one", voice), TBR("wave two, longer", voice)])
+        c, v = (log[0][2], log[0][3]) if name == "run_bulk" else log[0][1:3]
+        codes[name] = [c[i][v[i]].numpy() for i in range(2)]
+        assert [r.frames for r in res] == [len(x) for x in codes[name]]
+    for i, r in enumerate(res):
+        np.testing.assert_array_equal(codes["run_bulk_codes"][i],
+                                      codes["run_bulk"][i])
+        want, _ = oe.onnx_decoder.decode(codes["run_bulk"][i],
+                                         oe.onnx_decoder.create_state(),
+                                         is_final=True)
+        np.testing.assert_allclose(r.audio.samples, want, atol=WAV_ATOL)
