@@ -10,7 +10,9 @@ A request is one prompt plan, assembled and prefilled on the device, then
 the bulk loop (runtime/generate._gen_bulk) over 4-frame chunks, each
 decoded to audio by the native codec, with an early exit at EOS; with the
 ONNX codec (below) the loop makes codes only, and the published decoder
-graph decodes them.
+graph decodes them.  Which codec runs is decided once, at construction
+(runtime/codec: self.codec, self.reference_encoder), and every method
+goes through it.
 
 Weights, in the JAX engine's order (qwen3_tts_tpu/engine.py), from
 `model_dir` in the published layout: the assets
@@ -75,8 +77,9 @@ QTTS_A8_PREFILL).
 
 Streaming (`generate_stream`, `stream_long`, `stream_batch`) yields audio
 chunk by chunk: a first chunk of RuntimeConfig.first_chunk_frames frames
-(0: a whole chunk), then chunks of frames_per_chunk, each one
-Generator.chunk_with_audio.  One chunk runs ahead: chunk k + 1 is enqueued
+(0: a whole chunk), then chunks of frames_per_chunk, each one chunk of
+the engine's codec (runtime/codec: Generator.chunk_with_audio, or
+Generator.chunk with the ONNX codec).  One chunk runs ahead: chunk k + 1 is enqueued
 before chunk k is read, and chunk k reaches the host by a non-blocking
 copy into pinned memory (`_HostSlots`) started before chunk k + 1 is
 enqueued, so reading it waits for chunk k alone.  A single stream stops at
@@ -116,12 +119,13 @@ import torch
 
 from .core import protocol as P
 from .core.config import EngineConfig, SamplerConfig
+from .core.device import set_cuda_precision
 from .io import cache as cache_io
 from .io import checkpoint as ckpt_io
 from .io import weights as weights_io
 from .io.assets import Assets
 from .io.audio import AudioSample, load_reference_wav
-from .io.convert import unflatten
+from .io.convert import load_params_npz
 from .io.voice_file import VoiceFile
 from .models import predictor as predictor_lib
 from .models import talker as talker_lib
@@ -129,11 +133,11 @@ from .models.codec import decoder as codec_decoder
 from .models.codec import encoder as codec_encoder
 from .models.codec import speaker as speaker_lib
 from .models.codec.onnx_decoder import (OnnxAudioEncoder, OnnxSpeakerEncoder,
-                                        OnnxStreamingDecoder, decode_lanes)
+                                        OnnxStreamingDecoder)
 from .models.transformer import dtype_of
 from .ops import quant as quant_ops
-from .ops.mel import log_mel
 from .prompt import PromptBuilder, PromptPlan, assemble
+from .runtime.codec import ReferenceEncoder, make_codec
 from .runtime.generate import (CHUNK_BATCHES, Generator, SamplerParams,
                                chunk_unsupported, fused_unsupported)
 from .utils.logging import get_logger, log_event
@@ -179,15 +183,6 @@ def check_config(config: EngineConfig) -> None:
     if bad:
         raise ValueError(f"qwen3_tts_tpu_torch does not read {bad}: leave "
                          "them at their defaults")
-
-
-def set_cuda_precision() -> None:
-    """f32 matmuls and convolutions on the card in full f32: no TF32.
-    The JAX package computes the projection, the heads and the codec's
-    convolutions with f32 accumulation of f32 (or bf16-exact) inputs;
-    cuDNN would otherwise run the codec's f32 convolutions in TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 class TtsEngine:
@@ -304,6 +299,13 @@ class TtsEngine:
                                    chunk_batches=(CHUNK_BATCHES if chunk is None
                                                   else None))
         self.load_seconds["kernel_pack"] = time.perf_counter() - t0
+        # which codec runs is decided here, once (runtime/codec)
+        self.codec = make_codec(self.generator, self.config.codec_decoder,
+                                self.codec_decoder_params, self.device,
+                                self.onnx_decoder)
+        self.reference_encoder = ReferenceEncoder(
+            self.config, self.codec_encoder_params, self.speaker_params,
+            self.onnx_encoder, self.onnx_speaker)
 
         for cand in ([Path(speakers_dir)] if speakers_dir else
                      [self.model_dir / "preset_speakers", Path("speakers")]):
@@ -364,7 +366,7 @@ class TtsEngine:
         for name, (npz, _, _, _) in CODEC_PARTS.items():
             path = self.model_dir / "codec" / npz
             if path.exists():
-                out[name] = load_npz(path, dev,
+                out[name] = load_params_npz(path, dev,
                                      dtype_of(getattr(cfg, name).dtype))
         return out
 
@@ -486,21 +488,8 @@ class TtsEngine:
         """Reference samples f32 [T] at 24 kHz -> (codes int32 [T // 2000,
         16], speaker embedding f32 [2048]), through the native encoders or
         their ONNX graphs (the speaker graph on ops/mel's log-mel)."""
-        x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(
-            self.device)
-        if self.onnx_encoder is not None:
-            codes = self.onnx_encoder.encode(x).astype(np.int32)
-        else:
-            codes = codec_encoder.encode(self.config.codec_encoder,
-                                         self.codec_encoder_params,
-                                         x[None])[0].cpu().numpy()
-        if self.onnx_speaker is not None:
-            emb = self.onnx_speaker.encode_mels(log_mel(x))
-        else:
-            emb = speaker_lib.speaker_embed(self.config.speaker_encoder,
-                                            self.speaker_params,
-                                            x)[0].cpu().numpy()
-        return codes, emb
+        return self.reference_encoder(torch.from_numpy(
+            np.ascontiguousarray(wav, np.float32)).to(self.device))
 
     def _process_reference(self, audio_path) -> Tuple[np.ndarray, np.ndarray]:
         """Codes + speaker embedding of a reference WAV through its
@@ -529,20 +518,10 @@ class TtsEngine:
         frame dropped) to audio through the codec decoder, e.g. to listen
         to a VoiceFile's reference codes."""
         codes = np.asarray(codes, np.int32).reshape(-1)
-        if self.onnx_decoder is not None:
-            wav, _ = self.onnx_decoder.decode(
-                codes, self.onnx_decoder.create_state(), is_final=True)
-            return AudioSample(samples=wav, sample_rate=P.SAMPLE_RATE,
-                               channels=1)
         n = len(codes) // P.NUM_CODEBOOKS
-        frames = torch.from_numpy(np.ascontiguousarray(
-            codes[: n * P.NUM_CODEBOOKS].reshape(1, n, P.NUM_CODEBOOKS)))
-        cfg = self.config.codec_decoder
-        state = codec_decoder.init_decoder_state(cfg, 1, self.device)
-        wav, _ = codec_decoder.decode_chunk(
-            cfg, self.codec_decoder_params, frames.to(self.device), state)
-        return AudioSample(samples=wav[0].float().cpu().numpy(),
-                           sample_rate=P.SAMPLE_RATE, channels=1)
+        return AudioSample(
+            samples=self.codec.decode_codes(codes[: n * P.NUM_CODEBOOKS]),
+            sample_rate=P.SAMPLE_RATE, channels=1)
 
     @torch.no_grad()
     def warmup(self, buckets=(32, 64, 128), batch_sizes=(1,),
@@ -568,21 +547,10 @@ class TtsEngine:
                     torch.zeros((b, bucket, P.TALKER_DIM), device=dev),
                     torch.full((b,), bucket, dtype=torch.int32, device=dev),
                     torch.Generator(device=dev).manual_seed(0))
-                if self.onnx_decoder is not None:
-                    self.generator.chunk(state, sampler, prompt_cap=bucket,
-                                         n_frames=frames)
-                    continue
-                dec_state = codec_decoder.init_decoder_state(
-                    self.config.codec_decoder, b, dev)
-                self.generator.chunk_with_audio(state, dec_state, sampler,
-                                                prompt_cap=bucket,
-                                                n_frames=frames)
-        if self.onnx_decoder is not None:
-            st = self.onnx_decoder.create_state()
-            first = self.config.runtime.first_chunk_frames or frames
-            for n in (first, frames, frames):
-                _, st = self.onnx_decoder.decode(
-                    np.zeros((n, P.NUM_CODEBOOKS), np.int64), st)
+                self.codec.chunk(state, self.codec.new_state(b), sampler,
+                                 prompt_cap=bucket, n_frames=frames)
+        first = self.config.runtime.first_chunk_frames or frames
+        self.codec.warm_decoder((first, frames, frames))
         self.encode_reference(np.zeros(P.SAMPLE_RATE, np.float32))
         self._sync()
 
@@ -625,15 +593,13 @@ class TtsEngine:
         """Batched streaming: a wave of len(texts) requests decodes at one
         prompt bucket, and every chunk boundary yields a list of one
         float32 waveform piece per request (zero-length once a request
-        has finished).  The first chunk, first_chunk_frames long, comes
-        from Generator.start_plans_first_chunk (assembly, prefill and that
-        chunk); the stream ends when every lane has finished or at
-        max_steps.  One chunk runs ahead, as in generate_stream.  With
-        the ONNX codec each chunk makes codes only (the prefill, then
-        Generator.chunk), and the pieces are decoded when the chunk is
-        read: lanes in lockstep through one decode_batch, a lane out of
-        step alone (onnx_decoder.decode_lanes), each lane flushed at its
-        last chunk."""
+        has finished).  The first chunk, first_chunk_frames long, follows
+        the wave's assembly and prefill (Generator.start_from_plans); the
+        stream ends when every lane has finished or at
+        max_steps.  One chunk runs ahead, as in generate_stream.  Each
+        chunk goes through self.codec (runtime/codec): with the ONNX codec
+        a chunk makes codes only, and the pieces are decoded when the
+        chunk is read, each lane flushed at its last chunk."""
         cfg = self.config
         b = len(texts)
         if isinstance(voices, VoiceFile):
@@ -645,69 +611,39 @@ class TtsEngine:
         a, lengths, bucket = self._plans_to_arrays(plans)
         gen = self._torch_generator()
         sampler = SamplerParams.make(self.sampler_config)
-        spf = cfg.codec_decoder.samples_per_frame
         n_chunk = cfg.runtime.frames_per_chunk
         first_n = cfg.runtime.first_chunk_frames
         first_n = min(first_n, n_chunk) if first_n > 0 else n_chunk
         dev = self.device
-        onnx = self.onnx_decoder
-        slots = _HostSlots(dev, b, max(first_n, n_chunk),
-                           0 if onnx else spf)
+        codec = self.codec
+        slots = _HostSlots(dev, b, max(first_n, n_chunk), codec.wav_spf)
         done = np.zeros(b, bool)
         t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
-        plan_args = (self.assets.text_table, self.assets.codec_tables,
-                     t["text_idx"], t["codec_idx"], t["frame_slot"],
-                     t["spk_flag"], t["frames"], t["spk_emb"],
-                     torch.from_numpy(lengths).to(dev), gen)
-
-        def lm_chunk(state, dec_state, n):
-            if onnx is None:
-                return self.generator.chunk_with_audio(
-                    state, dec_state, sampler, prompt_cap=bucket, n_frames=n)
-            state, codes, valid = self.generator.chunk(
-                state, sampler, prompt_cap=bucket, n_frames=n)
-            return state, dec_state, codes, valid, valid.new_zeros(
-                (b, 0), dtype=torch.float32)
-
-        if onnx is None:
-            dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder,
-                                                         b, dev)
-            state, dec_state, codes, valid, wav = \
-                self.generator.start_plans_first_chunk(
-                    *plan_args, dec_state, sampler, prompt_cap=bucket,
-                    n_frames=first_n)
-        else:
-            dec_state = [onnx.create_state() for _ in range(b)]
-            state, dec_state, codes, valid, wav = lm_chunk(
-                self.generator.start_from_plans(*plan_args), dec_state,
-                first_n)
+        state = self.generator.start_from_plans(
+            self.assets.text_table, self.assets.codec_tables,
+            t["text_idx"], t["codec_idx"], t["frame_slot"], t["spk_flag"],
+            t["frames"], t["spk_emb"], torch.from_numpy(lengths).to(dev),
+            gen)
+        state, cs, codes, valid, wav = codec.chunk(
+            state, codec.new_state(b), sampler, prompt_cap=bucket,
+            n_frames=first_n)
         pending = slots.put(wav, valid, codes, first_n)
         steps = first_n
         while pending is not None:
             nxt = None
             if steps < self.max_steps:
                 n = min(n_chunk, self.max_steps - steps)
-                state, dec_state, codes, valid, wav = lm_chunk(
-                    state, dec_state, n)
+                state, cs, codes, valid, wav = codec.chunk(
+                    state, cs, sampler, prompt_cap=bucket, n_frames=n)
                 nxt = slots.put(wav, valid, codes, n)
                 steps += n
             wav_h, valid_h, codes_h, n0 = _HostSlots.get(pending)
             n_valid = valid_h.sum(1)
-            if onnx is not None:
-                pieces = decode_lanes(
-                    onnx, codes_h, [0 if done[i] else int(n_valid[i])
-                                    for i in range(b)], dec_state,
-                    [n_valid[i] < n0 or nxt is None for i in range(b)])
-            out = []
-            for i in range(b):
-                if done[i]:
-                    out.append(np.zeros(0, np.float32))
-                    continue
-                out.append(pieces[i] if onnx is not None else
-                           wav_h[i, : int(n_valid[i]) * spf].copy())
-                if n_valid[i] < n0:
-                    done[i] = True
-            yield out
+            # zero-length pieces for the lanes already done
+            yield codec.audio(wav_h, codes_h,
+                              np.where(done, 0, n_valid), cs,
+                              (n_valid < n0) | (nxt is None))
+            done |= n_valid < n0
             if done.all():
                 break
             pending = nxt
@@ -868,6 +804,7 @@ class TtsEngine:
         them in one call from a fresh state (the JAX engine's rule)."""
         cfg = self.config
         spf = cfg.codec_decoder.samples_per_frame
+        codec = self.codec
         metrics = GenerationMetrics()
         watch = Stopwatch()
         t_start = time.perf_counter()
@@ -876,24 +813,15 @@ class TtsEngine:
         self._sync()
         metrics.prefill_ms = watch.lap_ms()
         max_frames = min(self.max_steps, cfg.runtime.max_steps)
-        if self.onnx_decoder is not None:
-            state, codes, valid, _, saw_eos = self.generator.run_bulk_codes(
-                state, sampler, prompt_cap=bucket, max_frames=max_frames)
-            n_valid = int(valid[0].sum())
-            samples, _ = self.onnx_decoder.decode(
-                codes[0, :n_valid], self.onnx_decoder.create_state(),
-                is_final=True)
-        else:
-            dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder,
-                                                         1, self.device)
-            (state, dec_state, codes, valid, wav, _,
-             saw_eos) = self.generator.run_bulk(state, dec_state, sampler,
-                                                prompt_cap=bucket,
-                                                max_frames=max_frames)
-            n_valid = int(valid[0].sum())
-            samples = wav[0, : n_valid * spf].cpu().numpy()
+        state, cs, codes, valid, wav, saw_eos = codec.run_bulk(
+            state, codec.new_state(1), sampler, prompt_cap=bucket,
+            max_frames=max_frames)
+        n_valid = int(valid[0].sum())
+        codes_h = codes.cpu().numpy()
+        samples = codec.audio(wav.cpu().numpy(), codes_h, [n_valid], cs,
+                              [True])[0]
         metrics.eos = bool(saw_eos[0])
-        self.last_codes = codes[0, :n_valid].cpu().numpy()
+        self.last_codes = codes_h[0, :n_valid]
 
         metrics.total_ms = (time.perf_counter() - t_start) * 1000.0
         metrics.ttft_ms = None       # a streaming metric
@@ -934,14 +862,12 @@ class TtsEngine:
         state, bucket = self._start_state(plan, self._torch_generator())
         tlog("prefill")
         sampler = SamplerParams.make(self.sampler_config)
-        onnx = self.onnx_decoder
-        dec_state = (onnx.create_state() if onnx is not None else
-                     codec_decoder.init_decoder_state(cfg.codec_decoder, 1,
-                                                      self.device))
+        codec = self.codec
+        cs = codec.new_state(1)
         self._sync()
         metrics.prefill_ms = watch.lap_ms()
         slots = _HostSlots(self.device, 1, max(first_n, n_chunk),
-                           0 if onnx else spf)
+                           codec.wav_spf)
         codes_out = []
         steps = 0
         pending = None                       # the chunk enqueued last
@@ -951,15 +877,8 @@ class TtsEngine:
                 n = min(n_chunk, self.max_steps - steps)
                 if steps == 0 and 0 < first_n < n:
                     n = first_n              # small first chunk
-                if onnx is None:
-                    state, dec_state, codes, valid, wav = \
-                        self.generator.chunk_with_audio(
-                            state, dec_state, sampler, prompt_cap=bucket,
-                            n_frames=n)
-                else:
-                    state, codes, valid = self.generator.chunk(
-                        state, sampler, prompt_cap=bucket, n_frames=n)
-                    wav = valid.new_zeros((1, 0), dtype=torch.float32)
+                state, cs, codes, valid, wav = codec.chunk(
+                    state, cs, sampler, prompt_cap=bucket, n_frames=n)
                 nxt = slots.put(wav, valid, codes, n)
                 if steps == 0:
                     tlog("lm + codec chunk 0")
@@ -969,12 +888,8 @@ class TtsEngine:
                 n_valid = int(valid_h[0].sum())
                 metrics.chunk_ms.append(watch.lap_ms())
                 if n_valid > 0:
-                    if onnx is None:
-                        piece = wav_h[0, : n_valid * spf].copy()
-                    else:
-                        piece, dec_state = onnx.decode(
-                            codes_h[0, :n_valid], dec_state,
-                            is_final=n_valid < n0 or nxt is None)
+                    piece = codec.audio(wav_h, codes_h, [n_valid], cs,
+                                        [n_valid < n0 or nxt is None])[0]
                     if metrics.ttft_ms is None:
                         metrics.ttft_ms = (time.perf_counter()
                                            - t_start) * 1000.0
@@ -1056,18 +971,3 @@ def split_sentences(text: str, max_chars: int = 120) -> List[str]:
     if cur and "".join(cur).strip():
         pieces.append("".join(cur).strip())
     return [p for p in pieces if p]
-
-
-def load_npz(path, device="cpu", dtype=None):
-    """A nested dict / list of tensors on `device` from an npz whose keys
-    are 'a/b/0/c' paths (io.convert.unflatten); floating arrays in `dtype`
-    when given (the codec decoder holds every parameter in its config's
-    dtype)."""
-    flat = {}
-    with np.load(path, allow_pickle=False) as data:
-        for key in data.files:
-            t = torch.from_numpy(np.array(data[key])).to(device)
-            if dtype is not None and t.is_floating_point():
-                t = t.to(dtype)
-            flat[key] = t
-    return unflatten(flat)

@@ -419,8 +419,8 @@ def validate_decoder_against_onnx(cfg, params, onnx_decoder,
                                   rtol: float = 2e-2, atol: float = 2e-2,
                                   ) -> Dict[str, float]:
     """The port's native decoder on `params` (a tree of arrays or
-    tensors, decoded on the CPU) and the ONNX graph (an
-    OnnxStreamingDecoder) on the same random codes: error stats, and
+    tensors) and the ONNX graph (an OnnxStreamingDecoder) on the same
+    random codes, both on the graph's device: error stats, and
     CodecImportError when more than 0.1 % of the samples are outside
     tolerance.  Settles the transpose conventions that shapes cannot
     (square q/k/v/o matrices); the gate before the native codec path
@@ -438,14 +438,15 @@ def validate_decoder_against_onnx(cfg, params, onnx_decoder,
         if isinstance(tree, (list, tuple)):
             return [to_t(v) for v in tree]
         t = torch.as_tensor(np.asarray(tree) if not isinstance(
-            tree, torch.Tensor) else tree).cpu()
+            tree, torch.Tensor) else tree).to(device)
         return t.to(dtype) if t.is_floating_point() else t
 
+    device = onnx_decoder.device
     with torch.no_grad():
         wav, _ = dec.decode_chunk(cfg, to_t(params),
-                                  torch.from_numpy(codes),
-                                  dec.init_decoder_state(cfg, 1, "cpu"))
-    wav_native = wav[0].float().numpy()
+                                  torch.from_numpy(codes).to(device),
+                                  dec.init_decoder_state(cfg, 1, device))
+    wav_native = wav[0].float().cpu().numpy()
     wav_onnx, _ = onnx_decoder.decode(codes[0], onnx_decoder.create_state(),
                                       is_final=True)
     wav_onnx = np.asarray(wav_onnx, np.float32)

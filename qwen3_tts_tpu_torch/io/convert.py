@@ -75,9 +75,18 @@ def save_params_npz(path, params) -> None:
 
 
 def load_params_npz(path, device="cpu", dtype=None):
-    """An npz of save_params_npz as nested tensors on `device`."""
-    from ..engine import load_npz
-    return load_npz(path, device, dtype)
+    """A nested dict / list of tensors on `device` from an npz whose keys
+    are 'a/b/0/c' paths (save_params_npz, unflatten); floating arrays in
+    `dtype` when given (the codec decoder holds every parameter in its
+    config's dtype)."""
+    flat = {}
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            t = torch.from_numpy(np.array(data[key])).to(device)
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            flat[key] = t
+    return unflatten(flat)
 
 
 def convert_checkpoint(gguf_path, out_path, dtype=np.float32) -> None:

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.device import set_cuda_precision
 from .onnx_lite import _DTYPES, OnnxGraph, OnnxNode, read_onnx_graph
 
 # initializers larger than this (elements) become device tensors
@@ -160,9 +161,12 @@ class OnnxExecutor:
         outs = ex.run({"x": array})           # {output name: value}
 
     A value of `outs` is a torch tensor on the device or, where the graph
-    computed it on the host (shape arithmetic), a numpy array."""
+    computed it on the host (shape arithmetic), a numpy array.  The
+    device is the card unless the caller passes device="cpu"; on a CUDA
+    device TF32 is turned off (core.device.set_cuda_precision), as the
+    engine turns it off."""
 
-    def __init__(self, graph: OnnxGraph, device="cpu",
+    def __init__(self, graph: OnnxGraph, device="cuda",
                  source: Optional[str] = None):
         self.graph = graph
         self.device = torch.device(device)
@@ -174,7 +178,6 @@ class OnnxExecutor:
                     f"{node.name!r}, inputs {node.inputs}) is not "
                     "implemented in io.onnx_exec")
         if self.device.type == "cuda":
-            from ..engine import set_cuda_precision
             set_cuda_precision()
         self.params: Dict[str, torch.Tensor] = {}
         self.consts: Dict[str, np.ndarray] = {}
@@ -192,7 +195,7 @@ class OnnxExecutor:
         self.device_nodes = 0     # nodes of the last run that ran on device
 
     @classmethod
-    def load(cls, path, device="cpu") -> "OnnxExecutor":
+    def load(cls, path, device="cuda") -> "OnnxExecutor":
         return cls(read_onnx_graph(path), device, source=str(path))
 
     # ------------------------------------------------------------------ run

@@ -98,7 +98,7 @@ class OnnxStreamingDecoder:
                          for f in (False, True)}
 
     @classmethod
-    def load(cls, path, device="cpu") -> "OnnxStreamingDecoder":
+    def load(cls, path, device="cuda") -> "OnnxStreamingDecoder":
         return cls(load_executor(path, device, cls.INPUTS, cls.OUTPUTS))
 
     def create_state(self) -> Dict[str, torch.Tensor]:
@@ -154,7 +154,10 @@ class OnnxStreamingDecoder:
         codes: [B, n, 16]; states: B state dicts; is_final: a bool or B
         bools (a per-lane flush).  Lanes whose states differ in shape go
         one by one through `decode` (the reference's batch-1 contract).
-        Returns (B f32 waveforms on the host, B new states)."""
+        Returns (B f32 waveforms on the host, B new states).  The walk is
+        host-bound, so one batched walk beats B calls of `decode`: 4.9-5.3x
+        at 8 lanes of the published decoder's widths on an H100 80GB HBM3
+        at 700 W (chip_smoke.py's onnx phase)."""
         b = len(states)
         finals = np.broadcast_to(np.asarray(is_final, bool), (b,))
         shapes0 = _shapes(states[0])
@@ -240,7 +243,7 @@ class OnnxAudioEncoder:
         self.ex = executor
 
     @classmethod
-    def load(cls, path, device="cpu") -> "OnnxAudioEncoder":
+    def load(cls, path, device="cuda") -> "OnnxAudioEncoder":
         return cls(load_executor(path, device, cls.INPUTS, cls.OUTPUTS))
 
     @torch.no_grad()
@@ -265,7 +268,7 @@ class OnnxSpeakerEncoder:
         self.ex = executor
 
     @classmethod
-    def load(cls, path, device="cpu") -> "OnnxSpeakerEncoder":
+    def load(cls, path, device="cuda") -> "OnnxSpeakerEncoder":
         return cls(load_executor(path, device, cls.INPUTS, cls.OUTPUTS))
 
     @torch.no_grad()

@@ -18,9 +18,9 @@ each with that request's frame budget.
     synth = BatchSynthesizer(TtsEngine(device="cuda"), batch_size=8)
     results = synth.synthesize([BatchRequest(text, voice), ...])
 
-Each wave runs through Generator.run_bulk, with one host sync per chunk
-for the early exit.  With the ONNX codec (engine.onnx_decoder) the wave
-runs through Generator.run_bulk_codes, and each lane's codes are decoded
+Each wave runs through the engine's codec (runtime/codec: Generator.run_bulk,
+or run_bulk_codes with the ONNX codec), with one host sync per chunk for
+the early exit.  With the ONNX codec each lane's codes are then decoded
 from a fresh decoder state, flushed: lanes with equal frame counts through
 one decode_batch, a lane alone through decode (the JAX synthesizer's
 rule).  Differences from the JAX synthesizer: no `mesh` (tensor and data
@@ -44,8 +44,6 @@ import torch
 from ..core import protocol as P_
 from ..io.audio import AudioSample
 from ..io.voice_file import VoiceFile
-from ..models.codec import decoder as codec_decoder
-from ..models.codec.onnx_decoder import decode_lanes
 from ..runtime.generate import SamplerParams
 
 
@@ -120,28 +118,14 @@ class BatchSynthesizer:
         # an over-budget request must not run past the KV capacity
         budgets = np.minimum(budgets,
                              min(eng.max_steps, cfg.runtime.max_steps))
-        spf = cfg.codec_decoder.samples_per_frame
         bt = torch.as_tensor(budgets.astype(np.int32), device=eng.device)
-        onnx = eng.onnx_decoder
-        if onnx is not None:
-            state, codes, valid, _, saw_eos = eng.generator.run_bulk_codes(
-                state, sampler, prompt_cap=bucket,
-                max_frames=int(budgets.max()), budgets=bt)
-        else:
-            dec_state = codec_decoder.init_decoder_state(cfg.codec_decoder,
-                                                         b, eng.device)
-            state, dec_state, codes, valid, wav, _, saw_eos = \
-                eng.generator.run_bulk(
-                    state, dec_state, sampler, prompt_cap=bucket,
-                    max_frames=int(budgets.max()), budgets=bt)
-            wav_np = wav.cpu().numpy()
+        codec = eng.codec
+        state, cs, codes, valid, wav, saw_eos = codec.run_bulk(
+            state, codec.new_state(b), sampler, prompt_cap=bucket,
+            max_frames=int(budgets.max()), budgets=bt)
         valid_np = valid.cpu().numpy()
         eos_np = saw_eos.cpu().numpy()
-        ks = [int(valid_np[i].sum()) for i in range(n_real)]
-        if onnx is not None:
-            wavs = decode_lanes(onnx, codes[:n_real], ks,
-                                [onnx.create_state() for _ in range(n_real)],
-                                [True] * n_real)
-        else:
-            wavs = [wav_np[i, : k * spf] for i, k in enumerate(ks)]
+        ks = [int(valid_np[i].sum()) if i < n_real else 0 for i in range(b)]
+        wavs = codec.audio(wav.cpu().numpy(), codes.cpu().numpy(), ks, cs,
+                           [True] * b)
         return [_result(wavs[i], ks[i], eos_np[i]) for i in range(n_real)]

@@ -1,22 +1,23 @@
 """The lane codec of the batch schedulers.  Counterpart of
-qwen3_tts_tpu/serve/codec_path.py: one interface over the engine's two
-codecs.
+qwen3_tts_tpu/serve/codec_path.py: a group of chunks of B lanes and the
+lanes' audio, through the engine's codec (runtime/codec), whichever of the
+two runs.
 
 With the native codec each group of chunks runs through
 Generator.run_bulk, which decodes every chunk to audio as it goes, and a
 lane's samples are cut from the group's waveform.  With the published
-ONNX decoder (engine.onnx_decoder) the group runs through
-Generator.run_bulk_codes, and each lane keeps its own decoder state: lanes
-in lockstep (the same frame count and state shapes) decode together
-through one decode_batch, a lane out of step alone
-(models/codec/onnx_decoder.decode_lanes).
+ONNX decoder the group runs through Generator.run_bulk_codes, and each
+lane keeps its own decoder state: lanes in lockstep (the same frame count
+and state shapes) decode together through one decode_batch, a lane out of
+step alone.
 
     codec = LaneCodec(engine, batch)
     state, codes_np, valid_np, saw_eos_np = codec.run_group(state, sampler, ...)
     samples = codec.chunk_audio(codes_np, ks, finals)    # per lane
     codec.reset_lanes(mask)                              # on refill
 
-The JAX LaneCodec's one-chunk `run_chunk` comes with online serving.
+The JAX LaneCodec's one-chunk `run_chunk` (and its `lane_audio`) come
+with online serving.
 """
 
 from __future__ import annotations
@@ -26,31 +27,22 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..models.codec import decoder as codec_decoder
-from ..models.codec.onnx_decoder import decode_lanes
-
 
 class LaneCodec:
     def __init__(self, engine, batch: int):
         self.eng = engine
+        self.codec = engine.codec
         self.b = int(batch)
-        self.spf = engine.config.codec_decoder.samples_per_frame
-        self.onnx = engine.onnx_decoder
+        self.state = self.codec.new_state(self.b)
         self._wav_np: Optional[np.ndarray] = None
-        if self.onnx is not None:
-            self.states = [self.onnx.create_state() for _ in range(self.b)]
-        else:
-            self.dec_state = codec_decoder.init_decoder_state(
-                engine.config.codec_decoder, self.b, engine.device)
 
     def run_group(self, state, sampler, *, prompt_cap: int, n_frames: int,
                   max_frames: int, budgets, uniform_cursor: bool = False):
         """A group of up to max_frames // n_frames chunks of
-        cfg.runtime.frames_per_chunk (= n_frames) frames through
-        Generator.run_bulk (run_bulk_codes with the ONNX codec), which
-        stops early when every lane is done (EOS or its `budgets` entry,
-        counted from the group's start).  Returns (state, codes_np
-        [B, F, 16], valid_np [B, F], saw_eos_np [B])."""
+        cfg.runtime.frames_per_chunk (= n_frames) frames, which stops
+        early when every lane is done (EOS or its `budgets` entry, counted
+        from the group's start).  Returns (state, codes_np [B, F, 16],
+        valid_np [B, F], saw_eos_np [B])."""
         eng = self.eng
         if n_frames != eng.config.runtime.frames_per_chunk:
             raise ValueError(f"chunks of {n_frames} frames: the engine runs "
@@ -58,19 +50,12 @@ class LaneCodec:
         bt = torch.as_tensor(np.asarray(budgets, np.int32),
                              device=eng.device)
         with torch.no_grad():
-            if self.onnx is not None:
-                state, codes, valid, _, saw_eos = \
-                    eng.generator.run_bulk_codes(
-                        state, sampler, prompt_cap=prompt_cap,
-                        max_frames=max_frames, budgets=bt,
-                        uniform_cursor=uniform_cursor)
-            else:
-                state, self.dec_state, codes, valid, wav, _, saw_eos = \
-                    eng.generator.run_bulk(
-                        state, self.dec_state, sampler,
-                        prompt_cap=prompt_cap, max_frames=max_frames,
-                        budgets=bt, uniform_cursor=uniform_cursor)
-                self._wav_np = wav.cpu().numpy()
+            state, self.state, codes, valid, wav, saw_eos = \
+                self.codec.run_bulk(state, self.state, sampler,
+                                    prompt_cap=prompt_cap,
+                                    max_frames=max_frames, budgets=bt,
+                                    uniform_cursor=uniform_cursor)
+        self._wav_np = wav.cpu().numpy()
         return (state, codes.cpu().numpy(), valid.cpu().numpy(),
                 saw_eos.cpu().numpy())
 
@@ -79,33 +64,10 @@ class LaneCodec:
         """Waveforms of the last group: lane i's first ks[i] frames (none
         where ks[i] <= 0); with the ONNX codec lane i is flushed where
         finals[i] (the native codec needs no flush)."""
-        if self.onnx is not None:
-            return decode_lanes(self.onnx, codes_np, ks, self.states, finals)
-        out: List[np.ndarray] = [np.zeros(0, np.float32)] * self.b
-        for i in range(self.b):
-            if int(ks[i]) > 0:
-                out[i] = self._wav_np[i, : int(ks[i]) * self.spf]
-        return out
-
-    def lane_audio(self, lane: int, lane_codes: np.ndarray, k: int,
-                   is_final: bool) -> np.ndarray:
-        """Waveform of the first k frames of one lane's last group
-        (lane_codes: [F, 16] from run_group's codes_np)."""
-        if k <= 0:
-            return np.zeros(0, np.float32)
-        if self.onnx is not None:
-            wav, self.states[lane] = self.onnx.decode(
-                lane_codes[:k], self.states[lane], is_final=is_final)
-            return wav
-        return self._wav_np[lane, : k * self.spf]
+        return self.codec.audio(self._wav_np, codes_np, ks, self.state,
+                                finals)
 
     def reset_lanes(self, mask: np.ndarray) -> None:
         """A fresh codec state for the lanes in `mask` (bool [B])."""
-        if not mask.any():
-            return
-        if self.onnx is not None:
-            for lane in np.nonzero(mask)[0]:
-                self.states[int(lane)] = self.onnx.create_state()
-        else:
-            codec_decoder.reset_lanes(
-                self.dec_state, torch.as_tensor(mask, device=self.eng.device))
+        if mask.any():
+            self.state = self.codec.reset_lanes(self.state, mask)

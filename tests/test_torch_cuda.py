@@ -1179,7 +1179,7 @@ def test_flash_gqa_decode_matches_plain_and_stacked(dev, dh, h, hkv):
 
 # Voice cloning's modules on the card against the CPU, the same weights
 # (full EngineConfig() widths, seeded) and a 2 s reference: f32 with TF32
-# off (engine.set_cuda_precision), cuFFT / cuDNN / cuBLAS summing in other
+# off (core.device.set_cuda_precision), cuFFT / cuDNN / cuBLAS summing in other
 # orders than the CPU: codes equal, log-mel within 1e-3 (absolute, natural
 # log), the unit-norm embedding within 1e-4 (chip_smoke.py's clone phase
 # holds 10 s and 30 s references the same way).
@@ -1187,7 +1187,7 @@ def test_flash_gqa_decode_matches_plain_and_stacked(dev, dh, h, hkv):
 def test_clone_encoders_match_cpu(dev, pooling):
     from qwen3_tts_tpu_torch.core.config import (EngineConfig,
                                                  SpeakerEncoderConfig)
-    from qwen3_tts_tpu_torch.engine import set_cuda_precision
+    from qwen3_tts_tpu_torch.core.device import set_cuda_precision
     from qwen3_tts_tpu_torch.models.codec import encoder as enc
     from qwen3_tts_tpu_torch.models.codec import speaker as spk
     from qwen3_tts_tpu_torch.ops.mel import log_mel
@@ -1231,7 +1231,7 @@ def test_onnx_graphs_match_cpu(dev, size):
     with TF32 off: cuDNN's and cuBLAS's sums in other orders), the audio
     encoder's codes exactly, the speaker embedding within 1e-5."""
     import torch_onnx_fixtures as tfx
-    from qwen3_tts_tpu_torch.engine import set_cuda_precision
+    from qwen3_tts_tpu_torch.core.device import set_cuda_precision
     from qwen3_tts_tpu_torch.io.onnx_exec import OnnxExecutor
     from qwen3_tts_tpu_torch.io.onnx_lite import read_onnx_graph
     from qwen3_tts_tpu_torch.models.codec.onnx_decoder import (

@@ -17,6 +17,7 @@ bit for bit.
 """
 
 import dataclasses
+import inspect
 import io
 from contextlib import redirect_stdout
 
@@ -138,7 +139,7 @@ def test_fixture_decoders_agree_through_both_executors(dims):
     np.testing.assert_array_equal(ref, jfx.decoder_reference(dims, codes))
     data, _ = tfx.build_decoder(dims)
     jd = JDec(JEx(jlite.read_onnx_graph(data)))
-    td = OnnxStreamingDecoder(TEx(tlite.read_onnx_graph(data)))
+    td = OnnxStreamingDecoder(TEx(tlite.read_onnx_graph(data), "cpu"))
     want, _ = jd.decode(codes, jd.create_state(), is_final=True)
     got, _ = td.decode(codes, td.create_state(), is_final=True)
     _same(got, want)
@@ -566,7 +567,7 @@ def test_failing_node_names_the_graph_and_node():
 def mini_pair():
     data, _ = tfx.build_decoder(tfx.MINI, seed=0)
     return (JDec(JEx(jlite.read_onnx_graph(data))),
-            OnnxStreamingDecoder(TEx(tlite.read_onnx_graph(data))))
+            OnnxStreamingDecoder(TEx(tlite.read_onnx_graph(data), "cpu")))
 
 
 def _codes(n, seed=1):
@@ -639,7 +640,7 @@ def test_decoder_respects_valid_samples():
     g.initializers["three"] = np.array([3], np.int64)
     data = tlite.write_onnx(g)
     jd = JDec(JEx(jlite.read_onnx_graph(data)))
-    td = OnnxStreamingDecoder(TEx(tlite.read_onnx_graph(data)))
+    td = OnnxStreamingDecoder(TEx(tlite.read_onnx_graph(data), "cpu"))
     codes = _codes(3, seed=3)
     got, _ = td.decode(codes, td.create_state())
     want, _ = jd.decode(codes, jd.create_state())
@@ -728,7 +729,7 @@ ENC = tfx.EncDims(hop=16, d=8)
 def test_audio_encoder_graph_matches_jax_and_reference():
     data, _ = tfx.build_encoder(ENC, seed=2)
     jenc_ = JAE(JEx(jlite.read_onnx_graph(data)))
-    tenc_ = OnnxAudioEncoder(TEx(tlite.read_onnx_graph(data)))
+    tenc_ = OnnxAudioEncoder(TEx(tlite.read_onnx_graph(data), "cpu"))
     wav = _f(_rng(21), 16 * 11 + 5)
     got = tenc_.encode(wav)
     assert got.shape == (11, 16) and got.dtype == np.int64
@@ -741,7 +742,7 @@ def test_speaker_encoder_graph_matches_jax_and_reference():
     dims = tfx.SpkDims()
     data, _ = tfx.build_speaker(dims, seed=4)
     jspk_ = JSE(JEx(jlite.read_onnx_graph(data)))
-    tspk_ = OnnxSpeakerEncoder(TEx(tlite.read_onnx_graph(data)))
+    tspk_ = OnnxSpeakerEncoder(TEx(tlite.read_onnx_graph(data), "cpu"))
     mels = _f(_rng(22), 37, 128)
     got = tspk_.encode_mels(mels)
     assert got.shape == (2048,)
@@ -765,8 +766,28 @@ def test_unreadable_or_wrong_graphs_raise_naming_the_file(tmp_path, kind,
     runner = {"decoder": OnnxStreamingDecoder,
               "encoder": OnnxAudioEncoder}[kind]
     with pytest.raises(OnnxLoadError, match=match) as e:
-        runner.load(path)
+        runner.load(path, "cpu")
     assert str(path) in str(e.value)
+
+
+@pytest.mark.parametrize("runner", [
+    TEx, TEx.load, OnnxStreamingDecoder.load, OnnxAudioEncoder.load,
+    OnnxSpeakerEncoder.load], ids=["executor", "executor.load", "decoder",
+                                   "audio_encoder", "speaker_encoder"])
+def test_runners_default_to_the_card(runner):
+    assert inspect.signature(runner).parameters["device"].default == "cuda"
+
+
+def test_decoder_without_a_device_runs_on_the_card_or_raises(tmp_path):
+    """No quiet fall-back to the CPU: a decoder loaded without a device is
+    on the card, and where there is none its load raises."""
+    path = tmp_path / "decoder.onnx"
+    tfx.build_decoder(tfx.MINI, path=path)
+    if torch.cuda.is_available():
+        assert OnnxStreamingDecoder.load(path).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            OnnxStreamingDecoder.load(path)
 
 
 # -------------------------------------------------------- import, convert
@@ -916,6 +937,8 @@ def test_validate_decoder_against_onnx():
     other = tdec.init_decoder_params(cfg, torch.Generator().manual_seed(9))
 
     class Graph:
+        device = torch.device("cpu")
+
         def __init__(self, p):
             self.p = p
 

@@ -293,8 +293,9 @@ def test_continuous_queue_lanes_against_decodes_of_their_codes(engines,
 
 
 def test_lane_codec_lane_audio_and_reset(engines):
-    """LaneCodec's ONNX branch alone: run_group through run_bulk_codes,
-    lane_audio against a decode of the lane's codes (its state advanced),
+    """LaneCodec on the ONNX codec alone: run_group through
+    run_bulk_codes, one lane's audio (chunk_audio with the other lane at
+    0 frames) against a decode of the lane's codes (its state advanced),
     reset_lanes back to a fresh state."""
     _, onnx = engines
     _set(onnx, 8)
@@ -308,13 +309,15 @@ def test_lane_codec_lane_audio_and_reset(engines):
         state, SamplerParams.make(onnx.sampler_config), prompt_cap=bucket,
         n_frames=4, max_frames=8, budgets=[8, 8])
     k = int(valid[1].sum())
-    wav = codec.lane_audio(1, codes[1], k, True)
+    none, wav = codec.chunk_audio(codes, np.array([0, k]),
+                                  np.array([True, True]))
     np.testing.assert_allclose(wav, _decode(onnx, codes[1][:k]),
                                atol=WAV_TOL)
-    assert codec.states[1]["past_key_0"].shape[2] == k > 0
-    assert codec.lane_audio(0, codes[0], 0, True).shape == (0,)
+    assert codec.state[1]["past_key_0"].shape[2] == k > 0
+    assert none.shape == (0,)
+    assert codec.state[0]["past_key_0"].shape[2] == 0
     codec.reset_lanes(np.array([False, True]))
-    assert codec.states[1]["past_key_0"].shape[2] == 0
+    assert codec.state[1]["past_key_0"].shape[2] == 0
 
 
 # --------------------------------------------------------------- cloning
