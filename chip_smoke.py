@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
     python3 chip_smoke.py [--phases kernels,chunk,reference,engine,stream,
-                                    clone,onnx,serving,wave,weights]
+                                    clone,onnx,serving,online,spec,wave,
+                                    weights]
 
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
@@ -43,8 +44,11 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      - flash_gqa_prefill_stacked continuing a kept prompt prefix: B = 1,
        start 64 and 192, S 16 and 48, window 128 and 256, the stale rows
        of an earlier request past the suffix poisoned, two shapes timed
-       beside SDPA; and on whole clone prompts, S = 512 and 4096 (B = 1,
-       window S), timed beside SDPA;
+       beside SDPA; on whole clone prompts, S = 512 and 4096 (B = 1,
+       window S), timed beside SDPA; and at the speculative verify
+       forward's contract (B = 4 and 8, S = 4, window = C = 1024, per-lane
+       starts over [32, C - 4], the stale rows past each lane poisoned),
+       timed beside SDPA;
      Small kernels are also timed in a CUDA graph (device time without the
      wrapper's host enqueue): the attention kernels, matmul_int4 and the
      three lane kernels of continuous batching;
@@ -124,12 +128,35 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      on the default engine (per-lane cursors: the step schedule) and at
      batch 4 on the exact path (flash_gqa_decode_append), each queue's
      audio digest printed.
-  10. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
+  10. online: online serving (serve/online.py, serve/api.py) on the
+     default engine (its per-lane frames take the step schedule): an
+     OnlineBatcher at batch 8, bucket 32, 20 greedy requests (budgets 6 /
+     12 / 24) from 4 client threads with staggered arrivals (every future
+     resolves with frames x 2000 finite samples; the step schedule's
+     kernels launch, the chunk kernel and flash_gqa_decode_append do not;
+     requests/s and latency p50 / p90), the same requests one at a time
+     twice (equal codes); an OnlineRouter over buckets 32 and 128 at batch
+     4 with both buckets busy at once, each request's codes equal to the
+     same per-bucket sequences run one bucket after the other (the two
+     workers share the kernels' scratch: engine.device_lock); TtsServer on
+     127.0.0.1 over that router: GET /health, 8 concurrent POST /tts (mono
+     24 kHz WAVs of X-QTTS-Frames x 2000 samples) and one direct-mode POST
+     /tts?stream=1 beside them (chunked PCM).
+  11. spec: speculative decode (runtime/spec.gen_frames_spec) on the
+     engine phase's weights on a fused=False engine, B = 4 lanes at four
+     cursors (refills), bucket 128, K = 4: the verify forward's logits
+     against 4 sequential steps'; (a) drafts equal to the sequential next 4
+     frames, all accepted; (b) repeat_draft, frame 0 the sequential one;
+     (c) mismatches at 4 / 2 / 0 / 1 by lane, n_emit = min(n_acc + 1, K),
+     then 8 sequential frames equal to the all-sequential run (a lane may
+     part only at a near tie of code 0, printed); the same drafts on the
+     default engine, acceptance printed.
+  12. wave: wave batching (serve/batch.py BatchSynthesizer) on the default
      engine at batch 8, 16 and 32 (the batched chunk kernel), a
      mixed-budget run with a padded last wave, and batch 8 on a chunk=False
      engine (the step schedule); launch counts, frames/s, per-stream RTF
      and one profiled wave per batch size.
-  11. weights: the deployed weight path at full width: a synthetic model
+  13. weights: the deployed weight path at full width: a synthetic model
      directory (F16 talker and predictor GGUFs under llama.cpp names,
      the assets GGUF, codec/decoder.npz, encoder.npz and speaker.npz;
      written from a seed, ~4.8 GB, removed at the end),
@@ -516,6 +543,8 @@ def check_kernels(dev, failures):
     for s_ in PREFILL_CLONE_S:
         out["flash_gqa_prefill_stacked"][f"s{s_}"] = prefill_clone(
             dev, failures, rnd, i32, s_)
+    out["flash_gqa_prefill_stacked"]["verify"] = [
+        prefill_verify(dev, failures, rnd, i32, b) for b in VERIFY_BATCHES]
 
     errs = []
     tol = f"{DECODE_ATOL} + 2^-8*|plain f32|"
@@ -764,6 +793,98 @@ def prefill_continued(dev, failures, rnd, i32):
         rows.append(row)
         del k, v
     return rows
+
+
+# the speculative verify forward's contract (runtime/spec.py): S = K draft
+# rows a lane written mid-decode at the lane's own cursor, attending the
+# whole live prefix (window = the cache's capacity C), B lanes of prompt
+# bucket 32 (their cursors at or past it)
+VERIFY_BATCHES, VERIFY_S, VERIFY_C, VERIFY_PROMPT = (4, 8), 4, 1024, 32
+
+
+def prefill_verify(dev, failures, rnd, i32, b):
+    """flash_gqa_prefill_stacked at the verify contract: B lanes, S =
+    VERIFY_S rows each at its own start spread over [32, C - S], window
+    C, prompt_cap VERIFY_PROMPT with ragged prompt lengths, one talker
+    layer of a 28-layer cache; the stale rows past each lane's last row
+    (an earlier request's, a rejected draft's) poisoned with large values:
+    the output must equal the clean cache's bit for bit, and the plain
+    version within PREFILL_TOL and PREFILL_ROW_TOL.  Timed with CUDA events
+    and in a CUDA graph beside SDPA on the same inputs.  Returns {B, S,
+    window, starts, max_abs_err, row_err, ms, plain_ms, library_ms,
+    device_ms, library_device_ms, bound_ms, bound_by, grid}."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked, prefill_attention_plain)
+    from qwen3_tts_tpu_torch.ops.attention import history_mask
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    s, c, pc = VERIFY_S, VERIFY_C, VERIFY_PROMPT
+    rng = np.random.default_rng(b)
+    starts = sorted(int(x) for x in rng.integers(32, c - s + 1, b))
+    starts[0], starts[-1] = 32, c - s                   # both ends
+    k, v = rnd(28, b, 8, c, 128), rnd(28, b, 8, c, 128)
+    q = rnd(b, s, 16, 128)
+    lens = i32(*[pc - int(rng.integers(0, 24)) for _ in starts])
+    st = i32(*starts)
+    args = (q, k, v, lens, st, 5, pc, c)
+    clean = flash_gqa_prefill_stacked(*args)
+    for lane, a in enumerate(starts):
+        for t in (k, v):
+            t[:, lane, :, a + s:] = 300.0
+    got = flash_gqa_prefill_stacked(*args)
+    torch.cuda.synchronize()
+    grid = list(flash_gqa_prefill_stacked.grid)
+    stale_hidden = bool(torch.equal(got, clean))
+    want = prefill_attention_plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    row_err = prefill_row_err(got, want)
+    ms = plain = 0.0
+    for order in ("plain", "kernel", "kernel", "plain"):
+        if order == "kernel":
+            ms += cuda_ms(lambda i: flash_gqa_prefill_stacked(
+                q, k, v, lens, st, i % 28, pc, c)) / 2
+        else:
+            plain += cuda_ms(lambda i: prefill_attention_plain(
+                q, k, v, lens, st, i % 28, pc, c), 8, 1) / 2
+    mask = history_mask(lens, pc, st, s, c)
+    qt = q.transpose(1, 2)
+
+    def lib(i):
+        return sdpa(qt, k[i % 28], v[i % 28], attn_mask=mask[:, None],
+                    enable_gqa=True)
+
+    lib_ms = cuda_ms(lib)
+    dev_k = graph_ms(lambda i: flash_gqa_prefill_stacked(
+        q, k, v, lens, st, i % 28, pc, c))
+    dev_l = graph_ms(lib)
+    # bytes: q, the output, and each lane's k/v up to its last row's
+    # causal end (the live prefix); operations: q.k and p.v over the
+    # visible pairs
+    live = sum(a + s for a in starts)
+    b_ms, b_by = bound(2 * q.numel() * 2 + 2 * 8 * live * 128 * 2,
+                       4 * int(mask.sum()) * 16 * 128, "bf16")
+    print(f"[kernel] flash_gqa_prefill_stacked verify: B={b} S={s} "
+          f"window=C={c} prompt_cap={pc} starts {starts} lengths "
+          f"{lens.tolist()} grid {grid}: max_abs_err={err:.3e} "
+          f"tol={PREFILL_TOL}, row-scaled err {row_err:.3e} "
+          f"tol={PREFILL_ROW_TOL:.4g}; stale rows past each lane poisoned, "
+          f"output equal to the clean cache's={stale_hidden}; {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, torch sdpa {lib_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); device time (CUDA graph of 20 calls) "
+          f"kernel {dev_k:.4f} ms, sdpa {dev_l:.4f} ms "
+          f"({dev_k / dev_l:.2f}x), {dev_k / b_ms:.1f}x the bound")
+    if not (err <= PREFILL_TOL and row_err <= PREFILL_ROW_TOL):
+        failures.append(f"flash_gqa_prefill_stacked disagrees with plain at "
+                        f"the verify contract, B {b}")
+    if not stale_hidden:
+        failures.append(f"flash_gqa_prefill_stacked read stale rows at the "
+                        f"verify contract, B {b}")
+    return dict(B=b, S=s, window=c, starts=starts, max_abs_err=err,
+                row_err=row_err, ms=ms, plain_ms=plain, library_ms=lib_ms,
+                device_ms=dev_k, library_device_ms=dev_l, bound_ms=b_ms,
+                bound_by=b_by, grid=grid)
 
 
 # the clone prompts' lengths: a 30 s reference gives bucket 512, and a
@@ -1648,9 +1769,10 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
     only for itself, launched again): codes, logits, hidden and the lane's
     whole cache block; the slots being written are poisoned first,
     every other slot must come back unchanged, and each F-frame launch must
-    repeat the shorter ones.  On lanes 0, B - 1 and the first of every row
-    tile, greedy and sampled, every frame is held against the plain
-    version from the kernel's own state: the codes and window logits as in
+    repeat the shorter ones.  Greedy on lanes 0, B - 1 and the first of
+    every row tile at every frame, sampled on lanes 0 and B - 1 at the
+    first and last frame, the frame is held against the plain version from
+    the kernel's own state: the codes and window logits as in
     check_chunk (the plain frame on that lane alone after the kernel's
     frame before, the kernel's codes forced), the talker layer by layer
     (the note after CHUNK_TOL).  Timed per 4-frame chunk at
@@ -1812,6 +1934,13 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
         rows = sorted({0, b - 1, *range(0, b, 8)})
         for mode, sampler in (("greedy", greedy), ("sampled", sampled)):
             replay_case = f"B={b} start={start} {mode}"
+            # against the plain version: greedy on the first lane of every
+            # row tile and B - 1 at every frame; sampled, whose kernel path
+            # differs from greedy's only in code 0's draw, on lanes 0 and
+            # B - 1 at the first and last frame (the phase's time)
+            held_rows = rows if mode == "greedy" else sorted({0, b - 1})
+            held_frames = (list(range(n_frames)) if mode == "greedy"
+                           else [0, n_frames - 1])
             u = (torch.zeros(n_frames, b, device=dev) if mode == "greedy"
                  else torch.rand(n_frames, b, generator=g, device=dev))
             taps, xt = [], []
@@ -1857,10 +1986,10 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
             lx_t, n_exact_t, beyond_t = [], 0, []
             fb_exact = hid_exact = True
             head_k = 0.0
-            for f in range(n_frames):
+            for f in held_frames:
                 x_ok, e_lx, e_lkv, e_end, exact, w_, torch_order, stg = \
-                    layer_by_layer(full, runs[f], xt[f], f, rows, lens, pos,
-                                   start, prompt_cap, codes)
+                    layer_by_layer(full, runs[f], xt[f], f, held_rows, lens,
+                                   pos, start, prompt_cap, codes)
                 fb_exact = fb_exact and stg[0]
                 hid_exact = hid_exact and stg[1]
                 head_k = max(head_k, stg[2])
@@ -1879,7 +2008,7 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                 # (check_chunk's policy); the frame's end-to-end difference
                 # printed against the plain frame in torch's orders and
                 # held in the kernel's (CHUNK_ORDER_TOL)
-                for i in rows:
+                for i in held_rows:
                     src = st0 if f == 0 else (*runs[f - 1][1:], lens, pos + f)
                     st = lane(src, i)
                     tp_, t128 = [], []
@@ -1961,7 +2090,7 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                     worst = max(worst, *((x - y).abs().max().item()
                                          for x, y in zip(got[:2],
                                                          want[1:3])))
-            n_pairs = n_frames * len(rows) * tcfg.n_layers
+            n_pairs = len(held_frames) * len(held_rows) * tcfg.n_layers
             ok = ok and n_exact >= LAYER_EXACT_SHARE * n_pairs
             alone = ("the one-lane launch again" if b == 1
                      else "in 8 lanes of a batched launch")
@@ -1972,7 +2101,8 @@ def check_chunk_batched(dev, failures, tcfg, pcfg, tw, pw, ex, g):
                   f"alone ({alone}; codes, logits, hidden, cache)="
                   f"{not bad}{f' (not: lanes {bad})' if bad else ''}; "
                   f"launches repeat={repeat} other slots untouched={same} "
-                  f"finite={finite} codes in range={in_range}; lanes {rows}, "
+                  f"finite={finite} codes in range={in_range}; lanes "
+                  f"{held_rows} at frames {held_frames}, "
                   f"talker layer by layer from the kernel's state against "
                   f"the plain layer in the kernel's orders "
                   f"{'+'.join(cs.KERNEL_ORDERS)}, max rel err by frame: "
@@ -3052,6 +3182,720 @@ def drive_serving(dev, failures):
           f"launches per frame-step {launches / (2 * n):.1f}, device kernel "
           f"ms per frame-step {dev_ms / (2 * n):.3f}, device busy "
           f"(profiled) {dev_ms / wall:.3f}")
+    return counts
+
+
+# the online phase: OnlineBatcher at batch 8 (bucket 32) from client
+# threads, an OnlineRouter over buckets 32 and 128 at batch 4 with both
+# buckets busy, and the HTTP API over that router
+ONLINE_BUDGETS = (6, 12, 24)
+ONLINE_REQUESTS, ONLINE_CLIENTS = 20, 4
+ONLINE_STAGGER_S = 0.02      # between one client's submissions
+ROUTER_REQUESTS = 6          # a bucket
+
+
+def _online_voice_requests(eng, n, budgets, long_=False):
+    from qwen3_tts_tpu_torch.serve.batch import BatchRequest
+    voice = eng.get_speaker("vivian")
+    return [BatchRequest(SERVING_TEXTS[1 if long_ else 0] + f" {i}.", voice,
+                         max_frames=budgets[i % len(budgets)])
+            for i in range(n)]
+
+
+def _audio_ok(r, budget, spf):
+    import numpy as np
+    x = r.audio.samples
+    return (0 < r.frames <= budget and len(x) == r.frames * spf
+            and bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 1e-4)
+
+
+def _one_at_a_time(batcher, reqs, timeout=600):
+    """Each request submitted after the one before resolved."""
+    return [batcher.submit(r).result(timeout=timeout) for r in reqs]
+
+
+def drive_online(dev, failures):
+    """Online serving at full width on the card's default engine (its
+    per-lane frames take the step schedule): an OnlineBatcher, an
+    OnlineRouter with two buckets busy at once, and the HTTP API over the
+    router; returns {"online-b8": {kernel: launches}}."""
+    import threading
+    import urllib.request
+    import wave
+    import io
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
+    from qwen3_tts_tpu_torch.kernels import flash_decode as fd
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import talker_step_fused
+    from qwen3_tts_tpu_torch.serve.api import TtsServer
+    from qwen3_tts_tpu_torch.serve.online import OnlineBatcher, OnlineRouter
+
+    fns = {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, fd.flash_gqa_decode_stacked,
+        fd.flash_gqa_decode_append, fd.inject_prompt_lanes,
+        fd.append_kv_lanes, talker_step_fused, predict_frame_fused,
+        gen_chunk_fused)}
+    engine = TtsEngine(device=dev, speakers_dir="speakers")
+    engine.set_sampler_config(SamplerConfig(seed=7, **GREEDY))
+    spf = engine.config.codec_decoder.samples_per_frame
+    n_budget = max(ONLINE_BUDGETS)
+
+    # 1. OnlineBatcher, batch 8: client threads with staggered arrivals
+    reqs = _online_voice_requests(engine, ONLINE_REQUESTS, ONLINE_BUDGETS)
+    batcher = OnlineBatcher(engine, batch_size=8, bucket=32,
+                            max_frames_per_stream=n_budget,
+                            idle_poll_s=0.005)
+    results, latency = [None] * len(reqs), [None] * len(reqs)
+
+    def client(c):
+        """This client's requests, each ONLINE_STAGGER_S after the one
+        before (not after its result): the lanes fill, and free lanes are
+        refilled from the queue."""
+        futs = []
+        for i in range(c, len(reqs), ONLINE_CLIENTS):
+            time.sleep(ONLINE_STAGGER_S)
+            t_sub = time.perf_counter()
+            fut = batcher.submit(reqs[i])
+            # run by the worker as it sets the result (stop() joins it)
+            fut.add_done_callback(
+                lambda f, i=i, t_sub=t_sub: latency.__setitem__(
+                    i, (time.perf_counter() - t_sub) * 1e3))
+            futs.append((i, fut))
+        for i, fut in futs:
+            results[i] = fut.result(timeout=600)
+
+    zero_counts(fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(ONLINE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    batcher.stop()
+    counts = {"online-b8": read_counts(fns)}
+    ok = all(r is not None and _audio_ok(r, q.max_frames, spf)
+             for r, q in zip(results, reqs))
+    frames = sum(r.frames for r in results if r is not None)
+    print(f"[online] OnlineBatcher batch 8 bucket 32: {len(reqs)} greedy "
+          f"requests (budgets {ONLINE_BUDGETS}) from {ONLINE_CLIENTS} client "
+          f"threads, each submitting every {ONLINE_STAGGER_S * 1e3:.0f} ms: "
+          f"{len(reqs) / wall:.2f} requests/s, "
+          f"{frames / wall:.1f} frames/s, latency p50 "
+          f"{np.percentile(latency, 50):.1f} ms p90 "
+          f"{np.percentile(latency, 90):.1f} ms (submit to result); every "
+          f"future resolved with 0 < frames <= budget, frames x {spf} "
+          f"finite non-silent samples={ok}")
+    print(f"[online] online-b8 launch counts: {counts['online-b8']}")
+    if not ok:
+        failures.append("online-b8: a request did not resolve to frames x "
+                        f"{spf} finite samples within its budget")
+    for k_ in SERVING_PATH_KERNELS["step"]:
+        if counts["online-b8"][k_] <= 0:
+            failures.append(f"online-b8 never launched {k_}")
+    for k_ in SERVING_FORBIDDEN["step"]:
+        if counts["online-b8"][k_] != 0:
+            failures.append(f"online-b8 launched {k_}")
+
+    # the same requests one at a time, twice: equal codes (greedy; the
+    # native codec's audio is a function of the codes)
+    runs = []
+    for _ in range(2):
+        ob = OnlineBatcher(engine, batch_size=8, bucket=32,
+                           max_frames_per_stream=n_budget,
+                           idle_poll_s=0.005)
+        t0 = time.perf_counter()
+        runs.append(_one_at_a_time(ob, reqs))
+        ob.stop()
+    same = all(np.array_equal(a.audio.samples, b.audio.samples)
+               and a.frames == b.frames for a, b in zip(*runs))
+    print(f"[online] the same {len(reqs)} requests one at a time, twice: "
+          f"audio (codes) equal={same}; the last run "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not same:
+        failures.append("online-b8: one-at-a-time reruns gave different "
+                        "codes")
+
+    # 2. OnlineRouter, buckets 32 and 128 at batch 4, both busy at once
+    # (one client a bucket, each request after the one before: a fixed
+    # schedule per bucket), against the same per-bucket sequences run one
+    # bucket after the other: each worker's launches must not meet the
+    # other's scratch (engine.device_lock)
+    seqs = {32: _online_voice_requests(engine, ROUTER_REQUESTS, (8, 12, 4)),
+            128: _online_voice_requests(engine, ROUTER_REQUESTS, (12, 4, 8),
+                                        long_=True)}
+    for bucket, rs in seqs.items():
+        rows = {engine._bucket(engine._build_voice_prompt(
+            r.text, r.voice, None).length) for r in rs}
+        if rows != {bucket}:
+            failures.append(f"router requests meant for bucket {bucket} "
+                            f"land in {rows}")
+
+    def router_run(together):
+        router = OnlineRouter(engine, batch_size=4, buckets=(32, 128),
+                              max_frames_per_stream=12, idle_poll_s=0.005)
+        out = {}
+        t0 = time.perf_counter()
+        if together:
+            threads = [threading.Thread(
+                target=lambda b=b: out.__setitem__(
+                    b, _one_at_a_time(router, seqs[b]))) for b in seqs]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        else:
+            for b in seqs:
+                out[b] = _one_at_a_time(router, seqs[b])
+        wall = time.perf_counter() - t0
+        router.stop()
+        return out, wall
+
+    apart, wall_a = router_run(False)
+    together, wall_t = router_run(True)
+    same = all(np.array_equal(a.audio.samples, b.audio.samples)
+               and a.frames == b.frames for bk in seqs
+               for a, b in zip(apart[bk], together[bk]))
+    ok = all(_audio_ok(r, q.max_frames, spf) for bk in seqs
+             for r, q in zip(together[bk], seqs[bk]))
+    print(f"[online] OnlineRouter buckets (32, 128) batch 4, "
+          f"{ROUTER_REQUESTS} requests a bucket: one bucket after the other "
+          f"{wall_a:.2f} s, both at once {wall_t:.2f} s; each request's "
+          f"audio (codes) equal across the two={same}; audio ok={ok}")
+    if not (same and ok):
+        failures.append("online router: two busy buckets gave other codes "
+                        "than one bucket after the other, or bad audio")
+
+    # 3. the HTTP API over a router: /health, 8 concurrent /tts, and one
+    # direct-mode stream while the batcher serves
+    router = OnlineRouter(engine, batch_size=4, buckets=(32, 128),
+                          max_frames_per_stream=12, idle_poll_s=0.005)
+    srv = TtsServer(engine, host="127.0.0.1", port=0, batcher=router).start()
+    url = f"http://127.0.0.1:{srv.port}"
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        print(f"[online] GET /health: {health['status']}, "
+              f"{len(health['speakers'])} speakers")
+        if health["status"] != "ok" or "vivian" not in health["speakers"]:
+            failures.append("GET /health did not answer ok with vivian")
+
+        def post(path, body):
+            req = urllib.request.Request(
+                url + path, data=json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=600) as r:
+                headers, data = dict(r.headers), r.read()
+            return headers, data, (time.perf_counter() - t0) * 1e3
+
+        answers = [None] * 8
+        stream = {}
+
+        def tts(i):
+            answers[i] = post("/tts", {"text": SERVING_TEXTS[i % 2]
+                                       + f" http {i}.",
+                                       "max_steps": (4, 8, 12)[i % 3]})
+
+        def streamer():
+            time.sleep(0.05)           # the batcher is serving by then
+            stream["out"] = post("/tts?stream=1", {
+                "text": "A direct stream beside the batcher.", "seed": 1,
+                "temperature": 0.0, "max_steps": 12})
+
+        t0 = time.perf_counter()
+        threads = ([threading.Thread(target=tts, args=(i,))
+                    for i in range(8)] + [threading.Thread(target=streamer)])
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        ok = True
+        for i, (headers, data, _) in enumerate(answers):
+            frames = int(headers.get("X-QTTS-Frames", -1))
+            with wave.open(io.BytesIO(data)) as w:
+                good = (headers.get("Content-Type") == "audio/wav"
+                        and w.getnchannels() == 1
+                        and w.getframerate() == 24000
+                        and 0 < frames <= (4, 8, 12)[i % 3]
+                        and w.getnframes() == frames * spf)
+            ok = ok and good
+        lat = [a[2] for a in answers]
+        s_headers, pcm, s_ms = stream["out"]
+        n = len(pcm) // 2
+        s_ok = (s_headers.get("Content-Type", "").startswith("audio/L16")
+                and s_headers.get("Transfer-Encoding") == "chunked"
+                and 0 < n and n % spf == 0 and n // spf <= 12)
+        print(f"[online] HTTP: 8 concurrent POST /tts through the router in "
+              f"{wall:.2f} s ({8 / wall:.2f} requests/s), latency p50 "
+              f"{np.percentile(lat, 50):.1f} ms p90 "
+              f"{np.percentile(lat, 90):.1f} ms; each a mono 24 kHz WAV of "
+              f"X-QTTS-Frames x {spf} samples={ok}; one direct POST "
+              f"/tts?stream=1 beside them: chunked audio/L16, {n} samples "
+              f"({n // spf} frames) in {s_ms:.1f} ms, ok={s_ok}")
+        if not ok:
+            failures.append("HTTP /tts through the router gave a bad WAV")
+        if not s_ok:
+            failures.append("HTTP /tts?stream=1 beside the batcher gave no "
+                            "chunked PCM of whole frames")
+    finally:
+        srv.stop()
+        router.stop()
+    return counts
+
+
+# the spec phase: B lanes at bucket 128 and per-lane cursors, K drafted
+# frames a call
+SPEC_B, SPEC_K = 4, 4
+SPEC_MISMATCH_AT = (4, 2, 0, 1)      # uneven acceptance, by lane
+SPEC_CONTINUE = 8                    # sequential frames after it
+# the verify forward's logits against K sequential steps' (the prefill
+# kernel with bf16 p in P.V against the decode kernel's f32, through 28
+# layers): relative to max |logit|, REF_REL_TOL's bf16-model class
+SPEC_LOGIT_TOL = REF_REL_TOL
+
+
+def clone_state(st):
+    """A copy of a GenState that shares nothing with it (the cache is
+    written in place)."""
+    import dataclasses
+    import torch
+    g = torch.Generator(device=st.generator.device)
+    g.set_state(st.generator.get_state())
+    cache = dataclasses.replace(st.cache, k=st.cache.k.clone(),
+                                v=st.cache.v.clone(),
+                                write_idx=st.cache.write_idx.clone(),
+                                lengths=st.cache.lengths.clone())
+    return dataclasses.replace(st, cache=cache, logits=st.logits.clone(),
+                               hidden=st.hidden.clone(), pos=st.pos.clone(),
+                               done=st.done.clone(), generator=g)
+
+
+def spec_base_state(eng, sampler):
+    """SPEC_B lanes of bucket 128 at four cursors: 8 frames, lane 1
+    refilled, 4 frames, lane 2 refilled, 4 frames (cursors 144 / 136 / 132
+    / 144 past the bucket).  Returns (state, the frame emitted last a lane
+    [B, 16])."""
+    import torch
+    from qwen3_tts_tpu_torch.runtime import generate as tg
+    gen = eng.generator
+    voice = eng.get_speaker("vivian")
+    plans = [eng._build_voice_prompt(SERVING_TEXTS[1] + f" spec {i}.",
+                                     voice, None) for i in range(SPEC_B + 2)]
+    embeds, lens = eng.prompt_to_device(plans[:SPEC_B], 128)
+    st = gen.start(embeds, torch.from_numpy(lens).to(eng.device),
+                   torch.Generator(device=eng.device).manual_seed(0))
+    for n, refill in ((8, 1), (4, 2), (4, None)):
+        st, codes, _ = tg.gen_frames(eng.config, gen.talker_params,
+                                     gen.predictor_params, gen.assets_pack,
+                                     st, sampler, n, 128,
+                                     uniform_cursor=False)
+        if refill is not None:
+            eb, lb = eng.prompt_to_device([plans[SPEC_B + refill - 1]], 128)
+            st = gen.refill_lanes(st, eb, [int(lb[0])], [refill])
+    return st, codes[:, -1].contiguous()
+
+
+def run_frames(eng, st, sampler, n):
+    """n frames at per-lane cursors from st (written in place), one at a
+    time: (state, codes [B, n, 16], and for each frame the carried logits
+    [B, n, V] and hidden [B, n, D] that picked it)."""
+    import torch
+    from qwen3_tts_tpu_torch.runtime import generate as tg
+    gen = eng.generator
+    codes, logits, hidden = [], [], []
+    for _ in range(n):
+        logits.append(st.logits.float())
+        hidden.append(st.hidden)
+        st, c, _ = tg.gen_frames(eng.config, gen.talker_params,
+                                 gen.predictor_params, gen.assets_pack, st,
+                                 sampler, 1, 128, uniform_cursor=False)
+        codes.append(c[:, 0])
+    return (st, torch.stack(codes, 1), torch.stack(logits, 1),
+            torch.stack(hidden, 1))
+
+
+def predictor_windows(eng, hidden, codes):
+    """The exact predictor's 15 window logits [N, 15, 2048] (f32) on talker
+    hidden [N, D] with each frame's own codes [N, 16] fed back:
+    models/predictor.predict_frame's operations in its order and batch, so
+    window q - 1 holds the logits that picked code q of a frame the
+    predictor picked on that batch."""
+    import torch
+    from qwen3_tts_tpu_torch.models import transformer
+    from qwen3_tts_tpu_torch.ops.quant import head_matmul_slice
+    from qwen3_tts_tpu_torch.ops.rope import inv_freq_tensor, rope_cos_sin
+    cfg, params = eng.config.predictor, eng.generator.predictor_params
+    pack = eng.generator.assets_pack
+    tables = pack["codec_tables_1024"]
+    n, dev = hidden.shape[0], hidden.device
+    dtype = transformer.dtype_of(cfg.dtype)
+    inv_freq = inv_freq_tensor(cfg.head_dim, cfg.rope_theta, dev)
+    cache = transformer.init_kv_cache(cfg, n, 2 + cfg.n_residual_codebooks,
+                                      dtype, dev)
+    h1024 = (hidden.float() @ pack["proj_w"].float().t()
+             + pack["proj_b"].float())
+    x = torch.stack([h1024, tables[0][codes[:, 0].long()].float()],
+                    dim=1).to(dtype)
+    cos, sin = rope_cos_sin(torch.arange(2, device=dev)[None, :]
+                            .expand(n, 2), inv_freq)
+    h, cache = transformer.decoder_forward(cfg, params, x, cos, sin, cache,
+                                           prompt_cap=0)
+    out = [head_matmul_slice(h[:, -1], params["lm_head"], 0,
+                             cfg.codebook_size)]
+    for q in range(1, cfg.n_residual_codebooks):
+        emb = tables[q][codes[:, q].long()].to(dtype)
+        cos, sin = rope_cos_sin(torch.full((n, 1), q + 1, device=dev),
+                                inv_freq)
+        h, cache = transformer.decoder_forward(cfg, params, emb[:, None, :],
+                                               cos, sin, cache, prompt_cap=0)
+        out.append(head_matmul_slice(h[:, 0], params["lm_head"],
+                                     q * cfg.codebook_size,
+                                     cfg.codebook_size))
+    return torch.stack(out, 1).float()
+
+
+def spec_tie(eng, sides, x, y):
+    """Where frame x (the sequential run's) and frame y (another run's)
+    first part: how far each side's pick leads the other's in its own
+    logits (code 0: the talker's carried logits; a residual token: the
+    predictor's window logits, which the tokens before it, equal on both
+    sides, led to), over max |logit|, and how far the two sides' logits
+    there lie apart.  A near tie: the two sides' logits within
+    SPEC_LOGIT_TOL of max |logit| of each other, and each side's pick
+    ahead of the other's by at most twice that distance.  sides: two
+    dicts, {"logits": [V] the carried logits that picked code 0, "hidden":
+    [N, D] and "codes": [N, 16] the predictor's rows as that run gave them
+    (its batch), "row": this lane's row}.  Returns (near tie, text)."""
+    tok = next(t for t in range(16) if int(x[t]) != int(y[t]))
+    if tok == 0:
+        ls, lv = (side["logits"] for side in sides)
+    else:
+        ls, lv = (predictor_windows(eng, side["hidden"], side["codes"])[
+            side["row"], tok - 1] for side in sides)
+    a, b = int(x[tok]), int(y[tok])
+    scale = max(ls.abs().max().item(), lv.abs().max().item())
+    lead_s = (ls[a] - ls[b]).item() / scale
+    lead_v = (lv[b] - lv[a]).item() / scale
+    apart = (ls - lv).abs().max().item() / scale
+    tie = (apart <= SPEC_LOGIT_TOL and 0 <= lead_s <= 2 * apart
+           and 0 <= lead_v <= 2 * apart)
+    return tie, (f"token {tok}: sequential picks {a}, {lead_s:.3e} above "
+                 f"{b}; the other picks {b}, {lead_v:.3e} above {a} (of max "
+                 f"|logit| {scale:.3f}); the two sides' logits {apart:.3e} "
+                 f"apart (at most {SPEC_LOGIT_TOL}): near tie={tie}")
+
+
+def drive_spec(dev, failures):
+    """Speculative decode (runtime/spec.gen_frames_spec) at full width: the
+    engine phase's weights on a fused=False engine (the same weights at
+    S = K and S = 1), B = 4 lanes at four cursors, bucket 128, K = 4; then
+    the same drafts on the default engine, whose decode step multiplies
+    the packed w4a8 weights (acceptance printed).
+
+    Held exactly: every call's frames equal the targets computed apart
+    (the verify forward on a copy of the state, the exact predictor on its
+    B * K hidden rows); n_emit = min(n_acc + 1, K); the cursors advance by
+    n_emit and the step by K; drafts fed back from the call's own targets
+    (at most K times) reach a fixed point that every lane accepts whole
+    (n_emit = K); uneven acceptance of that draft emits the fixed point's
+    frames; and the frames after it do not depend on the rejected drafts.
+    Held against K + SPEC_CONTINUE sequential steps: the verify forward's
+    logits, and the logits that pick each frame of a lane's stream (the
+    frames emitted, then SPEC_CONTINUE sequential ones), within
+    SPEC_LOGIT_TOL up to the frame where the stream parts from the
+    sequential one, which must be a near tie (spec_tie): the verify
+    forward and the sequential steps sum in other orders (cuBLAS at B * K
+    rows against B, the prefill kernel's bf16 p against the decode
+    kernel's f32).  Returns {"spec-exact": {kernel: launches},
+    "spec-default": ...}."""
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine
+    from qwen3_tts_tpu_torch.kernels import flash_decode as fd
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import talker_step_fused
+    from qwen3_tts_tpu_torch.models import predictor as predictor_lib
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    from qwen3_tts_tpu_torch.ops.sampling import sample_logits
+    from qwen3_tts_tpu_torch.runtime import generate as tg
+    from qwen3_tts_tpu_torch.runtime import spec
+
+    fns = {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, fd.flash_gqa_decode_stacked,
+        fd.flash_gqa_decode_append, fd.append_kv_lanes,
+        fd.inject_prompt_lanes, talker_step_fused, predict_frame_fused,
+        gen_chunk_fused)}
+    default = TtsEngine(device=dev, speakers_dir="speakers")
+    exact = TtsEngine(device=dev, speakers_dir="speakers", fused=False,
+                      weights=dict(assets=default.assets,
+                                   talker=default.talker_params,
+                                   predictor=default.predictor_params,
+                                   codec_decoder=default.codec_decoder_params))
+    sampler = tg.SamplerParams(0.0, 40, 0.9)
+    k, b = SPEC_K, SPEC_B
+    counts = {}
+    with torch.no_grad():
+        base, last = spec_base_state(exact, sampler)
+        cursors = base.cache.write_idx.tolist()
+        _, ref, ref_lb, ref_hb = run_frames(exact, clone_state(base),
+                                            sampler, k + SPEC_CONTINUE)
+        gen = exact.generator
+        pack = gen.assets_pack
+
+        def run(draft):
+            return spec.gen_frames_spec(exact.config, gen.talker_params,
+                                        gen.predictor_params, pack,
+                                        clone_state(base), draft, sampler,
+                                        128)
+
+        def targets(draft):
+            """The target frames of `draft` computed apart from
+            gen_frames_spec, at full depth: the verify forward on a copy of
+            base, code 0 the greedy pick of the carried logits (position 0)
+            or of the verify row before, the residual codes the exact
+            predictor on those B * K hidden rows.  Returns (codes [B, K,
+            16], for each position the sides' dict of spec_tie but "row",
+            the verify forward's logits [B, K, V])."""
+            fb = (tg._frame_emb_sum(pack["codec_tables"],
+                                    draft.reshape(-1, 16))
+                  .reshape(b, k, -1) + pack["tts_pad"].float())
+            v = clone_state(base)
+            vl, vh, _ = talker_lib.talker_verify_frames(
+                exact.config.talker, gen.talker_params, fb, v.pos, v.cache,
+                128)
+            lb = torch.cat([base.logits[:, None].to(vl.dtype),
+                            vl[:, :-1]], 1)
+            hb = torch.cat([base.hidden[:, None].to(vh.dtype),
+                            vh[:, :-1]], 1).reshape(b * k, -1)
+            g = torch.Generator(device=dev)         # greedy: no draws
+            c0 = torch.stack([sample_logits(lb[:, p], g, 0.0, 40, 0.9)
+                              for p in range(k)], 1)
+            h1024 = (hb.float() @ pack["proj_w"].float().t()
+                     + pack["proj_b"].float())
+            codes = predictor_lib.predict_frame(
+                exact.config.predictor, gen.predictor_params, h1024,
+                c0.reshape(-1), pack["codec_tables_1024"]).reshape(b, k, 16)
+            side = dict(logits=lb.float(), hidden=hb,
+                        codes=codes.reshape(b * k, 16))
+            return codes, side, vl.float()
+
+        def ver_side(side, lane, p):
+            return dict(side, logits=side["logits"][lane, p],
+                        row=lane * k + p)
+
+        def seq_side(lane, j):
+            """The sequential run's frame j of `lane`."""
+            return dict(logits=ref_lb[lane, j], hidden=ref_hb[:, j],
+                        codes=ref[:, j], row=lane)
+
+        def along(lane, frames, other_side):
+            """Lane `lane`'s stream `frames` [n, 16] against the sequential
+            run's first n frames: equal up to the first that parts, which
+            must be a near tie; the logits that picked each frame up to it
+            within SPEC_LOGIT_TOL of the sequential run's (of their max
+            |logit|).  other_side(j): frame j's side.  Returns (held, the
+            frame where it parts or None, text)."""
+            for j in range(frames.shape[0]):
+                seq, other = seq_side(lane, j), other_side(j)
+                err = ((other["logits"] - seq["logits"]).abs().max()
+                       / seq["logits"].abs().max()).item()
+                if not err <= SPEC_LOGIT_TOL:
+                    return False, j, (f"frame {j}'s logits {err:.3e} of max "
+                                      f"|logit| from the sequential run's "
+                                      f"(tol {SPEC_LOGIT_TOL})")
+                if not torch.equal(frames[j], ref[lane, j]):
+                    tie, text = spec_tie(exact, (seq, other), ref[lane, j],
+                                         frames[j])
+                    return tie, j, f"parts at frame {j} {text}"
+            return True, None, ""
+
+        def rule(codes, n_emit, draft):
+            """n_emit = min(n_acc + 1, K) in every lane, n_acc the leading
+            frames equal to the draft."""
+            acc = torch.cumprod((codes == draft).all(-1).to(torch.int32),
+                                1).sum(1)
+            return torch.equal(n_emit.long(), torch.clamp(acc + 1,
+                                                          max=k).long())
+
+        # the verify forward on the sequential frames' feedback, alone
+        t_a, side_a, ver_logits = targets(ref[:, :k])
+        seq_after = ref_lb[:, 1:k + 1]        # the logits after frames 0..K-1
+        scale = seq_after.abs().max().item()
+        v_err = (ver_logits - seq_after).abs().max().item()
+        print(f"[spec] B={b} lanes at cursors {cursors} (bucket 128), "
+              f"K={k}: verify forward's logits against {k} sequential "
+              f"steps' (exact path): max_abs_err {v_err:.4e} = "
+              f"{v_err / scale:.3e} of max |logit| {scale:.3f} "
+              f"(tol {SPEC_LOGIT_TOL})")
+        if not v_err <= SPEC_LOGIT_TOL * scale:
+            failures.append("spec: the verify forward's logits leave the "
+                            "sequential steps'")
+
+        # (a) drafts = the sequential next K frames
+        draft_a = ref[:, :k].contiguous()
+        zero_counts(fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_a, codes_a, _, n_a = run(draft_a)
+        torch.cuda.synchronize()
+        ms_a = (time.perf_counter() - t0) * 1e3
+        counts["spec-exact"] = read_counts(fns)
+        ok_a = (torch.equal(codes_a, t_a) and rule(codes_a, n_a, draft_a)
+                and st_a.cache.write_idx.tolist()
+                == [c + n for c, n in zip(cursors, n_a.tolist())]
+                and st_a.step == base.step + k)
+        for lane in range(b):
+            held, at, text = along(lane, codes_a[lane, :int(n_a[lane])],
+                                   lambda j: ver_side(side_a, lane, j))
+            ok_a = ok_a and held
+            if at is not None:
+                print(f"[spec] (a) lane {lane}: {text}")
+        print(f"[spec] (a) drafts = the sequential next {k} frames: n_emit "
+              f"{n_a.tolist()}; frames equal to the targets computed apart "
+              f"(verify forward + exact predictor on its {b * k} hidden "
+              f"rows)={torch.equal(codes_a, t_a)}, n_emit = min(n_acc + 1, "
+              f"K)={rule(codes_a, n_a, draft_a)}; held={ok_a}; cursors "
+              f"{st_a.cache.write_idx.tolist()}, step {st_a.step}; one call "
+              f"{ms_a:.1f} ms; launches {counts['spec-exact']}")
+        if not ok_a:
+            failures.append("spec (a): the sequential drafts' call left its "
+                            "targets, the acceptance rule, the cursors or "
+                            "the sequential stream away from a near tie")
+
+        # (a') full acceptance: the call's own targets fed back as drafts
+        # until every lane accepts all K (n_emit = K already at K - 1
+        # accepted: the K-th frame is the target's)
+        draft_f = draft_a
+        for calls in range(1, k + 2):
+            st_f, codes_f, _, n_f = run(draft_f)
+            if torch.equal(codes_f, draft_f):
+                break
+            draft_f = codes_f.contiguous()
+        t_f, side_f, _ = targets(draft_f)
+        ok_f = (bool((n_f == k).all()) and torch.equal(codes_f, draft_f)
+                and torch.equal(codes_f, t_f)
+                and st_f.cache.write_idx.tolist()
+                == [c + k for c in cursors] and st_f.step == base.step + k)
+        print(f"[spec] (a') drafts fed back from the call's own targets: "
+              f"every lane accepts all {k} after {calls} calls (at most "
+              f"{k + 1}): n_emit {n_f.tolist()}, frames = draft = targets "
+              f"computed apart, cursors {st_f.cache.write_idx.tolist()} "
+              f"(+{k}), step {st_f.step}; held={ok_f}")
+        if not ok_f:
+            failures.append(f"spec (a'): a fixed-point draft was not "
+                            f"accepted whole in every lane (n_emit "
+                            f"{n_f.tolist()})")
+
+        # (b) repeat_draft of each lane's last frame: position 0 is
+        # picked by the carried state, whatever the draft
+        draft_b = spec.repeat_draft(last, k)
+        _, codes_b, _, n_b = run(draft_b)
+        ok_b = (bool((n_b >= 1).all()) and rule(codes_b, n_b, draft_b)
+                and torch.equal(codes_b[:, 0], t_a[:, 0]))
+        print(f"[spec] (b) repeat_draft: n_emit {n_b.tolist()}, frame 0 "
+              f"equal to (a)'s targets'={torch.equal(codes_b[:, 0], t_a[:, 0])}"
+              f"; held={ok_b}")
+        if not ok_b:
+            failures.append("spec (b): repeat_draft's emitted frame 0 is not "
+                            "the target's, or the acceptance rule failed")
+
+        # (c) uneven acceptance of the fixed-point draft, then sequential
+        # frames; the same with other rejected drafts must continue alike
+        expect = [min(a + 1, k) for a in SPEC_MISMATCH_AT]
+        outs = []
+        for flip in (1, 2):
+            draft_c = draft_f.clone()
+            for lane, at in enumerate(SPEC_MISMATCH_AT):
+                draft_c[lane, at:] ^= flip
+            st_c, codes_c, _, n_c = run(draft_c)
+            emitted = [codes_c[lane, :n] for lane, n in
+                       enumerate(n_c.tolist())]
+            st_c, cont, cont_lb, cont_hb = run_frames(exact, st_c, sampler,
+                                                      SPEC_CONTINUE)
+            outs.append((n_c, emitted, st_c, cont, cont_lb, cont_hb))
+        n_c, emitted, st_c, cont, cont_lb, cont_hb = outs[0]
+        ok_c = (n_c.tolist() == expect
+                and all(torch.equal(e, draft_f[lane, :e.shape[0]])
+                        for lane, e in enumerate(emitted)))
+        alike = (torch.equal(outs[1][3], cont)
+                 and torch.equal(outs[1][4], cont_lb)
+                 and outs[1][2].cache.write_idx.tolist()
+                 == st_c.cache.write_idx.tolist())
+        cont_ok, parted = True, []
+        for lane, n in enumerate(n_c.tolist()):
+            stream = torch.cat([emitted[lane], cont[lane]])
+
+            def other(j, lane=lane, n=n):
+                if j < n:
+                    return ver_side(side_f, lane, j)
+                return dict(logits=cont_lb[lane, j - n],
+                            hidden=cont_hb[:, j - n], codes=cont[:, j - n],
+                            row=lane)
+
+            held, at, text = along(lane, stream, other)
+            cont_ok = cont_ok and held
+            if at is not None:
+                parted.append(lane)
+                print(f"[spec] (c) lane {lane}: the stream {text}")
+        print(f"[spec] (c) the fixed-point draft with mismatches at "
+              f"{SPEC_MISMATCH_AT}: n_emit {n_c.tolist()} (min(n_acc + 1, "
+              f"K) = {expect}), emitted frames equal to the fixed point's="
+              f"{ok_c}; then {SPEC_CONTINUE} sequential frames: equal, with "
+              f"their logits, to the same after other rejected drafts="
+              f"{alike}; each lane's stream against the all-sequential run "
+              f"(logits within {SPEC_LOGIT_TOL}, parted at a near tie: "
+              f"lanes {parted})={cont_ok}; cursors "
+              f"{st_c.cache.write_idx.tolist()}, step {st_c.step}")
+        if not ok_c:
+            failures.append("spec (c): uneven acceptance did not emit "
+                            "min(n_acc + 1, K) frames of the fixed point")
+        if not alike:
+            failures.append("spec (c): the frames after a speculative call "
+                            "depend on its rejected drafts")
+        if not cont_ok:
+            failures.append("spec (c): the stream left the sequential run "
+                            "away from a near tie")
+
+        # the same drafts on the default engine: acceptance only
+        dbase, _ = spec_base_state(default, sampler)
+        dgen = default.generator
+        zero_counts(fns)
+        _, _, _, n_d = spec.gen_frames_spec(
+            default.config, dgen.talker_params, dgen.predictor_params,
+            dgen.assets_pack, dbase, draft_a, sampler, 128)
+        counts["spec-default"] = read_counts(fns)
+    print(f"[spec] default engine (w4a8 decode step, verify on the engine's "
+          f"layers), the exact path's sequential drafts: n_emit "
+          f"{n_d.tolist()} (acceptance {(n_d.sum().item() - b)}/"
+          f"{b * (k - 1)} drafts past the first); launches "
+          f"{counts['spec-default']}")
+    for name, need, forbid in (
+            ("spec-exact", ("flash_gqa_prefill_stacked",
+                            "flash_gqa_decode_append"),
+             ("talker_step_fused", "predict_frame_fused", "gen_chunk_fused")),
+            ("spec-default", ("flash_gqa_prefill_stacked",
+                              "talker_step_fused", "predict_frame_fused",
+                              "append_kv_lanes"),
+             ("gen_chunk_fused", "flash_gqa_decode_append"))):
+        for k_ in need:
+            if counts[name][k_] <= 0:
+                failures.append(f"{name} never launched {k_}")
+        for k_ in forbid:
+            if counts[name][k_] != 0:
+                failures.append(f"{name} launched {k_}")
     return counts
 
 
@@ -4827,7 +5671,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,chunk,reference,engine,stream,clone,"
-                    "onnx,serving,wave,weights",
+                    "onnx,serving,online,spec,wave,weights",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
     import torch
@@ -4869,8 +5713,9 @@ def main() -> int:
     phases = (("kernels", kernels), ("chunk", check_chunk),
               ("reference", check_reference), ("engine", drive_engine),
               ("stream", drive_stream), ("clone", drive_clone),
-              ("onnx", drive_onnx), ("serving", drive_serving), ("wave", drive_wave),
-              ("weights", drive_weights))
+              ("onnx", drive_onnx), ("serving", drive_serving),
+              ("online", drive_online), ("spec", drive_spec),
+              ("wave", drive_wave), ("weights", drive_weights))
     results = {}
     for name, fn in phases:
         if name not in phases_wanted:
@@ -4891,6 +5736,8 @@ def main() -> int:
               **(results.get("clone") or {}),
               **(results.get("onnx") or {}),
               **(results.get("serving") or {}),
+              **(results.get("online") or {}),
+              **(results.get("spec") or {}),
               **(results.get("wave") or {}),
               **(results.get("weights") or {})}
     measured = dict(results.get("kernels") or {})
@@ -4901,7 +5748,9 @@ def main() -> int:
              "serving-b8": SERVING_PATH_KERNELS["step"],
              "serving-exact": SERVING_PATH_KERNELS["exact"],
              **WEIGHTS_PATH_KERNELS, **CLONE_PATH_KERNELS,
-             **ONNX_PATH_KERNELS}
+             **ONNX_PATH_KERNELS, "online-b8": SERVING_PATH_KERNELS["step"],
+             "spec-exact": ("flash_gqa_prefill_stacked",
+                            "flash_gqa_decode_append")}
     for name, (src, replaces) in KERNELS.items():
         k = dict(measured.get(name, {}))
         by_path = {p: c.get(name, 0) for p, c in counts.items()}

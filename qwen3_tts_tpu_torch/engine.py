@@ -104,12 +104,27 @@ and prompts as a clone (PromptBuilder.plan_clone), whose reference rows
 are its prefix and so go through the prefix-KV path above.  With the ONNX
 encoders the codes come from the audio-encoder graph and the embedding
 from the speaker-encoder graph on ops/mel's log-mel.
+
+Threads (serve/online, serve/api): the kernels keep their scratch per
+weights and batch size, not per caller (kernels/talker_step.kept_scratch:
+the talker step's k/v token buffers, which the next launch,
+append_kv_lanes, reads; the predictor frame's, the chunk kernel's and
+flash_gqa_decode_append's workspaces), so two threads whose launches
+interleave on one engine could overwrite each other's scratch between two
+launches.  `device_lock`, one re-entrant lock an engine, is held by every
+sequence of launches: a request (`_run_inference`), a stream's prefill
+and each of its chunks (`_stream_inference`, `stream_batch`), `warmup`,
+`set_max_steps` (it grows the config a worker reads) and each round of a
+serving worker (serve/online).  Launches on one device go to its one
+current stream in the order they were enqueued, so a sequence enqueued
+whole under the lock runs whole on the card.
 """
 
 from __future__ import annotations
 
 import collections
 import os
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -206,6 +221,7 @@ class TtsEngine:
         save and read the converted talker and predictor under
         model_dir/cache/."""
         self.device = torch.device(device)
+        self.device_lock = threading.RLock()    # module docstring: Threads
         if self.device.type == "cuda":
             set_cuda_precision()
         self.model_dir = Path(model_dir)
@@ -424,12 +440,13 @@ class TtsEngine:
         config grows with it (the KV capacity derives from it)."""
         import dataclasses
         steps = int(steps)
-        self.max_steps = steps
-        if steps > self.config.runtime.max_steps:
-            self.config = self.config.replace(
-                runtime=dataclasses.replace(self.config.runtime,
-                                            max_steps=steps))
-            self.generator.cfg = self.config
+        with self.device_lock:
+            self.max_steps = steps
+            if steps > self.config.runtime.max_steps:
+                self.config = self.config.replace(
+                    runtime=dataclasses.replace(self.config.runtime,
+                                                max_steps=steps))
+                self.generator.cfg = self.config
 
     def set_sampler_config(self, config: SamplerConfig) -> None:
         self.sampler_config = config
@@ -538,21 +555,23 @@ class TtsEngine:
         silence through the mel, codec encoder and speaker encoder (the
         cuFFT and cuDNN plans).  No request's state, sampler or prefix
         entry changes."""
-        frames = frames or self.config.runtime.frames_per_chunk
-        sampler = SamplerParams.make(self.sampler_config)
-        dev = self.device
-        for b in batch_sizes:
-            for bucket in buckets:
-                state = self.generator.start(
-                    torch.zeros((b, bucket, P.TALKER_DIM), device=dev),
-                    torch.full((b,), bucket, dtype=torch.int32, device=dev),
-                    torch.Generator(device=dev).manual_seed(0))
-                self.codec.chunk(state, self.codec.new_state(b), sampler,
-                                 prompt_cap=bucket, n_frames=frames)
-        first = self.config.runtime.first_chunk_frames or frames
-        self.codec.warm_decoder((first, frames, frames))
-        self.encode_reference(np.zeros(P.SAMPLE_RATE, np.float32))
-        self._sync()
+        with self.device_lock:
+            frames = frames or self.config.runtime.frames_per_chunk
+            sampler = SamplerParams.make(self.sampler_config)
+            dev = self.device
+            for b in batch_sizes:
+                for bucket in buckets:
+                    state = self.generator.start(
+                        torch.zeros((b, bucket, P.TALKER_DIM), device=dev),
+                        torch.full((b,), bucket, dtype=torch.int32,
+                                   device=dev),
+                        torch.Generator(device=dev).manual_seed(0))
+                    self.codec.chunk(state, self.codec.new_state(b), sampler,
+                                     prompt_cap=bucket, n_frames=frames)
+            first = self.config.runtime.first_chunk_frames or frames
+            self.codec.warm_decoder((first, frames, frames))
+            self.encode_reference(np.zeros(P.SAMPLE_RATE, np.float32))
+            self._sync()
 
     def generate_stream(self, text: str, voice: VoiceFile,
                         instruct: Optional[str] = None
@@ -619,30 +638,34 @@ class TtsEngine:
         slots = _HostSlots(dev, b, max(first_n, n_chunk), codec.wav_spf)
         done = np.zeros(b, bool)
         t = {k: torch.from_numpy(v).to(dev) for k, v in a.items()}
-        state = self.generator.start_from_plans(
-            self.assets.text_table, self.assets.codec_tables,
-            t["text_idx"], t["codec_idx"], t["frame_slot"], t["spk_flag"],
-            t["frames"], t["spk_emb"], torch.from_numpy(lengths).to(dev),
-            gen)
-        state, cs, codes, valid, wav = codec.chunk(
-            state, codec.new_state(b), sampler, prompt_cap=bucket,
-            n_frames=first_n)
-        pending = slots.put(wav, valid, codes, first_n)
+        with self.device_lock:
+            state = self.generator.start_from_plans(
+                self.assets.text_table, self.assets.codec_tables,
+                t["text_idx"], t["codec_idx"], t["frame_slot"],
+                t["spk_flag"], t["frames"], t["spk_emb"],
+                torch.from_numpy(lengths).to(dev), gen)
+            state, cs, codes, valid, wav = codec.chunk(
+                state, codec.new_state(b), sampler, prompt_cap=bucket,
+                n_frames=first_n)
+            pending = slots.put(wav, valid, codes, first_n)
         steps = first_n
         while pending is not None:
             nxt = None
             if steps < self.max_steps:
                 n = min(n_chunk, self.max_steps - steps)
-                state, cs, codes, valid, wav = codec.chunk(
-                    state, cs, sampler, prompt_cap=bucket, n_frames=n)
-                nxt = slots.put(wav, valid, codes, n)
+                with self.device_lock:
+                    state, cs, codes, valid, wav = codec.chunk(
+                        state, cs, sampler, prompt_cap=bucket, n_frames=n)
+                    nxt = slots.put(wav, valid, codes, n)
                 steps += n
             wav_h, valid_h, codes_h, n0 = _HostSlots.get(pending)
             n_valid = valid_h.sum(1)
             # zero-length pieces for the lanes already done
-            yield codec.audio(wav_h, codes_h,
-                              np.where(done, 0, n_valid), cs,
-                              (n_valid < n0) | (nxt is None))
+            with self.device_lock:
+                pieces = codec.audio(wav_h, codes_h,
+                                     np.where(done, 0, n_valid), cs,
+                                     (n_valid < n0) | (nxt is None))
+            yield pieces
             done |= n_valid < n0
             if done.all():
                 break
@@ -802,35 +825,36 @@ class TtsEngine:
         the codec decode of each chunk; early exit at EOS.  With the ONNX
         codec the loop makes codes only, and the decoder graph decodes
         them in one call from a fresh state (the JAX engine's rule)."""
-        cfg = self.config
-        spf = cfg.codec_decoder.samples_per_frame
-        codec = self.codec
-        metrics = GenerationMetrics()
-        watch = Stopwatch()
-        t_start = time.perf_counter()
-        state, bucket = self._start_state(plan, self._torch_generator())
-        sampler = SamplerParams.make(self.sampler_config)
-        self._sync()
-        metrics.prefill_ms = watch.lap_ms()
-        max_frames = min(self.max_steps, cfg.runtime.max_steps)
-        state, cs, codes, valid, wav, saw_eos = codec.run_bulk(
-            state, codec.new_state(1), sampler, prompt_cap=bucket,
-            max_frames=max_frames)
-        n_valid = int(valid[0].sum())
-        codes_h = codes.cpu().numpy()
-        samples = codec.audio(wav.cpu().numpy(), codes_h, [n_valid], cs,
-                              [True])[0]
-        metrics.eos = bool(saw_eos[0])
-        self.last_codes = codes_h[0, :n_valid]
+        with self.device_lock:
+            cfg = self.config
+            spf = cfg.codec_decoder.samples_per_frame
+            codec = self.codec
+            metrics = GenerationMetrics()
+            watch = Stopwatch()
+            t_start = time.perf_counter()
+            state, bucket = self._start_state(plan, self._torch_generator())
+            sampler = SamplerParams.make(self.sampler_config)
+            self._sync()
+            metrics.prefill_ms = watch.lap_ms()
+            max_frames = min(self.max_steps, cfg.runtime.max_steps)
+            state, cs, codes, valid, wav, saw_eos = codec.run_bulk(
+                state, codec.new_state(1), sampler, prompt_cap=bucket,
+                max_frames=max_frames)
+            n_valid = int(valid[0].sum())
+            codes_h = codes.cpu().numpy()
+            samples = codec.audio(wav.cpu().numpy(), codes_h, [n_valid], cs,
+                                  [True])[0]
+            metrics.eos = bool(saw_eos[0])
+            self.last_codes = codes_h[0, :n_valid]
 
-        metrics.total_ms = (time.perf_counter() - t_start) * 1000.0
-        metrics.ttft_ms = None       # a streaming metric
-        metrics.frames = n_valid
-        metrics.audio_seconds = n_valid * spf / P.SAMPLE_RATE
-        self.last_metrics = metrics
-        log_event("generation", **metrics.as_dict())
-        return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
-                           channels=1)
+            metrics.total_ms = (time.perf_counter() - t_start) * 1000.0
+            metrics.ttft_ms = None       # a streaming metric
+            metrics.frames = n_valid
+            metrics.audio_seconds = n_valid * spf / P.SAMPLE_RATE
+            self.last_metrics = metrics
+            log_event("generation", **metrics.as_dict())
+            return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
+                               channels=1)
 
     @torch.no_grad()
     def _stream_inference(self, plan: PromptPlan) -> Iterator[np.ndarray]:
@@ -859,12 +883,13 @@ class TtsEngine:
                       f"(t+{(time.perf_counter() - t_start) * 1000:.0f} ms)",
                       flush=True)
 
-        state, bucket = self._start_state(plan, self._torch_generator())
-        tlog("prefill")
+        with self.device_lock:
+            state, bucket = self._start_state(plan, self._torch_generator())
+            tlog("prefill")
+            self._sync()
         sampler = SamplerParams.make(self.sampler_config)
         codec = self.codec
         cs = codec.new_state(1)
-        self._sync()
         metrics.prefill_ms = watch.lap_ms()
         slots = _HostSlots(self.device, 1, max(first_n, n_chunk),
                            codec.wav_spf)
@@ -877,9 +902,10 @@ class TtsEngine:
                 n = min(n_chunk, self.max_steps - steps)
                 if steps == 0 and 0 < first_n < n:
                     n = first_n              # small first chunk
-                state, cs, codes, valid, wav = codec.chunk(
-                    state, cs, sampler, prompt_cap=bucket, n_frames=n)
-                nxt = slots.put(wav, valid, codes, n)
+                with self.device_lock:
+                    state, cs, codes, valid, wav = codec.chunk(
+                        state, cs, sampler, prompt_cap=bucket, n_frames=n)
+                    nxt = slots.put(wav, valid, codes, n)
                 if steps == 0:
                     tlog("lm + codec chunk 0")
                 steps += n
@@ -888,8 +914,9 @@ class TtsEngine:
                 n_valid = int(valid_h[0].sum())
                 metrics.chunk_ms.append(watch.lap_ms())
                 if n_valid > 0:
-                    piece = codec.audio(wav_h, codes_h, [n_valid], cs,
-                                        [n_valid < n0 or nxt is None])[0]
+                    with self.device_lock:
+                        piece = codec.audio(wav_h, codes_h, [n_valid], cs,
+                                            [n_valid < n0 or nxt is None])[0]
                     if metrics.ttft_ms is None:
                         metrics.ttft_ms = (time.perf_counter()
                                            - t_start) * 1000.0

@@ -83,6 +83,16 @@ def speaker_from_jax(params, device="cpu") -> Dict[str, Any]:
     return p
 
 
+def draft_from_jax(params, device="cpu") -> Dict[str, torch.Tensor]:
+    """runtime/spec's draft head from the JAX `init_draft_params` tree (or
+    a trained head in its layout): trunk [2D, Dh], trunk_b [Dh], head0
+    [Dh, 2160], heads [15, Dh, 2048]; layouts and dtypes kept."""
+    p = tree_to_torch(params, device)
+    if set(p) != {"trunk", "trunk_b", "head0", "heads"}:
+        raise ValueError(f"not a draft head tree: {sorted(p)}")
+    return p
+
+
 def talker_w4a8_from_jax(layer_w: Dict[str, Any], device="cpu"
                          ) -> Dict[str, torch.Tensor]:
     """The port's kernels/talker_step weights from the JAX package's

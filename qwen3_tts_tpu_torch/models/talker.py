@@ -85,6 +85,29 @@ def talker_decode_step(cfg: TalkerConfig, params, embed: torch.Tensor,
     return _codec_logits(params, hidden), hidden, cache
 
 
+def talker_verify_frames(cfg: TalkerConfig, params, embeds: torch.Tensor,
+                         pos: torch.Tensor, cache: KVCache, prompt_cap: int,
+                         ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """The speculative-decoding verify forward (JAX talker_verify_frames):
+    K drafted feedback embeddings in ONE forward, each row written at its
+    lane's own cursor and attending the whole live prefix
+    (transformer.decoder_forward with full_prefix=True), so that row j sees
+    slots [0, cursor + j] as j sequential decode steps would.
+
+    embeds: [B, K, 2048]; pos: [B] logical position of each lane's first
+    draft.  Returns (codec_logits [B, K, V_codec] f32, hidden [B, K, D],
+    cache with the K rows written in place and write_idx advanced by K;
+    the caller moves the cursors back over rejected drafts,
+    runtime/spec.py)."""
+    k = embeds.shape[1]
+    p = pos.long()[:, None] + torch.arange(k, device=pos.device)[None, :]
+    cos, sin = _rope_tables(cfg, _pos4(p))
+    hidden_all, cache = transformer.decoder_forward(
+        cfg, params, embeds.to(transformer.dtype_of(cfg.dtype)), cos, sin,
+        cache, prompt_cap=prompt_cap, uniform_cursor=False, full_prefix=True)
+    return _codec_logits(params, hidden_all), hidden_all, cache
+
+
 def _codec_logits(params, hidden: torch.Tensor) -> torch.Tensor:
     return head_matmul(hidden, params["codec_head"])
 

@@ -28,6 +28,13 @@ request, or lanes that started together) writes all lanes at write_idx[0];
 uniform_cursor=False (continuous batching) writes each lane at its own
 cursor, and a decode step then attends through
 kernels/flash_decode.flash_gqa_decode_append, which appends the row.
+
+full_prefix=True (the speculative-decoding verify forward,
+models/talker.talker_verify_frames): S > 1 rows written mid-decode at
+each lane's cursor attend the whole live prefix, prompt and generated
+slots, through the prefill kernel with window = the cache's capacity and
+the lanes' own starts; its per-lane causal predicate hides the slots past
+each row, stale rows of an earlier request or a rejected draft included.
 """
 
 from __future__ import annotations
@@ -119,12 +126,14 @@ def init_decoder_params(cfg, generator: torch.Generator) -> Dict[str, Any]:
 def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
                     cos: torch.Tensor, sin: torch.Tensor, cache: KVCache,
                     prompt_cap: int, uniform_cursor: bool = True,
-                    a8: bool = False) -> Tuple[torch.Tensor, KVCache]:
+                    a8: bool = False, full_prefix: bool = False,
+                    ) -> Tuple[torch.Tensor, KVCache]:
     """Run the decoder over S new tokens written at the cache cursor.
 
     x: [B, S, D]; cos/sin: [B, S, Dh] rotary tables of the new positions.
     S > 1 is a prefill: its rows attend slots [0, min(max(prompt_cap, S),
-    C)).  S == 1 is a decode step over the live prefix.  uniform_cursor:
+    C)), or [0, C) with full_prefix=True (a mid-decode forward: module
+    docstring).  S == 1 is a decode step over the live prefix.  uniform_cursor:
     all lanes write at write_idx[0]; False: each lane at its own
     write_idx[b] (module docstring).  a8: S > 1 matmuls of int8 weights
     a8w8 (module docstring).  k/v of the new rows are written into the
@@ -147,7 +156,8 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
     layers = params["layers"]
     start = cache.write_idx
     write_at = start[:1] if uniform_cursor else start
-    window = min(max(prompt_cap, s), cache.capacity)
+    window = (cache.capacity if full_prefix
+              else min(max(prompt_cap, s), cache.capacity))
     mm = matmul_a8 if s > 1 and a8 else matmul
     for layer in range(cfg.n_layers):
         hn = rms_norm(x, layers["ln1"][layer], cfg.rms_eps)

@@ -12,12 +12,16 @@ and state shapes) decode together through one decode_batch, a lane out of
 step alone.
 
     codec = LaneCodec(engine, batch)
-    state, codes_np, valid_np, saw_eos_np = codec.run_group(state, sampler, ...)
+    state, codes_np, valid_np, saw_eos_np = codec.run_group(state, ...)
+    state, codes_np, valid_np, saw_eos_np = codec.run_chunk(state, ...)
     samples = codec.chunk_audio(codes_np, ks, finals)    # per lane
     codec.reset_lanes(mask)                              # on refill
 
-The JAX LaneCodec's one-chunk `run_chunk` (and its `lane_audio`) come
-with online serving.
+`run_chunk` (the online batcher's one chunk a round) is `run_group` of one
+chunk: the lanes' remaining budgets mask `valid` and set `done` where a
+lane reaches its budget, and `saw_eos` says which lanes sampled EOS (the
+JAX online loop infers EOS from `valid.sum() < n_chunk` and clamps to the
+budget on the host).
 """
 
 from __future__ import annotations
@@ -58,6 +62,16 @@ class LaneCodec:
         self._wav_np = wav.cpu().numpy()
         return (state, codes.cpu().numpy(), valid.cpu().numpy(),
                 saw_eos.cpu().numpy())
+
+    def run_chunk(self, state, sampler, *, prompt_cap: int, n_frames: int,
+                  budgets):
+        """One chunk of n_frames (= cfg.runtime.frames_per_chunk) frames at
+        per-lane cursors: run_group with max_frames = n_frames.  budgets:
+        [B] frames each lane may still emit (0 for an idle lane).  Returns
+        (state, codes_np [B, n, 16], valid_np [B, n], saw_eos_np [B])."""
+        return self.run_group(state, sampler, prompt_cap=prompt_cap,
+                              n_frames=n_frames, max_frames=n_frames,
+                              budgets=budgets)
 
     def chunk_audio(self, codes_np: np.ndarray, ks: np.ndarray,
                     finals: np.ndarray) -> List[np.ndarray]:

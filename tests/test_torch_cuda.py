@@ -1276,3 +1276,215 @@ def test_onnx_graphs_match_cpu(dev, size):
     np.testing.assert_array_equal(out[dev][0], tfx.encoder_reference(enc,
                                                                      wav))
     np.testing.assert_allclose(out[dev][1], out["cpu"][1], atol=1e-5)
+
+
+# ------------------------------------- the verify contract, online and spec
+@pytest.mark.parametrize("b", [4, 8])
+def test_prefill_kernel_verify_contract(dev, b):
+    """The speculative verify forward's attention: S = 4 rows a lane at the
+    lane's own start (spread over [32, C - 4]), window = C, the stale rows
+    past each lane's last row poisoned: equal to the clean cache's output
+    bit for bit, and to the plain version within the prefill tolerance."""
+    rng = np.random.default_rng(b)
+    c, s = 256, 4
+    k, v, t = _cache(rng, 2, b, 8, c, 128, dev)
+    q = t((b, s, 16, 128))
+    starts = sorted(int(x) for x in rng.integers(32, c - s + 1, b))
+    starts[0], starts[-1] = 32, c - s
+    lengths = _i32([32 - int(x) for x in rng.integers(0, 20, b)], dev)
+    start = _i32(starts, dev)
+    clean = flash_gqa_prefill_stacked(q, k, v, lengths, start, 1, 32, c)
+    for lane, a in enumerate(starts):
+        k[:, lane, :, a + s:] = 300.0
+        v[:, lane, :, a + s:] = -300.0
+    got = flash_gqa_prefill_stacked(q, k, v, lengths, start, 1, 32, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, clean)
+    want = prefill_attention_plain(q, k, v, lengths, start, 1, 32, c)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _small_engine(fused):
+    """TtsEngine on the card at the kernels' widths with two layers a model
+    (tests/test_torch_serving.py's config), seeded development weights."""
+    from qwen3_tts_tpu_torch.core.config import (EngineConfig,
+                                                 PredictorConfig,
+                                                 TalkerConfig)
+    from qwen3_tts_tpu_torch.engine import TtsEngine
+    cfg = EngineConfig.tiny().replace(
+        talker=TalkerConfig(d_model=2048, n_layers=2, n_heads=2,
+                            n_kv_heads=1, head_dim=128, d_ff=256,
+                            mrope_sections=(24, 20, 20, 0),
+                            dtype="bfloat16"),
+        predictor=PredictorConfig(d_model=1024, n_layers=2, n_heads=4,
+                                  n_kv_heads=2, head_dim=64, d_ff=256,
+                                  dtype="bfloat16"))
+    return TtsEngine(config=cfg, device="cuda", speakers_dir="speakers",
+                     fused=fused, chunk=False if fused else None)
+
+
+def test_online_batcher_on_the_card(dev, monkeypatch):
+    """OnlineBatcher at batch 8 on the step schedule: 12 greedy requests
+    from 3 threads resolve with frames x spf finite samples, the step
+    kernels and the lane kernels launch (the chunk kernel does not), the
+    worker runs with grad off on the engine's device, and the requests
+    one at a time twice give equal audio."""
+    import threading
+    from qwen3_tts_tpu_torch.core.config import SamplerConfig
+    from qwen3_tts_tpu_torch.kernels import flash_decode as tfd
+    from qwen3_tts_tpu_torch.serve.batch import BatchRequest
+    from qwen3_tts_tpu_torch.serve.codec_path import LaneCodec
+    from qwen3_tts_tpu_torch.serve.online import OnlineBatcher
+
+    eng = _small_engine(fused=True)
+    eng.set_max_steps(16)
+    eng.set_sampler_config(SamplerConfig(temperature=0.0, seed=7))
+    spf = eng.config.codec_decoder.samples_per_frame
+    voice = eng.get_speaker("vivian")
+    reqs = [BatchRequest(f"card {i}", voice, max_frames=(4, 8, 12)[i % 3])
+            for i in range(12)]
+    seen = []
+    run_chunk = LaneCodec.run_chunk
+
+    def spy(self, *a, **kw):
+        seen.append((torch.is_grad_enabled(), torch.cuda.current_device()))
+        return run_chunk(self, *a, **kw)
+
+    monkeypatch.setattr(LaneCodec, "run_chunk", spy)
+    fns = (tts.talker_step_fused, tpf.predict_frame_fused,
+           tfd.append_kv_lanes, tfd.inject_prompt_lanes, tcs.gen_chunk_fused)
+    before = [f.launches for f in fns]
+    ob = OnlineBatcher(eng, batch_size=8, bucket=32, idle_poll_s=0.005)
+    results = [None] * len(reqs)
+
+    def client(c):
+        for i in range(c, len(reqs), 3):
+            results[i] = ob.submit(reqs[i]).result(timeout=300)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(3)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    ob.stop()
+    moved = [f.launches - n for f, n in zip(fns, before)]
+    assert all(m > 0 for m in moved[:4]) and moved[4] == 0, moved
+    for r, q in zip(results, reqs):
+        assert 0 < r.frames <= q.max_frames
+        assert len(r.audio.samples) == r.frames * spf
+        assert np.isfinite(r.audio.samples).all()
+    assert seen and all(s == (False, eng.device.index or 0) for s in seen)
+    runs = []
+    for _ in range(2):
+        ob = OnlineBatcher(eng, batch_size=8, bucket=32, idle_poll_s=0.005)
+        runs.append([ob.submit(q).result(timeout=300) for q in reqs])
+        ob.stop()
+    for a, b in zip(*runs):
+        assert a.frames == b.frames
+        np.testing.assert_array_equal(a.audio.samples, b.audio.samples)
+
+
+def test_spec_on_the_card(dev):
+    """gen_frames_spec on an exact engine at 4 lanes and three cursors,
+    drafts equal to the sequential frames: the verify forward's logits
+    within 5e-2 of max |logit| of 4 sequential steps'; the target frames
+    equal the exact predictor run on the verify forward's hidden (B * K
+    rows) exactly; n_emit = min(n_acc + 1, K) with n_acc the leading
+    frames equal to the draft; the cursors advance by n_emit.  Then the
+    targets fed back as drafts, at most K times: every lane emits K frames,
+    equal to the draft, and its cursor advances by K.  (The verify
+    and the sequential steps sum in other orders, so a target frame may
+    leave the sequential one at a near tie: chip_smoke.py's spec phase
+    reports those.)"""
+    import dataclasses
+    from qwen3_tts_tpu_torch.models import predictor as predictor_lib
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    from qwen3_tts_tpu_torch.runtime import generate as tg
+    from qwen3_tts_tpu_torch.runtime import spec
+
+    eng = _small_engine(fused=False)
+    gen = eng.generator
+    pack = gen.assets_pack
+    sampler = tg.SamplerParams(0.0, 40, 0.9)
+    voice = eng.get_speaker("vivian")
+    plans = [eng._build_voice_prompt(f"spec lane {i}", voice, None)
+             for i in range(5)]
+
+    def frames(st, n):
+        return tg.gen_frames(eng.config, gen.talker_params,
+                             gen.predictor_params, pack, st, sampler, n, 32,
+                             uniform_cursor=False)
+
+    def clone(st):
+        g = torch.Generator(device=st.generator.device)
+        g.set_state(st.generator.get_state())
+        c = dataclasses.replace(st.cache, k=st.cache.k.clone(),
+                                v=st.cache.v.clone(),
+                                write_idx=st.cache.write_idx.clone())
+        return dataclasses.replace(st, cache=c, logits=st.logits.clone(),
+                                   hidden=st.hidden.clone(),
+                                   pos=st.pos.clone(), done=st.done.clone(),
+                                   generator=g)
+
+    with torch.no_grad():
+        embeds, lens = eng.prompt_to_device(plans[:4], 32)
+        st = gen.start(embeds, torch.from_numpy(lens).to(dev),
+                       torch.Generator(device=dev).manual_seed(0))
+        st, _, _ = frames(st, 4)
+        eb, lb = eng.prompt_to_device(plans[4:], 32)
+        base = gen.refill_lanes(st, eb, [int(lb[0])], [2])
+        cursors = [36, 36, 32, 36]
+        assert base.cache.write_idx.tolist() == cursors
+        seq, codes, logits = clone(base), [], []
+        for _ in range(4):
+            seq, c, _ = frames(seq, 1)
+            codes.append(c[:, 0])
+            logits.append(seq.logits.float())
+        ref, ref_logits = torch.stack(codes, 1), torch.stack(logits, 1)
+        fb = (tg._frame_emb_sum(pack["codec_tables"], ref.reshape(-1, 16))
+              .reshape(4, 4, -1) + pack["tts_pad"].float())
+        v = clone(base)
+        ver, ver_hidden, _ = talker_lib.talker_verify_frames(
+            eng.config.talker, gen.talker_params, fb, v.pos, v.cache, 32)
+        scale = ref_logits.abs().max().item()
+        assert (ver.float() - ref_logits).abs().max().item() <= 5e-2 * scale
+        # the target frames the verify forward gives, computed apart
+        pick = torch.cat([base.logits.float()[:, None],
+                          ver.float()[:, :3]], 1)
+        hid = torch.cat([base.hidden[:, None].to(ver_hidden.dtype),
+                         ver_hidden[:, :3]], 1).reshape(16, -1)
+        h1024 = hid.float() @ pack["proj_w"].float().t() \
+            + pack["proj_b"].float()
+        want = predictor_lib.predict_frame(
+            eng.config.predictor, gen.predictor_params, h1024,
+            pick.argmax(-1).reshape(-1).to(torch.int32),
+            pack["codec_tables_1024"]).reshape(4, 4, 16)
+        out, got, valid, n_emit = spec.gen_frames_spec(
+            eng.config, gen.talker_params, gen.predictor_params, pack,
+            clone(base), ref, sampler, 32)
+    assert torch.equal(got, want)
+    for lane in range(4):
+        acc = 0
+        while acc < 4 and torch.equal(got[lane, acc], ref[lane, acc]):
+            acc += 1
+        assert int(n_emit[lane]) == min(acc + 1, 4), lane
+    assert out.cache.write_idx.tolist() == [
+        c + int(n) for c, n in zip(cursors, n_emit.tolist())]
+    assert (valid.sum(1) <= n_emit).all()
+    assert out.step == base.step + 4
+    # full acceptance: the call's own targets fed back as drafts (at most
+    # K times) reach a draft every lane accepts whole
+    draft = got
+    with torch.no_grad():
+        for _ in range(4):
+            out, got, valid, n_emit = spec.gen_frames_spec(
+                eng.config, gen.talker_params, gen.predictor_params, pack,
+                clone(base), draft, sampler, 32)
+            if torch.equal(got, draft):
+                break
+            draft = got
+    assert n_emit.tolist() == [4] * 4
+    assert torch.equal(got, draft)
+    assert out.cache.write_idx.tolist() == [c + 4 for c in cursors]
+    assert out.step == base.step + 4
