@@ -5,7 +5,7 @@
 
     python3 chip_smoke.py [--phases kernels,chunk,reference,engine,stream,
                                     clone,onnx,serving,online,spec,wave,
-                                    weights]
+                                    weights,parallel]
 
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
@@ -167,6 +167,34 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      path in each talker mode (w4a8, int8, w8a8, bf16), the exact path
      (int8 matmuls, a8w8 prefill) and the exact path on int4 layers
      (matmul_int4); launch counts per path and talker mode.
+  14. parallel: tensor and data parallelism (qwen3_tts_tpu_torch/parallel)
+     at full width and depth, B = 4 preset-voice lanes of bucket 64, 8
+     greedy frames: (a) one process on a one-rank NCCL group, mesh 1 x 1:
+     tp_talker_prefill and tp_gen_bulk on the engine's bf16 and int8
+     weights equal to the same weights' exact path (codes, logits within
+     PARALLEL_ONE_RANK_TOL); the attention kernels and matmul_int4 at the
+     1 x 2 mesh's rank-local heads (8 / 4) and K (1024, 3072) against their
+     plain versions (the decode kernels at the TP path's cursors and at
+     multi-split ones, flash_gqa_decode_append bit for bit against its
+     kernel-order plain version), CUDA-graph time beside SDPA /
+     torch.matmul; (b) two spawned processes on cuda:0 joined by gloo
+     (through the host: not NCCL's figures), mesh 1 x 2: the same run, the
+     ranks bit-equal, within PARALLEL_LOGIT_TOL of (a) and parting from it
+     only at near ties (PARALLEL_TIE), then fed (a)'s codes frame by frame
+     (every step's code-0 and predictor window logits within
+     PARALLEL_LOGIT_TOL of (a)'s), the three attention kernels launched at
+     8 / 4 heads, a refill and a step at per-lane cursors against the
+     unsharded refill, int4 layers (matmul_int4 at K = 1024 and 3072) and
+     an a8 prefill against the unsharded ones, the prefill summed in bf16
+     beside f32; (c) two processes, mesh 2 x 1: ContinuousBatcher, 6
+     requests on 4 lanes (2 a rank) with refills, greedy on the exact path
+     and sampled on the default engine (its step and predictor kernels),
+     each request against the one-process batcher up to near ties (a
+     sampled code 0 on the same uniform, the logits of its frame within
+     PARALLEL_LOGIT_TOL); sampled waves
+     of 2 lanes on the default engine (the chunk kernel at one lane a
+     rank) equal to each rank's lanes alone in one process.  ms a frame,
+     all-reduces a frame.
 It prints one JSON line with the kernels' numbers (each with bound_ms: the
 larger of the bytes it must move over 3.35 TB/s and its operations over
 the card's peak for their type, from this run's shapes), then the card's
@@ -1048,8 +1076,9 @@ def check_talker_step(dev, failures):
     ms = plain = 0.0
     for order in ("plain", "kernel", "kernel", "plain"):
         fn = talker_step_fused if order == "kernel" else talker_step_plain
+        # the plain step (~150 ms) once a turn: its time is no yardstick
         t = cuda_ms(lambda i: fn(cfg, w, x, cos, sin, *kv, lens, wi, 32),
-                    iters=10)
+                    *((10, 3) if order == "kernel" else (1, 1)))
         if order == "kernel":
             ms += t / 2
         else:
@@ -1454,9 +1483,9 @@ def check_predictor_frame(dev, failures):
             if order == "kernel":
                 ms += cuda_ms(lambda i: predict_frame_fused(
                     cfg, w, h, c0, tables), iters=10) / (2 if b == 1 else 1)
-            else:
+            else:               # the plain frame (~170 ms) once a turn
                 plain += cuda_ms(lambda i: predict_frame_plain(
-                    cfg, w, h, c0, tables), iters=10) / 2
+                    cfg, w, h, c0, tables), 1, 1) / 2
         calls = predict_frame_fused.launches - before
         g_ms = graph_ms(lambda i: predict_frame_fused(cfg, w, h, c0, tables),
                         n=10)
@@ -3524,12 +3553,14 @@ def run_frames(eng, st, sampler, n):
             torch.stack(hidden, 1))
 
 
-def predictor_windows(eng, hidden, codes):
+def predictor_windows(eng, hidden, codes, h1024=None):
     """The exact predictor's 15 window logits [N, 15, 2048] (f32) on talker
     hidden [N, D] with each frame's own codes [N, 16] fed back:
     models/predictor.predict_frame's operations in its order and batch, so
     window q - 1 holds the logits that picked code q of a frame the
-    predictor picked on that batch."""
+    predictor picked on that batch.  h1024: the predictor's input [N,
+    1024] in place of hidden.  On a rank's block of the weights (a mesh)
+    the row-parallel predictor."""
     import torch
     from qwen3_tts_tpu_torch.models import transformer
     from qwen3_tts_tpu_torch.ops.quant import head_matmul_slice
@@ -3537,13 +3568,14 @@ def predictor_windows(eng, hidden, codes):
     cfg, params = eng.config.predictor, eng.generator.predictor_params
     pack = eng.generator.assets_pack
     tables = pack["codec_tables_1024"]
-    n, dev = hidden.shape[0], hidden.device
+    if h1024 is None:
+        h1024 = (hidden.float() @ pack["proj_w"].float().t()
+                 + pack["proj_b"].float())
+    n, dev = h1024.shape[0], h1024.device
     dtype = transformer.dtype_of(cfg.dtype)
     inv_freq = inv_freq_tensor(cfg.head_dim, cfg.rope_theta, dev)
     cache = transformer.init_kv_cache(cfg, n, 2 + cfg.n_residual_codebooks,
-                                      dtype, dev)
-    h1024 = (hidden.float() @ pack["proj_w"].float().t()
-             + pack["proj_b"].float())
+                                      dtype, dev, params)
     x = torch.stack([h1024, tables[0][codes[:, 0].long()].float()],
                     dim=1).to(dtype)
     cos, sin = rope_cos_sin(torch.arange(2, device=dev)[None, :]
@@ -5666,12 +5698,1139 @@ def drive_weights(dev, failures):
     return counts
 
 
+# ------------------------------------------------------------- parallel
+PARALLEL_B = 4               # lanes of (a) and (b): one wave
+PARALLEL_FRAMES = 8          # greedy frames after the prefill
+# a preset-voice prompt; with its index, 33-34 rows: bucket 64
+PARALLEL_BUCKET_TEXT = REQUESTS[0][1]
+# A one-rank all-reduce adds nothing: (a) computes the unsharded forward,
+# held within this share of max |logit| (in fact bit for bit).
+PARALLEL_ONE_RANK_TOL = 1e-6
+# (b) against (a): the same bf16 model with each projection's K split in
+# two, the partial products summed in f32 and rounded once; through 28
+# layers those roundings drift like another device's sums (REF_REL_TOL's
+# class), relative to max |logit|.
+PARALLEL_LOGIT_TOL = REF_REL_TOL
+# where two runs' codes part, each side's pick may lead the other's pick
+# by at most this share of max |logit| in its own logits (a near tie)
+PARALLEL_TIE = 0.05
+# (c): 6 requests of bucket 32 on 4 lanes; the budgets free lanes at
+# different rounds, so freed lanes are refilled
+PARALLEL_QUEUE_BUDGETS = (4, 8, 6, 4, 8, 6)
+# (c) on the default engine: waves of 2 lanes, 1 a rank (the chunk kernel
+# at B = 1), budgets that end the ranks' lanes at different chunks
+PARALLEL_WAVE_BUDGETS = (8, 5, 6, 8)
+PARALLEL_PATH_KERNELS = {
+    "parallel-tp": ("flash_gqa_prefill_stacked", "flash_gqa_decode_stacked",
+                    "flash_gqa_decode_append", "inject_prompt_lanes",
+                    "matmul_int4"),
+    "parallel-dp": ("flash_gqa_prefill_stacked", "flash_gqa_decode_append",
+                    "inject_prompt_lanes"),
+    "parallel-dp-default": ("talker_step_fused", "predict_frame_fused",
+                            "gen_chunk_fused"),
+}
+PARALLEL_LABEL = "gloo through the host on one card, not NCCL"
+
+
+def parallel_fns():
+    from qwen3_tts_tpu_torch.kernels import flash_decode as fd
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.kernels.int4_matmul import matmul_int4
+    return {f.__name__: f for f in (
+        flash_gqa_prefill_stacked, fd.flash_gqa_decode_stacked,
+        fd.flash_gqa_decode_append, fd.inject_prompt_lanes, matmul_int4)}
+
+
+def parallel_default_fns():
+    """The decode kernels of the default engine's paths."""
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.predictor_frame import (
+        predict_frame_fused)
+    from qwen3_tts_tpu_torch.kernels.talker_step import talker_step_fused
+    return {f.__name__: f for f in (talker_step_fused, predict_frame_fused,
+                                    gen_chunk_fused)}
+
+
+def parallel_prompts(eng, n, offset=0, bucket=None):
+    """(embeds, lengths tensor, bucket) of n preset-voice prompts (bucket:
+    the longest one's, unless given)."""
+    import torch
+    voice = eng.get_speaker("vivian")
+    plans = [eng._build_voice_prompt(f"{PARALLEL_BUCKET_TEXT} {offset + i}",
+                                     voice, None) for i in range(n)]
+    bucket = bucket or eng._bucket(max(p.length for p in plans))
+    embeds, lens = eng.prompt_to_device(plans, bucket)
+    return embeds, torch.from_numpy(lens).to(eng.device), bucket
+
+
+def _greedy_sampler():
+    from qwen3_tts_tpu_torch.runtime.generate import SamplerParams
+    return SamplerParams(**GREEDY)
+
+
+def tp_run(eng, mesh, talker, predictor, embeds, lens, bucket, a8=True):
+    """tp_talker_prefill, then tp_gen_bulk for PARALLEL_FRAMES greedy
+    frames (the (a) / (b) path): (prefill logits, codes [B, F, 16], valid,
+    final logits, ms a frame of the bulk call)."""
+    import torch
+    from qwen3_tts_tpu_torch.parallel import tp
+    from qwen3_tts_tpu_torch.runtime.generate import cache_capacity
+    cfg = eng.config
+    b = embeds.shape[0]
+    with torch.no_grad():
+        lg, hd, k, v = tp.tp_talker_prefill(
+            cfg, mesh, talker, embeds, lens, cache_capacity(cfg, bucket),
+            a8=a8)
+        lg0 = lg.clone()
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        t0 = time.perf_counter()
+        codes, valid, _, carry, n = tp.tp_gen_bulk(
+            cfg, mesh, talker, predictor, eng.generator.assets_pack, lg, hd,
+            k, v, lens, lens, bucket, torch.zeros(b, dtype=torch.bool,
+                                                  device=eng.device),
+            torch.Generator(device=eng.device).manual_seed(0),
+            _greedy_sampler(), PARALLEL_FRAMES, max_frames=PARALLEL_FRAMES,
+            chunk=cfg.runtime.frames_per_chunk, prompt_cap=bucket)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        ms = (time.perf_counter() - t0) * 1e3 / max(1, n)
+    return lg0, codes, valid, carry[0], ms
+
+
+def _h1024(eng, hidden):
+    """The predictor's input of a talker hidden (gen_frames' projection)."""
+    pack = eng.generator.assets_pack
+    return (hidden.float() @ pack["proj_w"].float().t()
+            + pack["proj_b"].float())
+
+
+def tp_frames_log(eng, mesh, talker, predictor, embeds, lens, bucket):
+    """The same prefill and frames one at a time (tp_gen_frames, n = 1),
+    keeping what picked each frame: ({"codes" [F, B, 16], "logits" [F, B,
+    V] (code 0's), "h1024" [F, B, 1024] (the predictor's input)}, the
+    model-axis all-reduces a frame)."""
+    import torch
+    from qwen3_tts_tpu_torch.parallel import tp
+    from qwen3_tts_tpu_torch.runtime.generate import cache_capacity
+    cfg = eng.config
+    log = {"codes": [], "logits": [], "h1024": []}
+    with torch.no_grad():
+        lg, hd, k, v = tp.tp_talker_prefill(
+            cfg, mesh, talker, embeds, lens, cache_capacity(cfg, bucket))
+        g = torch.Generator(device=eng.device).manual_seed(0)
+        n0 = mesh.all_reduces
+        for f in range(PARALLEL_FRAMES):
+            log["logits"].append(lg.float().cpu())
+            log["h1024"].append(_h1024(eng, hd).cpu())
+            c, _, (lg, hd, k, v) = tp.tp_gen_frames(
+                cfg, mesh, talker, predictor, eng.generator.assets_pack, lg,
+                hd, k, v, lens, lens + f, bucket + f, g, _greedy_sampler(), 1,
+                bucket)
+            log["codes"].append(c[:, 0].cpu())
+    return ({k: torch.stack(v) for k, v in log.items()},
+            (mesh.all_reduces - n0) / PARALLEL_FRAMES)
+
+
+def tp_forced_log(eng, mesh, talker, embeds, lens, bucket, codes):
+    """The prefill, then frame by frame the talker step fed back the
+    frame's GIVEN codes [F, B, 16] (another run's: teacher forcing), each
+    frame's code-0 logits and the predictor's 15 window logits on the
+    given codes (predictor_windows on the engine's predictor weights, a
+    rank's block on a mesh): {"logits" [F, B, V], "windows" [F, B, 15,
+    2048]}, so that every frame's decode step is held, not only those
+    before a first part."""
+    import torch
+    from qwen3_tts_tpu_torch.parallel import tp
+    from qwen3_tts_tpu_torch.runtime.generate import (_frame_emb_sum,
+                                                      cache_capacity)
+    cfg = eng.config
+    pack = eng.generator.assets_pack
+    log = {"logits": [], "windows": []}
+    with torch.no_grad():
+        lg, hd, k, v = tp.tp_talker_prefill(
+            cfg, mesh, talker, embeds, lens, cache_capacity(cfg, bucket))
+        for f in range(codes.shape[0]):
+            c = codes[f].to(eng.device)
+            log["logits"].append(lg.float().cpu())
+            log["windows"].append(predictor_windows(
+                eng, None, c, h1024=_h1024(eng, hd)).cpu())
+            fb = _frame_emb_sum(pack["codec_tables"], c) \
+                + pack["tts_pad"].float()
+            lg, hd, k, v = tp.tp_talker_step(cfg, mesh, talker, fb, lens + f,
+                                             k, v, lens, bucket + f, bucket)
+    return {k: torch.stack(v) for k, v in log.items()}
+
+
+def refill_step_logits(eng, mesh, talker, embeds, lens, bucket):
+    """The prefill, a refill of lanes 1 and 3 with two more prompts while
+    lanes 0 and 2 sit 5 frames on (tp_prefill_lanes), then one step at the
+    per-lane cursors (bucket + 5, bucket, bucket + 5, bucket): that step's
+    logits (the continuous batcher's refill, on the row-parallel
+    schedule)."""
+    import torch
+    from qwen3_tts_tpu_torch.parallel import tp
+    from qwen3_tts_tpu_torch.runtime.generate import cache_capacity
+    cfg = eng.config
+    dev = eng.device
+    with torch.no_grad():
+        lg, hd, k, v = tp.tp_talker_prefill(
+            cfg, mesh, talker, embeds, lens, cache_capacity(cfg, bucket))
+        em2, ln2, _ = parallel_prompts(eng, 2, PARALLEL_B, bucket)
+        lg, hd, k, v, ln, pos, widx, _ = tp.tp_prefill_lanes(
+            cfg, mesh, talker, em2, ln2, [1, 3], lg, hd, k, v,
+            lens, lens + 5, bucket + 5,
+            torch.zeros(PARALLEL_B, dtype=torch.bool, device=dev))
+        fb = torch.zeros(PARALLEL_B, 2048, device=dev)
+        lg, _, _, _ = tp.tp_talker_step(cfg, mesh, talker, fb, pos, k, v, ln,
+                                        widx, bucket)
+    return lg.float().cpu()
+
+
+def exact_frames_log(eng, gen, embeds, lens, bucket):
+    """The unsharded exact path (Generator.start, then gen_frames one frame
+    at a time) with what picked each frame, as tp_frames_log."""
+    import torch
+    from qwen3_tts_tpu_torch.runtime import generate as tg
+    log = {"codes": [], "logits": [], "h1024": []}
+    with torch.no_grad():
+        st = gen.start(embeds, lens,
+                       torch.Generator(device=eng.device).manual_seed(0))
+        for _ in range(PARALLEL_FRAMES):
+            log["logits"].append(st.logits.float().cpu())
+            log["h1024"].append(_h1024(eng, st.hidden).cpu())
+            st, c, _ = tg.gen_frames(eng.config, gen.talker_params,
+                                     gen.predictor_params, gen.assets_pack,
+                                     st, _greedy_sampler(), 1, bucket)
+            log["codes"].append(c[:, 0].cpu())
+    return {k: torch.stack(v) for k, v in log.items()}
+
+
+def _rel_gap(got, want):
+    """max |got - want| over max |want|, frame by frame: [F]."""
+    n = got.shape[0]
+    d = (got.float() - want.float()).abs().reshape(n, -1).amax(1)
+    return d / want.float().abs().reshape(n, -1).amax(1)
+
+
+def _mass_gap(logits, code, u, sampler):
+    """How far (in probability mass) the uniform u lies from the draws
+    that pick `code` in the distribution ops.sampling draws from on
+    `logits` [V] (0 where u picks it; inf where it is filtered out)."""
+    from qwen3_tts_tpu_torch.ops.sampling import filtered_distribution
+    order, probs = filtered_distribution(logits[None].float(),
+                                         sampler["temperature"],
+                                         sampler["top_k"], sampler["top_p"])
+    cdf = probs[0].cumsum(0)
+    r = int((order[0] == code).nonzero()[0])
+    if probs[0, r] <= 0:
+        return float("inf")
+    uu = float(u) * float(cdf[-1])
+    lo = float(cdf[r - 1]) if r else 0.0
+    return max(lo - uu, uu - float(cdf[r]), 0.0) / float(cdf[-1])
+
+
+def parallel_part(eng, x, y, lane, sampler=None, signed=True):
+    """The first part of two runs' frames of one lane (x, y: {"codes" [F,
+    16], "logits" [F, V], "h1024" [F, 1024], with a sampler "u" [F]}):
+    None where they agree, else (near tie, text).  A greedy code 0 is
+    judged on each side's talker logits, a residual token on the predictor
+    window logits that the exact predictor gives for each side's h1024 and
+    codes (predictor_windows): each side's pick may lead the other's by at
+    most PARALLEL_TIE of max |logit| in its own logits (signed=False: the
+    two picks lie within PARALLEL_TIE of each other either way, where the
+    picking predictor is not the exact one).  A sampled code 0 (sampler:
+    its SAMPLED-style dict) parts where the uniform both runs drew (which
+    must be the same) lies near an edge of the draw: once the draws are
+    the same, the part is numerics when the two sides' code-0 logits of
+    that frame (every code before it equal) agree within
+    PARALLEL_LOGIT_TOL of max |logit|; how far in probability mass the
+    uniform lies from the other side's pick is printed (_mass_gap)."""
+    import torch
+    cx, cy = x["codes"], y["codes"]
+    parts = (cx != cy).nonzero()
+    if len(parts) == 0:
+        return None
+    f, t = (int(v) for v in parts[0])
+    a, b = int(cx[f, t]), int(cy[f, t])
+    if t == 0 and sampler is not None and sampler["temperature"] > 0:
+        u, uy = x["u"][f], y["u"][f]
+        lx, ly = x["logits"][f], y["logits"][f]
+        gx = _mass_gap(lx, b, u, sampler)
+        gy = _mass_gap(ly, a, uy, sampler)
+        gap = ((lx - ly).abs().max() / lx.abs().max()).item()
+        tie = bool(torch.equal(u, uy)) and gap <= PARALLEL_LOGIT_TOL
+        return tie, (f"lane {lane} frame {f} code 0 (sampled): one side draws "
+                     f"{a}, the other {b}, on the uniforms {float(u):.6f} / "
+                     f"{float(uy):.6f} ({gx:.3e} / {gy:.3e} of mass from the "
+                     f"other side's draw); the frame's logits {gap:.3e} of "
+                     f"max |logit| apart (tol {PARALLEL_LOGIT_TOL}): {tie}")
+    if t == 0:
+        lx, ly = x["logits"][f], y["logits"][f]
+    else:
+        lx, ly = (predictor_windows(
+            eng, None, s["codes"][f:f + 1].to(eng.device),
+            h1024=s["h1024"][f:f + 1].to(eng.device))[0, t - 1].cpu()
+                  for s in (x, y))
+    scale = max(lx.abs().max().item(), ly.abs().max().item())
+    lead_x = (lx[a] - lx[b]).item() / scale
+    lead_y = (ly[b] - ly[a]).item() / scale
+    if signed:
+        tie = 0 <= lead_x <= PARALLEL_TIE and 0 <= lead_y <= PARALLEL_TIE
+    else:
+        tie = max(abs(lead_x), abs(lead_y)) <= PARALLEL_TIE
+    return tie, (f"lane {lane} frame {f} token {t}: one side picks {a}, "
+                 f"{lead_x:.3e} above {b}; the other picks {b}, "
+                 f"{lead_y:.3e} above {a} (of max |logit| {scale:.3f}; a "
+                 f"near tie within {PARALLEL_TIE}"
+                 f"{'' if signed else ' either way'}): {tie}")
+
+
+def _spy(module, name, seen):
+    """Wrap module.name (an attention kernel's wrapper where
+    models/transformer calls it, or matmul_int4 where parallel/mesh calls
+    it) so that each call records its (h, hkv) or K in `seen`, and
+    flash_gqa_decode_append its cursors; the wrapper still counts its
+    launches."""
+    real = getattr(module, name)
+
+    def spy(*a, **k):
+        if name == "matmul_int4":
+            seen.append(("K", 2 * a[1]["q4"].shape[-1]))
+        else:                       # q [.., h, Dh], k_all [L, B, hkv, ..]
+            seen.append(("h/hkv", a[0].shape[-2], a[1].shape[2]))
+        if name == "flash_gqa_decode_append":
+            seen.append(("cursors", tuple(a[6].tolist())))
+        return real(*a, **k)
+    setattr(module, name, spy)
+
+
+def _parallel_tp_rank(dev, cfg, out_dir):
+    """(b) on one rank of the 1 x 2 mesh: the engine's weights from the
+    shared seed, int8 and int4 copies made, then sharded (the full copies
+    dropped); the prefill and PARALLEL_FRAMES frames (tp_gen_bulk), the
+    refill step (refill_step_logits), the same frames one at a time, then
+    teacher-forced on (a)'s codes (out_dir/a_codes.pt); an int4 and an a8
+    prefill against the unsharded ones; the prefill with the partial
+    products summed in bf16, as the JAX psum does.  Returns numbers and
+    tensors for the parent."""
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    from qwen3_tts_tpu_torch.models import transformer
+    from qwen3_tts_tpu_torch.ops import quant as Q
+    from qwen3_tts_tpu_torch.parallel import mesh as mesh_lib
+    from qwen3_tts_tpu_torch.parallel import tp
+    fns = parallel_fns()
+    eng = TtsEngine(config=cfg, device=dev, speakers_dir="speakers",
+                    fused=False)
+    full = eng.talker_params
+    with torch.no_grad():
+        int8 = TtsEngine._int8_lm(full, "codec_head")
+        int4 = dict(full, layers=Q.quantize_decoder_layers_int4(
+            full["layers"]))
+    mesh = mesh_lib.make_mesh(1, 2, device=dev)
+    talker, predictor = tp.shard_engine(eng, mesh)
+    embeds, lens, bucket = parallel_prompts(eng, PARALLEL_B)
+    seen = []
+    for name in fns:
+        if name == "matmul_int4":
+            _spy(mesh_lib, name, seen)
+        elif name != "inject_prompt_lanes":
+            _spy(transformer, name, seen)
+    out = {"bucket": bucket}
+    zero_counts(fns)
+    lg0, codes, valid, lg_end, ms = tp_run(eng, mesh, talker, predictor,
+                                           embeds, lens, bucket)
+    out.update(prefill_logits=lg0.float().cpu(), codes=codes.cpu(),
+               valid=valid.cpu(), final_logits=lg_end.float().cpu(),
+               ms_frame=ms)
+    out["refill_logits"] = refill_step_logits(eng, mesh, talker, embeds,
+                                              lens, bucket)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["counts"] = read_counts(fns)
+    # int4 and a8 prefills: matmul_int4 at K / 2, the a8 row scale whole
+    for kind, whole, a8 in (("int4", int4, False), ("a8", int8, True)):
+        local = mesh_lib.shard_params(whole, mesh,
+                                      mesh_lib.talker_param_specs())
+        n0 = fns["matmul_int4"].launches
+        with torch.no_grad():
+            got = tp.tp_talker_prefill(cfg, mesh, local, embeds, lens,
+                                       bucket, a8=a8)[0]
+            out[f"{kind}_tp_int4_launches"] = (fns["matmul_int4"].launches
+                                               - n0)
+            cache = talker_lib.init_talker_cache(cfg.talker, PARALLEL_B,
+                                                 bucket, dev)
+            n = len(seen)           # the unsharded reference's calls
+            want = talker_lib.talker_prefill(cfg.talker, whole, embeds,
+                                             lens, cache, a8=a8)[0]
+            del seen[n:]
+        out[kind] = ((got - want).abs().max().item(),
+                     want.abs().max().item())
+        del local
+    # the path's matmul_int4 launches: the row-parallel int4 prefill's
+    out["counts"]["matmul_int4"] = out["int4_tp_int4_launches"]
+    out["seen"] = sorted(set(seen))
+    del int8, int4, full
+    # frames one at a time with what picked them, then on (a)'s codes
+    out["log"], out["all_reduces_frame"] = tp_frames_log(
+        eng, mesh, talker, predictor, embeds, lens, bucket)
+    a_codes = torch.load(os.path.join(out_dir, "a_codes.pt"))
+    out["forced"] = tp_forced_log(eng, mesh, talker, embeds, lens, bucket,
+                                  a_codes)
+    # the JAX psum's choice: the partial products summed in bf16
+    real_reduce = mesh_lib._reduce
+    mesh_lib._reduce = lambda m, part, dtype: m.reduce_model(
+        part.to(dtype).contiguous())
+    try:
+        with torch.no_grad():
+            lg_bf = tp.tp_talker_prefill(cfg, mesh, talker, embeds, lens,
+                                         bucket)[0]
+        out["bf16_reduce_prefill_gap"] = (
+            lg_bf.float().cpu() - out["prefill_logits"]).abs().max().item()
+    finally:
+        mesh_lib._reduce = real_reduce
+    return out
+
+
+class _LoneRank:
+    """Data rank `i` of a 2 x 1 mesh alone in one process, for a serving
+    class's `mesh`: its lanes and the whole batch's draws as on the mesh,
+    but its own early exit and only its own results (the one-process
+    reference of a rank's lanes)."""
+    n_data, n_model, size = 2, 1, 2
+
+    def __init__(self, i):
+        self.data_index = i
+
+    def all_done(self, done):
+        return bool(done.all())
+
+    def gather_data(self, obj):
+        return [obj]
+
+    def shared_seed(self, seed):
+        return int(seed)
+
+
+def parallel_wave(eng, mesh):
+    """BatchSynthesizer at batch 2 over PARALLEL_WAVE_BUDGETS sampled
+    requests: [(frames, eos, codes)] of the requests it returns (on a
+    _LoneRank, only that rank's)."""
+    from qwen3_tts_tpu_torch import SamplerConfig
+    from qwen3_tts_tpu_torch.serve.batch import (BatchRequest,
+                                                 BatchSynthesizer)
+    eng.set_sampler_config(SamplerConfig(seed=11, **SAMPLED))
+    voice = eng.get_speaker("vivian")
+    reqs = [BatchRequest(f"{SERVING_TEXTS[0]} wave {i}.", voice, max_frames=m)
+            for i, m in enumerate(PARALLEL_WAVE_BUDGETS)]
+    res = BatchSynthesizer(eng, batch_size=2, mesh=mesh).synthesize(reqs)
+    return [(r.frames, r.eos, r.codes) for r in res]
+
+
+def _parallel_dp_rank(dev, cfg, out_dir):
+    """(c) on one rank of the 2 x 1 mesh: ContinuousBatcher on 4 lanes (2
+    a rank) over the queue, greedy on an exact-path engine, then sampled
+    on the default engine (its fused step and predictor kernels at 2
+    lanes), with what picked each kept frame (parallel_queue_log); and
+    sampled waves of 2 lanes on the default engine (the chunk kernel at
+    one lane a rank, its uniforms the wave's)."""
+    import torch
+    from qwen3_tts_tpu_torch import TtsEngine
+    from qwen3_tts_tpu_torch.parallel.mesh import make_mesh
+    eng = TtsEngine(config=cfg, device=dev, speakers_dir="speakers",
+                    fused=False)
+    mesh = make_mesh(2, 1, device=dev)
+    fns = parallel_fns()
+    zero_counts(fns)
+    out = parallel_queue_log(eng, mesh)
+    out["counts"] = read_counts(fns)
+    del eng
+    torch.cuda.empty_cache()
+    eng = TtsEngine(config=cfg, device=dev, speakers_dir="speakers")
+    fns = parallel_default_fns()
+    zero_counts(fns)
+    out["sampled"] = parallel_queue_log(eng, mesh, SAMPLED)
+    out["sampled_counts"] = read_counts(fns)
+    zero_counts(fns)
+    out["wave"] = parallel_wave(eng, mesh)
+    out["wave_counts"] = read_counts(fns)
+    return out
+
+
+def parallel_queue_log(eng, mesh, sampling=GREEDY):
+    """ContinuousBatcher at batch 4 over PARALLEL_QUEUE_BUDGETS requests
+    (mesh None: one process), recording for every kept frame of every
+    lane what picked it: {"results": [(frames, eos, codes)], "lanes":
+    {global lane: {"codes" [N, 16], "logits" [N, V], "h1024" [N, 1024],
+    "u" [N] (sampled: code 0's uniform)}}, "wall_s"}.  The records come
+    from wrappers of the frame loop's sampler (which replays the
+    generator's draw) and predictor (runtime/generate) and of
+    LaneCodec.run_group, which keeps a group's frames where `valid`."""
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig
+    from qwen3_tts_tpu_torch.runtime import generate as tg
+    from qwen3_tts_tpu_torch.serve import codec_path
+    from qwen3_tts_tpu_torch.serve.batch import BatchRequest
+    from qwen3_tts_tpu_torch.serve.continuous import ContinuousBatcher
+    frames, lanes = [], {}
+    real_sample, real_predict = tg.sample_logits, tg._predict_frame_dispatch
+    real_group = codec_path.LaneCodec.run_group
+
+    def sample(logits, generator, temperature, top_k, top_p, rows=None):
+        rec = {"logits": logits.float().cpu()}
+        if temperature > 0:         # the draw sample_logits makes
+            replay = torch.Generator(device=generator.device)
+            replay.set_state(generator.get_state())
+            n = logits.shape[0]
+            lo, total = rows or (0, n)
+            rec["u"] = torch.rand((total, 1), generator=replay,
+                                  device=logits.device)[lo:lo + n, 0].cpu()
+        frames.append(rec)
+        return real_sample(logits, generator, temperature, top_k, top_p,
+                           rows=rows)
+
+    def predict_h(cfg, params, h1024, code0, tables):
+        frames[-1]["h1024"] = h1024.float().cpu()
+        codes = real_predict(cfg, params, h1024, code0, tables)
+        frames[-1]["codes"] = codes.cpu()
+        return codes
+
+    def group(self, state, *a, **k):
+        frames.clear()
+        out = real_group(self, state, *a, **k)
+        valid = out[2]
+        lo = 0 if state.lanes is None else state.lanes.lo
+        for i in range(valid.shape[0]):
+            rec = lanes.setdefault(lo + i, {"codes": [], "logits": [],
+                                            "h1024": [], "u": []})
+            for f, fr in enumerate(frames):
+                if valid[i, f]:
+                    for key in rec:
+                        if key in fr:
+                            rec[key].append(fr[key][i])
+        return out
+
+    tg.sample_logits, tg._predict_frame_dispatch = sample, predict_h
+    codec_path.LaneCodec.run_group = group
+    try:
+        eng.set_sampler_config(SamplerConfig(seed=7, **sampling))
+        voice = eng.get_speaker("vivian")
+        reqs = [BatchRequest(f"{SERVING_TEXTS[0]} queue {i}.", voice,
+                             max_frames=m)
+                for i, m in enumerate(PARALLEL_QUEUE_BUDGETS)]
+        batcher = ContinuousBatcher(eng, batch_size=PARALLEL_B, mesh=mesh,
+                                    max_frames_per_stream=max(
+                                        PARALLEL_QUEUE_BUDGETS))
+        t0 = time.perf_counter()
+        results = batcher.run(reqs)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize(eng.device)
+        wall = time.perf_counter() - t0
+    finally:
+        tg.sample_logits, tg._predict_frame_dispatch = (real_sample,
+                                                        real_predict)
+        codec_path.LaneCodec.run_group = real_group
+    return {"results": [(r.frames, r.eos, r.codes) for r in results],
+            "lanes": {lane: {k: torch.stack(v) if v else None
+                             for k, v in rec.items()}
+                      for lane, rec in lanes.items()},
+            "wall_s": wall}
+
+
+def _parallel_rank(rank, world, store, out_dir, layout, cfg):
+    """A spawned rank of (b) or (c): on cuda:0 (both ranks share the one
+    card), joined by gloo through a file:// store; it loads the library the
+    parent built and never builds.  Its results go to out_dir."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    # the two ranks share the host's cores, and a rank's CPU work is its
+    # launches and gloo's copies: spinning intra-op threads only slow them
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        from qwen3_tts_tpu_torch.core.device import set_cuda_precision
+        torch.cuda.set_device(dev)
+        set_cuda_precision()
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        work = _parallel_tp_rank if layout == "1x2" else _parallel_dp_rank
+        out = work(dev, cfg, out_dir)
+        with open(os.path.join(out_dir, f"{layout}_{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_parallel_ranks(layout, out_dir, cfg, timeout=600):
+    """Two spawned ranks of `layout`; a rank's exception, a non-zero exit
+    or the timeout raises (and the ranks still alive are stopped).
+    Returns each rank's results."""
+    import pickle
+    import torch.multiprocessing as tmp
+    store = os.path.join(out_dir, f"store_{layout}")
+    ctx = tmp.start_processes(_parallel_rank, args=(2, store, out_dir, layout,
+                                                    cfg),
+                              nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"parallel {layout}: ranks still running "
+                                   f"after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    out = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"{layout}_{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def parallel_append_cursors(bucket):
+    """The per-lane cursors at which the kernels' rows hold
+    flash_gqa_decode_append at the rank-local heads: the TP path's refill
+    step (refill_step_logits), a wave's first and last steps in one call,
+    and cursors whose prefixes span 3-16 of the kernel's 64-slot
+    splits."""
+    return ((bucket + 5, bucket, bucket + 5, bucket),
+            (bucket, bucket + 1, bucket + PARALLEL_FRAMES - 2,
+             bucket + PARALLEL_FRAMES - 1),
+            (128, 159, 600, 1023))
+
+
+def parallel_kernel_rows(dev, cfg, failures, bucket):
+    """The attention kernels and matmul_int4 at the rank-local shapes of
+    the 1 x 2 mesh (h = H / 2, hkv = Hkv / 2; K / 2), each against its
+    plain version, its device time in a CUDA graph beside SDPA (the
+    attention) or torch.matmul on the dequantized shard, and its bound.
+    The decode kernels are held at the TP path's cursors (bucket: its
+    prompt bucket) and at multi-split ones, flash_gqa_decode_append also
+    bit for bit against its plain version in the kernel's sum orders, and
+    at the predictor's shapes (Dh 64, C 17)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from qwen3_tts_tpu_torch.kernels import flash_decode as fd
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked, prefill_attention_plain)
+    from qwen3_tts_tpu_torch.kernels.int4_matmul import (
+        _dequant_bf16, matmul_int4, matmul_int4_plain)
+    from qwen3_tts_tpu_torch.ops.attention import history_mask
+    from qwen3_tts_tpu_torch.ops.quant import quantize_weight_int4
+    t, p = cfg.talker, cfg.predictor
+    h, hkv, dh, n_layers = (t.n_heads // 2, t.n_kv_heads // 2, t.head_dim,
+                            t.n_layers)
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=g, device=dev) * 0.5).to(
+            torch.bfloat16)
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    def within(got, want):
+        d = (got.float() - want.float()).abs()
+        return (d.max().item(), bool((d <= DECODE_ATOL + DECODE_RTOL
+                                      * want.float().abs()).all()))
+
+    rows = {}
+    cap, s = 1024, 128
+    kv = (rnd(n_layers, PARALLEL_B, hkv, cap, dh),
+          rnd(n_layers, PARALLEL_B, hkv, cap, dh))
+    one = tuple(x[:, :1].contiguous() for x in kv)
+    # the prefill at bucket 128, one lane, one layer of the 28
+    q = rnd(1, s, h, dh)
+    lens, st = i32(117), i32(0)
+    err = (flash_gqa_prefill_stacked(q, *one, lens, st, 5, s, s).float()
+           - prefill_attention_plain(q, *one, lens, st, 5, s, s).float()
+           ).abs().max().item()
+    mask = history_mask(lens, s, st, s, s)
+    qt = q.transpose(1, 2)
+    kern = graph_ms(lambda i: flash_gqa_prefill_stacked(
+        q, *one, lens, st, i % n_layers, s, s))
+    lib = graph_ms(lambda i: sdpa(qt, one[0][i % n_layers, :, :, :s],
+                                  one[1][i % n_layers, :, :, :s],
+                                  attn_mask=mask[:, None], enable_gqa=True))
+    b_ms, b_by = bound(nbytes((q, one[0][0, :, :, :s], one[1][0, :, :, :s]))
+                       + q.numel() * 2, 4 * int(mask.sum()) * h * dh, "bf16")
+    rows["flash_gqa_prefill_stacked"] = dict(
+        shape=f"B=1 S={s} window={s} h={h} hkv={hkv} Dh={dh}",
+        max_abs_err=err, graph_ms=kern, library_graph_ms=lib, bound_ms=b_ms,
+        bound_by=b_by)
+    if err > PREFILL_TOL:
+        failures.append("flash_gqa_prefill_stacked at rank-local heads "
+                        "disagrees with plain")
+    # decode at one cursor: a wave's first and last steps, and prefixes of
+    # 10 and 16 splits (each combined by the combine kernel)
+    layer = 5
+    lens4 = i32(34, 33, 30, 25)
+    qd = rnd(PARALLEL_B, h, dh)
+    ok = True
+    for c in (bucket, bucket + PARALLEL_FRAMES - 1, 600, cap - 1):
+        wi = i32(*[c] * PARALLEL_B)
+        got = fd.flash_gqa_decode_stacked(qd, *kv, lens4, wi, layer, bucket)
+        want = fd.decode_attention_plain(qd.float(), *kv, lens4, wi, layer,
+                                         bucket)
+        e, good = within(got, want)
+        ok = ok and good
+        print(f"[parallel] flash_gqa_decode_stacked rank-local h={h} hkv="
+              f"{hkv} C={cap} cursor {c} prompt_cap={bucket}: max_abs_err="
+              f"{e:.3e} within {DECODE_ATOL} + 2^-8*|plain f32|={good}")
+    if not ok:
+        failures.append("flash_gqa_decode_stacked at rank-local heads "
+                        "disagrees with plain")
+    # per-lane cursors: a poisoned stale row (1e3 in k, NaN in v) at each
+    # lane's write slot, the output bit-equal to the kernel-order plain
+    # version and within the decode bound of the torch-order one, the
+    # caches equal to the plain write
+    kn, vn = rnd(PARALLEL_B, hkv, dh), rnd(PARALLEL_B, hkv, dh)
+    ok = True
+    for cursors in parallel_append_cursors(bucket):
+        wi = i32(*cursors)
+        k, v = kv[0].clone(), kv[1].clone()
+        for i, c in enumerate(cursors):
+            k[layer, i, :, c] = 1e3
+            v[layer, i, :, c] = float("nan")
+        kk, vk, ko, vo, kp, vp = (x.clone() for x in (k, v) * 3)
+        got = fd.flash_gqa_decode_append(qd, kk, vk, kn, vn, lens4, wi,
+                                         layer, bucket)
+        torch.cuda.synchronize()
+        kord = fd.decode_append_kernel_order(qd, ko, vo, kn, vn, lens4, wi,
+                                             layer, bucket)
+        want = fd.decode_append_plain(qd.float(), kp, vp, kn, vn, lens4, wi,
+                                      layer, bucket)
+        e, good = within(got, want)
+        bit = torch.equal(got, kord)
+        caches = (torch.equal(kk, kp) and torch.equal(vk, vp)
+                  and torch.equal(kk, ko) and torch.equal(vk, vo))
+        ok = ok and good and bit and caches
+        print(f"[parallel] flash_gqa_decode_append rank-local h={h} hkv="
+              f"{hkv} C={cap} cursors {cursors} prompt_cap={bucket} "
+              f"(poisoned self slots): equal to the plain version in the "
+              f"kernel's orders={bit} (max abs diff "
+              f"{(got.float() - kord.float()).abs().max().item():.3e}); "
+              f"against the torch-order plain max_abs_err={e:.3e} "
+              f"within={good}; caches equal to the plain write={caches}")
+        del k, v, kk, vk, ko, vo, kp, vp
+    if not ok:
+        failures.append("flash_gqa_decode_append at rank-local heads "
+                        "disagrees with plain")
+    # the predictor's attention at rank-local heads: its S = 2 prefill and
+    # its steps at cursors 2 and 16 of a 17-slot cache
+    pc_ = 2 + p.n_residual_codebooks
+    ph, phkv, pdh = p.n_heads // 2, p.n_kv_heads // 2, p.head_dim
+    pk = (rnd(p.n_layers, PARALLEL_B, phkv, pc_, pdh),
+          rnd(p.n_layers, PARALLEL_B, phkv, pc_, pdh))
+    z = i32(*[0] * PARALLEL_B)
+    q2 = rnd(PARALLEL_B, 2, ph, pdh)
+    e = (flash_gqa_prefill_stacked(q2, *pk, z, z, 1, 0, 2).float()
+         - prefill_attention_plain(q2, *pk, z, z, 1, 0, 2).float()
+         ).abs().max().item()
+    ok = e <= PREFILL_TOL
+    errs = [e]
+    for c in (2, pc_ - 1):
+        q1 = rnd(PARALLEL_B, ph, pdh)
+        wi = i32(*[c] * PARALLEL_B)
+        e, good = within(fd.flash_gqa_decode_stacked(q1, *pk, z, wi, 1, 0),
+                         fd.decode_attention_plain(q1.float(), *pk, z, wi, 1,
+                                                   0))
+        ok, errs = ok and good, errs + [e]
+    print(f"[parallel] predictor attention rank-local h={ph} hkv={phkv} Dh="
+          f"{pdh} C={pc_}: prefill S=2 max_abs_err {errs[0]:.3e}, steps at "
+          f"cursors 2 / {pc_ - 1} {errs[1]:.3e} / {errs[2]:.3e}: {ok}")
+    if not ok:
+        failures.append("the predictor's attention at rank-local heads "
+                        "disagrees with plain")
+    del pk
+    # device times at the TP path's shapes: a wave's first step, the
+    # refill step
+    for name, wi in (("flash_gqa_decode_stacked", i32(*[bucket] * PARALLEL_B)),
+                     ("flash_gqa_decode_append",
+                      i32(*parallel_append_cursors(bucket)[0]))):
+        if name == "flash_gqa_decode_stacked":
+            def kfn(i):
+                return fd.flash_gqa_decode_stacked(qd, *kv, lens4, wi,
+                                                   i % n_layers, bucket)
+            got = kfn(layer)
+            want = fd.decode_attention_plain(qd.float(), *kv, lens4, wi,
+                                             layer, bucket)
+        else:
+            def kfn(i):
+                return fd.flash_gqa_decode_append(qd, *kv, kn, vn, lens4, wi,
+                                                  i % n_layers, bucket)
+            kc, vc = (x.clone() for x in kv)
+            want = fd.decode_append_plain(qd.float(), kc, vc, kn, vn, lens4,
+                                          wi, layer, bucket)
+            got = kfn(layer)
+            del kc, vc
+        mask = history_mask(lens4, bucket, wi, 1, cap)
+        qs = qd[:, :, None]
+        kern = graph_ms(kfn)
+        lib = graph_ms(lambda i: sdpa(qs, kv[0][i % n_layers],
+                                      kv[1][i % n_layers],
+                                      attn_mask=mask[:, None],
+                                      enable_gqa=True))
+        live = int((wi.long() + 1).sum())
+        b_ms, b_by = bound(2 * live * hkv * dh * 2 + 2 * qd.numel() * 2,
+                           4 * live * h * dh, "bf16")
+        rows[name] = dict(
+            shape=f"B={PARALLEL_B} C={cap} cursors {wi.tolist()} h={h} "
+                  f"hkv={hkv} Dh={dh}", max_abs_err=within(got, want)[0],
+            graph_ms=kern, library_graph_ms=lib, bound_ms=b_ms, bound_by=b_by)
+    del kv, one
+    # matmul_int4 on the rank's K block of each talker weight, at the
+    # decode (M = B) and the bucket-32 prefill (M = B * 32) rows
+    d, f_, hq = t.d_model, t.d_ff, t.n_heads * dh
+    qkv_n = (t.n_heads + 2 * t.n_kv_heads) * dh
+    shapes = ((d // 2, qkv_n), (hq // 2, d), (d // 2, 2 * f_), (f_ // 2, d))
+    rows["matmul_int4"] = {}
+    for k, n in shapes:
+        w = quantize_weight_int4(torch.randn(k, n, generator=g, device=dev)
+                                 * k ** -0.5)
+        wb = nbytes(w.values())
+        copies = [w] + [{key: x.clone() for key, x in w.items()}
+                        for _ in range(max(0, math.ceil(64e6 / wb) - 1))]
+        dense = [_dequant_bf16(c) for c in copies[:max(2, math.ceil(
+            64e6 / (k * n * 2)))]]
+        for m in (PARALLEL_B, PARALLEL_B * 32):
+            x = (torch.randn(m, k, generator=g, device=dev) * 0.5).to(
+                torch.bfloat16)
+            got, want = matmul_int4(x, w), matmul_int4_plain(x, w)
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            if err > INT4_TOL:
+                failures.append(f"matmul_int4 at K={k} N={n} M={m} "
+                                "disagrees with plain")
+            kern = graph_ms(lambda i: matmul_int4(x, copies[i % len(copies)]))
+            lib = graph_ms(lambda i: torch.matmul(x, dense[i % len(dense)]))
+            b_ms, b_by = bound(wb + x.numel() * 2 + m * n * 4, 2 * m * k * n,
+                               "bf16")
+            rows["matmul_int4"][f"K={k} N={n} M={m}"] = dict(
+                rel_err=err, graph_ms=kern, library_graph_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
+        del copies, dense
+    for name, row in rows.items():
+        for shape, r in (row.items() if name == "matmul_int4"
+                         else ((row.pop("shape"), row),)):
+            print(f"[parallel] {name} rank-local {shape}: err="
+                  f"{r.get('max_abs_err', r.get('rel_err')):.3e}; device "
+                  f"time (CUDA graph) kernel {r['graph_ms']:.4f} ms, "
+                  f"{'torch matmul' if name == 'matmul_int4' else 'sdpa'} "
+                  f"{r['library_graph_ms']:.4f} ms "
+                  f"({r['graph_ms'] / r['library_graph_ms']:.2f}x), bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+            if name != "matmul_int4":
+                r["shape"] = shape
+    return rows
+
+
+def _same_queue(eng, name, ref, got, failures, sampler=None, signed=True):
+    """(c): each request's frames, EOS flag and codes against the
+    one-process batcher's; a part must be a near tie (parallel_part on the
+    frame's records, found in the lane that ran the request)."""
+    import torch
+
+    def frames_of(side, codes):
+        """The records of a request: the run of its codes in a lane."""
+        n = codes.shape[0]
+        for rec in side["lanes"].values():
+            c = rec["codes"]
+            if c is None:
+                continue
+            for j in range(c.shape[0] - n + 1):
+                if torch.equal(c[j:j + n], codes):
+                    return {k: v[j:j + n] for k, v in rec.items()
+                            if v is not None}
+        return None
+
+    n_parts = 0
+    for i, ((fa, ea, ca), (fb, eb, cb)) in enumerate(zip(ref["results"],
+                                                         got["results"])):
+        ca, cb = torch.as_tensor(ca), torch.as_tensor(cb)
+        if (fa, ea) == (fb, eb) and torch.equal(ca, cb):
+            continue
+        n_parts += 1
+        x, y = frames_of(ref, ca), frames_of(got, cb)
+        n = min(len(ca), len(cb))
+        if x is not None and y is not None:
+            x, y = ({k: v[:n] for k, v in s.items()} for s in (x, y))
+        part = (parallel_part(eng, x, y, i, sampler, signed)
+                if x is not None and y is not None else None)
+        print(f"[parallel] {name} request {i}: frames {fa} / {fb}, eos "
+              f"{ea} / {eb}; {part[1] if part else 'no record of the part'}")
+        if not (part and part[0]):
+            failures.append(f"parallel {name}: request {i} parts from the "
+                            "one-process batcher not at a near tie")
+    return n_parts
+
+
+def drive_parallel(dev, failures, cfg=None):
+    """Tensor and data parallelism (parallel/) at full EngineConfig()
+    width and depth.  (a) one process, a one-rank NCCL group, mesh 1 x 1:
+    tp_talker_prefill and tp_gen_bulk (8 greedy frames, 4 lanes, bucket
+    64) on the engine's bf16 and int8 weights against the same engine's
+    exact path.  (b) two processes on cuda:0 joined by gloo, mesh 1 x 2:
+    the same run, ranks equal bit for bit, against (a) up to near ties;
+    teacher-forced on (a)'s codes, every frame's code-0 and predictor
+    window logits within PARALLEL_LOGIT_TOL of (a)'s; the refill step's
+    logits against the unsharded refill; the attention kernels launched
+    at the rank-local heads (flash_gqa_decode_append at the cursors the
+    kernel rows held), matmul_int4 at the rank-local K; int4 and a8
+    prefills against the unsharded ones.  (c) two processes, mesh 2 x 1:
+    ContinuousBatcher on 4 lanes (2 a rank) over 6 requests with refills,
+    greedy on the exact path and sampled on the default engine, against
+    the one-process batcher on 4 lanes up to near ties; sampled waves of 2
+    lanes on the default engine (the chunk kernel at one lane a rank)
+    against each rank's lanes alone in one process (_LoneRank), exactly.
+    Returns {"counts": {path: launches}, "rows": rank-local kernel
+    timings}."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from qwen3_tts_tpu_torch import EngineConfig, TtsEngine
+    from qwen3_tts_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from qwen3_tts_tpu_torch.runtime.generate import Generator
+    cfg = cfg or EngineConfig()
+    tmp = tempfile.mkdtemp(prefix="qtts_parallel_")
+    out = {"counts": {}, "rows": {}}
+    try:
+        eng = TtsEngine(config=cfg, device=dev, speakers_dir="speakers",
+                        fused=False)
+        embeds, lens, bucket = parallel_prompts(eng, PARALLEL_B)
+        # (a) one rank
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/store_a",
+                                world_size=1, rank=0)
+        a_ms = {}
+        try:
+            mesh = make_mesh(1, 1, device=dev)
+            for kind in ("bf16", "int8"):
+                talker, pred = eng.talker_params, eng.predictor_params
+                if kind == "int8":
+                    talker = TtsEngine._int8_lm(talker, "codec_head")
+                    pred = TtsEngine._int8_lm(pred, "lm_head")
+                gen = Generator(cfg, talker, pred, eng.generator.assets_pack)
+                with torch.no_grad():
+                    st = gen.start(embeds, lens, torch.Generator(
+                        device=dev).manual_seed(0))
+                    want0 = st.logits.float().clone()
+                    t0 = time.perf_counter()
+                    st, want_codes, want_valid, _, _ = gen.run_bulk_codes(
+                        st, _greedy_sampler(), bucket, PARALLEL_FRAMES)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    exact_ms = (time.perf_counter() - t0) * 1e3 \
+                        / PARALLEL_FRAMES
+                mesh.all_reduces = 0
+                got0, codes, valid, got_end, ms = tp_run(
+                    eng, mesh, talker, pred, embeds, lens, bucket)
+                n_ar = mesh.all_reduces
+                scale = want0.abs().max().item()
+                err = max((got0.float() - want0).abs().max().item(),
+                          (got_end.float() - st.logits.float()).abs().max()
+                          .item()) / scale
+                same = (torch.equal(valid, want_valid)
+                        and torch.equal(codes[valid], want_codes[want_valid]))
+                a_ms[kind] = ms
+                print(f"[parallel] (a) {kind}, one-rank NCCL mesh 1x1, B="
+                      f"{PARALLEL_B} bucket {bucket}, {PARALLEL_FRAMES} "
+                      f"greedy frames: codes equal to the exact path "
+                      f"{same}, logits max |diff| / max |logit| {err:.3e} "
+                      f"(tol {PARALLEL_ONE_RANK_TOL}); {ms:.2f} ms a frame "
+                      f"(tp_gen_bulk; the exact path {exact_ms:.2f}); "
+                      f"{n_ar} all-reduces on the one-rank group")
+                if not (same and err <= PARALLEL_ONE_RANK_TOL):
+                    failures.append(f"parallel (a) {kind}: the one-rank "
+                                    "mesh is not the exact path")
+                del gen, st, talker, pred
+        finally:
+            dist.destroy_process_group()
+        a_log = exact_frames_log(eng, eng.generator, embeds, lens, bucket)
+        torch.save(a_log["codes"], os.path.join(tmp, "a_codes.pt"))
+        with torch.no_grad():
+            a_windows = torch.stack([predictor_windows(
+                eng, None, a_log["codes"][f].to(dev),
+                h1024=a_log["h1024"][f].to(dev)).cpu()
+                for f in range(PARALLEL_FRAMES)])
+        # the unsharded refill (a mesh of one process: no collective)
+        a_refill = refill_step_logits(eng, Mesh(1, 1, 0, 0, dev),
+                                      eng.talker_params, embeds, lens,
+                                      bucket)
+        if dev.type == "cuda":
+            out["rows"] = parallel_kernel_rows(dev, cfg, failures, bucket)
+            torch.cuda.empty_cache()
+
+        # (b) two ranks, mesh 1 x 2
+        t0 = time.perf_counter()
+        b = run_parallel_ranks("1x2", tmp, cfg)
+        print(f"[parallel] (b) two ranks on one card, mesh 1x2: "
+              f"{time.perf_counter() - t0:.1f} s with their start")
+        r0 = b[0]
+        held = set(parallel_append_cursors(bucket))
+        for r, got in enumerate(b):
+            same = all(torch.equal(got[k], r0[k]) for k in (
+                "codes", "valid", "prefill_logits", "final_logits",
+                "refill_logits")) and all(
+                torch.equal(got["forced"][k], r0["forced"][k])
+                for k in r0["forced"])
+            h = cfg.talker.n_heads // 2, cfg.talker.n_kv_heads // 2
+            heads = {x[1:] for x in got["seen"] if x[0] == "h/hkv"}
+            cursors = {x[1] for x in got["seen"] if x[0] == "cursors"}
+            ks = {x[1] for x in got["seen"] if x[0] == "K"}
+            want_k = {cfg.talker.d_model // 2, cfg.talker.d_ff // 2}
+            c = got["counts"]
+            launched = all(c[k] > 0 for k in (
+                "flash_gqa_prefill_stacked", "flash_gqa_decode_stacked",
+                "flash_gqa_decode_append", "inject_prompt_lanes"))
+            n_int4 = got["int4_tp_int4_launches"]
+            int4_ok = n_int4 > 0 and want_k <= ks
+            print(f"[parallel] (b) rank {r}: codes and logits equal to rank "
+                  f"0 {same}; attention launches {c} at (h, hkv) {heads} "
+                  f"(talker and predictor), flash_gqa_decode_append at "
+                  f"cursors {sorted(cursors)} (held by the kernel rows: "
+                  f"{cursors <= held}); the int4 prefill's {n_int4} "
+                  f"matmul_int4 launches at K "
+                  f"{sorted(ks)}; int4 prefill |diff| "
+                  f"{got['int4'][0]:.3e} of max |logit| {got['int4'][1]:.3f};"
+                  f" a8 prefill |diff| {got['a8'][0]:.3e} of "
+                  f"{got['a8'][1]:.3f}")
+            if not (same and launched and heads == {h} and int4_ok
+                    and cursors and cursors <= held):
+                failures.append(f"parallel (b) rank {r}: ranks disagree or "
+                                "a kernel did not launch at rank-local "
+                                "shapes the rows held")
+            for kind in ("int4", "a8"):
+                if not got[kind][0] <= PARALLEL_LOGIT_TOL * got[kind][1]:
+                    failures.append(f"parallel (b) {kind} prefill off the "
+                                    "unsharded one")
+        scale = a_log["logits"][0].abs().max().item()
+        err = (r0["prefill_logits"] - a_log["logits"][0]).abs().max().item()
+        log_same = torch.equal(r0["log"]["codes"].transpose(0, 1),
+                               r0["codes"][:, :PARALLEL_FRAMES])
+        parts = [parallel_part(eng, {k: v[:, i] for k, v in a_log.items()},
+                               {k: v[:, i] for k, v in r0["log"].items()}, i)
+                 for i in range(PARALLEL_B)]
+        for p in parts:
+            if p is not None:
+                print(f"[parallel] (b) against (a): {p[1]}")
+        # teacher-forced: every frame's decode step against (a)'s
+        g_logits = _rel_gap(r0["forced"]["logits"], a_log["logits"])
+        g_windows = _rel_gap(r0["forced"]["windows"], a_windows)
+        refill_err = ((r0["refill_logits"] - a_refill).abs().max()
+                      / a_refill.abs().max()).item()
+        print(f"[parallel] (b) prefill logits against (a): max |diff| "
+              f"{err:.3e} of max |logit| {scale:.3f} (tol "
+              f"{PARALLEL_LOGIT_TOL}); frames one at a time equal to "
+              f"tp_gen_bulk's {log_same}; lanes equal to (a) "
+              f"{sum(p is None for p in parts)} of {PARALLEL_B}")
+        print(f"[parallel] (b) fed (a)'s codes, frame by frame, max |diff| / "
+              f"max |logit| (tol {PARALLEL_LOGIT_TOL}): code-0 logits "
+              f"{[round(x, 5) for x in g_logits.tolist()]}, predictor "
+              f"windows {[round(x, 5) for x in g_windows.tolist()]}; the "
+              f"refill step at per-lane cursors against the unsharded "
+              f"refill {refill_err:.3e}")
+        ms = [got["ms_frame"] for got in b]
+        print(f"[parallel] ms a frame, B={PARALLEL_B}, 28-layer talker: (a) "
+              f"bf16 {a_ms['bf16']:.2f}, int8 {a_ms['int8']:.2f} (one rank); "
+              f"(b) ranks {ms[0]:.2f} / {ms[1]:.2f} ({PARALLEL_LABEL}); "
+              f"{r0['all_reduces_frame']:.0f} all-reduces a frame; the "
+              f"prefill summed in bf16 instead of f32: logits max |diff| "
+              f"{r0['bf16_reduce_prefill_gap']}")
+        if not (err <= PARALLEL_LOGIT_TOL * scale and log_same
+                and all(p is None or p[0] for p in parts)):
+            failures.append("parallel (b) parts from (a) beyond a near tie")
+        if not (g_logits.max() <= PARALLEL_LOGIT_TOL
+                and g_windows.max() <= PARALLEL_LOGIT_TOL
+                and refill_err <= PARALLEL_LOGIT_TOL):
+            failures.append("parallel (b) teacher-forced steps or the refill "
+                            "step off (a)")
+        out["counts"]["parallel-tp"] = r0["counts"]
+        out["tp"] = dict(ms_frame=ms, a_ms=a_ms,
+                         all_reduces_frame=r0["all_reduces_frame"],
+                         bf16_reduce=r0["bf16_reduce_prefill_gap"],
+                         prefill_err=err, forced_logits=g_logits.max().item(),
+                         forced_windows=g_windows.max().item(),
+                         refill_err=refill_err)
+        del b, r0
+
+        # (c) two ranks, mesh 2 x 1: continuous batching and waves; the
+        # one-process references first
+        ref = parallel_queue_log(eng, None)
+        default = TtsEngine(config=cfg, device=dev, speakers_dir="speakers")
+        ref_s = parallel_queue_log(default, None, SAMPLED)
+        lone = [parallel_wave(default, _LoneRank(i)) for i in range(2)]
+        ref_wave = [lone[i % 2][i // 2]
+                    for i in range(len(PARALLEL_WAVE_BUDGETS))]
+        del default
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        c = run_parallel_ranks("2x1", tmp, cfg)
+        print(f"[parallel] (c) two ranks, mesh 2x1: {time.perf_counter() - t0:.1f}"
+              f" s with their start; greedy queue wall one process "
+              f"{ref['wall_s']:.2f} s, ranks {c[0]['wall_s']:.2f} / "
+              f"{c[1]['wall_s']:.2f} s; sampled on the default engine "
+              f"{ref_s['wall_s']:.2f} s, ranks {c[0]['sampled']['wall_s']:.2f}"
+              f" / {c[1]['sampled']['wall_s']:.2f} s ({PARALLEL_LABEL})")
+
+        def same_results(x, y):
+            return all(a[:2] == b_[:2] and torch.equal(
+                torch.as_tensor(a[2]), torch.as_tensor(b_[2]))
+                for a, b_ in zip(x, y)) and len(x) == len(y)
+
+        for r, got in enumerate(c):
+            same = (same_results(got["results"], c[0]["results"])
+                    and same_results(got["sampled"]["results"],
+                                     c[0]["sampled"]["results"])
+                    and same_results(got["wave"], c[0]["wave"]))
+            launched = (all(got["counts"][k] > 0 for k in
+                            PARALLEL_PATH_KERNELS["parallel-dp"])
+                        and got["sampled_counts"]["talker_step_fused"] > 0
+                        and got["sampled_counts"]["predict_frame_fused"] > 0
+                        and got["wave_counts"]["gen_chunk_fused"] > 0)
+            wave_same = same_results(got["wave"], ref_wave)
+            print(f"[parallel] (c) rank {r}: results equal to rank 0's "
+                  f"{same}; exact-path launches {got['counts']}; default "
+                  f"engine: sampled queue {got['sampled_counts']}, sampled "
+                  f"waves of 2 lanes {got['wave_counts']}, the waves equal "
+                  f"to each rank's lanes alone in one process {wave_same}")
+            if not (same and launched and wave_same
+                    and len(got["results"]) == len(PARALLEL_QUEUE_BUDGETS)):
+                failures.append(f"parallel (c) rank {r}: results or launches")
+        merged = dict(c[0], lanes={**c[0]["lanes"], **c[1]["lanes"]})
+        _same_queue(eng, "(c) greedy", ref, merged, failures)
+        merged = dict(c[0]["sampled"], lanes={**c[0]["sampled"]["lanes"],
+                                              **c[1]["sampled"]["lanes"]})
+        n = _same_queue(eng, "(c) sampled, default engine", ref_s, merged,
+                        failures, SAMPLED, signed=False)
+        print(f"[parallel] (c) sampled, default engine: "
+              f"{len(PARALLEL_QUEUE_BUDGETS) - n} of "
+              f"{len(PARALLEL_QUEUE_BUDGETS)} requests equal to the "
+              f"one-process batcher's")
+        out["counts"]["parallel-dp"] = c[0]["counts"]
+        out["counts"]["parallel-dp-default"] = {
+            **c[0]["sampled_counts"],
+            "gen_chunk_fused": c[0]["wave_counts"]["gen_chunk_fused"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,chunk,reference,engine,stream,clone,"
-                    "onnx,serving,online,spec,wave,weights",
+                    "onnx,serving,online,spec,wave,weights,parallel",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
     import torch
@@ -5715,7 +6874,8 @@ def main() -> int:
               ("stream", drive_stream), ("clone", drive_clone),
               ("onnx", drive_onnx), ("serving", drive_serving),
               ("online", drive_online), ("spec", drive_spec),
-              ("wave", drive_wave), ("weights", drive_weights))
+              ("wave", drive_wave), ("weights", drive_weights),
+              ("parallel", drive_parallel))
     results = {}
     for name, fn in phases:
         if name not in phases_wanted:
@@ -5739,8 +6899,14 @@ def main() -> int:
               **(results.get("online") or {}),
               **(results.get("spec") or {}),
               **(results.get("wave") or {}),
-              **(results.get("weights") or {})}
+              **(results.get("weights") or {}),
+              **((results.get("parallel") or {}).get("counts") or {})}
     measured = dict(results.get("kernels") or {})
+    # the attention kernels and matmul_int4 at the 1 x 2 mesh's rank-local
+    # heads and K (parallel phase)
+    for name, row in ((results.get("parallel") or {}).get("rows")
+                      or {}).items():
+        measured[name] = dict(measured.get(name, {}), rank_local=row)
     if results.get("chunk"):
         measured["gen_chunk_fused"] = results["chunk"]
     # the path whose run gives a kernel's `launches`: the first that needs it
@@ -5750,7 +6916,8 @@ def main() -> int:
              **WEIGHTS_PATH_KERNELS, **CLONE_PATH_KERNELS,
              **ONNX_PATH_KERNELS, "online-b8": SERVING_PATH_KERNELS["step"],
              "spec-exact": ("flash_gqa_prefill_stacked",
-                            "flash_gqa_decode_append")}
+                            "flash_gqa_decode_append"),
+             **PARALLEL_PATH_KERNELS}
     for name, (src, replaces) in KERNELS.items():
         k = dict(measured.get(name, {}))
         by_path = {p: c.get(name, 0) for p, c in counts.items()}

@@ -43,7 +43,7 @@ def predict_frame(cfg: PredictorConfig, params, h1024: torch.Tensor,
     dtype = transformer.dtype_of(cfg.dtype)
     inv_freq = inv_freq_tensor(cfg.head_dim, cfg.rope_theta, dev)
     capacity = 2 + cfg.n_residual_codebooks     # 17: prefill pair + 15
-    cache = transformer.init_kv_cache(cfg, b, capacity, dtype, dev)
+    cache = transformer.init_kv_cache(cfg, b, capacity, dtype, dev, params)
 
     emb0 = codec_tables_1024[0][code0.long()]
     x = torch.stack([h1024.float(), emb0.float()], dim=1).to(dtype)

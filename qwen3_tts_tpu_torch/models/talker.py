@@ -113,6 +113,9 @@ def _codec_logits(params, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def init_talker_cache(cfg: TalkerConfig, batch: int, capacity: int,
-                      device) -> KVCache:
+                      device, params=None) -> KVCache:
+    """params: transformer.init_kv_cache's (a rank's block on a mesh holds
+    its share of the kv heads)."""
     return transformer.init_kv_cache(cfg, batch, capacity,
-                                     transformer.dtype_of(cfg.dtype), device)
+                                     transformer.dtype_of(cfg.dtype), device,
+                                     params)

@@ -29,6 +29,15 @@ uniform_cursor=False (continuous batching) writes each lane at its own
 cursor, and a decode step then attends through
 kernels/flash_decode.flash_gqa_decode_append, which appends the row.
 
+A rank's block of the weights on a mesh (parallel/mesh.shard_params,
+which names the mesh under params["mesh"]) runs the row-parallel schedule
+of the JAX parallel/tp.py here: each projection through
+parallel/mesh.row_parallel (the rank's block of the input features, one
+all-reduce over the model group), and the rank's contiguous block of the
+q and kv heads through the same attention kernels at the rank-local head
+counts; its KV cache holds those kv heads (`local_heads`).  wo's rows are
+head-major, so the rank's attention output IS its block of wo's input.
+
 full_prefix=True (the speculative-decoding verify forward,
 models/talker.talker_verify_frames): S > 1 rows written mid-decode at
 each lane's cursor attend the whole live prefix, prompt and generated
@@ -55,6 +64,7 @@ from ..ops.attention import update_cache
 from ..ops.norms import rms_norm
 from ..ops.quant import matmul, matmul_a8, take
 from ..ops.rope import apply_rope
+from ..parallel.mesh import row_parallel
 
 
 @dataclass
@@ -73,9 +83,23 @@ class KVCache:
         return self.k.shape[3]
 
 
-def init_kv_cache(cfg, batch: int, capacity: int, dtype,
-                  device) -> KVCache:
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, capacity, cfg.head_dim)
+def local_heads(cfg, params) -> Tuple[int, int]:
+    """(q heads, kv heads) that `params` attend over: all of cfg's, or a
+    model group's share for a rank's block on a mesh (module docstring)."""
+    mesh = params.get("mesh") if params is not None else None
+    n = 1 if mesh is None else mesh.n_model
+    if cfg.n_heads % n or cfg.n_kv_heads % n:
+        raise ValueError(f"heads {cfg.n_heads} / kv heads {cfg.n_kv_heads} "
+                         f"do not split over n_model={n}")
+    return cfg.n_heads // n, cfg.n_kv_heads // n
+
+
+def init_kv_cache(cfg, batch: int, capacity: int, dtype, device,
+                  params=None) -> KVCache:
+    """A zero cache; params: the weights it serves, whose kv heads it holds
+    (local_heads; None: all of cfg's)."""
+    shape = (cfg.n_layers, batch, local_heads(cfg, params)[1], capacity,
+             cfg.head_dim)
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -138,7 +162,8 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
     write_idx[b] (module docstring).  a8: S > 1 matmuls of int8 weights
     a8w8 (module docstring).  k/v of the new rows are written into the
     cache IN PLACE.  Returns (hidden [B, S, D] after the final norm, the
-    same cache with write_idx advanced by S).
+    same cache with write_idx advanced by S).  params may be a rank's
+    block on a mesh (module docstring).
     """
     b, s, _ = x.shape
     mode = packed_mode(params)
@@ -152,19 +177,32 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
                           cfg.rms_eps)
         cache.write_idx = cache.write_idx + 1
         return hidden, cache
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mesh = params.get("mesh")
+    a8 = a8 and s > 1
+    h, hkv = local_heads(cfg, params)
+    dh = cfg.head_dim
+    # this rank's q, k and v columns of qkv (all of them without a mesh)
+    mi = 0 if mesh is None else mesh.model_index
+    q0 = mi * h * dh
+    k0 = (cfg.n_heads + mi * hkv) * dh
+    v0 = (cfg.n_heads + cfg.n_kv_heads + mi * hkv) * dh
     layers = params["layers"]
     start = cache.write_idx
     write_at = start[:1] if uniform_cursor else start
     window = (cache.capacity if full_prefix
               else min(max(prompt_cap, s), cache.capacity))
-    mm = matmul_a8 if s > 1 and a8 else matmul
+
+    def mm(t, w, local=False):
+        if mesh is not None:
+            return row_parallel(mesh, t, w, a8, local)
+        return matmul_a8(t, w) if a8 else matmul(t, w)
+
     for layer in range(cfg.n_layers):
         hn = rms_norm(x, layers["ln1"][layer], cfg.rms_eps)
         qkv = mm(hn, take(layers["wqkv"], layer))
-        q = qkv[..., : h * dh].reshape(b, s, h, dh)
-        kk = qkv[..., h * dh: (h + hkv) * dh].reshape(b, s, hkv, dh)
-        vv = qkv[..., (h + hkv) * dh:].reshape(b, s, hkv, dh)
+        q = qkv[..., q0:q0 + h * dh].reshape(b, s, h, dh)
+        kk = qkv[..., k0:k0 + hkv * dh].reshape(b, s, hkv, dh)
+        vv = qkv[..., v0:v0 + hkv * dh].reshape(b, s, hkv, dh)
         if cfg.qk_norm:
             q = rms_norm(q, layers["q_norm"][layer], cfg.rms_eps)
             kk = rms_norm(kk, layers["k_norm"][layer], cfg.rms_eps)
@@ -188,7 +226,8 @@ def decoder_forward(cfg, params: Dict[str, Any], x: torch.Tensor,
                 attn = flash_gqa_prefill_stacked(
                     q, cache.k, cache.v, cache.lengths, start, layer,
                     prompt_cap, window)
-        x = x + mm(attn.reshape(b, s, h * dh), take(layers["wo"], layer))
+        x = x + mm(attn.reshape(b, s, h * dh), take(layers["wo"], layer),
+                   local=True)
         hn = rms_norm(x, layers["ln2"][layer], cfg.rms_eps)
         gu = mm(hn, take(layers["w_gate_up"], layer))
         f_half = gu.shape[-1] // 2

@@ -17,7 +17,7 @@ version of the sampler inside csrc/chunk_step.cu.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,15 +49,25 @@ def filtered_distribution(logits: torch.Tensor, temperature: float,
 
 
 def sample_logits(logits: torch.Tensor, generator: torch.Generator,
-                  temperature: float, top_k: int, top_p: float
-                  ) -> torch.Tensor:
-    """Sample token ids from logits [..., V]. Returns int32 [...]."""
+                  temperature: float, top_k: int, top_p: float,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Sample token ids from logits [..., V]. Returns int32 [...].
+    rows=(lo, total): logits [B, V] are rows [lo, lo + B) of a batch of
+    `total` (one data rank's lanes, parallel/): the whole batch's uniforms
+    are drawn and these rows kept, so each lane draws what it would in
+    the whole batch."""
     if temperature <= 0.0:
         return torch.argmax(logits.float(), dim=-1).to(torch.int32)
     order, probs = filtered_distribution(logits, temperature, top_k, top_p)
     cdf = torch.cumsum(probs, dim=-1)
-    u = torch.rand(probs.shape[:-1] + (1,), generator=generator,
-                   device=probs.device) * cdf[..., -1:]
+    if rows is None:
+        u = torch.rand(probs.shape[:-1] + (1,), generator=generator,
+                       device=probs.device)
+    else:
+        lo, total = rows
+        u = torch.rand((total, 1), generator=generator,
+                       device=probs.device)[lo:lo + probs.shape[0]]
+    u = u * cdf[..., -1:]
     # first rank whose cdf exceeds u; clamp guards u == total in f32
     rank = torch.searchsorted(cdf, u, right=True).clamp_(max=probs.shape[-1] - 1)
     # a zero-probability rank can only be hit through f32 ties at the edge

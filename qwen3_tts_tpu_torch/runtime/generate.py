@@ -61,7 +61,7 @@ into a fresh cache and runs the suffix rows at write cursor prefix_len
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -80,6 +80,19 @@ from ..ops.sampling import sample_logits
 from ..prompt import assemble
 
 
+@dataclass(frozen=True)
+class LaneBlock:
+    """The lanes of a GenState are rows [lo, lo + B) of a batch of `total`
+    lanes split over the data ranks of a mesh (parallel/, serve/batch.py,
+    serve/continuous.py): sampling draws the whole batch's uniforms from
+    the shared generator and keeps these rows, and the chunk loop exits
+    when `all_done(done)` says every rank's lanes are done, so that the
+    ranks draw alike and a lane's draws do not depend on the mesh."""
+    lo: int
+    total: int
+    all_done: Callable[[torch.Tensor], bool]
+
+
 @dataclass
 class GenState:
     cache: KVCache                # talker KV cache (written in place)
@@ -89,6 +102,7 @@ class GenState:
     step: int                     # frames generated so far
     done: torch.Tensor            # [B] bool: lane hit EOS (or its budget)
     generator: torch.Generator    # draws for sampled code_0
+    lanes: Optional[LaneBlock] = None   # None: the lanes are the batch
 
 
 @dataclass(frozen=True)
@@ -118,7 +132,8 @@ def prefill(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
     weights multiply a8w8 (talker.talker_prefill)."""
     b, s_max, _ = embeds.shape
     cache = talker_lib.init_talker_cache(
-        cfg.talker, b, cache_capacity(cfg, s_max), embeds.device)
+        cfg.talker, b, cache_capacity(cfg, s_max), embeds.device,
+        talker_params)
     logits, hidden, cache = talker_lib.talker_prefill(
         cfg.talker, talker_params, embeds, lengths, cache, a8=a8)
     return GenState(cache=cache, logits=logits, hidden=hidden,
@@ -154,7 +169,7 @@ def prefill_with_prefix(cfg: EngineConfig, talker_params,
     dev = suffix_embeds.device
     p_cap = prefix_k.shape[3]
     cache = talker_lib.init_talker_cache(
-        cfg.talker, b, cache_capacity(cfg, total_bucket), dev)
+        cfg.talker, b, cache_capacity(cfg, total_bucket), dev, talker_params)
     cache.k[:, :, :, :p_cap].copy_(prefix_k)
     cache.v[:, :, :, :p_cap].copy_(prefix_v)
     start = torch.full((b,), int(prefix_len), dtype=torch.int32, device=dev)
@@ -242,10 +257,13 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
     proj_b = assets_pack["proj_b"].float()
     tts_pad = assets_pack["tts_pad"].float()
     codes_out, valid_out = [], []
+    # a data rank's lanes draw the whole batch's uniforms (LaneBlock)
+    rows = ({} if state.lanes is None
+            else {"rows": (state.lanes.lo, state.lanes.total)})
     for _ in range(n_frames):
         code0 = sample_logits(state.logits, state.generator,
                               sampler.temperature, sampler.top_k,
-                              sampler.top_p)
+                              sampler.top_p, **rows)
         done = state.done | (code0 == P.EOS)
         h1024 = state.hidden.float() @ proj_w.t() + proj_b
         codes = _predict_frame_dispatch(cfg, predictor_params, h1024, code0,
@@ -257,7 +275,7 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
             prompt_cap=prompt_cap, uniform_cursor=uniform_cursor)
         state = GenState(cache=cache, logits=logits, hidden=hidden,
                          pos=state.pos + 1, step=state.step + 1, done=done,
-                         generator=state.generator)
+                         generator=state.generator, lanes=state.lanes)
         codes_out.append(codes)
         valid_out.append(~done)
     return state, torch.stack(codes_out, 1), torch.stack(valid_out, 1)
@@ -284,7 +302,13 @@ def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
             scratch = chunk_pack["scratch"][(b, cap)] = \
                 chunk_kernel.chunk_scratch(cfg.talker, cfg.predictor, dev, b,
                                            cap)
-    u = torch.rand((n_frames, b), generator=state.generator, device=dev)
+    if state.lanes is None:
+        u = torch.rand((n_frames, b), generator=state.generator, device=dev)
+    else:
+        lo = state.lanes.lo
+        u = torch.rand((n_frames, state.lanes.total),
+                       generator=state.generator,
+                       device=dev)[:, lo:lo + b].contiguous()
     p = (state.pos.long()[None, :]
          + torch.arange(n_frames, device=dev)[:, None])          # [F, B]
     cos, sin = talker_lib._rope_tables(cfg.talker, talker_lib._pos4(p))
@@ -305,7 +329,7 @@ def _gen_frames_chunk(cfg: EngineConfig, talker_params, chunk_pack,
                      hidden=hidden.to(state.hidden.dtype),
                      pos=state.pos + n_frames, step=state.step + n_frames,
                      done=state.done | cum[:, -1],
-                     generator=state.generator)
+                     generator=state.generator, lanes=state.lanes)
     return state, codes, valid
 
 
@@ -379,7 +403,10 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
             wav_buf[:, ci * chunk * spf:(ci + 1) * chunk * spf] = wav
         state.done = state.done | ((ci + 1) * chunk >= budgets)
         ci += 1
-        if bool(state.done.all()):      # the loop's one host sync per chunk
+        # the loop's one host sync per chunk (with a LaneBlock, over every
+        # data rank's lanes)
+        if (bool(state.done.all()) if state.lanes is None
+                else state.lanes.all_done(state.done)):
             break
     valid_buf &= torch.arange(f_cap, device=dev)[None, :] < budgets[:, None]
     return (state, dec_state, codes_buf, valid_buf, wav_buf, ci * chunk,
@@ -403,7 +430,7 @@ def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
     r, s_max, _ = embeds.shape
     lengths = lengths.to(torch.int32)
     compact = talker_lib.init_talker_cache(cfg.talker, r, s_max,
-                                           embeds.device)
+                                           embeds.device, talker_params)
     logits, hidden, compact = talker_lib.talker_prefill(
         cfg.talker, talker_params, embeds, lengths, compact, a8=a8)
     cache = state.cache

@@ -20,6 +20,18 @@ batched refill (Generator.refill_lanes) for every lane freed this round.
 A single-chunk group follows the initial prefill so the first streams get
 audio at chunk granularity (TTFT); group sizes then grow up to
 `group_chunks`, floored at 4 chunks, or 2 while requests wait.
+
+On a mesh (parallel/mesh.py; `mesh=None` or a mesh of size 1 changes
+nothing), every rank is called with the same queue and returns the same
+list.  The schedule is ONE global schedule, decided alike on every rank:
+lanes, refills and group sizes.  Each data rank decodes only its lanes
+`local_lane_slice(mesh, batch_size)` (its draws the whole batch's, its
+group's early exit when every rank's lanes are done), refills the freed
+lanes it owns, decodes their audio, and each round gathers only the small
+lane state (frames emitted, saw_eos) over the data group, never KV,
+logits or weights; the finished results are gathered at the end.  With
+n_model > 1 the engine's weights are sharded and its Generator runs the
+rounds and refills on the JAX TP schedule, as in serve/batch.py.
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ from ..core import protocol as P_
 from ..io.audio import AudioSample
 from ..runtime.generate import SamplerParams
 from ..utils.logging import log_event
-from .batch import BatchRequest, BatchResult
+from .batch import BatchRequest, BatchResult, lane_block, serving_mesh
 from .codec_path import LaneCodec
 
 
@@ -51,21 +63,23 @@ class ContinuousBatcher:
     lane's remaining chunks, floored (4 chunks, 2 while requests queue)
     and capped here.
 
-    Differences from the JAX batcher: there is no `mesh` argument (tensor
-    and data parallelism are not ported yet), and a refill prefills
-    exactly the freed lanes: the JAX batcher pads each refill to a power
-    of two (repeating its first entry) to bound XLA's compiled shapes,
-    which eager PyTorch does not have.  Each round logs a `serve_round`
-    event (utils.logging.log_event) in place of QTTS_SCHED_TRACE.
+    mesh: module docstring.
+
+    Differences from the JAX batcher: a refill prefills exactly the freed
+    lanes: the JAX batcher pads each refill to a power of two (repeating
+    its first entry) to bound XLA's compiled shapes, which eager PyTorch
+    does not have.  Each round logs a `serve_round` event
+    (utils.logging.log_event) in place of QTTS_SCHED_TRACE.
     """
 
     def __init__(self, engine, batch_size: int = 8,
                  max_frames_per_stream: Optional[int] = None,
-                 group_chunks: int = 8):
+                 group_chunks: int = 8, mesh=None):
         self.engine = engine
         self.batch_size = int(batch_size)
         self.max_frames = max_frames_per_stream or engine.max_steps
         self.group_chunks = _floor_pow2(group_chunks)
+        self.mesh = serving_mesh(engine, mesh, self.batch_size)
 
     def run(self, requests: Sequence[BatchRequest]) -> List[BatchResult]:
         results: List[Optional[BatchResult]] = [None] * len(requests)
@@ -87,6 +101,11 @@ class ContinuousBatcher:
                 while queue:
                     queue = self._run_generation(requests, results, queue,
                                                  plans, bucket)
+        if self.mesh is not None:       # each data rank holds its lanes'
+            for part in self.mesh.gather_data(results):
+                for i, r in enumerate(part):
+                    if r is not None:
+                        results[i] = r
         return [r if r is not None else
                 BatchResult(audio=AudioSample(np.zeros(0, np.float32),
                                               P_.SAMPLE_RATE, 1),
@@ -110,23 +129,34 @@ class ContinuousBatcher:
         init_plans = [plans[i] for i in first]
         while len(init_plans) < b:          # pad idle lanes with plan 0
             init_plans.append(init_plans[0])
-        embeds, lens = eng.prompt_to_device(init_plans, bucket)
+        # this rank's lanes [lo, hi): all of them without a mesh
+        own = slice(0, b)
+        if self.mesh is not None:
+            from ..parallel.distributed import local_lane_slice
+            own = local_lane_slice(self.mesh, b)
+        lo = own.start
+        embeds, lens = eng.prompt_to_device(init_plans[own], bucket)
         for slot, req in enumerate(first):
             lane_req[slot] = req
 
         seed = eng.sampler_config.seed
-        if seed is None:
+        if self.mesh is not None:
+            seed = self.mesh.shared_seed(seed)
+        elif seed is None:
             seed = time.time_ns() & 0x7FFFFFFFFFFFFFFF
         gen = torch.Generator(device=eng.device).manual_seed(seed)
         state = eng.generator.start(
             embeds, torch.from_numpy(lens).to(eng.device), gen)
+        state.lanes = lane_block(self.mesh, own, b)
         # idle lanes start done, so they emit nothing
-        state.done = torch.tensor([lane_req[i] is None for i in range(b)],
+        state.done = torch.tensor([lane_req[i] is None for i in
+                                   range(own.start, own.stop)],
                                   device=eng.device)
         sampler = SamplerParams.make(eng.sampler_config)
-        codec = LaneCodec(eng, b)
+        codec = LaneCodec(eng, own.stop - lo)
 
         wavs = {i: [] for i in queue + first}
+        kept = {i: [] for i in queue + first}      # codes
         frames = {i: 0 for i in queue + first}
 
         fresh = True
@@ -153,41 +183,55 @@ class ContinuousBatcher:
 
             state, codes_np, valid_np, saw_eos_np = codec.run_group(
                 state, sampler, prompt_cap=bucket, n_frames=n_chunk,
-                max_frames=g * n_chunk, budgets=rem, uniform_cursor=False)
+                max_frames=g * n_chunk, budgets=rem[own],
+                uniform_cursor=False)
             t_group = time.perf_counter() - t_round
 
-            ks = np.zeros(b, np.int64)
+            # valid is already EOS- and budget-masked; the lane state of
+            # every data rank's lanes, in lane order
+            ks = valid_np.sum(axis=1).astype(np.int64)
+            eos_now = saw_eos_np.astype(bool)
+            if self.mesh is not None:
+                parts = self.mesh.gather_data((ks, eos_now))
+                ks = np.concatenate([p[0] for p in parts])
+                eos_now = np.concatenate([p[1] for p in parts])
             finals = np.zeros(b, bool)
-            eos_now = np.zeros(b, bool)
-            for lane in active:
+            for lane in range(b):
                 req = lane_req[lane]
-                # valid is already EOS- and budget-masked
-                ks[lane] = int(valid_np[lane].sum())
-                eos_now[lane] = bool(saw_eos_np[lane])
+                if req is None:
+                    ks[lane], eos_now[lane] = 0, False
+                    continue
                 budget = requests[req].max_frames or self.max_frames
                 finals[lane] = (eos_now[lane]
                                 or frames[req] + ks[lane] >= budget)
-            samples_all = codec.chunk_audio(codes_np, ks, finals)
+            samples_own = codec.chunk_audio(codes_np, ks[own], finals[own])
 
             refill_mask = np.zeros(b, bool)
             refills: List[tuple] = []       # (lane, request index)
             for lane in active:
                 req = lane_req[lane]
                 k = int(ks[lane])
+                mine = own.start <= lane < own.stop
                 if k > 0:
                     if req not in self._ttft:
                         self._ttft[req] = round(
                             (time.perf_counter() - self._t0) * 1e3, 1)
-                    wavs[req].append(samples_all[lane])
+                    if mine:
+                        wavs[req].append(samples_own[lane - lo])
+                        kept[req].append(codes_np[lane - lo, :k])
                     frames[req] += k
                 if finals[lane]:
-                    samples = (np.concatenate(wavs[req]) if wavs[req]
-                               else np.zeros(0, np.float32))
-                    results[req] = BatchResult(
-                        audio=AudioSample(samples.astype(np.float32),
-                                          P_.SAMPLE_RATE, 1),
-                        frames=frames[req], eos=bool(eos_now[lane]),
-                        ttft_ms=self._ttft.get(req))
+                    if mine:        # other ranks' results come at the end
+                        samples = (np.concatenate(wavs[req]) if wavs[req]
+                                   else np.zeros(0, np.float32))
+                        results[req] = BatchResult(
+                            audio=AudioSample(samples.astype(np.float32),
+                                              P_.SAMPLE_RATE, 1),
+                            frames=frames[req], eos=bool(eos_now[lane]),
+                            ttft_ms=self._ttft.get(req),
+                            codes=np.concatenate(
+                                kept[req] or [np.zeros((0, P_.NUM_CODEBOOKS),
+                                                       np.int32)]))
                     lane_req[lane] = None
                     if queue:
                         nxt = queue.pop(0)
@@ -199,14 +243,17 @@ class ContinuousBatcher:
             # done=True; the refill clears its lanes' flags, and lanes
             # without a new request stay done.
             fresh = False
-            if refills:
-                lanes_r = [lane for lane, _ in refills]
-                plans_r = [plans[n] for _, n in refills]
+            # this rank refills the freed lanes it owns
+            mine_r = [(lane, n) for lane, n in refills
+                      if own.start <= lane < own.stop]
+            if mine_r:
+                lanes_r = [lane - lo for lane, _ in mine_r]
+                plans_r = [plans[n] for _, n in mine_r]
                 lens_r = [min(p.length, bucket) for p in plans_r]
                 embeds_r, _ = eng.prompt_to_device(plans_r, bucket)
                 state = eng.generator.refill_lanes(state, embeds_r, lens_r,
                                                    lanes_r)
-                codec.reset_lanes(refill_mask)
+                codec.reset_lanes(refill_mask[own])
             log_event("serve_round", group_chunks=g, active=len(active),
                       refills=len(refills), frames_kept=int(ks.sum()),
                       group_ms=round(t_group * 1e3, 1),

@@ -1488,3 +1488,39 @@ def test_spec_on_the_card(dev):
     assert torch.equal(got, draft)
     assert out.cache.write_idx.tolist() == [c + 4 for c in cursors]
     assert out.step == base.step + 4
+
+
+def test_tp_prefill_one_rank_nccl_equals_exact(dev, tmp_path):
+    """parallel/tp.tp_talker_prefill on a one-rank NCCL group (mesh 1 x 1:
+    every projection all-reduced over one rank, the attention kernels at
+    the full head counts) equals models/talker.talker_prefill bit for bit:
+    logits, hidden and the cache."""
+    import torch.distributed as dist
+    from qwen3_tts_tpu_torch.models import talker as talker_lib
+    from qwen3_tts_tpu_torch.parallel import tp
+    from qwen3_tts_tpu_torch.parallel.mesh import make_mesh
+
+    eng = _small_engine(fused=False)
+    voice = eng.get_speaker("vivian")
+    plans = [eng._build_voice_prompt(f"tensor parallel lane {i}", voice,
+                                     None) for i in range(4)]
+    embeds, lens = eng.prompt_to_device(plans)
+    lengths = torch.from_numpy(lens).to(dev)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        with torch.no_grad():
+            lg, hd, k, v = tp.tp_talker_prefill(eng.config, mesh,
+                                                eng.talker_params, embeds,
+                                                lengths, 512)
+            cache = talker_lib.init_talker_cache(eng.config.talker, 4, 512,
+                                                 dev)
+            want_lg, want_hd, cache = talker_lib.talker_prefill(
+                eng.config.talker, eng.talker_params, embeds, lengths, cache)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert mesh.all_reduces == 4 * eng.config.talker.n_layers
+    assert torch.equal(lg, want_lg) and torch.equal(hd, want_hd)
+    assert torch.equal(k, cache.k) and torch.equal(v, cache.v)

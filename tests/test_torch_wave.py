@@ -37,10 +37,11 @@ the same inputs and weights.
   through `gen_chunk_fused` (one call per chunk at B = 8; no launch on the
   CPU) and gives 8 identical results, equal to the batch-1 wave of that
   request within WAV_ATOL (torch's CPU matmuls order their sums by shape).
-- The chunk gate's messages, and `mesh`, which raises
-  NotImplementedError; a wave on the ONNX codec (the MINI fixture graph):
-  codes equal the native-codec wave's, audio a decode of each lane's
-  codes alone within WAV_ATOL.
+- The chunk gate's messages; a wave on the single-process 1 x 1 mesh
+  equal to the mesh-less wave (meshes of more ranks:
+  tests/test_torch_parallel.py); a wave on the ONNX codec (the MINI
+  fixture graph): codes equal the native-codec wave's, audio a decode of
+  each lane's codes alone within WAV_ATOL.
 """
 
 import json
@@ -560,14 +561,27 @@ def test_gate_names_what_fails(batch, n_frames, why):
 @pytest.mark.parametrize("what", ["mesh", "onnx"])
 def test_mesh_and_onnx_codec_are_not_ported(pair, what, tmp_path,
                                             monkeypatch):
-    """`mesh` raises NotImplementedError.  A wave on the ONNX codec
+    """`mesh` is ported now (parallel/, tests/test_torch_parallel.py): a
+    wave on the single-process 1 x 1 mesh equals the mesh-less wave, codes
+    and audio bit for bit.  A wave on the ONNX codec
     (onnx/qwen3_tts_decoder.onnx, the MINI fixture graph; the port's LM
     weights): each request's codes equal the native-codec wave's, and its
     audio is a decode of those codes alone within WAV_ATOL."""
     _, te = pair
     if what == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
-            TBS(te, batch_size=2, mesh=object())
+        from qwen3_tts_tpu_torch.parallel.mesh import make_mesh
+        te.set_max_steps(6)
+        voice = te.get_speaker("vivian")
+        waves = []
+        for mesh in (None, make_mesh(1, 1, device="cpu")):
+            te.set_sampler_config(TS(temperature=0.7, seed=5))
+            waves.append(TBS(te, batch_size=2, mesh=mesh).synthesize(
+                [TBR("wave one", voice), TBR("wave two, longer", voice),
+                 TBR("a third", voice)]))
+        for a, b in zip(*waves):
+            assert (a.frames, a.eos) == (b.frames, b.eos)
+            np.testing.assert_array_equal(a.codes, b.codes)
+            np.testing.assert_array_equal(a.audio.samples, b.audio.samples)
         return
     import torch_onnx_fixtures as tfx
     (tmp_path / "onnx").mkdir()
