@@ -5,7 +5,7 @@
 
     python3 chip_smoke.py [--phases kernels,chunk,reference,engine,stream,
                                     clone,onnx,serving,online,spec,wave,
-                                    weights,parallel]
+                                    weights,tools,parallel]
 
 Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
   1. build: compile the CUDA kernels from qwen3_tts_tpu_torch/csrc (nvcc,
@@ -166,8 +166,32 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      files, a greedy request and its rerun on the chunk path, the per-kernel
      path in each talker mode (w4a8, int8, w8a8, bf16), the exact path
      (int8 matmuls, a8w8 prefill) and the exact path on int4 layers
-     (matmul_int4); launch counts per path and talker mode.
-  14. parallel: tensor and data parallelism (qwen3_tts_tpu_torch/parallel)
+     (matmul_int4); launch counts per path and talker mode.  The
+     directory stays for the tools phase and is removed after it.
+  14. tools: the ported tools at full width on that directory (written
+     here when the weights phase did not run): (a) the native host
+     library built from native/qtts_native.cpp with the host's g++, its
+     dequantizers against numpy for the six quant types (rtol 1e-5, atol
+     1e-6), qtts_f16_to_f32 exact on every finite f16, the talker GGUF
+     read through its multi-threaded loader and through numpy (equal,
+     both timed); (b) the runbook (verify.run_drills, quant q8_0, on the
+     card): the three GGUF drills PASS, the rest SKIP (the hub probe aimed
+     at a closed local port: the machine has no network), none FAILs; (c)
+     llama-parity: make_inputs (48 rows, 8 steps), a talker GGUF at full
+     width cut to 2 layers, the "dump" from run_our_talker on the CPU,
+     compare_talker on the card under the JAX rule (rel <= 5e-2, top-1 >=
+     0.99; a miss excused only at a near tie, PARITY_TIE of max |logit|,
+     each printed), the prefill and decode attention kernels launched;
+     (d) the golden-wav body on the default engine of the directory,
+     recorded then verified; (e) a greedy 8-frame request under
+     QTTS_PROFILE_DIR (the trace names the chunk and prefill kernels,
+     codes equal to an untraced run's), under QTTS_CHECKS (equal codes)
+     and under QTTS_DEBUG_NANS (equal codes; a NaN planted in the talker's
+     final norm raises FloatingPointError); (f) `python -m
+     qwen3_tts_tpu_torch --skip-download` (one request) and
+     --audition-voice of a voice cloned from a 2 s reference, each in a
+     subprocess (WAVs of frames x 2000 samples).
+  15. parallel: tensor and data parallelism (qwen3_tts_tpu_torch/parallel)
      at full width and depth, B = 4 preset-voice lanes of bucket 64, 8
      greedy frames: (a) one process on a one-rank NCCL group, mesh 1 x 1:
      tp_talker_prefill and tp_gen_bulk on the engine's bf16 and int8
@@ -5400,6 +5424,77 @@ WEIGHTS_TEXT = "Weights read from a GGUF model directory."   # bucket 32
 TALKER_VOCAB = 3072        # the talker GGUF's LM head rows (>= 2160)
 
 
+def seeded_f16(g, dev):
+    """f16(*shape, scale): a seeded normal f16 numpy array, drawn on dev."""
+    def f16(*shape, scale):
+        import torch
+        return (torch.randn(shape, generator=g, device=dev) * scale).half(
+        ).cpu().numpy()
+    return f16
+
+
+def lm_gguf(c, vocab, f16):
+    """(tensors, metadata) of a Qwen3 LM GGUF at config c under
+    llama.cpp's tensor names, F16 weights from f16 (the random init's
+    scales: d^-0.5, (h * dh)^-0.5, d_ff^-0.5; unit norms)."""
+    import numpy as np
+    d, f, dq, dkv = (c.d_model, c.d_ff, c.n_heads * c.head_dim,
+                     c.n_kv_heads * c.head_dim)
+    ones = np.ones(d, np.float32)
+    t = {}
+    for i in range(c.n_layers):
+        p_ = f"blk.{i}."
+        t.update({
+            p_ + "attn_norm.weight": ones, p_ + "ffn_norm.weight": ones,
+            p_ + "attn_q.weight": f16(dq, d, scale=d ** -0.5),
+            p_ + "attn_k.weight": f16(dkv, d, scale=d ** -0.5),
+            p_ + "attn_v.weight": f16(dkv, d, scale=d ** -0.5),
+            p_ + "attn_output.weight": f16(d, dq, scale=dq ** -0.5),
+            p_ + "attn_q_norm.weight": np.ones(c.head_dim, np.float32),
+            p_ + "attn_k_norm.weight": np.ones(c.head_dim, np.float32),
+            p_ + "ffn_gate.weight": f16(f, d, scale=d ** -0.5),
+            p_ + "ffn_up.weight": f16(f, d, scale=d ** -0.5),
+            p_ + "ffn_down.weight": f16(d, f, scale=f ** -0.5)})
+    t["output_norm.weight"] = ones
+    t["output.weight"] = f16(vocab, d, scale=d ** -0.5)
+    meta = {"general.architecture": "qwen3",
+            "qwen3.block_count": c.n_layers,
+            "qwen3.attention.head_count": c.n_heads,
+            "qwen3.attention.head_count_kv": c.n_kv_heads,
+            "qwen3.embedding_length": d,
+            "qwen3.feed_forward_length": f,
+            "qwen3.attention.key_length": c.head_dim,
+            "qwen3.rope.freq_base": float(c.rope_theta)}
+    return t, meta
+
+
+# the model directory of write_model_dir, written once a run and shared by
+# the weights and tools phases: {"root": Path or None, "users": phases
+# that still need it}; the last user removes it
+MODEL_DIR = {"root": None, "users": set()}
+
+
+def smoke_model_dir(dev):
+    """(root, {file: (seconds, bytes)} if this call wrote it, else {})."""
+    from qwen3_tts_tpu_torch.kernels.build import BUILD_ROOT
+    import shutil
+    if MODEL_DIR["root"] is not None:
+        return MODEL_DIR["root"], {}
+    root = BUILD_ROOT / f"smoke_model_{os.getpid()}"
+    shutil.rmtree(root, ignore_errors=True)
+    MODEL_DIR["root"] = root
+    return root, write_model_dir(root, dev)
+
+
+def release_model_dir(phase: str) -> None:
+    """`phase` is done with the model directory; the last user removes it."""
+    import shutil
+    MODEL_DIR["users"].discard(phase)
+    if not MODEL_DIR["users"] and MODEL_DIR["root"] is not None:
+        shutil.rmtree(MODEL_DIR["root"], ignore_errors=True)
+        MODEL_DIR["root"] = None
+
+
 def write_model_dir(root, dev, seed: int = 11) -> dict:
     """A model directory in the published layout under `root`, made from a
     seed on the card: gguf_q8_0/ with the talker (28 x 2048) and
@@ -5422,40 +5517,10 @@ def write_model_dir(root, dev, seed: int = 11) -> dict:
     gdir = root / "gguf_q8_0"
     gdir.mkdir(parents=True)
     g = torch.Generator(device=dev).manual_seed(seed)
-
-    def f16(*shape, scale):
-        return (torch.randn(shape, generator=g, device=dev) * scale).half(
-        ).cpu().numpy()
+    f16 = seeded_f16(g, dev)
 
     def lm(c, vocab):
-        d, f, dq, dkv = (c.d_model, c.d_ff, c.n_heads * c.head_dim,
-                         c.n_kv_heads * c.head_dim)
-        ones = np.ones(d, np.float32)
-        t = {}
-        for i in range(c.n_layers):
-            p_ = f"blk.{i}."
-            t.update({
-                p_ + "attn_norm.weight": ones, p_ + "ffn_norm.weight": ones,
-                p_ + "attn_q.weight": f16(dq, d, scale=d ** -0.5),
-                p_ + "attn_k.weight": f16(dkv, d, scale=d ** -0.5),
-                p_ + "attn_v.weight": f16(dkv, d, scale=d ** -0.5),
-                p_ + "attn_output.weight": f16(d, dq, scale=dq ** -0.5),
-                p_ + "attn_q_norm.weight": np.ones(c.head_dim, np.float32),
-                p_ + "attn_k_norm.weight": np.ones(c.head_dim, np.float32),
-                p_ + "ffn_gate.weight": f16(f, d, scale=d ** -0.5),
-                p_ + "ffn_up.weight": f16(f, d, scale=d ** -0.5),
-                p_ + "ffn_down.weight": f16(d, f, scale=f ** -0.5)})
-        t["output_norm.weight"] = ones
-        t["output.weight"] = f16(vocab, d, scale=d ** -0.5)
-        meta = {"general.architecture": "qwen3",
-                "qwen3.block_count": c.n_layers,
-                "qwen3.attention.head_count": c.n_heads,
-                "qwen3.attention.head_count_kv": c.n_kv_heads,
-                "qwen3.embedding_length": d,
-                "qwen3.feed_forward_length": f,
-                "qwen3.attention.key_length": c.head_dim,
-                "qwen3.rope.freq_base": float(c.rope_theta)}
-        return t, meta
+        return lm_gguf(c, vocab, f16)
 
     written = {}
     for name, make in (
@@ -5524,8 +5589,6 @@ def drive_weights(dev, failures):
     request: frames x 2000 finite, non-silent samples, the rerun's codes
     equal, the path's kernels launched and no other talker mode's.
     Returns {path: {kernel: launches}} (and the talker's by mode)."""
-    import shutil
-
     import numpy as np
     import torch
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
@@ -5538,18 +5601,15 @@ def drive_weights(dev, failures):
     from qwen3_tts_tpu_torch.kernels.predictor_frame import (
         predict_frame_fused)
     from qwen3_tts_tpu_torch.kernels.talker_step import MODES, talker_step_fused
-    from qwen3_tts_tpu_torch.kernels.build import BUILD_ROOT
     from qwen3_tts_tpu_torch.ops import quant as Q
 
     fns = {f.__name__: f for f in (
         flash_gqa_prefill_stacked, flash_gqa_decode_stacked,
         flash_gqa_decode, talker_step_fused, predict_frame_fused,
         gen_chunk_fused, matmul_int4)}
-    root = BUILD_ROOT / f"smoke_model_{os.getpid()}"
-    shutil.rmtree(root, ignore_errors=True)
     counts = {}
     try:
-        written = write_model_dir(root, dev)
+        root, written = smoke_model_dir(dev)
         for name, (sec, size) in written.items():
             print(f"[weights] wrote {name}: {size / 1e9:.3f} GB in "
                   f"{sec:.2f} s")
@@ -5694,8 +5754,439 @@ def drive_weights(dev, failures):
         run("weights-int4", eng, 8)
         del eng, w4
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        release_model_dir("weights")
     return counts
+
+
+# ---------------------------------------------------------------- tools
+TOOLS_PATH_KERNELS = {"tools": ("flash_gqa_prefill_stacked",
+                                "flash_gqa_decode_stacked",
+                                "flash_gqa_decode", "gen_chunk_fused")}
+# tests/test_native.py's tolerance of the native dequantizers against numpy
+NATIVE_RTOL, NATIVE_ATOL = 1e-5, 1e-6
+# llama-parity's talker at full width, its depth cut to two layers
+PARITY_LAYERS = 2
+# a top-1 miss of llama-parity is excused only where both sides' two picks
+# lie within this share of max |logit| of each other (a near tie)
+PARITY_TIE = 0.05
+# the runbook's hub probe, aimed at a closed port of this host: the card's
+# machine has no network, and the probe must not try an outside host
+CLOSED_HUB = "http://127.0.0.1:9"
+TOOLS_TEXT = "The tools of the port on the card."     # bucket 32
+
+
+def tools_native(root, failures):
+    """(a) The native host library: built from native/qtts_native.cpp; its
+    dequantizers against the numpy path for the six quant types on seeded
+    blocks; qtts_f16_to_f32 on every finite f16; the full-width talker
+    GGUF read through the multi-threaded loader (one float32 arena) and
+    through numpy, tensor by tensor.  Returns {"build_s", "native_s",
+    "numpy_s", "gb"}."""
+    import ctypes
+
+    import numpy as np
+    from qwen3_tts_tpu_torch.io import gguf
+    from qwen3_tts_tpu_torch.utils import native
+
+    def numpy_only(fn, *a):
+        saved = native._LIB, native._TRIED
+        native._LIB, native._TRIED = None, True
+        try:
+            return fn(*a)
+        finally:
+            native._LIB, native._TRIED = saved
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    out = {"build_s": time.perf_counter() - t0}
+    if lib is None:
+        failures.append("tools: the native library did not build (no host "
+                        "C++ compiler)")
+        return out
+    print(f"[tools] native library {native.build()} from {native.SOURCE} "
+          f"({native.compiler()} {' '.join(native.CXX_FLAGS)}) in "
+          f"{out['build_s']:.2f} s")
+    worst = 0.0
+    for gt, bb, eb in ((gguf.GGML_Q8_0, 34, 32), (gguf.GGML_Q4_0, 18, 32),
+                       (gguf.GGML_Q5_0, 22, 32), (gguf.GGML_Q4_K, 144, 256),
+                       (gguf.GGML_Q5_K, 176, 256), (gguf.GGML_Q6_K, 210, 256)):
+        rng = np.random.default_rng(gt)
+        nb = 1024
+        raw = rng.integers(0, 256, bb * nb, dtype=np.uint8).reshape(nb, bb)
+        raw[:, :2] = np.frombuffer(np.float16(0.5).tobytes(), np.uint8)
+        if gt in (gguf.GGML_Q4_K, gguf.GGML_Q5_K):
+            raw[:, 2:4] = np.frombuffer(np.float16(0.25).tobytes(), np.uint8)
+        if gt == gguf.GGML_Q6_K:
+            raw[:, 208:210] = np.frombuffer(np.float16(0.5).tobytes(),
+                                            np.uint8)
+        raw = raw.reshape(-1)
+        fast = native.native_dequantize(raw, gt, eb * nb)
+        ref = numpy_only(gguf.dequantize, raw, gt, eb * nb)
+        err = float(np.abs(fast - ref).max())
+        worst = max(worst, err)
+        if not np.allclose(fast, ref, rtol=NATIVE_RTOL, atol=NATIVE_ATOL):
+            failures.append(f"tools: native {gguf.TYPE_NAMES[gt]} disagrees "
+                            f"with numpy (max abs {err:.3e})")
+    bits = np.arange(65536, dtype=np.uint16)
+    f32 = np.empty(65536, np.float32)
+    lib.qtts_f16_to_f32(bits.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
+                        65536, f32.ctypes.data_as(
+                            ctypes.POINTER(ctypes.c_float)))
+    ref = bits.view(np.float16).astype(np.float32)
+    f16_ok = bool(np.array_equal(f32[np.isfinite(ref)],
+                                 ref[np.isfinite(ref)]))
+    print(f"[tools] native dequantize Q8_0/Q4_0/Q5_0/Q4_K/Q5_K/Q6_K (1,024 "
+          f"seeded blocks each) against numpy: max abs {worst:.3e} (rtol "
+          f"{NATIVE_RTOL}, atol {NATIVE_ATOL}); qtts_f16_to_f32 exact on "
+          f"every finite f16: {f16_ok}")
+    if not f16_ok:
+        failures.append("tools: qtts_f16_to_f32 is not exact")
+
+    g = gguf.read_gguf(root / "gguf_q8_0" / "qwen3_tts_talker.gguf")
+    names = g.names()
+    arenas = []
+    real_load = native.native_load_tensors
+
+    def load(*a, **k):
+        arenas.append(1)
+        return real_load(*a, **k)
+    native.native_load_tensors = load
+    try:
+        t0 = time.perf_counter()
+        fast = g.read_tensors(names)
+        out["native_s"] = time.perf_counter() - t0
+    finally:
+        native.native_load_tensors = real_load
+    out["numpy_s"], same = 0.0, True
+    for name in names:
+        t0 = time.perf_counter()
+        slow = numpy_only(g.read_tensor, name)
+        out["numpy_s"] += time.perf_counter() - t0
+        same = same and np.array_equal(fast[name], slow)
+    out["gb"] = sum(a.nbytes for a in fast.values()) / 1e9
+    del fast
+    print(f"[tools] talker GGUF ({len(names)} tensors, F16 -> "
+          f"{out['gb']:.3f} GB f32): native loader (one arena, "
+          f"{os.cpu_count()} host cores) {out['native_s']:.2f} s, numpy "
+          f"tensor by tensor {out['numpy_s']:.2f} s; equal={same}; arena "
+          f"path taken={arenas == [1]} (warm file cache)")
+    if not (same and arenas == [1]):
+        failures.append("tools: the native GGUF loader's tensors differ from "
+                        "numpy's, or it did not run")
+    return out
+
+
+def tools_runbook(root, dev, failures):
+    """(b) verify.run_drills on the smoke's model directory on the card:
+    assets-gguf, talker-gguf and predictor-gguf PASS at full width, every
+    other drill SKIPs (no .onnx graph, tokenizer, dump or --golden in the
+    repository; the hub probe aimed at a closed local port), none FAILs.
+    Returns its seconds."""
+    from qwen3_tts_tpu_torch import verify
+    from qwen3_tts_tpu_torch.io import download as dl
+    saved = dl.HF_BASE, dl.HF_MIRROR, os.environ.pop("QTTS_HF_BASE", None)
+    dl.HF_BASE = dl.HF_MIRROR = CLOSED_HUB
+    try:
+        t0 = time.perf_counter()
+        drills = verify.run_drills(root, quant="q8_0", device=dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        dl.HF_BASE, dl.HF_MIRROR = saved[:2]
+        if saved[2] is not None:
+            os.environ["QTTS_HF_BASE"] = saved[2]
+    summary = verify.summary(drills, root, "q8_0")
+    print(json.dumps(summary))
+    status = summary["drills"]
+    probe_s = next(d.seconds for d in drills if d.name == "hub-probe")
+    print(f"[tools] runbook on the card: {seconds:.2f} s (hub probe "
+          f"{probe_s:.2f} s); " + ", ".join(
+              f"{d.name} {d.seconds:.2f} s" for d in drills
+              if d.status == "PASS"))
+    want = {n: "PASS" for n in ("assets-gguf", "talker-gguf",
+                                "predictor-gguf")}
+    bad = [n for n, s in status.items() if s != want.get(n, "SKIP")]
+    if summary["fail"] or bad or probe_s > 10.0:
+        failures.append(f"tools: runbook drills {bad} (fail "
+                        f"{summary['fail']}, hub probe {probe_s:.2f} s)")
+    return seconds
+
+
+def tools_parity(work, dev, failures):
+    """(c) llama-parity on the card: make_inputs (48 rows, 8 steps, d
+    2048), a talker GGUF at full width and PARITY_LAYERS layers, the
+    "dump" from run_our_talker on the CPU (the plain path), then
+    compare_talker on the card (the prefill kernel, then the decode
+    attention kernel a layer a step) under the JAX rule (rel <= 5e-2,
+    top-1 >= 0.99), a top-1 miss excused only at a near tie (PARITY_TIE),
+    each miss printed with its leads."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.core.config import TalkerConfig
+    from qwen3_tts_tpu_torch.io import llama_parity as lp
+    from qwen3_tts_tpu_torch.io import weights as weights_io
+    from qwen3_tts_tpu_torch.io.gguf import write_gguf
+
+    inputs = work / "parity_inputs.npz"
+    data = lp.make_inputs(inputs, d_model=2048)
+    cfg = dataclasses.replace(TalkerConfig(), n_layers=PARITY_LAYERS)
+    tensors, meta = lm_gguf(cfg, TALKER_VOCAB, seeded_f16(
+        torch.Generator(device=dev).manual_seed(13), dev))
+    path = work / "talker_parity.gguf"
+    write_gguf(path, tensors, meta)
+    del tensors
+    t0 = time.perf_counter()
+    ccfg, cparams = weights_io.load_talker_gguf(path, TalkerConfig(), "cpu")
+    dump = work / "parity_dump.npz"
+    np.savez(dump, **lp.run_our_talker(ccfg, cparams, data, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    del cparams
+    seen = {}
+    real = lp.run_our_talker
+
+    def spy(*a, **k):
+        seen["ours"] = real(*a, **k)
+        return seen["ours"]
+    lp.run_our_talker = spy
+    try:
+        t0 = time.perf_counter()
+        stats = lp.compare_talker(path, inputs, dump, device=dev,
+                                  tie_tol=PARITY_TIE)
+        ok = True
+    except AssertionError as e:
+        stats, ok = {"error": str(e)}, False
+    finally:
+        lp.run_our_talker = real
+    card_s = time.perf_counter() - t0
+    misses = (lp.top1_misses(seen["ours"], dict(np.load(dump)))
+              if "ours" in seen else [])
+    print(f"[tools] llama-parity: talker {ccfg.n_layers} x {ccfg.d_model} "
+          f"(depth cut from 28), 48 prompt rows + 8 steps; the plain path "
+          f"on the CPU {cpu_s:.2f} s, compare_talker on the card "
+          f"{card_s:.2f} s; passed={ok} "
+          + json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
+                        for k, v in stats.items()}))
+    for tag, row, a, b, lead_a, lead_b in misses:
+        print(f"[tools] llama-parity top-1 miss: {tag} row {row}: the card "
+              f"picks {a}, {lead_a:.3e} above {b}; the CPU picks {b}, "
+              f"{lead_b:.3e} above {a} (of max |logit|; near tie <= "
+              f"{PARITY_TIE}: {max(lead_a, lead_b) <= PARITY_TIE})")
+    if not ok:
+        failures.append("tools: llama-parity on the card failed the JAX rule")
+
+
+def tools_cli(root, work, vfile, failures):
+    """(f) The CLI in two subprocesses at once, on the directory's weight
+    cache: one request with --skip-download (a WAV of frames x 2000
+    samples, no download warning) and --audition-voice of `vfile` (a WAV
+    of its reference frames x 2000 samples)."""
+    import wave
+    env = {k: v for k, v in os.environ.items() if not k.startswith("QTTS_")}
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(*args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "qwen3_tts_tpu_torch", "--skip-download",
+             "--model-dir", str(root), "--quant", "q8_0", "--speakers-dir",
+             "speakers", *args], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=here, env=env)
+
+    def samples(path):
+        if not path.exists():
+            return None
+        with wave.open(str(path)) as w:
+            return w.getnframes(), w.getframerate()
+
+    out, aud = work / "cli.wav", work / "audition.wav"
+    t0 = time.perf_counter()
+    procs = [cli("--text", TOOLS_TEXT, "--max-steps", "8", "--seed", "1",
+                 "--temperature", "0", "--metrics", "--output", str(out)),
+             cli("--text", "unused", "--audition-voice", str(vfile),
+                 "--output", str(aud))]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:            # stop what a timeout left running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    sec = time.perf_counter() - t0
+    (stdout, stderr), (a_out, a_err) = outs
+    metrics = next((json.loads(x) for x in stdout.splitlines()
+                    if x.startswith("{")), {})
+    ok = (procs[0].returncode == 0 and "Device: cuda" in stdout
+          and "[warn]" not in stderr and metrics.get("frames", 0) > 0
+          and samples(out) == (metrics["frames"] * 2000, 24000))
+    print(f"[tools] python -m qwen3_tts_tpu_torch --skip-download: rc "
+          f"{procs[0].returncode}, frames {metrics.get('frames')}, wav "
+          f"{samples(out)}; ok={ok}")
+    if not ok:
+        print(stdout[-2000:], stderr[-4000:], file=sys.stderr)
+        failures.append("tools: the CLI request failed")
+    n_frames = len(json.loads(vfile.read_text())["audio_codes"]) // 16
+    ok = (procs[1].returncode == 0 and n_frames > 0
+          and samples(aud) == (n_frames * 2000, 24000))
+    print(f"[tools] --audition-voice ({n_frames} reference frames): rc "
+          f"{procs[1].returncode}, wav {samples(aud)}; ok={ok}; both "
+          f"processes, side by side, {sec:.2f} s")
+    if not ok:
+        print(a_out[-2000:], a_err[-4000:], file=sys.stderr)
+        failures.append("tools: --audition-voice failed")
+
+
+def drive_tools(dev, failures):
+    """The ported tools on the card (module docstring, phase tools): (a)
+    tools_native, (b) tools_runbook, (c) tools_parity, then on the default
+    engine built from the smoke's model directory (quant q8_0): (d) the
+    golden-wav body recorded and verified, (e) tracing: a request under
+    QTTS_PROFILE_DIR (its trace names the chunk and prefill kernels, its
+    codes equal an untraced run's), under QTTS_CHECKS (equal codes) and
+    under QTTS_DEBUG_NANS (equal codes; with a NaN planted in the talker's
+    final norm, FloatingPointError), (f) the CLI in a subprocess: one
+    request with --skip-download and --audition-voice of a VoiceFile
+    cloned from a 2 s reference.  Returns {"tools": {kernel: launches}}
+    from (b)-(e) (the decode attention's one-layer kernel, and its combine
+    kernel where a cache spans several 64-slot chunks, counted through
+    flash_gqa_decode)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine, verify
+    from qwen3_tts_tpu_torch.io.audio import AudioSample
+    from qwen3_tts_tpu_torch.kernels.build import BUILD_ROOT
+    from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
+    from qwen3_tts_tpu_torch.kernels.flash_decode import (
+        flash_gqa_decode, flash_gqa_decode_stacked)
+    from qwen3_tts_tpu_torch.kernels.flash_prefill import (
+        flash_gqa_prefill_stacked)
+    from qwen3_tts_tpu_torch.utils import tracing
+
+    fns = {f.__name__: f for f in (flash_gqa_prefill_stacked,
+                                   flash_gqa_decode_stacked, flash_gqa_decode,
+                                   gen_chunk_fused)}
+    work = BUILD_ROOT / f"smoke_tools_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    flags = ("QTTS_PROFILE_DIR", "QTTS_CHECKS", "QTTS_DEBUG_NANS")
+    try:
+        root, written = smoke_model_dir(dev)
+        for name, (sec, size) in written.items():
+            print(f"[tools] wrote {name}: {size / 1e9:.3f} GB in {sec:.2f} s")
+        tools_native(root, failures)
+        zero_counts(fns)
+        tools_runbook(root, dev, failures)
+        tools_parity(work, dev, failures)
+        parity_counts = read_counts(fns)
+        print(f"[tools] llama-parity launches {parity_counts}")
+        if not (parity_counts["flash_gqa_prefill_stacked"] > 0
+                and parity_counts["flash_gqa_decode_stacked"] > 0):
+            failures.append("tools: llama-parity did not run the prefill and "
+                            "decode attention kernels")
+
+        t0 = time.perf_counter()
+        eng = TtsEngine(root, quant="q8_0", device=dev,
+                        speakers_dir="speakers")
+        print(f"[tools] TtsEngine(quant='q8_0') from the smoke's directory: "
+              f"{time.perf_counter() - t0:.2f} s (talker from "
+              f"{eng.weight_sources.get('talker')}), chunk={eng.chunk}")
+        gpath = work / "golden" / "real_engine_torch_seed42.json"
+        for rep in range(2):
+            detail = verify.golden_run(eng, gpath)
+            print(f"[tools] golden-wav {rep + 1}: {detail}")
+            if ("RECORDED" in detail) != (rep == 0):
+                failures.append(f"tools: golden-wav run {rep + 1}: {detail}")
+
+        voice = eng.get_speaker("vivian")
+
+        def request():
+            eng.set_max_steps(8)
+            eng.set_sampler_config(SamplerConfig(seed=3, **GREEDY))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate_with_voice(TOOLS_TEXT, voice)
+            torch.cuda.synchronize()
+            return eng.last_codes.copy(), (time.perf_counter() - t0) * 1e3
+
+        want, plain_ms = request()
+        prof = work / "prof"
+        os.environ["QTTS_PROFILE_DIR"] = str(prof)
+        try:
+            codes, traced_ms = request()
+        finally:
+            os.environ.pop("QTTS_PROFILE_DIR")
+        traces = sorted(prof.glob("qtts_request-*.pt.trace.json"))
+        kernels = set()
+        for tr in traces:
+            kernels |= {e.get("name", "") for e in json.loads(
+                tr.read_text())["traceEvents"] if e.get("cat") == "kernel"}
+        named = {k: any(k in n for n in kernels)
+                 for k in ("chunk_kernel", "flash_prefill")}
+        print(f"[tools] QTTS_PROFILE_DIR: {len(traces)} trace "
+              f"({sum(t.stat().st_size for t in traces) / 1e6:.2f} MB, "
+              f"{len(kernels)} kernel names), names {named}; codes equal to "
+              f"the untraced run's={np.array_equal(codes, want)}; "
+              f"{traced_ms:.1f} ms against {plain_ms:.1f} untraced")
+        if len(traces) != 1 or not all(named.values()) \
+                or not np.array_equal(codes, want):
+            failures.append("tools: the QTTS_PROFILE_DIR trace is wrong")
+
+        os.environ["QTTS_CHECKS"] = "1"
+        tracing.apply_debug_flags()
+        try:
+            codes, checked_ms = request()
+        finally:
+            os.environ.pop("QTTS_CHECKS")
+            tracing.apply_debug_flags()
+        print(f"[tools] QTTS_CHECKS: codes equal={np.array_equal(codes, want)}"
+              f", {checked_ms:.1f} ms")
+        if not np.array_equal(codes, want):
+            failures.append("tools: QTTS_CHECKS changed the codes")
+
+        os.environ["QTTS_DEBUG_NANS"] = "1"
+        tracing.apply_debug_flags()
+        norm = eng.talker_params["final_norm"]
+        kept = norm[0].clone()
+        try:
+            codes, nan_ms = request()
+            norm[0] = float("nan")
+            try:
+                request()
+                raised = "nothing"
+            except FloatingPointError as e:
+                raised = f"FloatingPointError: {e}"
+        finally:
+            norm[0] = kept
+            os.environ.pop("QTTS_DEBUG_NANS")
+            tracing.apply_debug_flags()
+        print(f"[tools] QTTS_DEBUG_NANS: finite weights: codes equal="
+              f"{np.array_equal(codes, want)}, {nan_ms:.1f} ms; a NaN in the "
+              f"talker's final norm: {raised}")
+        if not (np.array_equal(codes, want)
+                and raised.startswith("FloatingPointError")):
+            failures.append("tools: QTTS_DEBUG_NANS did not hold")
+
+        ref = work / "ref.wav"
+        AudioSample(samples=reference_wav(2, 7),
+                    sample_rate=24000).save_wav(ref)
+        vfile = work / "voice.json"
+        eng.create_voice_file(ref, "A reference.").save(vfile)
+        counts = read_counts(fns)
+        del eng
+        torch.cuda.empty_cache()
+        tools_cli(root, work, vfile, failures)
+    finally:
+        for k in flags:
+            os.environ.pop(k, None)
+        tracing.apply_debug_flags()
+        shutil.rmtree(work, ignore_errors=True)
+        release_model_dir("tools")
+    print(f"[tools] launches {counts}")
+    for name in TOOLS_PATH_KERNELS["tools"]:
+        if counts[name] <= 0:
+            failures.append(f"tools never launched {name}")
+    return {"tools": counts}
 
 
 # ------------------------------------------------------------- parallel
@@ -6830,9 +7321,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="kernels,chunk,reference,engine,stream,clone,"
-                    "onnx,serving,online,spec,wave,weights,parallel",
+                    "onnx,serving,online,spec,wave,weights,tools,parallel",
                     help="comma-separated subset (all by default)")
     phases_wanted = ap.parse_args().phases.split(",")
+    MODEL_DIR["users"] = {"weights", "tools"} & set(phases_wanted)
     import torch
     if not torch.cuda.is_available():
         print("error: no CUDA device; the port's kernels need an NVIDIA GPU",
@@ -6875,7 +7367,7 @@ def main() -> int:
               ("onnx", drive_onnx), ("serving", drive_serving),
               ("online", drive_online), ("spec", drive_spec),
               ("wave", drive_wave), ("weights", drive_weights),
-              ("parallel", drive_parallel))
+              ("tools", drive_tools), ("parallel", drive_parallel))
     results = {}
     for name, fn in phases:
         if name not in phases_wanted:
@@ -6900,6 +7392,7 @@ def main() -> int:
               **(results.get("spec") or {}),
               **(results.get("wave") or {}),
               **(results.get("weights") or {}),
+              **(results.get("tools") or {}),
               **((results.get("parallel") or {}).get("counts") or {})}
     measured = dict(results.get("kernels") or {})
     # the attention kernels and matmul_int4 at the 1 x 2 mesh's rank-local
@@ -6917,7 +7410,7 @@ def main() -> int:
              **ONNX_PATH_KERNELS, "online-b8": SERVING_PATH_KERNELS["step"],
              "spec-exact": ("flash_gqa_prefill_stacked",
                             "flash_gqa_decode_append"),
-             **PARALLEL_PATH_KERNELS}
+             **PARALLEL_PATH_KERNELS, **TOOLS_PATH_KERNELS}
     for name, (src, replaces) in KERNELS.items():
         k = dict(measured.get(name, {}))
         by_path = {p: c.get(name, 0) for p, c in counts.items()}
@@ -6925,7 +7418,8 @@ def main() -> int:
             k["launches_by_mode"] = {
                 p: c["talker_step_fused_by_mode"] for p, c in counts.items()
                 if "talker_step_fused_by_mode" in c}
-        path = next((p for p in paths if name in paths[p]), "")
+        path = next((p for p in paths if name in paths[p] and p in counts),
+                     "")
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "launches": by_path.get(path, 0),
                "launches_by_path": by_path}

@@ -8,6 +8,7 @@
       [--quant none|q5_k_m|q8_0] [--talker-mode w4a8|int8|w8a8|bf16]
       [--voice-file voice.json] [--ref-audio ref.wav --ref-text "..."]
       [--save-voice voice.json] [--stream] [--long] [--config cfg.json]
+      [--skip-download] [--audition-voice voice.json]
 
 --model-dir is read in the published layout (TtsEngine): the GGUF files
 under gguf/ (--quant none) or gguf_<quant>/, the codec decoder under
@@ -24,12 +25,19 @@ the reference's transcript), and --save-voice writes that voice as JSON.
 line per chunk and the time to the first chunk; --long (without --stream)
 synthesizes sentence by sentence (TtsEngine.generate_long).  --config
 reads an EngineConfig from a json or toml file.
+
+Without --skip-download the CLI first fetches the model manifest's
+missing files into --model-dir (TtsEngine.download_models); where that
+fails (no hub reachable) it warns and goes on in development mode, as the
+JAX CLI does.  --audition-voice decodes a VoiceFile's reference codes to
+--output through the codec (TtsEngine.decode_codes) and exits.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from pathlib import Path
 
@@ -75,6 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "with --stream)")
     p.add_argument("--config", type=Path, default=None,
                    help="EngineConfig json/toml file")
+    p.add_argument("--skip-download", action="store_true",
+                   help="do not try to fetch missing model files")
+    p.add_argument("--audition-voice", type=Path,
+                   help="decode a VoiceFile's reference codes to WAV and exit")
     return p
 
 
@@ -86,6 +98,13 @@ def main(argv=None) -> int:
     from .engine import TtsEngine
     from .io.voice_file import VoiceFile
 
+    if not args.skip_download:
+        try:
+            TtsEngine.download_models(args.model_dir, args.quant)
+        except RuntimeError as e:
+            print(f"[warn] {e}", file=sys.stderr)
+            print("[warn] continuing with random-init weights "
+                  "(development mode)", file=sys.stderr)
     engine = TtsEngine(model_dir=args.model_dir,
                        config=(EngineConfig.from_file(args.config)
                                if args.config else None),
@@ -93,6 +112,13 @@ def main(argv=None) -> int:
                                      if args.speakers_dir.exists() else None),
                        device=args.device, quant=args.quant,
                        talker_mode=args.talker_mode)
+    if args.audition_voice:
+        vf = VoiceFile.load(args.audition_voice)
+        audio = engine.decode_codes(vf.audio_codes)
+        audio.save_wav(args.output)
+        print(f"Auditioned {len(vf.audio_codes) // 16} reference frames "
+              f"-> {args.output}")
+        return 0
     engine.set_max_steps(args.max_steps)
     engine.set_sampler_config(SamplerConfig(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,

@@ -118,6 +118,13 @@ and each of its chunks (`_stream_inference`, `stream_batch`), `warmup`,
 serving worker (serve/online).  Launches on one device go to its one
 current stream in the order they were enqueued, so a sequence enqueued
 whole under the lock runs whole on the card.
+
+Tools: `download_models` fetches the model manifest's missing files
+(io/download; the CLI calls it unless --skip-download).  Each engine
+reads QTTS_DEBUG_NANS and QTTS_CHECKS when it is built
+(utils/tracing.apply_debug_flags, as the JAX engine does), and each
+request (`_run_inference`, `generate_stream`, `stream_batch`) is traced
+under QTTS_PROFILE_DIR (utils/tracing.maybe_profile).
 """
 
 from __future__ import annotations
@@ -158,6 +165,7 @@ from .runtime.generate import (CHUNK_BATCHES, Generator, SamplerParams,
 from .utils.logging import get_logger, log_event
 from .utils.metrics import GenerationMetrics, Stopwatch
 from .utils.tokenizer import Tokenizer
+from .utils.tracing import apply_debug_flags, maybe_profile
 
 
 class PromptTooLongError(ValueError):
@@ -209,7 +217,7 @@ class TtsEngine:
                  fused: Optional[bool] = None,
                  chunk: Optional[bool] = None, quant: str = "none",
                  talker_mode: str = "w4a8", a8_prefill: bool = True,
-                 weight_cache: bool = True):
+                 weight_cache: Optional[bool] = None):
         """model_dir, quant: where the weights are read (module docstring);
         weights: optional {"assets": Assets, "talker", "predictor",
         "codec_decoder" and optionally "codec_encoder", "speaker_encoder":
@@ -219,7 +227,9 @@ class TtsEngine:
         None = the chunk path on a CUDA device, the exact path on the CPU.
         a8_prefill: a8w8 prompt prefill on int8 weights.  weight_cache:
         save and read the converted talker and predictor under
-        model_dir/cache/."""
+        model_dir/cache/ (None: io/checkpoint.enabled(), i.e. the
+        environment's QTTS_WEIGHT_CACHE, on by default)."""
+        apply_debug_flags()
         self.device = torch.device(device)
         self.device_lock = threading.RLock()    # module docstring: Threads
         if self.device.type == "cuda":
@@ -249,6 +259,8 @@ class TtsEngine:
         use_int8 = self.config.int8_weights
         if use_int8 is None:
             use_int8 = quant != "none"
+        if weight_cache is None:
+            weight_cache = ckpt_io.enabled()
         if weights is None:
             weights = self._load_weights(init_seed, use_int8, weight_cache)
         elif use_int8:
@@ -451,6 +463,16 @@ class TtsEngine:
     def set_sampler_config(self, config: SamplerConfig) -> None:
         self.sampler_config = config
 
+    def get_sampler_config(self) -> SamplerConfig:
+        return self.sampler_config
+
+    @staticmethod
+    def download_models(model_dir, quant: str = "none") -> None:
+        """Fetch the missing files of the model manifest (io/download);
+        RuntimeError naming them when no hub is reachable."""
+        from .io.download import check_and_download
+        check_and_download(model_dir, quant)
+
     def load_speakers(self, speakers_dir) -> None:
         for path in sorted(Path(speakers_dir).glob("*.json")):
             if path.name == "index.json":
@@ -580,7 +602,8 @@ class TtsEngine:
         generating: first_chunk_frames frames first, then frames_per_chunk
         (module docstring)."""
         plan = self._build_voice_prompt(text, voice, instruct)
-        yield from self._stream_inference(plan)
+        with maybe_profile("qtts_stream"):
+            yield from self._stream_inference(plan)
 
     def stream_long(self, text: str, voice: VoiceFile,
                     instruct: Optional[str] = None,
@@ -606,7 +629,6 @@ class TtsEngine:
         return AudioSample(samples=samples, sample_rate=P.SAMPLE_RATE,
                            channels=1)
 
-    @torch.no_grad()
     def stream_batch(self, texts, voices, instructs=None
                      ) -> Iterator[List[np.ndarray]]:
         """Batched streaming: a wave of len(texts) requests decodes at one
@@ -618,7 +640,14 @@ class TtsEngine:
         max_steps.  One chunk runs ahead, as in generate_stream.  Each
         chunk goes through self.codec (runtime/codec): with the ONNX codec
         a chunk makes codes only, and the pieces are decoded when the
-        chunk is read, each lane flushed at its last chunk."""
+        chunk is read, each lane flushed at its last chunk.  Traced under
+        QTTS_PROFILE_DIR (utils/tracing)."""
+        with maybe_profile("qtts_stream_batch"):
+            yield from self._stream_batch(texts, voices, instructs)
+
+    @torch.no_grad()
+    def _stream_batch(self, texts, voices, instructs
+                      ) -> Iterator[List[np.ndarray]]:
         cfg = self.config
         b = len(texts)
         if isinstance(voices, VoiceFile):
@@ -824,8 +853,9 @@ class TtsEngine:
         """Non-streaming synthesis: prefill, then the bulk chunk loop with
         the codec decode of each chunk; early exit at EOS.  With the ONNX
         codec the loop makes codes only, and the decoder graph decodes
-        them in one call from a fresh state (the JAX engine's rule)."""
-        with self.device_lock:
+        them in one call from a fresh state (the JAX engine's rule).
+        Traced under QTTS_PROFILE_DIR (utils/tracing)."""
+        with self.device_lock, maybe_profile("qtts_request"):
             cfg = self.config
             spf = cfg.codec_decoder.samples_per_frame
             codec = self.codec

@@ -14,9 +14,10 @@ Layout (under `<model_dir>/cache/<name>/`):
 
 An entry is valid only while the fingerprint matches the source file, so
 any change to the GGUF invalidates it.  The file is fingerprinted by path,
-size and mtime, never hashed (a talker GGUF is gigabytes).  The JAX
-package's switch is the environment variable QTTS_WEIGHT_CACHE; the port's
-is `TtsEngine(weight_cache=...)`.  A save is written into a sibling
+size and mtime, never hashed (a talker GGUF is gigabytes).  The switch is
+`TtsEngine(weight_cache=...)`; its default, None, reads the JAX package's
+environment variable QTTS_WEIGHT_CACHE (`enabled`: on unless "0" or
+"false").  A save is written into a sibling
 directory and renamed into place, so a failed save leaves no partial
 entry.
 """
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 from pathlib import Path
 from typing import Any, Optional, Tuple
@@ -32,6 +34,10 @@ from typing import Any, Optional, Tuple
 import torch
 
 FORMAT_VERSION = 1
+
+
+def enabled() -> bool:
+    return os.environ.get("QTTS_WEIGHT_CACHE", "1") not in ("0", "false")
 
 
 def fingerprint(src: Path, use_int8: bool) -> dict:

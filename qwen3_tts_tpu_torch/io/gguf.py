@@ -1,9 +1,9 @@
-"""Copy of qwen3_tts_tpu/io/gguf.py (numpy only): the port cannot import
-the JAX package, whose __init__ imports jax.  Keep the two in step.  The
-one difference: the JAX package's optional C++ fast path
-(qwen3_tts_tpu.utils.native) is not ported, so `read_tensors` reads tensor
-by tensor and `dequantize` always runs the numpy path, which the original
-calls authoritative.
+"""Copy of qwen3_tts_tpu/io/gguf.py: the port cannot import the JAX
+package, whose __init__ imports jax.  Keep the two in step.  The one
+difference is where the C++ fast path comes from: the port's utils/native
+builds its own library from native/qtts_native.cpp (never the prebuilt
+native/libqtts_native.so); `dequantize` takes it where it is available and
+`read_tensors` its multi-threaded loader, as in the JAX package.
 
 Pure-numpy GGUF reader/writer with vectorized dequantization.
 
@@ -13,6 +13,10 @@ quantized LM weights.  Here one reader handles both: it parses the full GGUF
 v2/v3 container (metadata + tensor infos) and dequantizes F32/F16/BF16/Q8_0/
 Q4_0/Q5_0/Q4_K/Q5_K/Q6_K tensor data to float32 numpy arrays, vectorized over
 blocks.  Dequantization follows the public GGML block format specification.
+
+An optional C++ fast path (qwen3_tts_tpu_torch.utils.native) accelerates the
+K-quant paths when the native library is built; the numpy path is
+authoritative.
 """
 
 from __future__ import annotations
@@ -89,7 +93,31 @@ class GGUFFile:
         return list(self.tensors)
 
     def read_tensors(self, names, dtype=np.float32):
-        """Read+dequantize many tensors, one at a time."""
+        """Read+dequantize many tensors at once.  Uses the native parallel
+        loader (utils.native.native_load_tensors) when built — threads across
+        tensors, one pass over the file — else falls back per-tensor."""
+        from ..utils.native import native_load_tensors
+        names = list(names)
+        infos = [self.tensors[n] for n in names]
+        supported = {GGML_F32, GGML_F16, GGML_BF16, GGML_Q4_0, GGML_Q5_0,
+                     GGML_Q8_0, GGML_Q4_K, GGML_Q5_K, GGML_Q6_K}
+        if all(i.ggml_type in supported for i in infos):
+            specs, off = [], 0
+            for i in infos:
+                n_elems = int(np.prod(i.shape)) if i.shape else 1
+                specs.append((self.data_start + i.offset, i.ggml_type,
+                              n_elems, off))
+                off += n_elems
+            arena = native_load_tensors(self.path, specs, off)
+            if arena is not None:
+                out, pos = {}, 0
+                for name, i in zip(names, infos):
+                    n_elems = int(np.prod(i.shape)) if i.shape else 1
+                    out[name] = np.ascontiguousarray(
+                        arena[pos:pos + n_elems].reshape(i.shape)
+                        .astype(dtype, copy=False))
+                    pos += n_elems
+                return out
         return {n: self.read_tensor(n, dtype) for n in names}
 
     def read_tensor(self, name: str, dtype=np.float32) -> np.ndarray:
@@ -174,6 +202,10 @@ def read_gguf(path) -> GGUFFile:
 
 def dequantize(raw: np.ndarray, ggml_type: int, n_elems: int) -> np.ndarray:
     """Dequantize `raw` uint8 buffer of `n_elems` logical elements to f32."""
+    from ..utils.native import native_dequantize
+    fast = native_dequantize(raw, ggml_type, n_elems)
+    if fast is not None:
+        return fast
     if ggml_type == GGML_F32:
         return raw.view(np.float32)[:n_elems].astype(np.float32)
     if ggml_type == GGML_F16:

@@ -164,8 +164,17 @@ def build() -> Path:
 
 
 def check(rc: int, name: str) -> None:
-    """Raise if a kernel's C entry point reported a CUDA error."""
+    """Raise if a kernel's C entry point reported a CUDA error.  With
+    QTTS_CHECKS (utils/tracing), also synchronize the device and raise,
+    naming the kernel, on an error its launch caused asynchronously."""
+    import torch
     if rc != 0:
-        import torch
         raise RuntimeError(f"{name} failed: cudaError {rc} "
                            f"({torch.cuda.get_device_name()})")
+    from ..utils import tracing
+    if tracing.CHECKS:
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            raise RuntimeError(f"QTTS_CHECKS: {name} faulted on the device: "
+                               f"{e}") from e

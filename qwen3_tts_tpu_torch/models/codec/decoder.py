@@ -296,3 +296,12 @@ def decode_chunk(cfg: CodecDecoderConfig, params, codes: torch.Tensor,
     state.conv_hist = hists
     state.up_tail = up_tails
     return wav, state
+
+
+def decode_full(cfg: CodecDecoderConfig, params, codes: torch.Tensor,
+                batch: int = None) -> torch.Tensor:
+    """Non-streaming decode of codes [B, N, 16] from a fresh state (tests,
+    offline synthesis).  Returns wav [B, N * samples_per_frame] f32."""
+    state = init_decoder_state(cfg, codes.shape[0], codes.device)
+    wav, _ = decode_chunk(cfg, params, codes, state)
+    return wav

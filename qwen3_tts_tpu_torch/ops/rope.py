@@ -80,3 +80,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     sin = sin[..., None, :].float()
     xf = x.float()
     return (xf * cos + rotate_half(xf) * sin).to(x.dtype)
+
+
+def make_mrope_positions(start, length: int) -> np.ndarray:
+    """Host helper (the reference's engine.rs:306-314): [length, 4] int32
+    with T = H = W = arange from `start` and channel row 0."""
+    r = np.arange(start, start + length, dtype=np.int32)
+    return np.stack([r, r, r, np.zeros_like(r)], axis=-1)

@@ -13,6 +13,10 @@ same filtered distribution as the JAX package, not the same draws.
 qwen3_tts_tpu/kernels/chunk_step.py) in plain PyTorch: no sort, thresholds
 found by bisection, the uniform given by the caller.  It is the plain
 version of the sampler inside csrc/chunk_step.cu.
+
+`sample_with_allowlist` (sampling restricted to a range plus extra ids)
+and `greedy_slice_argmax` (argmax of a window) are the JAX package's
+helpers of the same names.
 """
 
 from __future__ import annotations
@@ -75,6 +79,34 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator,
     n_kept = (probs > 0).sum(-1, keepdim=True)
     rank = torch.minimum(rank, n_kept - 1)
     return torch.gather(order, -1, rank)[..., 0].to(torch.int32)
+
+
+def sample_with_allowlist(logits: torch.Tensor, generator: torch.Generator,
+                          limit: int, allow_tokens, temperature: float,
+                          top_k: int, top_p: float) -> torch.Tensor:
+    """sample_logits over the ids in [0, limit) plus an explicit allowlist
+    of extra ids (the reference's `sample_custom`, llama/mod.rs:780-904:
+    range-restricted sampling that also admits special tokens like EOS);
+    every other id's logit is NEG_INF.  `generator` takes the place of the
+    JAX package's key."""
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    allowed = idx < limit
+    for tok in torch.as_tensor(allow_tokens).reshape(-1).tolist():
+        allowed = allowed | (idx == int(tok))
+    masked = torch.where(allowed, logits.float(),
+                         torch.full_like(logits, NEG_INF, dtype=torch.float32))
+    return sample_logits(masked, generator, temperature, top_k, top_p)
+
+
+def greedy_slice_argmax(logits: torch.Tensor, start, size: int
+                        ) -> torch.Tensor:
+    """argmax over the slice [start, start + size) of the last axis, as an
+    index relative to `start` (int32; lowest index on ties): the
+    predictor's per-codebook logit windows (engine.rs:587-595).  As
+    jax.lax.dynamic_slice, a window past the end is moved back to fit."""
+    start = min(max(int(start), 0), logits.shape[-1] - size)
+    window = logits[..., start:start + size]
+    return torch.argmax(window, dim=-1).to(torch.int32)
 
 
 def sample_threshold(logits: torch.Tensor, u: torch.Tensor,

@@ -19,6 +19,11 @@ Section layout (exact parity with the reference's src/tts/prompt.rs):
   [activation] marker + codec0[BOS]
 
 where `marker` = text_table[TEXT_AUDIO_MARKER].
+
+Requests go through the plans (`plan_*`) and `assemble` on the device.
+The `build_*` builders materialize a plan in numpy f32 on the host through
+the assets' host lookups (Assets.text_emb_np and the rest), as the JAX
+package's do: for tests and tools.
 """
 
 from __future__ import annotations
@@ -30,6 +35,14 @@ import numpy as np
 import torch
 
 from .core import protocol as P
+from .io.assets import Assets
+
+
+@dataclass
+class PromptData:
+    embd: np.ndarray             # [seq, 2048] float32 (host)
+    text_ids: List[int]
+    spk_emb: np.ndarray          # [2048] float32
 
 
 @dataclass
@@ -245,3 +258,50 @@ class PromptBuilder:
             text_idx=arr[:, 0], codec_idx=arr[:, 1], frame_slot=arr[:, 2],
             spk_flag=arr[:, 3], frames=np.asarray(frames, np.int32),
             spk_emb=se, text_ids=ids, prefix_len=prefix_len)
+
+    # ----------------------------------------- legacy/materialized builders
+    @staticmethod
+    def build_clone_prompt(text: str, tokenizer, assets: Assets,
+                           ref_codes, ref_text_ids: Sequence[int],
+                           spk_emb, lang_id: int = P.DEFAULT_LANG_ID,
+                           instruct: Optional[str] = None) -> PromptData:
+        plan = PromptBuilder.plan_clone(text, tokenizer, ref_codes,
+                                        ref_text_ids, spk_emb, lang_id,
+                                        instruct)
+        return PromptBuilder._materialize(plan, assets)
+
+    @staticmethod
+    def build_custom_prompt(text: str, tokenizer, assets: Assets,
+                            spk_id: int, lang_id: int = P.DEFAULT_LANG_ID,
+                            instruct: Optional[str] = None) -> PromptData:
+        plan = PromptBuilder.plan_custom(text, tokenizer, spk_id, lang_id,
+                                         instruct)
+        return PromptBuilder._materialize(plan, assets)
+
+    @staticmethod
+    def build_core(text: str, tokenizer, assets: Assets,
+                   lang_id: Optional[int] = P.DEFAULT_LANG_ID,
+                   spk_id: Optional[int] = None,
+                   spk_emb=None,
+                   instruct: Optional[str] = None,
+                   mid_embeds=None) -> PromptData:
+        if mid_embeds is not None:
+            raise ValueError("use build_clone_prompt for mid-block prompts")
+        plan = PromptBuilder.plan_core(text, tokenizer, lang_id, spk_id,
+                                       spk_emb, instruct)
+        return PromptBuilder._materialize(plan, assets)
+
+    @staticmethod
+    def _materialize(plan: PromptPlan, assets: Assets) -> PromptData:
+        """Numpy materialization via host table mirrors (tests, tools)."""
+        t = assets.text_emb_np(plan.text_idx)
+        c = assets.codec_emb_np(0, np.where(plan.codec_idx < 0, -1,
+                                            plan.codec_idx))
+        frame_sums = assets.frame_emb_sum_np(plan.frames)
+        f = np.where((plan.frame_slot >= 0)[:, None],
+                     frame_sums[np.clip(plan.frame_slot, 0,
+                                        len(plan.frames) - 1)], 0.0)
+        spk = plan.spk_flag[:, None].astype(np.float32) * plan.spk_emb
+        embd = (t + c + f + spk).astype(np.float32)
+        return PromptData(embd=embd, text_ids=plan.text_ids,
+                          spk_emb=plan.spk_emb)

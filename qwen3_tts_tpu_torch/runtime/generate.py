@@ -78,6 +78,7 @@ from ..models.codec import decoder as codec_decoder
 from ..models.transformer import KVCache
 from ..ops.sampling import sample_logits
 from ..prompt import assemble
+from ..utils.tracing import check_finite
 
 
 @dataclass(frozen=True)
@@ -136,6 +137,7 @@ def prefill(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
         talker_params)
     logits, hidden, cache = talker_lib.talker_prefill(
         cfg.talker, talker_params, embeds, lengths, cache, a8=a8)
+    check_finite("the prefill", logits=logits, hidden=hidden)
     return GenState(cache=cache, logits=logits, hidden=hidden,
                     pos=lengths.to(torch.int32), step=0,
                     done=torch.zeros(b, dtype=torch.bool,
@@ -185,9 +187,10 @@ def prefill_with_prefix(cfg: EngineConfig, talker_params,
     hidden = hidden_all[torch.arange(b, device=dev), last]
     cache.write_idx = torch.full((b,), total_bucket, dtype=torch.int32,
                                  device=dev)
-    return GenState(cache=cache,
-                    logits=talker_lib._codec_logits(talker_params, hidden),
-                    hidden=hidden, pos=lengths, step=0,
+    logits = talker_lib._codec_logits(talker_params, hidden)
+    check_finite("the prefill", logits=logits, hidden=hidden)
+    return GenState(cache=cache, logits=logits, hidden=hidden, pos=lengths,
+                    step=0,
                     done=torch.zeros(b, dtype=torch.bool, device=dev),
                     generator=generator)
 
@@ -250,8 +253,10 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
             and (chunk_pack["batches"] is None or b in chunk_pack["batches"])
             and chunk_kernel.supported(cfg.talker, cfg.predictor, b,
                                        n_frames)):
-        return _gen_frames_chunk(cfg, talker_params, chunk_pack, state,
-                                 sampler, n_frames, prompt_cap)
+        out = _gen_frames_chunk(cfg, talker_params, chunk_pack, state,
+                                sampler, n_frames, prompt_cap)
+        check_finite("a chunk", logits=out[0].logits, hidden=out[0].hidden)
+        return out
     tables_1024 = assets_pack["codec_tables_1024"]
     proj_w = assets_pack["proj_w"].float()
     proj_b = assets_pack["proj_b"].float()
@@ -278,6 +283,7 @@ def gen_frames(cfg: EngineConfig, talker_params, predictor_params,
                          generator=state.generator, lanes=state.lanes)
         codes_out.append(codes)
         valid_out.append(~done)
+    check_finite("a chunk", logits=state.logits, hidden=state.hidden)
     return state, torch.stack(codes_out, 1), torch.stack(valid_out, 1)
 
 
@@ -348,6 +354,7 @@ def gen_frames_with_audio(cfg: EngineConfig, talker_params,
     wav, dec_state = codec_decoder.decode_chunk(cfg.codec_decoder,
                                                 codec_params, codes,
                                                 dec_state)
+    check_finite("a chunk's codec decode", audio=wav)
     return state, dec_state, codes, valid, wav
 
 
@@ -400,6 +407,7 @@ def _gen_bulk(cfg: EngineConfig, talker_params, predictor_params,
         if codec_params is not None:
             wav, dec_state = codec_decoder.decode_chunk(
                 cfg.codec_decoder, codec_params, codes, dec_state)
+            check_finite("a chunk's codec decode", audio=wav)
             wav_buf[:, ci * chunk * spf:(ci + 1) * chunk * spf] = wav
         state.done = state.done | ((ci + 1) * chunk >= budgets)
         ci += 1
@@ -433,6 +441,7 @@ def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
                                            embeds.device, talker_params)
     logits, hidden, compact = talker_lib.talker_prefill(
         cfg.talker, talker_params, embeds, lengths, compact, a8=a8)
+    check_finite("the prefill", logits=logits, hidden=hidden)
     cache = state.cache
     inject_prompt_lanes(cache.k, cache.v, compact.k, compact.v, lanes)
     idx = lanes.long()
@@ -450,6 +459,21 @@ def prefill_lanes(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
     state.pos = put(state.pos, lengths)
     state.done = put(state.done, False)
     return state
+
+
+def prefill_lane(cfg: EngineConfig, talker_params, embeds: torch.Tensor,
+                 length, lane, state: GenState, a8: bool = True) -> GenState:
+    """Refill ONE lane of a running batch with a new prompt (the JAX
+    package's prefill_lane): prefill_lanes of one prompt.  embeds: [S,
+    2048] right-padded prompt; length, lane: ints or scalar tensors.
+    Other lanes are untouched; the lane's write cursor restarts at S, so
+    its previous occupant's decode slots are unreachable."""
+    dev = embeds.device
+    return prefill_lanes(
+        cfg, talker_params, embeds[None],
+        torch.as_tensor(length, dtype=torch.int32, device=dev).reshape(1),
+        torch.as_tensor(lane, dtype=torch.int32, device=dev).reshape(1),
+        state, a8=a8)
 
 
 # The batches at which TtsEngine's default chunk path decodes through the
@@ -622,6 +646,13 @@ class Generator:
                 torch.tensor(list(lengths), dtype=torch.int32, device=dev),
                 torch.tensor(lanes, dtype=torch.int32, device=dev), state,
                 a8=self.a8_prefill)
+
+    def refill_lane(self, state: GenState, embeds_1: torch.Tensor, length,
+                    lane) -> GenState:
+        """Prefill lane `lane` with a new [S, 2048] prompt (refill_lanes of
+        one prompt)."""
+        return self.refill_lanes(state, embeds_1[None], [int(length)],
+                                 [int(lane)])
 
     def run_bulk(self, state: GenState, dec_state, sampler: SamplerParams,
                  prompt_cap: int, max_frames: int, budgets=None,

@@ -15,6 +15,7 @@ step alone.
     state, codes_np, valid_np, saw_eos_np = codec.run_group(state, ...)
     state, codes_np, valid_np, saw_eos_np = codec.run_chunk(state, ...)
     samples = codec.chunk_audio(codes_np, ks, finals)    # per lane
+    samples = codec.lane_audio(lane, codes_np[lane], k, final)  # one lane
     codec.reset_lanes(mask)                              # on refill
 
 `run_chunk` (the online batcher's one chunk a round) is `run_group` of one
@@ -80,6 +81,18 @@ class LaneCodec:
         finals[i] (the native codec needs no flush)."""
         return self.codec.audio(self._wav_np, codes_np, ks, self.state,
                                 finals)
+
+    def lane_audio(self, lane: int, lane_codes: np.ndarray, k: int,
+                   is_final: bool) -> np.ndarray:
+        """One lane's waveform of the last group: chunk_audio with every
+        other lane at 0 frames.  lane_codes: [n, 16], the lane's row of
+        run_group's codes_np."""
+        ks = np.zeros(self.b, np.int64)
+        ks[lane] = k
+        finals = np.zeros(self.b, bool)
+        finals[lane] = is_final
+        codes = np.broadcast_to(lane_codes, (self.b,) + np.shape(lane_codes))
+        return self.chunk_audio(codes, ks, finals)[lane]
 
     def reset_lanes(self, mask: np.ndarray) -> None:
         """A fresh codec state for the lanes in `mask` (bool [B])."""

@@ -119,6 +119,12 @@ class OnlineBatcher:
         self.start()
         return fut
 
+    def synthesize(self, text: str, voice, instruct=None,
+                   max_frames=None) -> "Future[BatchResult]":
+        """submit() of a BatchRequest for text in voice."""
+        return self.submit(BatchRequest(text, voice, instruct,
+                                        max_frames=max_frames))
+
     def stop(self, timeout: float = 30.0) -> None:
         self._stop.set()
         if self._started:
@@ -346,6 +352,12 @@ class OnlineRouter:
             f"prompt is {plan.length} rows but the largest serving bucket "
             f"is {self.buckets[-1]}; raise `buckets` or use stream_long"))
         return fut
+
+    def synthesize(self, text: str, voice, instruct=None,
+                   max_frames=None) -> "Future[BatchResult]":
+        """submit() of a BatchRequest for text in voice."""
+        return self.submit(BatchRequest(text, voice, instruct,
+                                        max_frames=max_frames))
 
     def stop(self, timeout: float = 30.0) -> None:
         with self._lock:

@@ -455,6 +455,7 @@ def test_cli_ref_audio_save_voice(pair, tmp_path, capsys):
     wav = _ref_wav(tmp_path / "ref.wav", 6, seed=9)
     voice, out = tmp_path / "voice.json", tmp_path / "out.wav"
     rc = main(["--text", "hi there", "--device", "cpu", "--config", str(cfg),
+               "--skip-download",
                "--model-dir", str(je.model_dir), "--ref-audio", str(wav),
                "--ref-text", "reference words", "--save-voice", str(voice),
                "--max-steps", "6", "--seed", "1", "--output", str(out)])

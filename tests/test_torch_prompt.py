@@ -66,3 +66,117 @@ def test_assemble_matches_jax(name):
                      torch.tensor([length, 5]))
     np.testing.assert_allclose(got2[0].numpy(), np.asarray(want), atol=1e-6)
     assert not got2[1, 5:].any()
+
+
+# ------------------------------------------- host tables and built prompts
+def _tables(seed=3, text_rows=320, codec_rows=96):
+    """Seeded f32 source arrays of both packages' Assets.from_arrays."""
+    rng = np.random.default_rng(seed)
+    return ((rng.standard_normal((1024, 2048)) * 0.02).astype(np.float32),
+            (rng.standard_normal(1024) * 0.02).astype(np.float32),
+            rng.standard_normal((text_rows, 2048)).astype(np.float32),
+            rng.standard_normal((16, codec_rows, 2048)).astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def assets_pair():
+    from qwen3_tts_tpu.io.assets import Assets as JA
+    from qwen3_tts_tpu_torch.io.assets import Assets as TA
+    arrays = _tables()
+    return JA.from_arrays(*arrays), TA.from_arrays(*arrays)
+
+
+BUILDS = {
+    "core": lambda B, T, A: B.build_core("hello world", T, A, spk_emb=SPK),
+    "core_instruct": lambda B, T, A: B.build_core(
+        "hi", T, A, lang_id=None, spk_emb=SPK, instruct="Speak happily"),
+    "core_spk_id": lambda B, T, A: B.build_core("speaker", T, A, spk_id=40),
+    "custom": lambda B, T, A: B.build_custom_prompt("custom voice", T, A,
+                                                    spk_id=3065),
+    "clone": lambda B, T, A: B.build_clone_prompt(
+        "cloned", T, A, ref_codes=REF % 96, ref_text_ids=[5, 6, 7],
+        spk_emb=SPK),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUILDS))
+def test_built_prompt_bit_equal(assets_pair, name):
+    """PromptData of the materialized builders: numpy f32 on both sides,
+    bit-equal (same host gathers and sums in the same order)."""
+    ja, ta = assets_pair
+    want = BUILDS[name](JB, JT(), ja)
+    got = BUILDS[name](TB, TT(), ta)
+    assert got.embd.dtype == np.float32 and got.embd.shape == want.embd.shape
+    np.testing.assert_array_equal(got.embd, want.embd)
+    assert got.text_ids == want.text_ids
+    np.testing.assert_array_equal(got.spk_emb, want.spk_emb)
+    assert np.abs(got.embd).max() > 0
+    with pytest.raises(ValueError, match="build_clone_prompt"):
+        TB.build_core("x", TT(), ta, mid_embeds=np.zeros((1, 2048)))
+
+
+def test_host_and_device_lookups_match_jax(assets_pair):
+    ja, ta = assets_pair
+    ids = np.array([0, 5, 319, 320, 151671, 7])          # folded mod rows
+    codes = np.array([[-1, 0, 95, 96, 2148, 3]])          # zeros off range
+    frames = np.stack([np.arange(16) * 6, np.full(16, 200),
+                       np.r_[np.full(8, -1), np.arange(8)]])
+    for a, b in ((ta.text_emb_np(ids), ja.text_emb_np(ids)),
+                 (ta.codec_emb_np(2, codes), ja.codec_emb_np(2, codes)),
+                 (ta.frame_emb_sum_np(frames), ja.frame_emb_sum_np(frames))):
+        assert a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    assert ta.codec_emb_np(0, codes)[0, 3:5].max() == 0.0
+    np.testing.assert_array_equal(ta.text_emb(ids).numpy(),
+                                  np.asarray(ja.text_emb(ids)))
+    np.testing.assert_array_equal(ta.codec_emb(2, codes).numpy(),
+                                  np.asarray(ja.codec_emb(2, codes)))
+    np.testing.assert_allclose(ta.frame_emb_sum(frames).numpy(),
+                               np.asarray(ja.frame_emb_sum(frames)),
+                               atol=1e-5)
+    h = np.random.default_rng(4).standard_normal((3, 2048)).astype(
+        np.float32)
+    np.testing.assert_allclose(ta.project(h).numpy(),
+                               np.asarray(ja.project(h)), atol=1e-5)
+    # no mirror kept (tables handed in as tensors): made from the device
+    from qwen3_tts_tpu_torch.io.assets import Assets as TA
+    tb = TA.from_arrays(*[torch.from_numpy(a) for a in _tables()])
+    assert tb._host_text is None
+    np.testing.assert_array_equal(tb.text_emb_np(ids), ja.text_emb_np(ids))
+
+
+def test_assets_from_npy_and_load(tmp_path):
+    """The legacy NPY layout: Assets.from_npy and Assets.load equal to the
+    JAX package's, the GGUF first where both exist, the JAX error text
+    with neither; TtsEngine reads the NPY assets of its weights dir."""
+    from qwen3_tts_tpu.io.assets import Assets as JA
+    from qwen3_tts_tpu_torch.io.assets import Assets as TA
+    proj_w, proj_b, text, codecs = _tables(seed=5, text_rows=64,
+                                           codec_rows=32)
+    d = tmp_path / "gguf"
+    d.mkdir()
+    np.save(d / "proj_weight.npy", proj_w)
+    np.save(d / "proj_bias.npy", proj_b)
+    np.save(d / "text_embedding_projected.npy", text)
+    for i in range(16):
+        np.save(d / f"codec_embedding_{i}.npy", codecs[i])
+    want = JA.from_npy(d)
+    for got in (TA.from_npy(d), TA.load(d)):
+        for key in ("text_table", "codec_tables", "proj_w", "proj_b",
+                    "tts_pad"):
+            np.testing.assert_array_equal(getattr(got, key).numpy(),
+                                          np.asarray(getattr(want, key)))
+        np.testing.assert_allclose(got.codec_tables_1024.numpy(),
+                                   np.asarray(want.codec_tables_1024),
+                                   atol=1e-5)
+        np.testing.assert_array_equal(got.host_tables()[1], codecs)
+    for A in (TA, JA):
+        with pytest.raises(FileNotFoundError,
+                           match="no qwen3_assets.gguf or proj_weight.npy"):
+            A.load(tmp_path / "empty")
+    from qwen3_tts_tpu_torch import TtsEngine
+    from qwen3_tts_tpu_torch.core.config import EngineConfig
+    eng = TtsEngine(tmp_path, config=EngineConfig.tiny(), device="cpu",
+                    speakers_dir="speakers")
+    assert "assets" not in eng.dev_mode_components
+    np.testing.assert_array_equal(eng.assets.text_table.numpy(), text)

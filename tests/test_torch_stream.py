@@ -542,6 +542,7 @@ def test_cli_stream_long_and_voice_file(pair, tmp_path, capsys, flags,
     out = tmp_path / "out.wav"
     flags = [str(voice) if f == "VOICE" else f for f in flags]
     rc = main(["--text", "hi there", "--device", "cpu", "--config", str(cfg),
+               "--skip-download",
                "--model-dir", str(je.model_dir), "--speakers-dir",
                str(je.model_dir / "preset_speakers"), "--max-steps", "6",
                "--seed", "1", "--output", str(out), *flags])
