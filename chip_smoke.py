@@ -118,12 +118,18 @@ Phases, each of which must pass (exit code 1 otherwise; 2 without CUDA):
      qwen3_tts_tpu_torch/build/ and removed at the end) beside the engine
      phase's LMs: the decoder graph alone (one 8-frame call against 4 + 4
      chunked calls, the port on the CPU and the numpy reference; an 8-lane
-     decode_batch against each lane alone; a 4-frame call timed beside the
-     native decode_chunk), a greedy 32-frame request whose codes equal a
-     native-codec engine's (8 chunk-kernel launches, one 28-layer
-     prefill), a stream, stream_batch at 8 lanes, a wave of 8 and a
+     decode_batch against each lane alone and, as a replayed CUDA graph,
+     against vmap of the eager walk bit for bit; a 4-frame call as the
+     eager walk, the plan run and the graph replay, each bit for bit
+     against the eager walk and timed, with the plan's build, the graph's
+     capture and its memory, beside the native decode_chunk), a greedy
+     32-frame request whose codes equal a native-codec engine's (8
+     chunk-kernel launches, one 28-layer prefill), four streams (planned,
+     captured, replayed, and on the eager walk: the second must replay
+     and walk nothing), stream_batch at 8 lanes, a wave of 8 and a
      continuous queue at batch 8 (each lane against a decode of its own
-     codes), and a clone from a 10 s reference through the encoder graphs.
+     codes), a clone from a 10 s reference through the encoder graphs,
+     and the engine's executors' counters.
   9. serving: continuous batching (serve/continuous.py) at batch 8 and 32
      on the default engine (per-lane cursors: the step schedule) and at
      batch 4 on the exact path (flash_gqa_decode_append), each queue's
@@ -4930,6 +4936,106 @@ ONNX_REF_REL = 1e-3
 ONNX_EMB_TOL = 1e-5
 
 
+def card_name_and_limit() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip()
+
+
+def onnx_bit_equal(got, want):
+    """(each output of `got` bit for bit `want`'s, the largest |diff|);
+    HOST outputs missing from `got` are skipped (a plan run returns the
+    device outputs alone)."""
+    import numpy as np
+    import torch
+    same, err = True, 0.0
+    for k, w in want.items():
+        if k not in got and not isinstance(w, torch.Tensor):
+            continue
+        g = got[k]
+        if not isinstance(w, torch.Tensor):
+            same &= (not isinstance(g, torch.Tensor)
+                     and np.array_equal(np.asarray(g), np.asarray(w)))
+        elif (not isinstance(g, torch.Tensor) or g.shape != w.shape
+                or g.dtype != w.dtype):
+            same, err = False, float("inf")
+        else:
+            if g.numel():
+                err = max(err, (g.double() - w.double()).abs().max().item())
+            same &= torch.equal(g, w)
+    return same, err
+
+
+def onnx_moved(stats, before):
+    """What an executor's counters moved by since `before`."""
+    return {k: round(stats[k] - before[k], 2) for k in (
+        "walks", "plans", "captures", "replays", "plan_ms", "capture_ms")}
+
+
+def onnx_eager_vmap(ex, feeds):
+    """torch.func.vmap of an executor's eager walk (`run`), its HOST
+    outputs unbatched: the reference of the jitted walk's vmap."""
+    import torch
+    host = {}
+
+    def lane(lane_feeds):
+        out = ex.run(lane_feeds)
+        host.update((k, v) for k, v in out.items()
+                    if not isinstance(v, torch.Tensor))
+        return {k: v for k, v in out.items() if isinstance(v, torch.Tensor)}
+
+    out = torch.func.vmap(lane)(feeds)
+    out.update(host)
+    return out
+
+
+def onnx_call_timing(call, feeds, n):
+    """One executor call's figures on the card: device ms (CUDA events
+    around n calls in a row, over n), host wall (each call to a device
+    sync) and enqueue (each call alone, the device idle before it), as
+    medians of n; the device ops of one profiled call (kernels, copies,
+    memsets) and their time, and its launching runtime calls by name."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        call(feeds)
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for _ in range(n):
+        call(feeds)
+    ev1.record()
+    torch.cuda.synchronize()
+    walls, enqueues = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(feeds)
+        enqueues.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call(feeds)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    dev_events = [e for e in events if e.device_type.name == "CUDA"]
+    launch_calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                    "cudaMemcpyAsync", "cudaMemsetAsync")
+    return {"device_ms": ev0.elapsed_time(ev1) / n,
+            "wall_ms": float(np.median(walls)),
+            "enqueue_ms": float(np.median(enqueues)),
+            "kernels": sum(e.count for e in dev_events),
+            "kernel_ms": sum(e.self_device_time_total
+                             for e in dev_events) / 1e3,
+            "api": {e.key: e.count for e in events
+                    if e.key in launch_calls}}
+
+
 def drive_onnx(dev, failures):
     """The ONNX codec at the published contract's widths: the decoder graph
     (FULL: 512-channel pre-conv history, 1024-d latents, 8 x 16 heads of
@@ -4937,29 +5043,39 @@ def drive_onnx(dev, failures):
     2048 codes, 2000-sample hop) and the speaker-encoder graph (128 mels
     -> 2048), written from a seed under qwen3_tts_tpu_torch/build/ and
     removed at the end, beside the engine phase's full-width LMs on seeded
-    development weights.  The decoder alone: one call against 4 + 4
-    chunked calls, the port on the CPU and the numpy reference, an 8-lane
-    decode_batch against each lane alone; a 4-frame call timed (CUDA
-    events, host wall, the run's enqueue, nodes, profiled launches) beside
-    the native decode_chunk.  The engine (chunk path, greedy, bucket 32,
-    32 frames): codes equal a native-codec engine's on the same weights,
-    audio a decode of them, the prefill and chunk kernels' launches; a
-    stream against a decode of its own codes (TTFT, chunk intervals);
+    development weights.  Every runner goes through
+    OnnxExecutor.jitted() (a plan per signature, a CUDA graph from its
+    second call).  The decoder alone: one call against 4 + 4 chunked
+    calls, the port on the CPU and the numpy reference, an 8-lane
+    decode_batch against each lane alone and its graph's replays against
+    vmap of the eager walk bit for bit; a 4-frame call on a new executor
+    as the eager walk (`run`), the plan run and the graph replay, each
+    bit for bit against `run` and timed (CUDA events, host wall, enqueue,
+    profiled device ops and launch calls), the plan's build and the
+    graph's capture timed, the graph's bytes; beside it the native
+    decode_chunk.  The engine (chunk path, greedy, bucket 32, 32 frames):
+    codes equal a native-codec engine's on the same weights, audio a
+    decode of them, the prefill and chunk kernels' launches; four streams
+    against decodes of their own codes (TTFT, chunk intervals, ms/frame,
+    the executor's counters: planned, captured and replayed, replayed,
+    then on the eager walk; the second must walk nothing and replay);
     stream_batch at 8 lanes, a wave of 8 and a continuous-batching queue
     at batch 8, each lane against a decode of its own codes; clone from a
     10 s reference through the two encoder graphs against the port on the
-    CPU.  Returns {"onnx": {kernel: launches}}."""
+    CPU; the three executors' counters (each must have replayed).
+    Returns {"onnx": {kernel: launches}}."""
+    import functools
     import shutil
     from pathlib import Path
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
     import torch_onnx_fixtures as tfx
     from qwen3_tts_tpu_torch import SamplerConfig, TtsEngine
     from qwen3_tts_tpu_torch.core.config import EngineConfig
     from qwen3_tts_tpu_torch.io.audio import AudioSample, load_reference_wav
+    from qwen3_tts_tpu_torch.io.onnx_exec import OnnxExecutor
     from qwen3_tts_tpu_torch.kernels.chunk_step import gen_chunk_fused
     from qwen3_tts_tpu_torch.kernels.flash_prefill import (
         flash_gqa_prefill_stacked)
@@ -5061,6 +5177,26 @@ def drive_onnx(dev, failures):
         print(f"[onnx] decode_batch of 8 lanes x 4 frames vs each lane "
               f"alone: max |diff| {max(errs)[1]:.3e}, {max(errs)[0]:.2e} of "
               f"the lane's peak (bound {ONNX_REL:g})")
+        # the same signature's CUDA graph (decode_batch above planned it)
+        # against vmap of the eager walk, per-lane finals
+        bfeeds = {"audio_codes": torch.stack([dec._frames(c)[None]
+                                              for c in lanes]),
+                  "is_last": torch.stack([dec._is_last[i % 2 == 0]
+                                          for i in range(8)])}
+        bfeeds.update({k: torch.stack([v] * 8)
+                       for k, v in dec.create_state().items()})
+        replays = dec.ex.stats["replays"]
+        for call in range(2):
+            same, err = onnx_bit_equal(dec.ex.jitted().vmap(bfeeds),
+                                       onnx_eager_vmap(dec.ex, bfeeds))
+            print(f"[onnx] decode_batch's CUDA graph (8 lanes, call "
+                  f"{call + 1} after its plan) vs vmap of the eager walk: "
+                  f"bit-equal={same} (max |diff| {err:.3e})")
+            if not same:
+                failures.append(f"onnx decode_batch replay differs from "
+                                f"vmap of run by {err:.3e}")
+        if dec.ex.stats["replays"] != replays + 2:
+            failures.append("onnx decode_batch did not replay its graph")
 
         # decode_batch against the same lanes decoded one by one: a
         # 4-frame chunk mid-stream (a stream_batch read) and 32 frames
@@ -5100,38 +5236,90 @@ def drive_onnx(dev, failures):
                   f"{vs[case]['lanes']:.2f}): decode_batch "
                   f"{vs[case]['lanes'] / vs[case]['batch']:.2f}x faster")
 
-        # a 4-frame call mid-stream (a state after 4 frames), timed
+        # a 4-frame call mid-stream (a state after 4 frames), on a new
+        # executor of the same graph, three ways: the eager walk (run),
+        # the signature's plan run alone, its CUDA graph's replay
+        # (jitted); the plan's build and the graph's capture timed
         st4 = dec.decode(codes[:4], dec.create_state())[1]
         chunk = codes[4:]
         feeds = {"audio_codes": dec._frames(chunk)[None],
                  "is_last": dec._is_last[False], **st4}
-        for _ in range(3):
-            dec.decode(chunk, st4)
-        torch.cuda.synchronize()
-        n_calls = 10
-        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        ev0.record()
-        for _ in range(n_calls):
-            dec.decode(chunk, st4)
-        ev1.record()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n_calls
-        dev_ms = ev0.elapsed_time(ev1) / n_calls
-        enq = []
-        for _ in range(n_calls):
+        ex = OnnxExecutor(dec.ex.graph, dev, source=str(dec_path))
+        fn = ex.jitted()
+        want = ex.run(feeds)
+        built = {}
+        for what in ("plan", "capture"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            dec.ex.run(feeds)
-            enq.append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            dec.decode(chunk, st4)
+            built[what] = fn(feeds)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"]
-        launches = sum(e.count for e in events)
-        kernel_ms = sum(e.self_device_time_total for e in events) / 1e3
+            built[what + "_ms"] = (time.perf_counter() - t0) * 1e3
+        plan = next(iter(fn._entries.values())).plan
+        # a second signature (3 frames after 4) planned, then captured
+        # while the device is busy (two f32 8192^3 products enqueued, as a
+        # stream's decoder call finds the next chunk kernel running): the
+        # capture's host ms beside the idle one's
+        feeds3 = dict(feeds, audio_codes=dec._frames(chunk[:3])[None])
+        fn(feeds3)
+        busy = torch.ones(8192, 8192, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            busy @ busy
+        enqueued = (time.perf_counter() - t0) * 1e3
+        ms0 = ex.stats["capture_ms"]
+        fn(feeds3)
+        busy_capture = ex.stats["capture_ms"] - ms0
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        busy_rest = (time.perf_counter() - t0) * 1e3
+        del busy
+        print(f"[onnx] a capture behind busy device work: "
+              f"{busy_capture:.2f} ms of host (the products enqueued in "
+              f"{enqueued:.2f} ms, then {busy_rest:.2f} ms of them left after "
+              f"the capture); with the device idle "
+              f"{ms0:.2f} ms (the capture alone, without its replay)")
+        n_calls = 10
+        modes = {"eager walk": ex.run,
+                 "plan run": functools.partial(ex._run_plan, plan),
+                 "graph replay": fn}
+        timing = {}
+        for mode, call in modes.items():
+            same, err = onnx_bit_equal(call(feeds), want)
+            timing[mode] = onnx_call_timing(call, feeds, n_calls)
+            timing[mode].update(same=same, err=err)
+            if not same:
+                failures.append(f"onnx FULL decoder: the {mode} differs from "
+                                f"run by {err:.3e}")
+        same, err = onnx_bit_equal(built["capture"], want)
+        if not same or ex.stats["plans"] != 2 or ex.stats["captures"] != 2:
+            failures.append(f"onnx FULL decoder: the capture call's replay "
+                            f"vs run {err:.3e}, stats {ex.stats}")
+        print(f"[onnx] FULL decoder, one 4-frame call after 4 frames "
+              f"({card_name_and_limit()}): plan built in "
+              f"{built['plan_ms']:.2f} ms (one walk: {len(plan.steps)} "
+              f"device steps of {nodes} nodes, "
+              f"{sum(len(c) for _, c in plan.steps)} host copies held), "
+              f"graph captured in {built['capture_ms']:.2f} ms (with a plan "
+              f"run and the first replay), holding "
+              f"{ex.stats['graph_bytes'] / 2**20:.2f} MiB; the capture "
+              f"call's replay vs run bit-equal={same}")
+        for mode, t in timing.items():
+            print(f"[onnx]   {mode}: device (events) {t['device_ms']:.3f} ms, "
+                  f"host wall {t['wall_ms']:.3f} ms (median of {n_calls}, "
+                  f"each to a device sync), enqueue {t['enqueue_ms']:.3f} "
+                  f"ms (median), kernels {t['kernels']} (profiled; "
+                  f"{t['kernel_ms']:.3f} ms), API launches {t['api']}; vs "
+                  f"run bit-equal={t['same']} (max |diff| {t['err']:.3e})")
+        ex = fn = plan = modes = None
+        for _ in range(2):                     # its plan is built: capture
+            dec.decode(chunk, st4)
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            dec.decode(chunk, st4)
+        wall = (time.perf_counter() - t0) * 1e3 / n_calls
         # the native codec at full width (random weights), a 4-frame chunk
         ccfg = EngineConfig().codec_decoder
         cparams = codec_decoder.init_decoder_params(
@@ -5152,13 +5340,10 @@ def drive_onnx(dev, failures):
             nwall = (time.perf_counter() - t0) * 1e3 / n_calls
             torch.cuda.synchronize()
         ndev = ev0.elapsed_time(ev1) / n_calls
-        print(f"[onnx] FULL decoder, one 4-frame call after 4 frames: "
-              f"device (events) {dev_ms:.3f} ms, host wall {wall:.3f} ms, "
-              f"enqueue of the graph walk {np.median(enq):.3f} ms (median "
-              f"of {n_calls}), nodes {nodes} ({dec.ex.device_nodes} on the "
-              f"device), launches {launches} (profiled; kernel time "
-              f"{kernel_ms:.3f} ms); the native decode_chunk at full width, "
-              f"4 frames: device {ndev:.3f} ms, host wall {nwall:.3f} ms")
+        print(f"[onnx]   OnnxStreamingDecoder.decode (the graph replay, the "
+              f"waveform to the host) {wall:.3f} ms a call; the native "
+              f"decode_chunk at full width, 4 frames: device {ndev:.3f} ms, "
+              f"host wall {nwall:.3f} ms")
 
         # --------------------------------------------------------- engine
         t0 = time.perf_counter()
@@ -5194,12 +5379,14 @@ def drive_onnx(dev, failures):
             return out
 
         onnx.onnx_decoder.decode = timed_decode
+        before = dict(onnx.onnx_decoder.ex.stats)
         torch.cuda.synchronize()
         zero_counts(fns)
         t0 = time.perf_counter()
         audio = onnx.generate_with_voice(text, voice)
         wall = (time.perf_counter() - t0) * 1e3
         counts["onnx"] = read_counts(fns)
+        moved = onnx_moved(onnx.onnx_decoder.ex.stats, before)
         del onnx.onnx_decoder.decode
         m = onnx.last_metrics
         same = np.array_equal(onnx.last_codes, native_codes)
@@ -5214,7 +5401,8 @@ def drive_onnx(dev, failures):
               f"{m.total_ms:.2f} wall_ms={wall:.2f} ms/frame="
               f"{m.total_ms / max(m.frames, 1):.2f}; the codec's decode "
               f"{sum(decode_ms):.2f} ms ({sum(decode_ms) / m.total_ms:.3f} "
-              f"of the request); launches {counts['onnx']}")
+              f"of the request; the decoder's executor {moved}); launches "
+              f"{counts['onnx']}")
         if not same:
             failures.append("onnx engine: codes differ from the native-codec "
                             "engine's")
@@ -5233,16 +5421,25 @@ def drive_onnx(dev, failures):
                 failures.append(f"onnx engine launched {name}")
 
         # --------------------------------------------------------- stream
-        # twice: the first stream of the process pays the decoder's first
-        # calls at a 1-frame and a 3-frame chunk
-        for rep in ("", " again"):
+        # four: the first plans each of a stream's signatures (the
+        # fixture's KV grows, so each call of a stream is one), the
+        # second captures and replays their CUDA graphs, the third
+        # replays alone; the last runs the eager walk (`run`) in their
+        # place, for its chunk intervals
+        dex = onnx.onnx_decoder.ex
+        for rep in ("", " again", " a third time", " on the eager walk"):
             decode_ms.clear()
             onnx.onnx_decoder.decode = timed_decode
+            if rep == " on the eager walk":
+                onnx.onnx_decoder._run = dex.run
+            before = dict(dex.stats)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             chunks = list(onnx.generate_stream(text, voice))
             wall = (time.perf_counter() - t0) * 1e3
             del onnx.onnx_decoder.decode
+            onnx.onnx_decoder._run = dex.jitted()
+            moved = onnx_moved(dex.stats, before)
             m = onnx.last_metrics
             want, _ = onnx.onnx_decoder.decode(
                 onnx.last_codes, onnx.onnx_decoder.create_state(),
@@ -5254,10 +5451,16 @@ def drive_onnx(dev, failures):
                   f"the peak {peak(want):.3e}); TTFT {m.ttft_ms:.2f} ms; chunk "
                   f"intervals {[round(x, 2) for x in m.chunk_ms]} ms; the "
                   f"decoder's calls {[round(x, 2) for x in decode_ms]} ms; "
-                  f"wall {wall:.2f} ms")
+                  f"wall {wall:.2f} ms, "
+                  f"{m.total_ms / max(m.frames, 1):.2f} ms/frame; the "
+                  f"decoder's executor {moved}")
             if not ok:
                 failures.append(f"onnx stream{rep}: off a decode of its "
                                 f"codes by {err:.3e}, {rerr:.2e} of the peak")
+            if rep == " again" and (moved["walks"] or moved["plans"]
+                                    or not moved["replays"]):
+                failures.append(f"onnx stream again: its signatures were "
+                                f"seen, yet the executor moved {moved}")
 
         # -------------------------------------------------------- batching
         def lane_check(what, pairs):
@@ -5392,6 +5595,17 @@ def drive_onnx(dev, failures):
                 or onnx.last_metrics.frames == 0):
             failures.append(f"onnx clone: codes equal={same} "
                             f"{got_codes.shape}, embedding {emb_err:.3e}")
+        held = {name: dict(r.ex.stats) for name, r in (
+            ("decoder", onnx.onnx_decoder), ("audio encoder",
+                                             onnx.onnx_encoder),
+            ("speaker encoder", onnx.onnx_speaker))}
+        print(f"[onnx] the engine's executors ({card_name_and_limit()}): "
+              f"{held}; their graphs hold "
+              f"{sum(h['graph_bytes'] for h in held.values()) / 2**20:.2f} "
+              f"MiB")
+        if not all(h["replays"] for h in held.values()):
+            failures.append(f"onnx: an executor never replayed a graph: "
+                            f"{held}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return counts
@@ -7433,10 +7647,7 @@ def main() -> int:
         row.update(k)                  # extra shapes (the batched talker)
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip())
+    print(card_name_and_limit())
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)

@@ -2,11 +2,48 @@
 the engine's device.  Counterpart of qwen3_tts_tpu/io/onnx_exec.py, which
 traces the same graphs into one XLA program.
 
-The graph is parsed once (io.onnx_lite) and walked node by node on every
-call: each node maps to a few torch ops (F.conv1d, torch.matmul, ...), so
-a call is one kernel launch or a few per node, enqueued by Python.  There
-is no plan cache and no CUDA graph: the walk's host cost is measured by
-chip_smoke.py's onnx phase.
+The graph is parsed once (io.onnx_lite).  `run` walks it node by node on
+every call: each node maps to a few torch ops (F.conv1d, torch.matmul,
+...), so a call is one kernel launch or a few per node, enqueued by Python.
+`jitted()` is the counterpart of the JAX executor's jax.jit: one plan per
+shape signature, and on a CUDA device one CUDA graph per signature.
+
+  * Signature: the feed names, each feed's shape and dtype, and the
+    device; under `vmap` (decode_batch) the batch size too, as the first
+    dim of every feed.  No handler reads a device value on the host
+    (below), so every HOST value of a walk depends on the signature alone.
+  * Plan: the first call of a signature is one ordinary walk that records
+    every HOST result as a constant, and each node that runs on the device
+    as a step: the node (its handler, input names, attributes) with the
+    host-to-device copies it made, which the plan keeps on the device.  A
+    plan run starts from the constants and runs the steps alone: no host
+    node and no per-call copy (a step's handler still reads its host
+    operands as Python ints).  On the CPU `jitted` stops here.
+  * Graph: on a CUDA device the second call of a signature captures the
+    plan's steps as one torch.cuda.CUDAGraph on static input buffers (on a
+    side stream ordered after the caller's current stream, in thread-local
+    capture mode, after one plan run there that makes the libraries' lazy
+    handles and workspaces outside the capture); that call and every later
+    one copy the feeds into the static inputs, replay the graph on the
+    current stream and return copies of its outputs (the next replay
+    overwrites them, and a decoder carries its state into the next call).
+    Each graph has a memory pool of its own, so no replay overwrites
+    another graph's outputs.  Capture waits for a second call because a
+    stream meets many signatures once: the carried state grows each call
+    until the graph's windows saturate.
+  * Bound: an executor keeps at most MAX_SIGNATURES plans with their
+    graphs, least recently used first out, because each graph holds its
+    own pool of device memory and a graph without windows (the test
+    fixture's decoder: its KV grows by a chunk each call) meets a new
+    signature every call.
+  * Counters (`stats`): eager walks (`run` and plan builds), plans built,
+    plan runs, graphs captured, graph replays, graphs held and the bytes
+    they hold (the device memory reserved while capturing, plus the static
+    inputs), and the host ms spent building plans and capturing graphs
+    (enqueue time: the host does not wait for the device there).
+  * A capture that fails raises OnnxCaptureError, a replay that fails
+    OnnxRunError, each naming the graph's file and the signature; no path
+    returns the eager walk's result in their place.
 
 Values are HOST or DEVICE, as in the JAX executor:
   * HOST values are numpy arrays.  `Shape` and `Size` always yield HOST;
@@ -17,7 +54,8 @@ Values are HOST or DEVICE, as in the JAX executor:
   * DEVICE values are torch tensors on the executor's device.  A HOST
     operand of a device op becomes a tensor of its own (ONNX) dtype:
     initializers once, at load; values computed on the host by a pinned,
-    non-blocking copy on a CUDA device.  Nothing relies on mixed
+    non-blocking copy on a CUDA device (under `jitted`: once, when the
+    signature is planned).  Nothing relies on mixed
     numpy/torch arithmetic or on torch's type promotion.
   * A handler that needs Python ints and is given a DEVICE value raises
     OnnxHostValueError (the JAX executor's jit fails on the same graph);
@@ -44,17 +82,27 @@ MatMul of float and double; both executors run it in float32).
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+import collections
+import contextlib
+import functools
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.func import vmap
 
 from ..core.device import set_cuda_precision
 from .onnx_lite import _DTYPES, OnnxGraph, OnnxNode, read_onnx_graph
 
 # initializers larger than this (elements) become device tensors
 PARAM_THRESHOLD = 64
+
+# plans (each with its CUDA graph, if captured) an executor keeps: module
+# docstring, Bound
+MAX_SIGNATURES = 32
 
 # HOST ops: evaluated with numpy when every input is HOST and small
 _HOST_ELEMS_CAP = 4096
@@ -85,7 +133,20 @@ class OnnxHostValueError(ValueError):
 
 
 class OnnxRunError(RuntimeError):
-    """A node failed at run time; the message names the graph and node."""
+    """A node, or a graph replay, failed at run time; the message names the
+    graph and the node or the signature."""
+
+
+class OnnxCaptureError(OnnxRunError):
+    """Capturing a signature's CUDA graph failed; the message names the
+    graph's file and the signature."""
+
+
+class _WalkMode(threading.local):
+    """What `_to_device` does in this thread: record its copies into the
+    plan being built, or hand back the plan's copies in their order."""
+    record: Optional[List[torch.Tensor]] = None
+    tape: Optional[collections.deque] = None
 
 
 def _is_host(v) -> bool:
@@ -159,6 +220,8 @@ class OnnxExecutor:
 
         ex = OnnxExecutor.load(path, device="cuda")
         outs = ex.run({"x": array})           # {output name: value}
+        fn = ex.jitted()                      # the same contract
+        outs = fn({"x": array})               # planned / replayed
 
     A value of `outs` is a torch tensor on the device or, where the graph
     computed it on the host (shape arithmetic), a numpy array.  The
@@ -179,6 +242,7 @@ class OnnxExecutor:
                     "implemented in io.onnx_exec")
         if self.device.type == "cuda":
             set_cuda_precision()
+        self._mode = _WalkMode()
         self.params: Dict[str, torch.Tensor] = {}
         self.consts: Dict[str, np.ndarray] = {}
         for name, arr in graph.initializers.items():
@@ -192,7 +256,12 @@ class OnnxExecutor:
                          for a in self.consts.values()}
         self.input_names = [vi.name for vi in graph.inputs]
         self.output_names = [vi.name for vi in graph.outputs]
-        self.device_nodes = 0     # nodes of the last run that ran on device
+        self.device_nodes = 0     # nodes of the last walk or plan run that
+        #                           ran on the device
+        self.stats = dict(walks=0, plans=0, plan_runs=0, captures=0,
+                          replays=0, graphs=0, graph_bytes=0, plan_ms=0.0,
+                          capture_ms=0.0)
+        self._jit = JittedWalk(self)
 
     @classmethod
     def load(cls, path, device="cuda") -> "OnnxExecutor":
@@ -202,26 +271,64 @@ class OnnxExecutor:
     def run(self, feeds: Dict[str, Any]) -> Dict[str, Any]:
         """Every node once, in the graph's order.  feeds: {input name:
         numpy array or tensor}, moved to the device with their dtype."""
+        env = self._env(feeds)
+        self._walk(env)
+        self.stats["walks"] += 1
+        return {n: env[n] for n in self.output_names}
+
+    def jitted(self, donate: bool = False) -> "JittedWalk":
+        """The graph as `fn(feeds) -> {output name: value}`, with `run`'s
+        contract and its values (device tensors, HOST outputs as numpy),
+        planned once per shape signature and replayed as a CUDA graph on a
+        CUDA device (module docstring); `fn.vmap(feeds)` maps it over the
+        first dim of every feed.  Every call returns the executor's one
+        JittedWalk, so its plans, graphs and bound are the executor's.
+        `donate` is the JAX signature's, and as there has no effect: a
+        replay copies the feeds into the graph's own inputs and never
+        writes a feed."""
+        del donate
+        return self._jit
+
+    def _env(self, feeds: Dict[str, Any]) -> Dict[str, Any]:
         env: Dict[str, Any] = dict(self.consts)
         env.update(self.params)
-        for k, v in feeds.items():
-            env[k] = (v.to(self.device) if isinstance(v, torch.Tensor)
-                      else self._to_device(np.asarray(v)))
+        env.update({k: self._feed(v) for k, v in feeds.items()})
+        return env
+
+    def _feed(self, v) -> torch.Tensor:
+        return (v.to(self.device) if isinstance(v, torch.Tensor)
+                else self._to_device(np.asarray(v)))
+
+    def _walk(self, env: Dict[str, Any], steps: Optional[list] = None):
+        """Every node once on `env`.  Where `steps` is a list, each node
+        that made a device value or a host-to-device copy is appended to
+        it as (node, its copies): the plan's steps."""
         self.device_nodes = 0
         for node in self.graph.nodes:
             ins = [env[n] if n else None for n in node.inputs]
-            try:
-                outs = self._exec(node, ins)
-            except (UnsupportedOnnxOp, OnnxHostValueError) as e:
-                raise type(e)(f"{self.source}: node {node.name!r} "
-                              f"({node.op_type}): {e}") from None
-            except (RuntimeError, ValueError, IndexError, TypeError) as e:
-                raise OnnxRunError(f"{self.source}: node {node.name!r} "
-                                   f"({node.op_type}) failed: {e}") from e
+            if steps is None:
+                outs = self._node(node, ins)
+            else:
+                self._mode.record = copies = []
+                try:
+                    outs = self._node(node, ins)
+                finally:
+                    self._mode.record = None
+                if copies or not all(_is_host(v) for v in outs):
+                    steps.append((node, tuple(copies)))
             for name, val in zip(node.outputs, outs):
                 if name:
                     env[name] = val
-        return {n: env[n] for n in self.output_names}
+
+    def _node(self, node: OnnxNode, ins: List[Any]) -> Sequence[Any]:
+        try:
+            return self._exec(node, ins)
+        except (UnsupportedOnnxOp, OnnxHostValueError) as e:
+            raise type(e)(f"{self.source}: node {node.name!r} "
+                          f"({node.op_type}): {e}") from None
+        except (RuntimeError, ValueError, IndexError, TypeError) as e:
+            raise OnnxRunError(f"{self.source}: node {node.name!r} "
+                               f"({node.op_type}) failed: {e}") from e
 
     def _exec(self, node: OnnxNode, ins: List[Any]) -> Sequence[Any]:
         op = node.op_type
@@ -236,15 +343,55 @@ class OnnxExecutor:
         self.device_nodes += 1
         return handler(node, ins, host=False)
 
+    # ---------------------------------------------------------------- plans
+    def _plan(self, feeds: Dict[str, torch.Tensor]
+              ) -> Tuple["_Plan", Dict[str, Any]]:
+        """One walk on `feeds` (on the device) that records its plan:
+        (the plan, the walk's outputs)."""
+        env = self._env(feeds)
+        steps: list = []
+        self._walk(env, steps)
+        out = {n: env[n] for n in self.output_names}
+        start = {k: v for k, v in env.items() if _is_host(v)}
+        start.update(self.params)
+        return _Plan(steps, start, out), out
+
+    def _run_plan(self, plan: "_Plan", feeds: Dict[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+        """The plan's steps on `feeds` (on the device), each handed its
+        recorded copies: the graph's device outputs."""
+        env = dict(plan.start)
+        env.update(feeds)
+        self.device_nodes = 0
+        try:
+            for node, copies in plan.steps:
+                self._mode.tape = collections.deque(copies)
+                outs = self._node(node, [env[n] if n else None
+                                         for n in node.inputs])
+                for name, val in zip(node.outputs, outs):
+                    if name:
+                        env[name] = val
+        finally:
+            self._mode.tape = None
+        return {n: env[n] for n in plan.device_out}
+
     # -------------------------------------------------------------- helpers
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array as a tensor on the device, float64 as float32."""
+        """A host array as a tensor on the device, float64 as float32.  In
+        a plan run: the next of the step's recorded copies."""
+        tape = self._mode.tape
+        if tape is not None:
+            return tape.popleft()
         t = torch.from_numpy(np.array(
             a, dtype=np.float32 if a.dtype == np.float64 else a.dtype,
             copy=True))
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        else:
+            t = t.to(self.device)
+        if self._mode.record is not None:
+            self._mode.record.append(t)
+        return t
 
     def _t(self, v) -> torch.Tensor:
         """A value as a device tensor of its own dtype."""
@@ -954,6 +1101,174 @@ class OnnxExecutor:
                                   recompute_scale_factor=False)]
         self._unsupported(f"Resize mode={mode} "
                           f"coordinate_transformation_mode={ct}")
+
+
+class _Plan:
+    """One signature's walk (OnnxExecutor._plan): `steps` [(node, its
+    recorded host-to-device copies)] in the graph's order; `start`, the
+    environment a plan run starts from (every HOST value of the walk, the
+    device params); `host_out`, the graph's HOST outputs (constants of the
+    signature); `device_out`, the names of its device outputs."""
+
+    def __init__(self, steps, start, out):
+        self.steps = steps
+        self.start = start
+        self.host_out = {k: v for k, v in out.items() if _is_host(v)}
+        self.device_out = [k for k, v in out.items() if not _is_host(v)]
+
+
+class _Entry:
+    """A signature's plan and, once captured, its CUDA graph with the
+    graph's static inputs and outputs and the bytes they hold."""
+
+    def __init__(self, plan: _Plan):
+        self.plan = plan
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static_in: Dict[str, torch.Tensor] = {}
+        self.static_out: Dict[str, torch.Tensor] = {}
+        self.nbytes = 0
+
+
+def _signature_text(key) -> str:
+    batched, device, feeds = key
+    return (("vmap, " if batched else "") + f"{device}, " + ", ".join(
+        f"{name} {list(shape)} {str(dt).replace('torch.', '')}"
+        for name, shape, dt in feeds))
+
+
+class JittedWalk:
+    """OnnxExecutor.jitted(): `fn(feeds)` and `fn.vmap(feeds)` (the walk
+    mapped over the first dim of every feed, torch.func.vmap: each lane
+    keeps its unbatched shapes, and HOST outputs come back unbatched),
+    keyed by signature: a plan per signature, a CUDA graph per signature
+    on a CUDA device, at most MAX_SIGNATURES of them, least recently used
+    first out (module docstring).  Thread-safe: one call at a time."""
+
+    def __init__(self, ex: OnnxExecutor):
+        self.ex = ex
+        self._entries: "collections.OrderedDict[Any, _Entry]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+        self._side: Optional[torch.cuda.Stream] = None
+
+    def __call__(self, feeds: Dict[str, Any]) -> Dict[str, Any]:
+        return self._call(feeds, batched=False)
+
+    def vmap(self, feeds: Dict[str, Any]) -> Dict[str, Any]:
+        return self._call(feeds, batched=True)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def _call(self, feeds, batched: bool) -> Dict[str, Any]:
+        ex = self.ex
+        feeds = {k: ex._feed(v) for k, v in feeds.items()}
+        key = (batched, str(ex.device), tuple(sorted(
+            (k, tuple(v.shape), v.dtype) for k, v in feeds.items())))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                entry, out = self._build(key, feeds, batched)
+            elif ex.device.type != "cuda":
+                self._entries.move_to_end(key)
+                out = self._fn(entry.plan, batched)(feeds)
+                ex.stats["plan_runs"] += 1
+            else:
+                self._entries.move_to_end(key)
+                with torch.cuda.device(ex.device):
+                    if entry.graph is None:
+                        self._capture(entry, key, feeds, batched)
+                    out = self._replay(entry, key, feeds)
+        # HOST outputs as copies: the plan keeps the originals
+        out.update((k, v.copy() if isinstance(v, np.ndarray) else v)
+                   for k, v in entry.plan.host_out.items())
+        return {n: out[n] for n in ex.output_names}
+
+    def _fn(self, plan: _Plan, batched: bool):
+        run = functools.partial(self.ex._run_plan, plan)
+        return vmap(run) if batched else run
+
+    def _build(self, key, feeds, batched: bool):
+        """The signature's first call: its plan, by one walk; (its entry,
+        the walk's device outputs)."""
+        ex = self.ex
+        made = []
+        t0 = time.perf_counter()
+
+        def walk(feeds):
+            plan, out = ex._plan(feeds)
+            made.append(plan)
+            return {k: out[k] for k in plan.device_out}
+
+        out = (vmap(walk) if batched else walk)(feeds)
+        ex.stats["walks"] += 1
+        ex.stats["plans"] += 1
+        ex.stats["plan_ms"] += (time.perf_counter() - t0) * 1e3
+        entry = self._entries[key] = _Entry(made[0])
+        while len(self._entries) > MAX_SIGNATURES:
+            # the graph's memory goes back to the allocator: later work on
+            # the current stream is ordered after its last replay there
+            old = self._entries.popitem(last=False)[1]
+            if old.graph is not None:
+                ex.stats["graphs"] -= 1
+                ex.stats["graph_bytes"] -= old.nbytes
+        return entry, out
+
+    def _capture(self, entry: _Entry, key, feeds, batched: bool) -> None:
+        """The signature's second call on a CUDA device: its plan captured
+        as one CUDA graph on static inputs (module docstring, Graph)."""
+        ex = self.ex
+        fn = self._fn(entry.plan, batched)
+        t0 = time.perf_counter()
+        try:
+            static_in = {k: torch.empty_like(
+                v, memory_format=torch.contiguous_format).copy_(v)
+                for k, v in feeds.items()}
+            if self._side is None:
+                self._side = torch.cuda.Stream(ex.device)
+            current = torch.cuda.current_stream(ex.device)
+            self._side.wait_stream(current)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self._side):
+                fn(static_in)                    # lazy handles, workspaces
+                ex.stats["plan_runs"] += 1
+                reserved = torch.cuda.memory_reserved(ex.device)
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    static_out = fn(static_in)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+                held = torch.cuda.memory_reserved(ex.device) - reserved
+            current.wait_stream(self._side)
+        except (RuntimeError, ValueError, IndexError, TypeError) as e:
+            raise OnnxCaptureError(
+                f"{ex.source}: capturing the CUDA graph of the signature "
+                f"({_signature_text(key)}) failed: {e}") from e
+        entry.graph, entry.static_in, entry.static_out = (graph, static_in,
+                                                          static_out)
+        entry.nbytes = held + sum(t.nbytes for t in static_in.values())
+        ex.stats["captures"] += 1
+        ex.stats["graphs"] += 1
+        ex.stats["graph_bytes"] += entry.nbytes
+        ex.stats["capture_ms"] += (time.perf_counter() - t0) * 1e3
+
+    def _replay(self, entry: _Entry, key, feeds) -> Dict[str, Any]:
+        """The feeds into the static inputs, the graph replayed on the
+        current stream, copies of its outputs."""
+        try:
+            for k, v in feeds.items():
+                entry.static_in[k].copy_(v)
+            entry.graph.replay()
+            out = {k: v.clone() for k, v in entry.static_out.items()}
+        except RuntimeError as e:
+            raise OnnxRunError(
+                f"{self.ex.source}: replaying the CUDA graph of the "
+                f"signature ({_signature_text(key)}) failed: {e}") from e
+        self.ex.stats["replays"] += 1
+        return out
 
 
 def summarize(path) -> str:

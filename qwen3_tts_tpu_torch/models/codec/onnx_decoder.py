@@ -5,7 +5,17 @@ A model directory laid out as the reference ships it holds the codec as
 three ONNX graphs under `onnx/`: the streaming decoder
 (qwen3_tts_decoder.onnx), the audio encoder (qwen3_tts_codec_encoder.onnx)
 and the speaker encoder (qwen3_tts_speaker_encoder.onnx).  Each runs here
-through io.onnx_exec on the engine's device, node by node.
+through io.onnx_exec on the engine's device, as the JAX classes run
+jax.jit of the walk: `OnnxExecutor.jitted()`, one plan per shape signature
+(feed shapes and dtypes; decode_batch's vmap also the batch size), its
+first call an ordinary walk that records the plan, and on a CUDA device
+one CUDA graph per signature from its second call, replayed after that
+(io/onnx_exec's docstring: plan, graph, the bound of MAX_SIGNATURES
+signatures an executor, the counters in `executor.stats`).  The decoder's
+carried state is part of the signature: with a graph whose windows
+saturate a stream's calls soon repeat their signatures; while the state
+grows (the test fixture's KV) each call of one stream is a new signature,
+and the next stream of the same chunk sizes replays.
 
 Decoder state contract (the reference's): zero-length carried tensors
   pre_conv_history (1,512,0)  latent_buffer (1,1024,0)  conv_history (1,1024,0)
@@ -18,7 +28,9 @@ valid_samples, where the graph computes it on the device) to the host.
 
 A file that cannot be read, or whose graph lacks the contract's inputs and
 outputs, raises OnnxLoadError naming the file; an op the executor does not
-run raises UnsupportedOnnxOp naming the op, the node and the file.
+run raises UnsupportedOnnxOp naming the op, the node and the file; a CUDA
+graph that cannot be captured raises OnnxCaptureError naming the file and
+the signature, and no call falls back to the eager walk.
 """
 
 from __future__ import annotations
@@ -28,7 +40,6 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.func import vmap
 
 from ...core import protocol as P
 from ...io.onnx_exec import OnnxExecutor
@@ -96,6 +107,7 @@ class OnnxStreamingDecoder:
             for vi in executor.graph.inputs if vi.name in self.state_names}
         self._is_last = {f: torch.full((1,), float(f), device=self.device)
                          for f in (False, True)}
+        self._run = executor.jitted()
 
     @classmethod
     def load(cls, path, device="cuda") -> "OnnxStreamingDecoder":
@@ -135,7 +147,7 @@ class OnnxStreamingDecoder:
         feeds = {"audio_codes": frames[None],
                  "is_last": self._is_last[bool(is_final)]}
         feeds.update(state)
-        out = self.ex.run(feeds)
+        out = self._run(feeds)
         wav = _as_tensor(out["final_wav"], self.device).reshape(-1)
         if "valid_samples" in out:
             valid = out["valid_samples"]
@@ -147,17 +159,20 @@ class OnnxStreamingDecoder:
     @torch.no_grad()
     def decode_batch(self, codes, states: List[Dict[str, torch.Tensor]],
                      is_final=False):
-        """A streaming step of B lanes in one walk of the graph:
-        torch.func.vmap over the batch-1 graph, so that each lane runs with
-        its unbatched shapes (host shape folding untouched) and the values
-        the graph computes on the host stay unbatched, as under JAX's vmap.
+        """A streaming step of B lanes in one call of the graph: the jitted
+        walk's vmap over the batch-1 graph (`executor.jitted().vmap`, keyed
+        by B with each lane's signature), so that each lane runs with its
+        unbatched shapes (host shape folding untouched) and the values the
+        graph computes on the host stay unbatched, as under JAX's vmap.
         codes: [B, n, 16]; states: B state dicts; is_final: a bool or B
         bools (a per-lane flush).  Lanes whose states differ in shape go
         one by one through `decode` (the reference's batch-1 contract).
-        Returns (B f32 waveforms on the host, B new states).  The walk is
-        host-bound, so one batched walk beats B calls of `decode`: 4.9-5.3x
-        at 8 lanes of the published decoder's widths on an H100 80GB HBM3
-        at 700 W (chip_smoke.py's onnx phase)."""
+        Returns (B f32 waveforms on the host, B new states).  Replayed,
+        one call of 8 lanes beats 8 replayed `decode` calls 3.0-4.1x at
+        the published decoder's widths (4 frames mid-stream, 32 fresh) on
+        an H100 80GB HBM3 at 700 W (chip_smoke.py's onnx phase): each
+        single call pays its graph launch, its copies in and out and its
+        waveform's copy to the host."""
         b = len(states)
         finals = np.broadcast_to(np.asarray(is_final, bool), (b,))
         shapes0 = _shapes(states[0])
@@ -173,17 +188,7 @@ class OnnxStreamingDecoder:
                                          for f in finals])}
         feeds.update({k: torch.stack([s[k] for s in states])
                       for k in self.state_names})
-        host: Dict[str, Any] = {}
-
-        def one(lane_feeds):
-            res = self.ex.run(lane_feeds)
-            host.update({k: v for k, v in res.items()
-                         if not isinstance(v, torch.Tensor)})
-            return {k: v for k, v in res.items()
-                    if isinstance(v, torch.Tensor)}
-
-        out = vmap(one)(feeds)
-        out.update(host)
+        out = self._run.vmap(feeds)
         wav = _as_tensor(out["final_wav"], self.device).reshape(b, -1)
         wav = wav.float().cpu().numpy()
         if "valid_samples" in out:
@@ -241,6 +246,7 @@ class OnnxAudioEncoder:
 
     def __init__(self, executor: OnnxExecutor):
         self.ex = executor
+        self._run = executor.jitted()
 
     @classmethod
     def load(cls, path, device="cuda") -> "OnnxAudioEncoder":
@@ -251,7 +257,7 @@ class OnnxAudioEncoder:
         """wav f32 [T] (numpy or a tensor) -> codes int64 [N, 16]."""
         wav = (wav.float() if isinstance(wav, torch.Tensor)
                else torch.from_numpy(np.asarray(wav, np.float32)))
-        out = self.ex.run({"input_values": wav.reshape(1, -1)})
+        out = self._run({"input_values": wav.reshape(1, -1)})
         codes = _as_tensor(out["audio_codes"], self.ex.device)
         codes = codes.cpu().numpy().astype(np.int64)
         return codes.reshape(codes.shape[-2], codes.shape[-1])
@@ -266,6 +272,7 @@ class OnnxSpeakerEncoder:
 
     def __init__(self, executor: OnnxExecutor):
         self.ex = executor
+        self._run = executor.jitted()
 
     @classmethod
     def load(cls, path, device="cuda") -> "OnnxSpeakerEncoder":
@@ -279,7 +286,7 @@ class OnnxSpeakerEncoder:
                 else torch.from_numpy(np.asarray(mels, np.float32)))
         if mels.dim() == 2:
             mels = mels[None]
-        out = self.ex.run({"mels": mels})
+        out = self._run({"mels": mels})
         emb = out["spk_emb"] if "spk_emb" in out else next(iter(out.values()))
         emb = _as_tensor(emb, self.ex.device)
         return emb.float().cpu().numpy().reshape(-1)

@@ -42,9 +42,6 @@ NOT_PORTED = {
     "parallel/tp.talker_in_specs": _SPECS,
     "parallel/tp.predictor_in_specs": _SPECS,
     "parallel/tp.decoder_param_in_specs": _SPECS,
-    "io/onnx_exec.OnnxExecutor.jitted":
-        "jax.jit of the graph walk; a per-signature plan cache for the port "
-        "is later work (ROADMAP Queue B)",
 }
 
 

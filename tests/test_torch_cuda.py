@@ -1278,6 +1278,128 @@ def test_onnx_graphs_match_cpu(dev, size):
     np.testing.assert_allclose(out[dev][1], out["cpu"][1], atol=1e-5)
 
 
+def _onnx_bit_equal(got, want, what):
+    assert list(got) == list(want), what
+    for k in want:
+        if isinstance(want[k], torch.Tensor):
+            diff = (got[k].float() - want[k].float()).abs().max().item() \
+                if got[k].shape == want[k].shape else float("inf")
+            assert got[k].dtype == want[k].dtype and torch.equal(
+                got[k], want[k]), f"{what} {k}: max |diff| {diff:.3e}"
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=what)
+
+
+def test_onnx_jitted_replays_equal_run_on_the_full_decoder(dev, monkeypatch):
+    """The published decoder's widths (tests/torch_onnx_fixtures.py FULL):
+    OnnxExecutor.jitted against run bit for bit over two streams (chunks
+    of 1, 4 and 3 frames: the first plans each signature, the second
+    captures and replays its CUDA graph) and an 8-lane decode_batch
+    (planned, captured, replayed; against vmap of run), with the bound
+    (MAX_SIGNATURES, set to 4) crossed once: the least recently used
+    signature goes, and its graph's bytes with it."""
+    import torch_onnx_fixtures as tfx
+    from qwen3_tts_tpu_torch.io import onnx_exec
+    from qwen3_tts_tpu_torch.io.onnx_lite import read_onnx_graph
+    from qwen3_tts_tpu_torch.models.codec.onnx_decoder import (
+        OnnxStreamingDecoder, _next_name)
+
+    monkeypatch.setattr(onnx_exec, "MAX_SIGNATURES", 4)
+    data, _ = tfx.build_decoder(tfx.FULL)
+    dec = OnnxStreamingDecoder(onnx_exec.OnnxExecutor(read_onnx_graph(data),
+                                                      dev))
+    ex, fn = dec.ex, dec.ex.jitted()
+    rng = np.random.default_rng(8)
+    codes = rng.integers(0, tfx.FULL.VOCAB, size=(8, 8, 16))
+
+    def feeds(c, state, final=False):
+        return {"audio_codes": dec._frames(c)[None],
+                "is_last": dec._is_last[final], **state}
+
+    for stream in range(2):
+        state, lo = dec.create_state(), 0
+        for n in (1, 4, 3):
+            f = feeds(codes[0, lo:lo + n], state, lo + n == 8)
+            got = fn(f)
+            _onnx_bit_equal(got, ex.run(f), f"stream {stream} at {lo}")
+            state = {k: got[_next_name(k)] for k in dec.state_names}
+            lo += n
+    assert (ex.stats["plans"], ex.stats["captures"],
+            ex.stats["replays"]) == (3, 3, 3)
+
+    def eager_vmap(f):
+        host = {}
+
+        def lane(lane_feeds):
+            out = ex.run(lane_feeds)
+            host.update((k, v) for k, v in out.items()
+                        if not isinstance(v, torch.Tensor))
+            return {k: v for k, v in out.items()
+                    if isinstance(v, torch.Tensor)}
+
+        out = torch.func.vmap(lane)(f)
+        out.update(host)
+        return {n: out[n] for n in ex.output_names}
+
+    lanes = {"audio_codes": torch.stack([dec._frames(c[:4])[None]
+                                         for c in codes]),
+             "is_last": torch.stack([dec._is_last[i % 2 == 0]
+                                     for i in range(8)])}
+    lanes.update({k: torch.stack([v] * 8)
+                  for k, v in dec.create_state().items()})
+    for call in range(3):
+        _onnx_bit_equal(fn.vmap(lanes), eager_vmap(lanes),
+                        f"decode_batch call {call}")
+    assert (ex.stats["plans"], ex.stats["captures"], ex.stats["graphs"],
+            len(fn)) == (4, 4, 4, 4)
+    held = ex.stats["graph_bytes"]
+    oldest = fn._entries[next(iter(fn._entries))].nbytes
+    f = feeds(codes[1, :2], dec.create_state())
+    for call in range(2):                  # a fifth signature
+        _onnx_bit_equal(fn(f), ex.run(f), f"fifth signature call {call}")
+    newest = fn._entries[next(reversed(fn._entries))].nbytes
+    assert (len(fn), ex.stats["graphs"], ex.stats["captures"]) == (4, 4, 5)
+    assert ex.stats["graph_bytes"] == held - oldest + newest > 0
+    _onnx_bit_equal(fn.vmap(lanes), eager_vmap(lanes), "decode_batch after")
+    assert ex.stats["replays"] == 3 + 2 + 1 + 1
+
+
+def test_onnx_failed_capture_names_the_graph(dev, monkeypatch):
+    """A handler that synchronizes the device cannot be captured: the
+    signature's second call raises OnnxCaptureError naming the graph's
+    file and the signature, every later call of it too (no eager result
+    in its place), and the executor's other work goes on."""
+    import torch_onnx_fixtures as tfx
+    from qwen3_tts_tpu_torch.io.onnx_exec import (OnnxCaptureError,
+                                                  OnnxExecutor)
+    from qwen3_tts_tpu_torch.io.onnx_lite import read_onnx_graph
+    from qwen3_tts_tpu_torch.models.codec.onnx_decoder import (
+        OnnxStreamingDecoder)
+
+    data, _ = tfx.build_decoder(tfx.MINI)
+    dec = OnnxStreamingDecoder(OnnxExecutor(read_onnx_graph(data), dev))
+    dec.ex.source = "model/onnx/qwen3_tts_decoder.onnx"
+    real = OnnxExecutor._op_Tanh
+
+    def tanh_then_sync(self, node, ins, host):
+        torch.cuda.synchronize()
+        return real(self, node, ins, host)
+
+    monkeypatch.setattr(OnnxExecutor, "_op_Tanh", tanh_then_sync)
+    codes = np.random.default_rng(9).integers(0, tfx.VOCAB, size=(3, 16))
+    want, _ = dec.decode(codes, dec.create_state())       # plans: eager
+    for _ in range(2):
+        with pytest.raises(OnnxCaptureError) as e:
+            dec.decode(codes, dec.create_state())
+        assert "model/onnx/qwen3_tts_decoder.onnx" in str(e.value)
+        assert "audio_codes [1, 3, 16] int64" in str(e.value)
+    assert dec.ex.stats["captures"] == dec.ex.stats["replays"] == 0
+    monkeypatch.undo()
+    got, _ = dec.decode(codes, dec.create_state())          # captures now
+    np.testing.assert_array_equal(got, want)
+    assert dec.ex.stats["captures"] == dec.ex.stats["replays"] == 1
+
+
 # ------------------------------------- the verify contract, online and spec
 @pytest.mark.parametrize("b", [4, 8])
 def test_prefill_kernel_verify_contract(dev, b):
